@@ -5,19 +5,31 @@
 Run from the repository root.  Phases, each raising on failure:
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
-2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. kernels: each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (internlm2-1.8b attention: H=16, KV=8, D=128; 4
-   slots; an 8192-row cache; ragged positions including -1 and 8191), then
-   times of the kernel, the plain version and one library call;
-4. engine: internlm2-1.8b at full width (24 layers, seeded random f32
-   weights, f32 cache) served by ``ServeEngine`` in continuous mode --
-   short requests plus one ~4200-token prompt, so the split-K autotuner
-   engages -- then a short wave-mode trace; every kernel must have been
-   launched by the serving run, and one decode step's logits through the
-   kernels must match the plain path; one decode tick is timed, single
-   pass against split-K, over alternating rounds, and its device time is
-   broken down by kernel with ``torch.profiler``.
+2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``,
+   one ``nvcc`` per source, all at once;
+3. kernels: each of the five kernels against its plain PyTorch version on
+   the card at the serving path's shapes (internlm2-1.8b attention: H=16,
+   KV=8, D=128; 4 slots; 8192 positions each, as a dense cache or as 512
+   pages of 16 tokens from a 2049-page pool through a randomly permuted
+   page table; ragged positions including -1 and 8191; paged prefill
+   chunks of 256 rows at offsets 0 and 3840), then times of the kernel,
+   the plain version and one library call;
+4. engine, dense cache: internlm2-1.8b at full width (24 layers, seeded
+   random f32 weights, f32 cache) served by ``ServeEngine`` in continuous
+   mode -- short requests plus one ~4200-token prompt, so the split-K
+   autotuner engages -- then a short wave-mode trace; both dense kernels
+   must have been launched by the serving run, and one decode step's
+   logits through the kernels must match the plain path; one decode tick
+   is timed, single pass against split-K, over alternating rounds, and its
+   device time is broken down by kernel with ``torch.profiler``;
+4b. engine, paged pool (``cache="paged"``, 16-token pages, prefix cache):
+   the same model serves a 4200-token prompt A and three short ones, then
+   B = A[:4096] + 50 fresh tokens, which must hit the prefix cache; the
+   three paged kernels must have been launched and the dense ones not; B
+   served alone with the prefix cache off must give the same tokens; one
+   paged decode step's and one paged prefill chunk's logits through the
+   kernels must match the plain path; a paged decode tick is timed and
+   profiled as in phase 4.
 
 The last lines are the nvidia-smi line, a JSON ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -43,6 +55,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 H, KV, D, B, S = 16, 8, 128, 4, 8192
 POS = [-1, 1000, 4200, S - 1]
+PAGE, N_PAGES = 16, 2049  # the paged engine's default pool: 4 * 512 + 1
+MAX_PAGES = S // PAGE
+CHUNK = 256  # the engines' prefill chunk
 # Kernel against plain version.  With these inputs (randn q, k, v) the
 # scores have unit spread, so an output is a softmax average over n = 1k-8k
 # keys: |out| ~ sqrt(e / n) ~ 0.02-0.05, at most ~0.2; a parked slot's are
@@ -57,6 +72,12 @@ POS = [-1, 1000, 4200, S - 1]
 # - bf16 q (and so a bf16 output): both sides round an f32 result to bf16,
 #   and a value next to a rounding boundary may round either way, so one
 #   bf16 ulp of the output (<= 2^-7 |out|) is added.
+# - paged kernels: the same arithmetic as the dense ones, so the same
+#   bounds at the same positions.  A prefill row, though, may attend only a
+#   few keys (row t of the chunk at offset 0 sees t + 1), where rounding p
+#   to bf16 moves the output by up to 2^-9 * sum_k p_k |v_k| / l per
+#   element; with a bf16 pool that bound (doubled), computed by the plain
+#   version on |v|, is added to the prefill's tolerance.
 TOL = {torch.float32: 5e-5, torch.bfloat16: 1e-3}
 BF16_ULP = 2.0 ** -7
 # Logits after 24 layers: each layer's attention differs by ~1e-6, which
@@ -115,16 +136,20 @@ def _inputs(t, q_dtype, kv_dtype, seed=0):
     return q, k, v, torch.tensor(POS, dtype=torch.int32, device="cuda")
 
 
-def _check(label, got, want, kv_dtype):
+def _check(label, got, want, kv_dtype, p_round=None):
     """Max abs error of ``got`` against ``want``; raises past the tolerance
-    of the cache dtype (plus one bf16 ulp of ``want`` for a bf16 output)."""
+    of the cache dtype (plus one bf16 ulp of ``want`` for a bf16 output,
+    plus ``p_round``, the bound on rounding p to bf16, where given)."""
     want = want.float()
     err = (got.float() - want).abs()
     tol = TOL[kv_dtype]
     limit = tol + (BF16_ULP * want.abs() if got.dtype == torch.bfloat16
                    else 0.0)
-    worst = float(err.max())
     extra = " + 2^-7 |want|" if got.dtype == torch.bfloat16 else ""
+    if p_round is not None:
+        limit = limit + p_round.float()
+        extra += " + 2^-8 attn(|v|)"
+    worst = float(err.max())
     _log(f"[kernels] {label}: max_abs_err {worst:.3g} (tol {tol}{extra})")
     if not bool((err <= limit).all()):
         raise AssertionError(f"{label} disagrees with its plain version")
@@ -142,13 +167,17 @@ def _library_call(q, k, v, pos):
     return lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask)
 
 
-def _bound_ms(q, k, pos):
+def _bound_ms(q, k, pos, paged=False):
     """Least time for the work these inputs need: the live K/V prefix of
-    the active slots read once, q read and the output written once, against
-    the card's memory rate; and QK + PV flops against its f32 rate."""
+    the active slots read once (``paged``: and the page-table entries that
+    map it), q read and the output written once, against the card's memory
+    rate; and QK + PV flops against its f32 rate."""
     live = sum(p + 1 for p in pos.tolist() if p >= 0)
     kv_bytes = 2 * live * KV * D * k.element_size()
     io_bytes = 2 * q.numel() * q.element_size() + 4 * len(pos)
+    if paged:
+        io_bytes += 4 * sum(-(-(p + 1) // PAGE) for p in pos.tolist()
+                            if p >= 0)
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = 4 * live * H * D * q.shape[1] / F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -205,32 +234,205 @@ def phase_kernels():
                                                   num_splits=2),
              lambda: decode_attention_plain(q, k, v, pos, num_splits=2),
              "src/repro/kernels/decode_attention.py:236")):
-        ms = _time_ms(run)
-        plain_ms = _time_ms(plain)
-        _log(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-             f"library {lib_ms:.4f} ms, bound {bound:.4f} ms by {bound_by})")
-        rows.append({"name": name, "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/"
-                               "decode_attention.cu",
-                     "replaces": replaces, "launches": None,
-                     "max_abs_err": errs[name], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": bound_by, "library_ms": lib_ms})
+        rows.append(_timed_row(
+            name, run, plain, lib_ms, bound, bound_by,
+            "src/repro_torch/kernels/csrc/decode_attention.cu", replaces,
+            errs[name]))
     return rows
+
+
+def _paged_inputs(t, q_dtype, kv_dtype, seed=0, chunk=0):
+    """q (B, t, H, D) -- or one slot's chunk (1, chunk, H, D) -- random
+    pools (N_PAGES, PAGE, KV, D) (the null page too) and a (B, MAX_PAGES)
+    page table drawn from a random permutation of pages 1..N_PAGES-1;
+    decode rows map only the pages up to each slot's last query position,
+    the rest are the null page 0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((1, chunk, H, D) if chunk else (B, t, H, D),
+                    generator=g, device="cuda").to(q_dtype)
+    k = torch.randn((N_PAGES, PAGE, KV, D), generator=g,
+                    device="cuda").to(kv_dtype)
+    v = torch.randn((N_PAGES, PAGE, KV, D), generator=g,
+                    device="cuda").to(kv_dtype)
+    perm = torch.randperm(N_PAGES - 1, generator=g, device="cuda") + 1
+    table = perm[:B * MAX_PAGES].reshape(B, MAX_PAGES).to(torch.int32)
+    if not chunk:
+        for b, p in enumerate(POS):
+            mapped = -(-(p + t) // PAGE) if p >= 0 else 0
+            table[b, mapped:] = 0
+    pos = torch.tensor(POS, dtype=torch.int32, device="cuda")
+    return q, k, v, table.contiguous(), pos
+
+
+def _paged_library_call(q, k, v, table, pos):
+    """One SDPA call on the already gathered dense view (the gather is not
+    in the timed call), GQA heads expanded, with a boolean mask."""
+    kd = k[table.long()].reshape(B, S, KV, D)
+    vd = v[table.long()].reshape(B, S, KV, D)
+    return _library_call(q, kd, vd, pos)
+
+
+def _prefill_bound_ms(q, k, q_offset):
+    """Least time of one chunk: its causal QK + PV flops at the card's f32
+    rate against the live K/V prefix, q and the output at its memory
+    rate."""
+    c = q.shape[1]
+    keys = c * q_offset + c * (c + 1) // 2  # (row, key) pairs attended
+    t_ops = 4 * H * D * keys / F32_FLOPS * 1e3
+    kv_bytes = 2 * (q_offset + c) * KV * D * k.element_size()
+    io_bytes = 2 * q.numel() * q.element_size() + 4 * (q_offset + c) // PAGE
+    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _prefill_library_call(q, k, v, row, q_offset):
+    """One SDPA call on the slot's gathered prefix [0, q_offset + C) (the
+    gather is not in the timed call), with the causal mask at the
+    offset."""
+    c = q.shape[1]
+    n = q_offset + c
+    kd = k[row.long()].reshape(1, S, KV, D)[:, :n]
+    vd = v[row.long()].reshape(1, S, KV, D)[:, :n]
+    qt = q.transpose(1, 2)
+    kx = kd.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+    vx = vd.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+    qpos = q_offset + torch.arange(c, device="cuda")
+    mask = torch.arange(n, device="cuda")[None, :] <= qpos[:, None]
+    return lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask)
+
+
+def phase_paged_kernels():
+    """The three paged kernels against their plain versions, then timed at
+    the paged engine's shapes: T = 1 decode and split-K 2 at the dense
+    phase's positions, and a 256-row prefill chunk at offset 3840."""
+    from repro_torch.kernels.ops import (paged_decode_attention_plain,
+                                         paged_prefill_attention_plain)
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_splitk_cuda,
+        paged_prefill_attention_cuda)
+
+    errs = {"paged_decode_attention": 0.0,
+            "paged_decode_attention_splitk": 0.0,
+            "paged_prefill_attention": 0.0}
+    for t in (1, 4):
+        for window in (0, 1024):
+            for kd in (torch.float32, torch.bfloat16):
+                q, k, v, table, pos = _paged_inputs(t, torch.float32, kd)
+                err = _check(
+                    f"paged_decode_attention T={t} window={window} "
+                    f"pool={kd}",
+                    paged_decode_attention_cuda(q, k, v, table, pos,
+                                                window=window),
+                    paged_decode_attention_plain(q, k, v, table, pos,
+                                                 window=window), kd)
+                if kd == torch.float32:
+                    errs["paged_decode_attention"] = max(
+                        errs["paged_decode_attention"], err)
+    for ns in (2, 4, 8):
+        for window, kd in ((0, torch.float32), (1024, torch.float32),
+                           (0, torch.bfloat16)):
+            q, k, v, table, pos = _paged_inputs(1, torch.float32, kd)
+            err = _check(
+                f"paged_decode_attention_splitk ns={ns} window={window} "
+                f"pool={kd}",
+                paged_decode_attention_splitk_cuda(q, k, v, table, pos,
+                                                   window=window,
+                                                   num_splits=ns),
+                paged_decode_attention_plain(q, k, v, table, pos,
+                                             window=window, num_splits=ns),
+                kd)
+            if kd == torch.float32:
+                errs["paged_decode_attention_splitk"] = max(
+                    errs["paged_decode_attention_splitk"], err)
+    slot = B - 1  # a fully mapped row
+    for q_offset in (0, S // 2 - CHUNK):
+        for window in (0, 1024):
+            for kd in (torch.float32, torch.bfloat16):
+                q, k, v, table, _ = _paged_inputs(1, torch.float32, kd,
+                                                  chunk=CHUNK)
+                p_round = None
+                if kd == torch.bfloat16:
+                    p_round = 2.0 ** -8 * paged_prefill_attention_plain(
+                        q, k, v.abs(), table, slot, q_offset, window=window)
+                err = _check(
+                    f"paged_prefill_attention C={CHUNK} q_offset={q_offset} "
+                    f"window={window} pool={kd}",
+                    paged_prefill_attention_cuda(q, k, v, table[slot],
+                                                 q_offset, window=window),
+                    paged_prefill_attention_plain(q, k, v, table, slot,
+                                                  q_offset, window=window),
+                    kd, p_round)
+                if kd == torch.float32:
+                    errs["paged_prefill_attention"] = max(
+                        errs["paged_prefill_attention"], err)
+    torch.cuda.synchronize()
+
+    # times at the paged engine's shapes: f32 pool, no window
+    src = "src/repro_torch/kernels/csrc/paged_attention.cu"
+    rows = []
+    q, k, v, table, pos = _paged_inputs(1, torch.float32, torch.float32)
+    bound, bound_by = _bound_ms(q, k, pos, paged=True)
+    lib_ms = _time_ms(_paged_library_call(q, k, v, table, pos))
+    for name, run, plain, line in (
+            ("paged_decode_attention",
+             lambda: paged_decode_attention_cuda(q, k, v, table, pos),
+             lambda: paged_decode_attention_plain(q, k, v, table, pos),
+             131),
+            ("paged_decode_attention_splitk",
+             lambda: paged_decode_attention_splitk_cuda(
+                 q, k, v, table, pos, num_splits=2),
+             lambda: paged_decode_attention_plain(q, k, v, table, pos,
+                                                  num_splits=2),
+             325)):
+        rows.append(_timed_row(name, run, plain, lib_ms, bound, bound_by,
+                               src, f"src/repro/kernels/paged_attention.py:"
+                                    f"{line}", errs[name]))
+    q_offset = S // 2 - CHUNK
+    q, k, v, table, _ = _paged_inputs(1, torch.float32, torch.float32,
+                                      chunk=CHUNK)
+    bound, bound_by = _prefill_bound_ms(q, k, q_offset)
+    lib_ms = _time_ms(_prefill_library_call(q, k, v, table[slot], q_offset))
+    rows.append(_timed_row(
+        "paged_prefill_attention",
+        lambda: paged_prefill_attention_cuda(q, k, v, table[slot], q_offset),
+        lambda: paged_prefill_attention_plain(q, k, v, table, slot,
+                                              q_offset),
+        lib_ms, bound, bound_by, src,
+        "src/repro/kernels/paged_attention.py:228",
+        errs["paged_prefill_attention"]))
+    return rows
+
+
+def _timed_row(name, run, plain, lib_ms, bound, bound_by, source, replaces,
+               err):
+    ms = _time_ms(run)
+    plain_ms = _time_ms(plain)
+    _log(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+         f"library {lib_ms:.4f} ms, bound {bound:.4f} ms by {bound_by})")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": lib_ms}
 
 
 @contextlib.contextmanager
 def _plain_attention():
-    """Route the model's decode attention through the plain version for
-    CUDA tensors (for the logits comparison only)."""
+    """Route the model's attention (dense decode, paged decode, paged
+    prefill) through the plain versions for CUDA tensors (for the logits
+    comparisons only)."""
     from repro_torch.kernels import ops
 
-    kernel_path = ops.decode_attention
-    ops.decode_attention = ops.decode_attention_plain
+    names = ("decode_attention", "paged_decode_attention",
+             "paged_prefill_attention")
+    kernel_paths = {n: getattr(ops, n) for n in names}
+    for n in names:
+        setattr(ops, n, getattr(ops, n + "_plain"))
     try:
         yield
     finally:
-        ops.decode_attention = kernel_path
+        for n, fn in kernel_paths.items():
+            setattr(ops, n, fn)
 
 
 def _profile_tick(run, label, ticks=3, top=8):
@@ -268,15 +470,36 @@ def _profile_tick(run, label, ticks=3, top=8):
              f"launches/tick  {name[:90]}")
 
 
-def phase_engine():
-    from repro_torch.configs import get_config
+def _all_kernels():
     from repro_torch.kernels.decode_attention import (
         decode_attention_cuda, decode_attention_splitk_cuda)
-    from repro_torch.models import LM, RuntimeKnobs
-    from repro_torch.runtime.serve import Request, ServeConfig, ServeEngine
-    from repro_torch.runtime.steps import compiled_step
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_splitk_cuda,
+        paged_prefill_attention_cuda)
 
-    kernels = (decode_attention_cuda, decode_attention_splitk_cuda)
+    return (decode_attention_cuda, decode_attention_splitk_cuda,
+            paged_decode_attention_cuda, paged_decode_attention_splitk_cuda,
+            paged_prefill_attention_cuda)
+
+
+def _time_ticks(ticks, label):
+    """One decode tick per fan-out in ``ticks`` ({splits: run}), timed over
+    alternated rounds (1, 2, 2, 1, 1, 2; median of 10 each), then each
+    under the profiler."""
+    readings = {s: [] for s in ticks}
+    for splits in (1, 2, 2, 1, 1, 2):
+        readings[splits].append(_time_ms(ticks[splits], iters=10, warmup=2))
+    for splits, ms in readings.items():
+        _log(f"[engine] {label}, splits={splits}: "
+             f"{', '.join(f'{x:.3f}' for x in ms)} ms (median of 10 each)")
+    for splits, run in ticks.items():
+        _profile_tick(run, f"{label} splits={splits}")
+
+
+def make_model():
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM, RuntimeKnobs
+
     cfg = get_config("internlm2-1.8b")
     model = LM(cfg, RuntimeKnobs(cache_dtype=torch.float32), device="cuda")
     t0 = time.perf_counter()
@@ -285,6 +508,15 @@ def phase_engine():
     _log(f"[engine] {cfg.name}: {cfg.num_layers} layers d_model "
          f"{cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} vocab "
          f"{cfg.vocab_size}; init {time.perf_counter() - t0:.1f}s")
+    return model, params
+
+
+def phase_engine(model, params):
+    from repro_torch.runtime.serve import Request, ServeConfig, ServeEngine
+    from repro_torch.runtime.steps import compiled_step
+
+    kernels = _all_kernels()
+    cfg = model.cfg
 
     rng = np.random.default_rng(0)
     eng = ServeEngine(model, params, ServeConfig(batch_slots=4, max_len=S,
@@ -303,7 +535,7 @@ def phase_engine():
     launches = {k.__name__: k.launches for k in kernels}
     toks = sum(len(r.output) for r in done)
     ttft = sorted(h.metrics()["ttft_s"] for h in handles)
-    _log(f"[engine] continuous: {len(done)}/{len(reqs)} requests, {toks} "
+    _log(f"[engine] dense continuous: {len(done)}/{len(reqs)} requests, {toks} "
          f"tokens in {wall:.3f}s = {toks / wall:.2f} tok/s; ttft p50 "
          f"{statistics.median(ttft) * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} "
          f"ms; launches {launches}")
@@ -312,8 +544,11 @@ def phase_engine():
         raise AssertionError("continuous run did not finish every request")
     if any(not 0 <= t < cfg.vocab_size for r in done for t in r.output):
         raise AssertionError("token outside the vocabulary")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    if min(launches["decode_attention_cuda"],
+           launches["decode_attention_splitk_cuda"]) <= 0 \
+            or any(n.startswith("paged") and c for n, c in launches.items()):
+        raise AssertionError(f"dense run: a dense kernel was not launched, "
+                             f"or a paged one was: {launches}")
 
     # one decode step, kernels against the plain path, on the run's cache
     toks_in = torch.tensor([[5], [6], [7], [8]], device="cuda")
@@ -333,17 +568,10 @@ def phase_engine():
     # one whole decode tick (24 layers + unembedding + argmax) at these
     # positions, single pass against split-K 2, alternated over rounds;
     # then each under the profiler
-    ticks = {s: functools.partial(
+    _time_ticks({s: functools.partial(
         compiled_step(model, "serve", decode_splits=s), params, eng.caches,
-        toks_in, pos) for s in (1, 2)}
-    readings = {1: [], 2: []}
-    for splits in (1, 2, 2, 1, 1, 2):
-        readings[splits].append(_time_ms(ticks[splits], iters=10, warmup=2))
-    for splits, ms in readings.items():
-        _log(f"[engine] decode tick at pos {pos.tolist()}, splits={splits}: "
-             f"{', '.join(f'{x:.3f}' for x in ms)} ms (median of 10 each)")
-    for splits, run in ticks.items():
-        _profile_tick(run, f"decode tick splits={splits}")
+        toks_in, pos) for s in (1, 2)},
+        f"dense decode tick at pos {pos.tolist()}")
     del eng
 
     # wave mode: the lockstep baseline runs the single-pass kernel
@@ -370,6 +598,113 @@ def phase_engine():
                 launches["decode_attention_splitk_cuda"]}
 
 
+def phase_paged_engine(model, params):
+    """The same model through ``cache="paged"`` (16-token pages, prefix
+    cache on): prompt A (4200 tokens) and three short prompts, then
+    B = A[:4096] + 50 fresh tokens once A's pages are registered."""
+    from repro_torch.runtime.serve import Request, ServeConfig, ServeEngine
+    from repro_torch.runtime.steps import compiled_step
+
+    kernels = _all_kernels()
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    config = ServeConfig(batch_slots=4, max_len=S, prefill_chunk=CHUNK,
+                         cache="paged", page_size=PAGE)
+    eng = ServeEngine(model, params, config)
+    prompt_a = rng.integers(0, cfg.vocab_size, size=4200).astype(np.int32)
+    # the 1-token request finishes at its prefill, so B finds a free slot
+    reqs = [Request(0, prompt_a, max_new_tokens=16)] + [
+        Request(i, rng.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                max_new_tokens=m)
+        for i, (n, m) in ((1, (17, 24)), (2, (64, 1)), (3, (200, 24)))]
+    prompt_b = np.concatenate([prompt_a[:4096], rng.integers(
+        0, cfg.vocab_size, size=50).astype(np.int32)])
+    req_b = Request(4, prompt_b, max_new_tokens=16)
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    handles = [eng.submit(r) for r in reqs]
+    eng.step()  # prefills A (and registers its pages) and the short ones
+    handles.append(eng.submit(req_b))
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    stats = eng.kv.stats()
+    toks = sum(len(r.output) for r in done)
+    ttft = sorted(h.metrics()["ttft_s"] for h in handles)
+    ttft_b = handles[-1].metrics()["ttft_s"]
+    _log(f"[engine] paged continuous: {len(done)}/5 requests, {toks} "
+         f"tokens in {wall:.3f}s = {toks / wall:.2f} tok/s; ttft p50 "
+         f"{statistics.median(ttft) * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} "
+         f"ms; B (prefix hit) ttft {ttft_b * 1e3:.1f} ms; kv {stats}; "
+         f"launches {launches}")
+    finished = [h.req for h in handles]
+    if not all(r.done and len(r.output) == r.max_new_tokens
+               for r in finished):
+        raise AssertionError("paged run did not finish every request")
+    if any(not 0 <= t < cfg.vocab_size for r in finished for t in r.output):
+        raise AssertionError("token outside the vocabulary")
+    if stats["prefix_hits"] < 1:
+        raise AssertionError(f"B did not hit the prefix cache: {stats}")
+    paged = {n: c for n, c in launches.items() if n.startswith("paged")}
+    if min(paged.values()) <= 0 or any(
+            c for n, c in launches.items() if not n.startswith("paged")):
+        raise AssertionError(f"paged run: a paged kernel was not launched, "
+                             f"or a dense one was: {launches}")
+
+    # B alone, prefix cache off: the prefix-hit prefill read the same K/V
+    # from A's pages that B's own prefill writes
+    solo = ServeEngine(model, params, ServeConfig(
+        batch_slots=4, max_len=S, prefill_chunk=CHUNK, cache="paged",
+        page_size=PAGE, prefix_cache=False))
+    h_solo = solo.submit(Request(5, prompt_b.copy(), max_new_tokens=16))
+    solo.run()
+    ttft_solo = h_solo.metrics()["ttft_s"]
+    _log(f"[engine] B alone, prefix cache off: ttft {ttft_solo * 1e3:.1f} ms "
+         f"(with the hit {ttft_b * 1e3:.1f} ms); tokens equal: "
+         f"{h_solo.req.output == req_b.output}")
+    if h_solo.req.output != req_b.output:
+        raise AssertionError("B's tokens differ with the prefix cache off")
+    del solo
+
+    # one paged decode step and one prefill chunk, kernels against the
+    # plain path, on the run's pool through a permuted table of all pages
+    g = torch.Generator(device="cuda").manual_seed(2)
+    table = (torch.randperm(N_PAGES - 1, generator=g, device="cuda") + 1)[
+        :B * MAX_PAGES].reshape(B, MAX_PAGES).to(torch.int32).contiguous()
+    toks_in = torch.tensor([[5], [6], [7], [8]], device="cuda")
+    pos = np.array([4300, 300, -1, 4200], np.int32)
+    chunk = torch.as_tensor(prompt_b[None, :CHUNK].astype(np.int64),
+                            device="cuda")
+    split2 = type(model)(model.cfg, model.knobs.with_(decode_splits=2),
+                         model.device)
+    checks = [(f"decode (splits={m.knobs.decode_splits or 1})",
+               functools.partial(m.decode_step_paged, params, eng.caches,
+                                 toks_in, pos, table, page_size=PAGE))
+              for m in (model, split2)]
+    checks.append((f"prefill chunk at {S // 2 - CHUNK}", functools.partial(
+        model.prefill_chunk_step_paged, params, eng.caches, chunk, 1,
+        S // 2 - CHUNK, table, page_size=PAGE)))
+    for label, run in checks:
+        got = run()[0]
+        with _plain_attention():
+            want = run()[0]
+        err = float((got - want).abs().max())
+        _log(f"[engine] paged {label} logits, kernels vs plain: max_abs_err "
+             f"{err:.3g} (tol {LOGIT_TOL}); |logits| max "
+             f"{float(want.abs().max()):.3g}")
+        if not (torch.isfinite(got).all() and err <= LOGIT_TOL
+                and got.shape[-1] == cfg.vocab_size):
+            raise AssertionError(f"paged {label} logits disagree")
+    _time_ticks({s: functools.partial(
+        compiled_step(model, "paged_serve", page_size=PAGE,
+                      decode_splits=s), params, eng.caches, toks_in, pos,
+        table) for s in (1, 2)}, f"paged decode tick at pos {pos.tolist()}")
+    del eng
+    return {n.removesuffix("_cuda"): c for n, c in paged.items()}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -377,8 +712,10 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     name, smi = phase_device()
     phase_build()
-    rows = phase_kernels()
-    launches = phase_engine()
+    rows = phase_kernels() + phase_paged_kernels()
+    model, params = make_model()
+    launches = phase_engine(model, params)
+    launches.update(phase_paged_engine(model, params))
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(smi)

@@ -1,4 +1,5 @@
-"""Carry weights and dense caches across from the JAX package.
+"""Carry weights, dense caches and paged pools across from the JAX
+package.
 
 The caller turns each JAX leaf into numpy (``np.asarray``); this module
 never imports jax.  Trees keep their structure: the stacked leading layer
@@ -45,3 +46,19 @@ def cache_to_numpy(tree):
             t = t.float()
         return t.numpy()
     return _tree_map(leaf, tree)
+
+
+def paged_cache_from_jax(tree, device="cpu"):
+    """JAX paged pools ({"stack": {"k", "v"}}, (L, P, page_size, KV, D)
+    leaves, as numpy; the page axis stays where the reference keeps it) ->
+    the port's pools.  Quantized pools (scale leaves) are not ported."""
+    if "k_scale" in tree.get("stack", {}):
+        raise NotImplementedError("quantized (int8/fp8) paged pools are not "
+                                  "ported yet (see ROADMAP.md)")
+    return cache_from_jax(tree, device)
+
+
+def paged_cache_to_numpy(tree):
+    """The port's paged pools -> numpy, (L, P, page_size, KV, D) leaves as
+    the reference lays them out (bf16 leaves come back as f32)."""
+    return cache_to_numpy(tree)

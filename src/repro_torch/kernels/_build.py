@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/kernels/<name>-<hash>.so`` under
 the repository root (a directory ``.gitignore`` lists), compiled for
-``sm_90a`` on first use.  The hash covers the source and the flags, so an
-edited source rebuilds.  ``build_all`` starts one ``nvcc`` per source, all
-at once.  Nothing here runs at import time.
+``sm_90a`` on first use.  The hash covers the source, every shared header
+in ``csrc/`` (``*.cuh``) and the flags, so an edited source or header
+rebuilds.  ``build_all`` starts one ``nvcc`` per source, all at once.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("decode_attention",)
+SOURCES = ("decode_attention", "paged_attention")
 
 _LOADED: dict = {}
 build_seconds: dict = {}  # name -> wall seconds of the last nvcc run
@@ -38,8 +39,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -41,55 +41,74 @@ def _lib():
     return lib
 
 
+def _check_shapes(q, k, v, what, layout):
+    """Shape and dtype checks the kernels of both layouts share: q
+    (B,T,H,D) and k/v 4-D (``layout``) of one shape and dtype,
+    float32/bfloat16, a built head dim."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"expected q (B,T,H,D) and {what}s {layout}, got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    if k.shape != v.shape:
+        raise ValueError(f"k/v {what} shapes differ: {tuple(k.shape)} vs "
+                         f"{tuple(v.shape)}")
+    if q.dtype not in _DTYPE_CODE or k.dtype not in _DTYPE_CODE:
+        raise ValueError(f"dtypes q={q.dtype} {what}={k.dtype}: kernel "
+                         f"takes float32/bfloat16")
+    if v.dtype != k.dtype:
+        raise ValueError(f"k/v {what} dtypes differ: {k.dtype} vs "
+                         f"{v.dtype}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head_dim {q.shape[-1]} not built (kernel takes "
+                         f"{HEAD_DIMS})")
+
+
+def _check_device(q, k, v, what):
+    """CUDA tensors on one device, contiguous head dims and 16-byte
+    aligned K/V rows (the kernels load 16 bytes at a time)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"CUDA attention kernel needs CUDA tensors, got "
+                         f"q on {q.device}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} {what} on {t.device}, q on {q.device}")
+    if q.stride(-1) != 1:
+        raise ValueError("q's head dim must be contiguous")
+    esize = k.element_size()
+    for name, c in (("k", k), ("v", v)):
+        if c.stride(-1) != 1:
+            raise ValueError(f"{name} {what}'s head dim must be contiguous")
+        if c.data_ptr() % 16 or any((c.stride(i) * esize) % 16
+                                    for i in range(3)):
+            raise ValueError(f"{name} {what} rows are not 16-byte aligned")
+
+
+def _pos_active(pos, active, b, device):
+    """``pos`` and ``active`` (default ``pos >= 0``) as (B,) int32 device
+    tensors."""
+    pos = torch.as_tensor(pos, device=device).reshape(-1)
+    pos = pos.expand(b).to(torch.int32).contiguous()
+    if active is None:
+        active = (pos >= 0).to(torch.int32)
+    else:
+        active = torch.as_tensor(active, device=device).reshape(-1)
+        active = active.expand(b).to(torch.int32).contiguous()
+    return pos, active
+
+
 def _check(q, k_cache, v_cache, pos, active):
     """Validate the inputs; return (pos, active) as (B,) int32 device
     tensors."""
-    if q.device.type != "cuda":
-        raise ValueError(f"CUDA decode kernel needs CUDA tensors, got "
-                         f"q on {q.device}")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-    if q.dim() != 4 or k_cache.dim() != 4:
-        raise ValueError(f"expected q (B,T,H,D) and caches (B,S,KV,D), got "
-                         f"{tuple(q.shape)} and {tuple(k_cache.shape)}")
-    if k_cache.shape != v_cache.shape:
-        raise ValueError(f"k/v cache shapes differ: {tuple(k_cache.shape)} "
-                         f"vs {tuple(v_cache.shape)}")
+    _check_shapes(q, k_cache, v_cache, "cache", "(B,S,KV,D)")
     b, t, h, d = q.shape
     kb, _, kv, kd = k_cache.shape
     if kb != b or kd != d or kv == 0 or h % kv:
         raise ValueError(f"q {tuple(q.shape)} does not fit caches "
                          f"{tuple(k_cache.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not built (kernel takes {HEAD_DIMS})")
     if (h // kv) * t > MAX_ROWS:
         raise ValueError(f"G*T = {(h // kv) * t} query rows per KV head "
                          f"exceeds {MAX_ROWS}")
-    if q.dtype not in _DTYPE_CODE or k_cache.dtype not in _DTYPE_CODE:
-        raise ValueError(f"dtypes q={q.dtype} cache={k_cache.dtype}: kernel "
-                         f"takes float32/bfloat16")
-    if v_cache.dtype != k_cache.dtype:
-        raise ValueError(f"k/v cache dtypes differ: {k_cache.dtype} vs "
-                         f"{v_cache.dtype}")
-    if q.stride(-1) != 1:
-        raise ValueError("q's head dim must be contiguous")
-    esize = k_cache.element_size()
-    for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if c.stride(-1) != 1:
-            raise ValueError(f"{name}'s head dim must be contiguous")
-        # 16-byte vector loads: base and every row start 16-byte aligned
-        if c.data_ptr() % 16 or any((c.stride(i) * esize) % 16
-                                    for i in range(3)):
-            raise ValueError(f"{name} rows are not 16-byte aligned")
-    pos = torch.as_tensor(pos, device=q.device).reshape(-1)
-    pos = pos.expand(b).to(torch.int32).contiguous()
-    if active is None:
-        active = (pos >= 0).to(torch.int32)
-    else:
-        active = torch.as_tensor(active, device=q.device).reshape(-1)
-        active = active.expand(b).to(torch.int32).contiguous()
-    return pos, active
+    _check_device(q, k_cache, v_cache, "cache")
+    return _pos_active(pos, active, b, q.device)
 
 
 def _strides(x):

@@ -1,15 +1,20 @@
-"""Model-layout dispatch of the decode kernels (the counterpart of
+"""Model-layout dispatch of the attention kernels (the counterpart of
 ``repro/kernels/ops.py``).
 
 The device decides the path: tensors on the CPU take the plain versions in
-``ref.py`` (through transposed views, no copies); CUDA tensors launch the
-hand-written kernels, or the call raises.  There is no fallback.
+``ref.py`` (through transposed views); CUDA tensors launch the
+hand-written kernels, or the call raises.  There is no fallback.  Paged
+pools stay in the model layout (P, page_size, KV, D): the kernels read them
+through strides, so no pool is transposed or copied per call.
 """
 from __future__ import annotations
 
 from . import ref
 from .decode_attention import (decode_attention_cuda,
                                decode_attention_splitk_cuda)
+from .paged_attention import (paged_decode_attention_cuda,
+                              paged_decode_attention_splitk_cuda,
+                              paged_prefill_attention_cuda)
 
 
 def _split(q, num_splits):
@@ -52,3 +57,64 @@ def decode_attention(q, k_cache, v_cache, pos, *, active=None, window=0,
                                             num_splits=num_splits)
     return decode_attention_cuda(q, k_cache, v_cache, pos, active=active,
                                  window=window)
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, page_idx, pos, *,
+                                 active=None, window=0, num_splits=1):
+    """The paged plain versions in model layout, on any device (the CPU
+    path of ``paged_decode_attention``; the on-card checks compare the
+    kernels with it)."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k_pages, v_pages))
+    if _split(q, num_splits):
+        out = ref.paged_decode_attention_splitk_ref(
+            qt, kt, vt, page_idx, pos, active=active, window=window,
+            num_splits=num_splits)
+    else:
+        out = ref.paged_decode_attention_ref(qt, kt, vt, page_idx, pos,
+                                             active=active, window=window)
+    return out.transpose(1, 2)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_idx, pos, *,
+                           active=None, window=0, num_splits=1):
+    """Model layout: q (B,T,H,D); pools (P,page_size,KV,D); page_idx
+    (B,max_pages) int32, unmapped entries 0 -> (B,T,H,D).
+
+    ``num_splits > 1`` with T = 1 takes the two-phase paged split-K path
+    (``max_pages % num_splits == 0``); T > 1 always takes the single-pass
+    kernel, as in the reference.
+    """
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(
+            q, k_pages, v_pages, page_idx, pos, active=active, window=window,
+            num_splits=num_splits)
+    if _split(q, num_splits):
+        return paged_decode_attention_splitk_cuda(
+            q, k_pages, v_pages, page_idx, pos, active=active, window=window,
+            num_splits=num_splits)
+    return paged_decode_attention_cuda(q, k_pages, v_pages, page_idx, pos,
+                                       active=active, window=window)
+
+
+def paged_prefill_attention_plain(q, k_pages, v_pages, page_idx, slot,
+                                  offset, *, window=0):
+    """The fused paged prefill's plain version in model layout, on any
+    device."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k_pages, v_pages))
+    out = ref.paged_prefill_attention_ref(qt, kt, vt, page_idx[slot],
+                                          offset, window=window)
+    return out.transpose(1, 2)
+
+
+def paged_prefill_attention(q, k_pages, v_pages, page_idx, slot, offset, *,
+                            window=0):
+    """Model layout: q (1,C,H,D), one slot's prefill chunk at absolute
+    ``offset``, against pools (P,page_size,KV,D) through row ``slot`` of
+    ``page_idx`` (slots, max_pages) -> (1,C,H,D).  The chunk's K/V must
+    already be written to its pages."""
+    if q.device.type == "cpu":
+        return paged_prefill_attention_plain(q, k_pages, v_pages, page_idx,
+                                             slot, offset, window=window)
+    return paged_prefill_attention_cuda(q, k_pages, v_pages,
+                                        page_idx[int(slot)], int(offset),
+                                        window=window)

@@ -1,0 +1,193 @@
+"""Wrappers of the hand-written CUDA paged attention kernels
+(``csrc/paged_attention.cu``): decode, split-K decode and fused chunked
+prefill over the shared page pool.
+
+Model layout in and out: q (B, T, H, D) (prefill: (1, C, H, D)), pools
+(P, page_size, KV, D), result in q's dtype and q's shape.  The pools are
+passed by pointer and strides in that layout; nothing is transposed,
+gathered or copied.  The page table is an int32 CUDA tensor
+(B, max_pages) whose unmapped entries are the null page 0.  Each wrapper
+checks what the kernel takes and raises on anything else, allocates its
+output and scratch with ``torch.empty``, launches on the current stream and
+raises if the launch returns a CUDA error.  ``<wrapper>.launches`` counts
+its launches.
+
+The plain versions live in ``ref.py``; ``ops.paged_decode_attention`` and
+``ops.paged_prefill_attention`` choose between them by the tensors'
+device.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .decode_attention import (_DTYPE_CODE, MAX_ROWS, _check_device,
+                               _check_shapes, _pos_active, _strides)
+
+PREFILL_ROWS = 64  # query rows (positions x heads) one prefill CTA serves
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                _I, _P, _P, _P, _I, _I, _P]
+_SPLITK_ARGS = [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
+                _I, _P, _P, _P, _P, _P, _P, _I, _I, _P]
+_PREFILL_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                 _P, _I, _I, _P]
+
+
+def _lib():
+    lib = _build.load("paged_attention")
+    if lib.paged_decode_attention_fwd.argtypes is None:
+        for fn, args in (("paged_decode_attention_fwd", _DECODE_ARGS),
+                         ("paged_decode_attention_splitk_fwd", _SPLITK_ARGS),
+                         ("paged_prefill_attention_fwd", _PREFILL_ARGS)):
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = _I
+    return lib
+
+
+def _check_pools(q, k_pages, v_pages):
+    """Shape checks of q against the pools; returns (page_size, KV)."""
+    _check_shapes(q, k_pages, v_pages, "pool", "(P,page_size,KV,D)")
+    h, d = q.shape[2], q.shape[3]
+    _, page_size, kv, kd = k_pages.shape
+    if kd != d or kv == 0 or h % kv:
+        raise ValueError(f"q {tuple(q.shape)} does not fit pools "
+                         f"{tuple(k_pages.shape)}")
+    return page_size, kv
+
+
+def _check_table(table, q, rows, name):
+    """An int32 page table on q's device with contiguous rows."""
+    if table.dtype != torch.int32 or table.device != q.device:
+        raise ValueError(f"{name} must be an int32 tensor on {q.device}, got "
+                         f"{table.dtype} on {table.device}")
+    if table.dim() != rows or table.stride(-1) != 1:
+        raise ValueError(f"{name} must be {rows}-D with contiguous rows, got "
+                         f"shape {tuple(table.shape)}")
+
+
+def _check_decode(q, k_pages, v_pages, page_idx, pos, active):
+    page_size, kv = _check_pools(q, k_pages, v_pages)
+    _check_table(page_idx, q, 2, "page_idx")
+    b, t, h, _ = q.shape
+    if page_idx.shape[0] != b:
+        raise ValueError(f"page_idx has {page_idx.shape[0]} rows for "
+                         f"{b} slots")
+    if (h // kv) * t > MAX_ROWS:
+        raise ValueError(f"G*T = {(h // kv) * t} query rows per KV head "
+                         f"exceeds {MAX_ROWS}")
+    _check_device(q, k_pages, v_pages, "pool")
+    pos, active = _pos_active(pos, active, b, q.device)
+    return pos, active, page_size, kv
+
+
+def paged_decode_attention_cuda(q, k_pages, v_pages, page_idx, pos, *,
+                                active=None, window=0):
+    """Single-pass paged decode (replaces ``paged_decode_attention_tpu``).
+    q (B, T, H, D) with G*T <= 16; pools (P, page_size, KV, D); page_idx
+    (B, max_pages) int32; ``pos`` scalar or (B,); ``active`` (B,) 0/1,
+    default ``pos >= 0``."""
+    pos, active, page_size, kv = _check_decode(q, k_pages, v_pages,
+                                               page_idx, pos, active)
+    b, t, h, d = q.shape
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    strides = (_strides(q), _strides(k_pages), _strides(v_pages))
+    err = _lib().paged_decode_attention_fwd(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
+        pos.data_ptr(), active.data_ptr(), page_idx.data_ptr(),
+        page_idx.stride(0), b, t, h, kv, page_idx.shape[1], page_size, d,
+        int(window), *strides, _DTYPE_CODE[q.dtype],
+        _DTYPE_CODE[k_pages.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"paged_decode_attention_fwd launch failed: "
+                           f"cudaError {err}")
+    paged_decode_attention_cuda.launches += 1
+    return out
+
+
+def paged_decode_attention_splitk_cuda(q, k_pages, v_pages, page_idx, pos,
+                                       *, active=None, window=0,
+                                       num_splits=2):
+    """Two-phase paged split-K decode (replaces
+    ``paged_decode_attention_splitk_tpu``): T = 1, ``max_pages %
+    num_splits == 0`` so that each split owns whole pages of the table.
+    Partials go to f32 scratch; the combine kernel writes the (B, 1, H, D)
+    result."""
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"split-K decode is single-token, got q "
+                         f"{tuple(q.shape)}")
+    if num_splits < 1 or page_idx.dim() != 2 \
+            or page_idx.shape[1] % num_splits:
+        raise ValueError(f"num_splits {num_splits} must divide max_pages "
+                         f"{tuple(page_idx.shape[1:])}")
+    pos, active, page_size, kv = _check_decode(q, k_pages, v_pages,
+                                               page_idx, pos, active)
+    b, _, h, d = q.shape
+    out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
+    o_part = torch.empty((b, h, num_splits, d), dtype=torch.float32,
+                         device=q.device)
+    m_part = torch.empty((b, h, num_splits), dtype=torch.float32,
+                         device=q.device)
+    l_part = torch.empty_like(m_part)
+    strides = (_strides(q), _strides(k_pages), _strides(v_pages))
+    err = _lib().paged_decode_attention_splitk_fwd(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
+        pos.data_ptr(), active.data_ptr(), page_idx.data_ptr(),
+        page_idx.stride(0), b, h, kv, page_idx.shape[1], page_size, d,
+        int(window), int(num_splits), *strides, o_part.data_ptr(),
+        m_part.data_ptr(), l_part.data_ptr(), _DTYPE_CODE[q.dtype],
+        _DTYPE_CODE[k_pages.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"paged_decode_attention_splitk_fwd launch "
+                           f"failed: cudaError {err}")
+    paged_decode_attention_splitk_cuda.launches += 1
+    return out
+
+
+def paged_prefill_attention_cuda(q, k_pages, v_pages, page_row, q_offset, *,
+                                 window=0):
+    """Fused paged prefill (replaces ``paged_prefill_attention_tpu``): one
+    slot's chunk q (1, C, H, D) at absolute ``q_offset`` against its own
+    page chain ``page_row`` (max_pages,) int32, causal, with the chunk's
+    K/V already written to the pool.  ``q_offset + C`` must fit the row's
+    ``max_pages * page_size`` positions; H / KV must divide 64."""
+    page_size, kv = _check_pools(q, k_pages, v_pages)
+    _check_table(page_row, q, 1, "page_row")
+    _, c, h, d = q.shape
+    q_offset = int(q_offset)
+    if q.shape[0] != 1:
+        raise ValueError(f"fused paged prefill is one slot per call, got q "
+                         f"{tuple(q.shape)}")
+    if PREFILL_ROWS % (h // kv):
+        raise ValueError(f"G = {h // kv} query heads per KV head must "
+                         f"divide {PREFILL_ROWS}")
+    if q_offset < 0 or q_offset + c > page_row.shape[0] * page_size:
+        raise ValueError(f"chunk [{q_offset}, {q_offset + c}) outside the "
+                         f"{page_row.shape[0] * page_size} positions of the "
+                         f"page row")
+    _check_device(q, k_pages, v_pages, "pool")
+    out = torch.empty((1, c, h, d), dtype=q.dtype, device=q.device)
+    strides = ((ctypes.c_longlong * 2)(q.stride(1), q.stride(2)),
+               _strides(k_pages), _strides(v_pages))
+    err = _lib().paged_prefill_attention_fwd(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
+        page_row.data_ptr(), c, h, kv, page_size, d, q_offset, int(window),
+        *strides, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"paged_prefill_attention_fwd launch failed: "
+                           f"cudaError {err}")
+    paged_prefill_attention_cuda.launches += 1
+    return out
+
+
+paged_decode_attention_cuda.launches = 0
+paged_decode_attention_splitk_cuda.launches = 0
+paged_prefill_attention_cuda.launches = 0

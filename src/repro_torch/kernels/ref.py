@@ -1,9 +1,12 @@
-"""Plain PyTorch versions of the decode kernels (the correctness contract).
+"""Plain PyTorch versions of the attention kernels (the correctness
+contract).
 
 Deliberately naive: full score matrices, explicit masks, f32 throughout.
 Kernel layout, as ``repro/kernels/ref.py``: q (B, H, T, D), caches
-(B, KV, S, D).  The dispatch in ``ops.py`` passes transposed *views* of the
-model-layout tensors, so nothing is copied.
+(B, KV, S, D), page pools (P, KV, page_size, D).  The dispatch in
+``ops.py`` passes transposed *views* of the model-layout tensors, so
+nothing is copied on the way in; the paged versions gather each slot's
+pages into a dense view.
 
 ``active`` (B,) 0/1 gates each slot (default ``pos >= 0``); an inactive
 slot returns zeros, as the kernels write them.
@@ -95,3 +98,50 @@ def decode_attention_splitk_ref(q, k_cache, v_cache, pos, *, active=None,
     out = (acc * alpha[..., None]).sum(dim=2) / denom  # (B,H,D)
     out = torch.where(active[:, None, None], out, 0.0)
     return out[:, :, None].to(q.dtype)
+
+
+def _gather_pages(pages, page_idx):
+    """Pool (P, KV, page_size, D) through page table (B, max_pages) ->
+    dense (B, KV, max_pages * page_size, D); unmapped entries gather the
+    null page 0 (masked by position)."""
+    b, n = page_idx.shape
+    _, kv, page_size, d = pages.shape
+    x = pages[page_idx.long()]  # (B, max_pages, KV, page_size, D)
+    return x.transpose(1, 2).reshape(b, kv, n * page_size, d)
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, page_idx, pos, *,
+                               active=None, window=0):
+    """q (B,H,T,D); pools (P,KV,page_size,D); page_idx (B,max_pages) ->
+    (B,H,T,D).  Gathers each slot's pages into a dense view and defers to
+    ``decode_attention_ref``: the page indirection never changes the mask
+    math.  Mirrors ``repro/kernels/ref.py`` ``paged_decode_attention_ref``.
+    """
+    return decode_attention_ref(q, _gather_pages(k_pages, page_idx),
+                                _gather_pages(v_pages, page_idx), pos,
+                                active=active, window=window)
+
+
+def paged_decode_attention_splitk_ref(q, k_pages, v_pages, page_idx, pos, *,
+                                      active=None, window=0, num_splits=2):
+    """Two-phase paged split-K, T = 1.  Split ``i`` owns the logical pages
+    ``[i * pps, (i + 1) * pps)`` of each slot's page-table row
+    (``max_pages % num_splits == 0``, pps = max_pages / num_splits), so
+    the splits tile whole pages; over the gathered view those are key
+    ranges of ``pps * page_size``, and the combine is the dense split-K
+    plain version's."""
+    assert page_idx.shape[1] % num_splits == 0, (page_idx.shape, num_splits)
+    return decode_attention_splitk_ref(
+        q, _gather_pages(k_pages, page_idx), _gather_pages(v_pages, page_idx),
+        pos, active=active, window=window, num_splits=num_splits)
+
+
+def paged_prefill_attention_ref(q, k_pages, v_pages, page_row, q_offset, *,
+                                window=0):
+    """q (1,H,C,D): one slot's chunk at absolute ``q_offset``; pools
+    (P,KV,page_size,D); page_row (max_pages,).  Row ``t`` attends keys
+    ``kpos <= q_offset + t``: the decode contract with T = C and
+    pos = q_offset.  Mirrors ``repro/kernels/ref.py``
+    ``paged_prefill_attention_ref``."""
+    return paged_decode_attention_ref(q, k_pages, v_pages, page_row[None],
+                                      q_offset, window=window)

@@ -7,7 +7,11 @@ decode engine over a synthetic request stream.
 Runs on the card by default; ``--device cpu`` runs the same path with the
 kernels' plain versions.  ``--smoke`` takes the arch's reduced config.
 ``--mode continuous`` (default) admits per slot with chunked prefill;
-``--mode wave`` runs the lockstep baseline.  ``--policy`` picks the
+``--mode wave`` runs the lockstep baseline.  ``--cache paged`` swaps the
+dense per-slot stripes for the paged pool (``--page-size``,
+``--num-pages``, ``--page-policy pack|spread``, ``--no-prefix-cache``);
+admission then reserves only the pages a request can touch and a shared
+prompt prefix is read from the pages that hold it.  ``--policy`` picks the
 admission policy and ``--tenants N`` spreads the requests round-robin
 over N tenants.  Weights come from the port's own init
 (``torch.Generator`` seeded with ``--seed``), f32 params and f32 cache as
@@ -38,6 +42,13 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--mode", choices=("continuous", "wave"),
                     default="continuous")
+    ap.add_argument("--cache", choices=("dense", "paged"), default="dense")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="pool size (default: dense-equivalent capacity)")
+    ap.add_argument("--page-policy", choices=("pack", "spread"),
+                    default="pack")
+    ap.add_argument("--no-prefix-cache", action="store_true")
     ap.add_argument("--policy", choices=sorted(ADMISSION_POLICIES),
                     default="fcfs", help="admission policy")
     ap.add_argument("--tenants", type=int, default=1,
@@ -53,7 +64,10 @@ def main(argv=None):
     params = model.init(gen)
     engine = ServeEngine(model, params, ServeConfig(
         batch_slots=args.slots, max_len=args.max_len, mode=args.mode,
-        prefill_chunk=args.prefill_chunk, policy=args.policy))
+        prefill_chunk=args.prefill_chunk, cache=args.cache,
+        page_size=args.page_size, num_pages=args.num_pages,
+        page_policy=args.page_policy,
+        prefix_cache=not args.no_prefix_cache, policy=args.policy))
     rng = np.random.default_rng(0)
     handles = []
     for i in range(args.requests):
@@ -70,7 +84,8 @@ def main(argv=None):
     toks = sum(len(r.output) for r in done)
     ttft = [t for t in (h.metrics().get("ttft_s") for h in handles)
             if t is not None]
-    print(f"arch={args.arch} mode={args.mode} device={model.device} "
+    print(f"arch={args.arch} mode={args.mode} cache={args.cache} "
+          f"device={model.device} "
           f"policy={args.policy} served {len(done)} requests, {toks} "
           f"tokens in {dt:.1f}s ({toks / max(dt, 1e-9):.1f} tok/s)")
     if ttft:
@@ -78,6 +93,8 @@ def main(argv=None):
               f"p99 {np.percentile(ttft, 99) * 1e3:.0f}ms "
               f"(finish reasons: "
               f"{sorted({r.finish_reason for r in done})})")
+    if engine.kv is not None:
+        print(f"kv stats: {engine.kv.stats()}")
     return done
 
 

@@ -1,11 +1,15 @@
-"""Attention, dense subset: GQA projections, blocked chunked-prefill
-attention, the plain decode attention and the dense cache writes.
+"""Attention: GQA projections, blocked chunked-prefill attention, the
+plain decode attention (dense and paged) and the cache writes (dense
+stripes and the paged pool).
 
-The PyTorch counterpart of ``repro/models/attention.py``.  Weights keep
-the head-explicit layout wq (dm, H, hd), wk/wv (dm, KV, hd), wo (H, hd, dm).
-Caches are (B, S, KV, D) and are written IN PLACE: the reference's buffer
-donation becomes a row write into the caller's tensor, so a decode tick
-never rebuilds or copies a cache.
+The PyTorch counterpart of ``repro/models/attention.py`` (its unquantized
+subset).  Weights keep the head-explicit layout wq (dm, H, hd), wk/wv
+(dm, KV, hd), wo (H, hd, dm).  Dense caches are (B, S, KV, D); paged pools
+are (P, page_size, KV, D) shared by every slot, addressed through an int32
+page table (slots, max_pages) whose unmapped entries are the null page 0.
+Both are written IN PLACE: the reference's buffer donation becomes a row
+write into the caller's tensor, so a decode tick never rebuilds or copies
+a cache.
 """
 from __future__ import annotations
 
@@ -174,3 +178,88 @@ def prefill_chunk_update(k_cache, v_cache, k_new, v_new, slot, offset):
     k_cache[slot, start:start + c] = k_new[0].to(k_cache.dtype)
     v_cache[slot, start:start + c] = v_new[0].to(v_cache.dtype)
     return k_cache, v_cache
+
+
+# ------------------------------------------------------------- paged pool
+def paged_cache_update(k_pages, v_pages, k_new, v_new, pos, page_idx,
+                       page_size):
+    """Write (B,1,KV,D) rows at logical ``pos`` through the page table, in
+    place: slot ``b`` writes page ``page_idx[b, pos[b] // page_size]`` at
+    offset ``pos[b] % page_size``.  A parked slot (pos < 0) writes the null
+    page 0 -- computed explicitly, never through a torch ``[-1]`` index,
+    which would hit the slot's last mapped page.  A position past the
+    table's span also goes to page 0 (the reference drops that write);
+    either way no mapped page is touched.  The T = 1 case of
+    ``paged_cache_update_multi``."""
+    return paged_cache_update_multi(k_pages, v_pages, k_new, v_new, pos,
+                                    page_idx, page_size)
+
+
+def paged_cache_update_multi(k_pages, v_pages, k_new, v_new, pos, page_idx,
+                             page_size):
+    """Write a (B,T,KV,D) block at logical ``pos[b] + t`` through the page
+    table, in place.  Positions clip to [0, max_len - 1] and rows of a
+    parked slot or past the table's span go to the null page 0, so padding
+    beyond a slot's reservation never touches a page it does not hold."""
+    b, t = k_new.shape[0], k_new.shape[1]
+    max_len = page_idx.shape[1] * page_size
+    pos = _pos_vector(pos, b, k_pages.device)[:, None]
+    pos_t = pos + torch.arange(t, device=k_pages.device)[None, :]
+    valid = (pos >= 0) & (pos_t < max_len)
+    pos_t = pos_t.clamp(0, max_len - 1)
+    page = torch.gather(page_idx.long(), 1, pos_t // page_size)
+    page = torch.where(valid, page, 0)
+    off = pos_t % page_size
+    k_pages[page, off] = k_new.to(k_pages.dtype)
+    v_pages[page, off] = v_new.to(v_pages.dtype)
+    return k_pages, v_pages
+
+
+def paged_prefill_chunk_update(k_pages, v_pages, k_new, v_new, slot, offset,
+                               page_idx, page_size):
+    """Write one slot's chunk (1,C,KV,D), C a multiple of ``page_size`` and
+    ``offset`` page-aligned, into the C // page_size pages its table row
+    maps from block ``offset // page_size``, in place.  The chunk must fit
+    the row (the reference's ``dynamic_slice`` would clamp its start; the
+    engine's chunks always fit, so anything else is an error).  Entries
+    past the slot's reservation are the null page 0, which several padded
+    rows then share."""
+    c, kv, d = k_new.shape[1], k_new.shape[2], k_new.shape[3]
+    offset = int(offset)
+    if c % page_size or offset % page_size:
+        raise ValueError(f"chunk {c} at offset {offset} is not page-aligned "
+                         f"(page_size {page_size})")
+    m, start = c // page_size, offset // page_size
+    if offset < 0 or start + m > page_idx.shape[1]:
+        raise ValueError(f"chunk [{offset}, {offset + c}) outside the "
+                         f"{page_idx.shape[1] * page_size} positions of the "
+                         f"page table")
+    pages = page_idx[int(slot), start:start + m].long()
+    k_pages[pages] = k_new.reshape(m, page_size, kv, d).to(k_pages.dtype)
+    v_pages[pages] = v_new.reshape(m, page_size, kv, d).to(v_pages.dtype)
+    return k_pages, v_pages
+
+
+def _gather(pages, rows):
+    """Pool (P,page_size,KV,D) through table rows (B,max_pages) -> dense
+    (B, max_pages * page_size, KV, D)."""
+    b, n = rows.shape
+    _, page_size, kv, d = pages.shape
+    return pages[rows.long()].reshape(b, n * page_size, kv, d)
+
+
+def gather_slot_pages(k_pages, v_pages, page_idx, slot):
+    """Dense (1, S, KV, D) views of one slot's page chain, S = max_pages *
+    page_size; unmapped blocks gather the null page (masked by position)."""
+    row = page_idx[int(slot)][None]
+    return _gather(k_pages, row), _gather(v_pages, row)
+
+
+def paged_decode_attention_xla(q, k_pages, v_pages, page_idx, pos, *,
+                               window=0):
+    """Paged decode attention, plain tensor ops: q (B,T,H,D); pools
+    (P,page_size,KV,D); page_idx (B,max_pages).  Gathers each slot's pages
+    into a dense view and defers to ``decode_attention_xla``."""
+    return decode_attention_xla(q, _gather(k_pages, page_idx),
+                                _gather(v_pages, page_idx), pos,
+                                window=window)

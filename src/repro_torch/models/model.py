@@ -1,7 +1,7 @@
 """LM: the model wrapper the serving engine drives.
 
-The PyTorch counterpart of ``repro/models/model.py``, dense serving
-subset.  ``LM`` holds the arch config, the runtime knobs and the device;
+The PyTorch counterpart of ``repro/models/model.py``, serving subset
+(dense caches and paged pools).  ``LM`` holds the arch config, the runtime knobs and the device;
 its methods are functions of explicit params and caches.  Caches are
 updated in place (the reference donates its buffers instead).
 """
@@ -15,7 +15,8 @@ import torch
 
 from .layers import embed, embedding_init, rmsnorm, rmsnorm_init, unembed
 from .transformer import (apply_blocks_decode, apply_blocks_prefill_chunk,
-                          init_blocks, init_cache, supports_chunked_prefill)
+                          init_blocks, init_cache, init_cache_paged,
+                          supports_chunked_prefill, supports_paged_cache)
 
 
 def resolve_device(device) -> torch.device:
@@ -76,6 +77,8 @@ class LM:
             pos = torch.as_tensor(np.asarray(pos, np.int32))
         return pos.to(self.device, torch.int32)
 
+    _page_idx = _pos  # int32 on the model's device, no copy if already so
+
     # ------------------------------------------------------------- decode
     def decode_step(self, params, caches, tokens, pos):
         """tokens (B,1) -> (logits (B,V) f32, caches updated in place).
@@ -109,7 +112,44 @@ class LM:
     def supports_chunked_prefill(self) -> bool:
         return supports_chunked_prefill(self.cfg)
 
+    # -------------------------------------------------------- paged cache
+    def supports_paged_cache(self) -> bool:
+        return supports_paged_cache(self.cfg)
+
+    def decode_step_paged(self, params, caches, tokens, pos, page_idx, *,
+                          page_size: int):
+        """Paged ``decode_step``: caches are global page pools and slot
+        ``b``'s KV prefix lives in pages ``page_idx[b]`` (0 = null page).
+        Pass ``page_idx`` as an int32 tensor on the model's device (the
+        engine copies its table once per tick); every layer reads it."""
+        x = embed(params["embed"], self._tokens(tokens))
+        x = x.to(self.knobs.compute_dtype)
+        x, caches = apply_blocks_decode(
+            params["blocks"], x, caches, self._pos(pos), cfg=self.cfg,
+            knobs=self.knobs, paged=(self._page_idx(page_idx), page_size))
+        x = rmsnorm(params["final_norm"], x)
+        logits = unembed(params["embed"], x)[:, 0, :]
+        return logits.float(), caches
+
+    def prefill_chunk_step_paged(self, params, caches, tokens, slot, offset,
+                                 page_idx, *, page_size: int):
+        """Paged ``prefill_chunk_step``: the chunk (C a multiple of
+        ``page_size``, ``offset`` page-aligned) writes the pages the slot's
+        page-table row maps, and attention reads the prefix through it."""
+        x = embed(params["embed"], self._tokens(tokens))
+        x = x.to(self.knobs.compute_dtype)
+        x, caches = apply_blocks_prefill_chunk(
+            params["blocks"], x, caches, slot, offset, cfg=self.cfg,
+            knobs=self.knobs, paged=(self._page_idx(page_idx), page_size))
+        x = rmsnorm(params["final_norm"], x)
+        logits = unembed(params["embed"], x)[0]
+        return logits.float(), caches
+
     # -------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_len: int):
         return init_cache(self.cfg, self.knobs, batch, max_len, self.device)
+
+    def init_cache_paged(self, num_pages: int, page_size: int):
+        return init_cache_paged(self.cfg, self.knobs, num_pages, page_size,
+                                self.device)
 

@@ -1,5 +1,5 @@
 """Policy-driven serving front-end over the batched decode loop (dense
-cache, greedy).
+cache or paged pool, greedy).
 
 The PyTorch counterpart of ``repro/runtime/serve.py``.  ``ServeEngine``
 admits requests through the copied ``Scheduler`` (fcfs / priority / sjf /
@@ -7,6 +7,16 @@ drf-fair), prefills each prompt in chunks into the slot's stripe of a
 dense (L, B, S, KV, D) cache, and then runs one ragged decode step per
 tick over every slot, each at its own position (free slots parked at -1).
 The caches are written in place, one K/V row per slot per layer per tick.
+
+``cache="paged"`` swaps the stripes for a shared (L, P, page_size, KV, D)
+page pool managed by the copied ``KVCacheManager``: admission reserves the
+pages a request can touch (backpressure when the pool is short), a
+prefix-cache hit starts prefill at the matched chunk and reads the shared
+pages, and a finished request's pages return at once.  The page table is
+copied to the device once per decode tick and once per prefill call; the
+fused paged prefill kernel reads the prefix through it (its plain version
+on the CPU), so no dense per-slot view is kept.  Paged serving needs
+``mode="continuous"``.
 
 ``mode="continuous"`` (default) admits into any freed slot at once;
 ``mode="wave"`` is the lockstep baseline: a fresh wave only when every
@@ -18,9 +28,8 @@ split-K fan-out per tick from ``(max(pos), live slots)``
 the CUDA two-phase kernel, on the CPU its plain version.
 
 Not in this slice (the fields exist and raise ``NotImplementedError``
-when set): ``cache="paged"``, ``kv_dtype``, ``draft_k``, ``preempt``,
-``role`` other than "unified", ``mesh_shape``; requests with
-``temperature > 0``.
+when set): ``kv_dtype``, ``draft_k``, ``preempt``, ``role`` other than
+"unified", ``mesh_shape``; requests with ``temperature > 0``.
 """
 from __future__ import annotations
 
@@ -32,7 +41,9 @@ from dataclasses import dataclass, field
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
+from repro_torch.runtime.kv_pool import KVCacheManager
 from repro_torch.runtime.sampling import SamplingParams, matches_stop
 from repro_torch.runtime.scheduler import Scheduler
 from repro_torch.runtime.steps import (compiled_step, pick_decode_splits,
@@ -168,8 +179,7 @@ class ServeConfig:
 
 
 def _check_ported(config: ServeConfig) -> None:
-    unported = {"cache='paged'": config.cache == "paged",
-                "kv_dtype": bool(config.kv_dtype),
+    unported = {"kv_dtype": bool(config.kv_dtype),
                 "draft_k > 0": config.draft_k > 0,
                 "preempt": config.preempt,
                 "role != 'unified'": config.role != "unified",
@@ -178,7 +188,8 @@ def _check_ported(config: ServeConfig) -> None:
     if asked:
         raise NotImplementedError(
             f"ServeConfig {', '.join(asked)}: not ported yet (the port "
-            f"serves the dense cache; see ROADMAP.md)")
+            f"serves greedy requests from the dense cache or the paged pool; "
+            f"see ROADMAP.md)")
 
 
 class ServeEngine:
@@ -205,22 +216,26 @@ class ServeEngine:
         self._finished: list[Request] = []
         self._admit_emitted = 0  # tokens emitted by chunked prefill
         self._decode_one = compiled_step(model, "decode_one")
-        self.caches = model.init_cache(batch_slots, max_len)
-        self._step = compiled_step(model, "serve")
-        # chunked prefill: one (1, C) step reused for every slot and
-        # offset; C rounded down to a divisor of max_len so padded chunk
-        # writes never clamp
-        self.chunked = (config.mode == "continuous"
-                        and config.prefill_chunk > 1
-                        and model.supports_chunked_prefill())
-        c = max(1, min(config.prefill_chunk, max_len))
-        while max_len % c:
-            c -= 1
-        self.prefill_chunk = c
-        if self.chunked:
-            self._prefill = compiled_step(model, "prefill_chunk")
+        self.kv: Optional[KVCacheManager] = None
+        if config.cache == "paged":
+            self._init_paged(config)
+        else:
+            self.caches = model.init_cache(batch_slots, max_len)
+            self._step = compiled_step(model, "serve")
+            # chunked prefill: one (1, C) step reused for every slot and
+            # offset; C rounded down to a divisor of max_len so padded
+            # chunk writes never clamp
+            self.chunked = (config.mode == "continuous"
+                            and config.prefill_chunk > 1
+                            and model.supports_chunked_prefill())
+            c = max(1, min(config.prefill_chunk, max_len))
+            while max_len % c:
+                c -= 1
+            self.prefill_chunk = c
+            if self.chunked:
+                self._prefill = compiled_step(model, "prefill_chunk")
         self.scheduler = Scheduler(config.policy, slots=batch_slots,
-                                   max_len=max_len, kv=None,
+                                   max_len=max_len, kv=self.kv,
                                    weights=config.tenant_weights,
                                    preempt=False,
                                    victim=config.victim_policy)
@@ -229,6 +244,46 @@ class ServeEngine:
         self._autotune = (config.mode == "continuous"
                           and model.knobs.decode_splits == 0)
         self.bind_telemetry(telemetry, replica=replica)
+
+    def _init_paged(self, config: ServeConfig) -> None:
+        """The paged pool: chunk size, page manager, device pools, steps."""
+        if config.mode != "continuous":
+            raise ValueError("cache='paged' requires mode='continuous'")
+        if not self.model.supports_paged_cache():
+            raise ValueError(f"paged KV cache unsupported for "
+                             f"family={self.model.cfg.family!r}")
+        page_size, max_len = config.page_size, config.max_len
+        if page_size < 1 or max_len % page_size:
+            raise ValueError(f"max_len {max_len} not a multiple of "
+                             f"page_size {page_size}")
+        # prefill chunks cover whole pages at page-aligned offsets; C also
+        # divides max_len so every chunk fits the page table
+        c = max(page_size,
+                (min(config.prefill_chunk, max_len) // page_size)
+                * page_size)
+        while max_len % c:
+            c -= page_size
+        self.prefill_chunk = c
+        self.chunked = True
+        # dense-equivalent capacity by default (+ the null page)
+        num_pages = config.num_pages
+        if num_pages is None:
+            num_pages = config.batch_slots * (max_len // page_size) + 1
+        self.kv = KVCacheManager(
+            slots=config.batch_slots, max_len=max_len, page_size=page_size,
+            num_pages=num_pages, policy=config.page_policy,
+            prefix_cache=config.prefix_cache, chunk=c)
+        self.caches = self.model.init_cache_paged(self.kv.pool.num_pages,
+                                                  page_size)
+        self._step = compiled_step(self.model, "paged_serve",
+                                   page_size=page_size)
+        self._prefill = compiled_step(self.model, "paged_prefill_chunk",
+                                      page_size=page_size)
+
+    def _page_table(self) -> torch.Tensor:
+        """The page table on the model's device (one host-to-device copy;
+        every layer of the step reads it)."""
+        return torch.as_tensor(self.kv.page_table, device=self.model.device)
 
     def bind_telemetry(self, telemetry: Optional[Telemetry] = None, *,
                        replica: int = 0) -> None:
@@ -257,6 +312,8 @@ class ServeEngine:
                   ("replica",)).labels(**lbl).set_function(
             lambda: len(self.scheduler.queue))
         self.scheduler.bind_metrics(reg, self.replica)
+        if self.kv is not None:
+            self.kv.bind_metrics(reg, self.replica)
         if self.tm.trace.enabled:
             self.tm.trace.set_process_name(self.replica,
                                            f"replica {self.replica}")
@@ -287,6 +344,13 @@ class ServeEngine:
             raise ValueError(
                 f"prompt length {len(req.prompt)} outside [1, "
                 f"{self.max_len - 1}] for max_len={self.max_len}")
+        if self.kv is not None and not self.kv.fits_ever(
+                len(req.prompt), req.max_new_tokens):
+            raise ValueError(
+                f"request needs more pages than the pool can ever supply "
+                f"(prompt {len(req.prompt)} + max_new {req.max_new_tokens} "
+                f"vs {self.kv.pool.capacity} pages of "
+                f"{self.kv.page_size})")
         if not req.sampling.greedy:
             raise NotImplementedError(
                 "sampled decoding (temperature > 0) is not ported yet; the "
@@ -319,6 +383,8 @@ class ServeEngine:
         self._m_finished.labels(replica=str(self.replica),
                                 reason=reason).inc()
         self._clear_slot(s)
+        if self.kv is not None:
+            self.kv.free_slot(s)  # pages return to the pool at once
         self.scheduler.on_finish(req)
         self._finished.append(req)
 
@@ -329,7 +395,12 @@ class ServeEngine:
         self.active[s] = req
         self._set_state(req, RequestState.PREFILL, slot=s)
         if self.chunked:
-            self._prefill_slot(s, req)
+            # paged: prefill starts where the prefix cache left off; CoW
+            # pages (adm.kv.cow) need no device copy, since they span
+            # [start, matched) and the first re-run chunk rewrites each of
+            # them whole before anything reads them
+            self._prefill_slot(s, req,
+                               start=0 if adm.kv is None else adm.kv.start)
             if not self._maybe_stop(s):
                 self._set_state(req, RequestState.DECODE)
         else:
@@ -347,27 +418,35 @@ class ServeEngine:
             for adm in plan.admissions:
                 self._execute_admission(adm)
 
-    def _prefill_slot(self, s: int, req: Request):
-        """Run the prompt through the stack in (1, C) chunks, writing the
-        slot's KV stripe in place; the greedy token of the last real
-        prompt token seeds decode at pos = prompt_len."""
+    def _prefill_slot(self, s: int, req: Request, start: int = 0):
+        """Run prompt tokens [start, prompt_len) through the stack in
+        (1, C) chunks, writing the slot's KV in place; the greedy token of
+        the last real prompt token seeds decode at pos = prompt_len.
+
+        ``start`` (paged, a multiple of C and <= prompt_len - 1) is where
+        the prefix cache left off; the paged step also takes the page
+        table, and the prompt's full pages are published for later prefix
+        hits afterwards."""
         c = self.prefill_chunk
         prompt = np.asarray(req.prompt, np.int32)
         p = len(prompt)
-        n_chunks = max(1, -(-p // c))
+        n_chunks = max(1, -(-(p - start) // c))
         padded = np.zeros(n_chunks * c, np.int32)
-        padded[:p] = prompt
+        padded[:p - start] = prompt[start:]
         req._feed = deque()  # type: ignore
+        extra = () if self.kv is None else (self._page_table(),)
         nxt = None
         for ci in range(n_chunks):
             nxt, self.caches = self._prefill(
                 self.params, self.caches, padded[None, ci * c:(ci + 1) * c],
-                s, ci * c)
-        tok = int(nxt[(p - 1) - (n_chunks - 1) * c])
+                s, start + ci * c, *extra)
+        tok = int(nxt[(p - start - 1) - (n_chunks - 1) * c])
         self.pos[s] = p
         self.tokens[s, 0] = tok
         self._emit(req, tok)
         self._admit_emitted += 1
+        if self.kv is not None:
+            self.kv.register_prefix(s, prompt)
 
     def _maybe_stop(self, s: int) -> bool:
         req = self.active[s]
@@ -419,15 +498,20 @@ class ServeEngine:
 
     def _decode_tick_plain(self, emitted: int, live: int) -> int:
         """One single-token decode step for every slot."""
-        step = self._step
+        step, extra = self._step, ()
+        page_size = 0 if self.kv is None else self.kv.page_size
+        if self.kv is not None:
+            extra = (self._page_table(),)
         if self._autotune:
             splits = pick_decode_splits(int(self.pos.max()), live,
-                                        max_len=self.max_len)
+                                        max_len=self.max_len,
+                                        page_size=page_size)
             if splits > 1:
-                step = compiled_step(self.model, "serve",
-                                     decode_splits=splits)
+                step = compiled_step(
+                    self.model, "paged_serve" if page_size else "serve",
+                    page_size=page_size, decode_splits=splits)
         nxt_dev, self.caches = step(self.params, self.caches, self.tokens,
-                                    self.pos)
+                                    self.pos, *extra)
         nxt = nxt_dev.cpu().numpy()
         for s, req in enumerate(self.active):
             if req is None:

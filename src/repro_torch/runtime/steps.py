@@ -1,4 +1,5 @@
-"""Serving step functions and the step cache (dense, greedy subset).
+"""Serving step functions and the step cache (dense and paged, greedy
+subset).
 
 The PyTorch counterpart of ``repro/runtime/steps.py``.  There is no jit:
 a step is a plain callable that runs eagerly and updates the caches in
@@ -41,10 +42,38 @@ def decode_one(model) -> Callable:
     return model.decode_step
 
 
+def make_paged_serve_step(model, page_size: int) -> Callable:
+    """Decode step over the paged pools: ``make_serve_step`` plus the
+    page table ``page_idx`` (B, max_pages) int32."""
+    def serve_step(params, caches, tokens, pos, page_idx):
+        logits, caches = model.decode_step_paged(params, caches, tokens, pos,
+                                                 page_idx,
+                                                 page_size=page_size)
+        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], caches
+
+    return serve_step
+
+
+def make_paged_prefill_chunk_step(model, page_size: int) -> Callable:
+    """Paged chunked prefill: the (1, C) chunk lands in the pages the
+    slot's table row maps (C a page multiple, offset page-aligned)."""
+    def prefill_chunk_step(params, caches, tokens, slot, offset, page_idx):
+        logits, caches = model.prefill_chunk_step_paged(
+            params, caches, tokens, slot, offset, page_idx,
+            page_size=page_size)
+        return torch.argmax(logits, dim=-1).to(torch.int32), caches
+
+    return prefill_chunk_step
+
+
+# kind -> make(model, page_size); the paged kinds need page_size > 0, the
+# others page_size == 0
 _STEP_KINDS = {
-    "serve": make_serve_step,
-    "prefill_chunk": make_prefill_chunk_step,
-    "decode_one": decode_one,
+    "serve": lambda m, ps: make_serve_step(m),
+    "prefill_chunk": lambda m, ps: make_prefill_chunk_step(m),
+    "decode_one": lambda m, ps: decode_one(m),
+    "paged_serve": make_paged_serve_step,
+    "paged_prefill_chunk": make_paged_prefill_chunk_step,
 }
 _STEP_CACHE: OrderedDict = OrderedDict()
 _STEP_CACHE_MAX = 64
@@ -64,10 +93,11 @@ def compiled_step(model, kind: str, *, sampled: bool = False,
     """Serving step for ``model``, memoized on (cfg, knobs, device, kind,
     sampled, page_size, draft_len) like the reference's jit cache.
     ``decode_splits`` overrides the knob (the split-K autotuner's per
-    fan-out steps).  Sampled, paged and speculative steps come in later
-    slices."""
+    fan-out steps).  The paged kinds take ``page_size > 0``.  Sampled and
+    speculative steps come in later slices."""
     global _step_cache_hits, _step_cache_misses, _step_build_s
-    if sampled or page_size or draft_len or kind not in _STEP_KINDS:
+    if (sampled or draft_len or kind not in _STEP_KINDS
+            or (page_size > 0) != kind.startswith("paged_")):
         raise NotImplementedError(
             f"step kind={kind!r} sampled={sampled} page_size={page_size} "
             f"draft_len={draft_len} is not ported yet (see ROADMAP.md)")
@@ -84,7 +114,7 @@ def compiled_step(model, kind: str, *, sampled: bool = False,
     t0 = time.perf_counter()
     mdl = (model if knobs is model.knobs
            else type(model)(model.cfg, knobs, model.device))
-    fn = _STEP_KINDS[kind](mdl)
+    fn = _STEP_KINDS[kind](mdl, page_size)
     _step_build_s += time.perf_counter() - t0
     _STEP_CACHE[key] = fn
     while len(_STEP_CACHE) > _STEP_CACHE_MAX:

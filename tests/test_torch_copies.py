@@ -14,11 +14,13 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 COPIES = sorted(
     [f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob("*.py")]
     + ["core/hw.py", "core/resources.py", "core/drf.py",
-       "runtime/scheduler.py", "runtime/telemetry.py"])
+       "runtime/kv_pool.py", "runtime/scheduler.py",
+       "runtime/telemetry.py"])
 
 
 # copy lines allowed to differ from the reference's line at the same place
 REWORDED = {
+    "runtime/kv_pool.py": ("continuous batching made decode work",),
     "runtime/scheduler.py": ("first come, first served (the original "
                              "behavior).",),
 }

@@ -119,8 +119,8 @@ def test_engine_api_edges():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("cache", "paged"), ("kv_dtype", "int8"), ("draft_k", 2),
-    ("preempt", True), ("role", "prefill"), ("mesh_shape", (1, 2))])
+    ("kv_dtype", "int8"), ("draft_k", 2), ("preempt", True),
+    ("role", "prefill"), ("mesh_shape", (1, 2))])
 def test_unported_serve_config_fields_raise(field, value):
     model, params = _port()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
