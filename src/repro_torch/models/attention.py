@@ -143,12 +143,19 @@ def cache_update(k_cache, v_cache, k_new, v_new, pos):
     """Write (B,1,KV,D) rows at ``pos`` of (B,S,KV,D) caches, in place.
 
     ``pos`` scalar writes every slot at one position; (B,) writes each slot
-    at its own.  Out-of-range positions CLAMP to [0, S-1], as JAX's
-    ``dynamic_update_slice`` does: an inactive slot (pos = -1) writes row 0,
-    never row S-1 as a torch ``[-1]`` index would.
+    at its own.  Out-of-range positions follow what the reference computes
+    under jax 0.9, whose ``dynamic_update_slice`` takes a negative start
+    index from the end: a position in [-S, -1] writes row S + pos (a
+    parked slot at pos -1 writes row S-1), anything lower row 0, and a
+    position past the end row S-1.  The reference's own docstring says
+    negative positions clamp to row 0; its behaviour is what the port
+    matches.  A parked slot's row S-1 is written again before any read:
+    a slot at pos S-1 writes that row before it attends it, and the engine
+    finishes a slot at ``max_len - 1``.
     """
     b, s = k_cache.shape[0], k_cache.shape[1]
-    rows = _pos_vector(pos, b, k_cache.device).clamp(0, s - 1)
+    pos = _pos_vector(pos, b, k_cache.device)
+    rows = torch.where(pos < 0, pos + s, pos).clamp(0, s - 1)
     bidx = torch.arange(b, device=k_cache.device)
     k_cache[bidx, rows] = k_new[:, 0].to(k_cache.dtype)
     v_cache[bidx, rows] = v_new[:, 0].to(v_cache.dtype)
@@ -186,13 +193,34 @@ def paged_cache_update(k_pages, v_pages, k_new, v_new, pos, page_idx,
     """Write (B,1,KV,D) rows at logical ``pos`` through the page table, in
     place: slot ``b`` writes page ``page_idx[b, pos[b] // page_size]`` at
     offset ``pos[b] % page_size``.  A parked slot (pos < 0) writes the null
-    page 0 -- computed explicitly, never through a torch ``[-1]`` index,
-    which would hit the slot's last mapped page.  A position past the
-    table's span also goes to page 0 (the reference drops that write);
-    either way no mapped page is touched.  The T = 1 case of
-    ``paged_cache_update_multi``."""
-    return paged_cache_update_multi(k_pages, v_pages, k_new, v_new, pos,
-                                    page_idx, page_size)
+    page 0 at offset 0 -- computed explicitly, never through a torch
+    ``[-1]`` index, which would hit the slot's last mapped page.  A
+    position past the table's span writes nothing, as in the reference
+    (its out-of-bounds table read makes the scatter drop the row).
+
+    Without a host sync: a dropped row repeats the first kept row's write
+    (same page, offset and value, so the duplicate is harmless); when no
+    row is kept, every row rewrites page 0 offset 0 with what it holds."""
+    b = k_new.shape[0]
+    max_len = page_idx.shape[1] * page_size
+    pos = _pos_vector(pos, b, k_pages.device)
+    keep = pos < max_len
+    posc = pos.clamp(0, max_len - 1)
+    page = torch.gather(page_idx.long(), 1, (posc // page_size)[:, None])[:, 0]
+    page = torch.where(pos >= 0, page, 0)
+    off = posc % page_size
+    # row b takes row src[b]'s write: itself if kept, else the first kept
+    # row (argmax of a bool is its first True; 0 when there is none)
+    src = torch.where(keep, torch.arange(b, device=pos.device),
+                      keep.int().argmax())
+    live = keep[src]
+    page = torch.where(live, page[src], 0)
+    off = torch.where(live, off[src], 0)
+    for pages, new in ((k_pages, k_new), (v_pages, v_new)):
+        rows = torch.where(live[:, None, None], new[src, 0].to(pages.dtype),
+                           pages[0, 0])
+        pages[page, off] = rows
+    return k_pages, v_pages
 
 
 def paged_cache_update_multi(k_pages, v_pages, k_new, v_new, pos, page_idx,

@@ -60,7 +60,8 @@ def test_params_keep_stacked_head_explicit_layout():
 
 @pytest.mark.parametrize("splits", [1, 2])
 def test_decode_step_matches_jax(splits):
-    """Ragged positions with a parked slot (-1) and the last row (S-1)."""
+    """Ragged positions with a parked slot (-1) and the last row (S-1);
+    logits and the whole caches, the parked slot's write included."""
     jm, jp, tm, tp = _pair(decode_splits=splits)
     b, s = 4, 32
     jc, tc = _filled_caches(jm, tm, b, s, seed=1)
@@ -73,14 +74,9 @@ def test_decode_step_matches_jax(splits):
                                rtol=ATOL)
     got = convert.cache_to_numpy(tc2)
     for key in ("k", "v"):
-        want = np.asarray(jc2["stack"][key])
-        # live slots agree everywhere; the parked slot's don't-care write
-        # lands on row 0 in the port and on row S-1 under jax >= 0.5,
-        # which wraps negative update indices (see ROADMAP.md, faults)
-        np.testing.assert_allclose(got["stack"][key][:, 1:], want[:, 1:],
+        np.testing.assert_allclose(got["stack"][key],
+                                   np.asarray(jc2["stack"][key]),
                                    atol=ATOL, rtol=ATOL)
-        np.testing.assert_allclose(got["stack"][key][:, 0, 1:s - 1],
-                                   want[:, 0, 1:s - 1], atol=ATOL, rtol=ATOL)
 
 
 def test_prefill_chunk_step_matches_jax():
@@ -105,31 +101,32 @@ def test_prefill_chunk_step_matches_jax():
 
 
 def test_cache_update_clamps_negative_pos_to_row_zero():
-    """The reference's documented contract (repro/models/attention.py
-    ``cache_update``): an out-of-range position clamps into [0, S-1], so
-    a parked slot (pos -1) writes row 0 -- never row S-1, where a torch
-    [-1] index would write.  Past the end both frameworks clamp to S-1."""
+    """The reference documents that a negative position clamps to row 0,
+    but under jax 0.9 ``dynamic_update_slice`` takes a negative start from
+    the end: pos -1 writes row S-1, pos -S row 0, lower positions clamp to
+    row 0 and past-the-end ones to row S-1.  The port writes where the
+    reference does, whole caches compared, for (B,) and scalar positions."""
     from repro.models import attention as jattn
 
     rng = np.random.default_rng(6)
-    kc = rng.normal(size=(2, 8, 1, 4)).astype(np.float32)
-    new = rng.normal(size=(2, 1, 1, 4)).astype(np.float32)
-    tk = torch.from_numpy(kc.copy())
-    tattn.cache_update(tk, tk.clone(), torch.from_numpy(new),
-                       torch.from_numpy(new), torch.tensor([-1, 8]))
-    np.testing.assert_array_equal(tk[0, 0].numpy(), new[0, 0])
-    np.testing.assert_array_equal(tk[0, 1:].numpy(), kc[0, 1:])
-    np.testing.assert_array_equal(tk[1, 7].numpy(), new[1, 0])
-    np.testing.assert_array_equal(tk[1, :7].numpy(), kc[1, :7])
-    # in-range and past-the-end positions agree with JAX exactly
-    pos = np.array([3, 8], np.int32)
-    jk, _ = jattn.cache_update(jnp.asarray(kc), jnp.asarray(kc),
-                               jnp.asarray(new), jnp.asarray(new),
-                               jnp.asarray(pos))
-    tk = torch.from_numpy(kc.copy())
-    tattn.cache_update(tk, tk.clone(), torch.from_numpy(new),
-                       torch.from_numpy(new), torch.from_numpy(pos))
-    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    s = 8
+    kc = rng.normal(size=(4, s, 1, 4)).astype(np.float32)
+    new = rng.normal(size=(4, 1, 1, 4)).astype(np.float32)
+    for pos in (np.array([-1, s, -s, -s - 1], np.int32),
+                np.array([-3, 3, s + 5, 0], np.int32), np.int32(-1),
+                np.int32(s)):
+        jk, jv = jattn.cache_update(jnp.asarray(kc), jnp.asarray(kc + 1),
+                                    jnp.asarray(new), jnp.asarray(new - 1),
+                                    jnp.asarray(pos))
+        tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(kc + 1)
+        tattn.cache_update(tk, tv, torch.from_numpy(new),
+                           torch.from_numpy(new - 1), torch.as_tensor(pos))
+        np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    # the parked slot's row: S-1, as the reference writes it
+    np.testing.assert_array_equal(np.asarray(jattn.cache_update(
+        jnp.asarray(kc), jnp.asarray(kc), jnp.asarray(new), jnp.asarray(new),
+        jnp.int32(-1))[0])[0, s - 1], new[0, 0])
 
 
 def test_cache_update_multi_clips_each_row():

@@ -83,8 +83,9 @@ def _update_both(jfn, tfn, pools, new, *args):
 
 def test_paged_cache_update_parks_on_null_page():
     """pos -1 writes null page 0 (offset 0) -- not the slot's last mapped
-    page, where a torch [-1] index would land -- and a mapped position
-    writes its page and offset; both exactly as the reference."""
+    page, where a torch [-1] index would land -- a mapped position writes
+    its page and offset, and a position past the span writes nothing; all
+    exactly as the reference, whole pools compared."""
     pools, new = _rows(10, seed=1)
     table = np.array([[3, 5, 0, 0, 0, 0, 0, 0], [7, 2, 9, 0, 0, 0, 0, 0]],
                      np.int32)
@@ -97,13 +98,16 @@ def test_paged_cache_update_parks_on_null_page():
     np.testing.assert_array_equal(got[5], pools[5])  # slot 0's last page
     changed = np.argwhere((got != pools).any(axis=(2, 3)))
     assert sorted(map(tuple, changed)) == [(0, 0), (2, 2)]
-    # past the table's span: the reference drops the write, the port sends
-    # it to the null page; neither touches a mapped page
-    pos = np.array([-1, MAX_PAGES * PAGE], np.int32)
-    got, want = _update_both(jattn.paged_cache_update,
-                             tattn.paged_cache_update, pools, new, pos, table)
-    np.testing.assert_array_equal(got[1:], pools[1:])
-    np.testing.assert_array_equal(want[1:], pools[1:])
+    # past the table's span the reference drops the write, and so does the
+    # port: with a parked slot beside it, with a live slot beside it, and
+    # with every row past the span
+    for pos in ([-1, MAX_PAGES * PAGE], [5, MAX_PAGES * PAGE + 3],
+                [MAX_PAGES * PAGE, MAX_PAGES * PAGE + 1]):
+        got, want = _update_both(jattn.paged_cache_update,
+                                 tattn.paged_cache_update, pools, new,
+                                 np.array(pos, np.int32), table)
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, pools)
 
 
 def test_paged_cache_update_multi_past_span_goes_to_null_page():
