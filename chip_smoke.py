@@ -29,7 +29,25 @@ Run from the repository root.  Phases, each raising on failure:
    served alone with the prefix cache off must give the same tokens; one
    paged decode step's and one paged prefill chunk's logits through the
    kernels must match the plain path; a paged decode tick is timed and
-   profiled as in phase 4.
+   profiled as in phase 4;
+3c. whole-sequence kernels: flash attention (B=2, S=4096, H=16, KV=8,
+   D=128; causal with window 0 and 1024, not causal at S=1024, one bf16
+   case) and the SSD chunk (mamba2-1.3b's B=2, NC=16, NH=64, Q=256, hp=64,
+   ds=128, G=1, and a G=2 case) against their plain versions, then timed
+   against the plain version, SDPA (flash attention only) and the bound;
+5. the attention forward path: internlm2-1.8b's ``make_prefill_step`` on
+   2 prompts x 4096 tokens must launch flash attention 24 times; its
+   last-row logits must match the plain path and the dense engine's
+   chunked prefill of the same prompt; the prefill is timed and profiled;
+6. the SSM path: internlm2 is freed and mamba2-1.3b built at full width
+   and depth (48 layers, seeded f32 weights); ``make_prefill_step`` on 4
+   prompts x 2048 tokens must launch the SSD kernel 48 times, its logits
+   must match the plain path, 32 greedy decode steps follow from its
+   states; one 128-token prompt's prefill-then-decode logits must match
+   the token-fed path the engine runs; ``ServeEngine`` serves mamba2 in
+   continuous mode (more requests than slots, a reused slot checked
+   against a fresh engine) and in wave mode; the prefill and a decode tick
+   are timed and profiled.
 
 The last lines are the nvidia-smi line, a JSON ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -83,6 +101,10 @@ BF16_ULP = 2.0 ** -7
 # Logits after 24 layers: each layer's attention differs by ~1e-6, which
 # the residual stream carries through to the unembedding.
 LOGIT_TOL = 1e-3
+# mamba2, the same prompt by two routes (one chunked-SSD prefill against
+# 128 single-token recurrence steps): f32 both ways, the state summed in
+# other orders over 48 layers.
+SSM_FEED_TOL = 1e-3
 
 
 def _log(msg):
@@ -418,13 +440,13 @@ def _timed_row(name, run, plain, lib_ms, bound, bound_by, source, replaces,
 
 @contextlib.contextmanager
 def _plain_attention():
-    """Route the model's attention (dense decode, paged decode, paged
-    prefill) through the plain versions for CUDA tensors (for the logits
-    comparisons only)."""
+    """Route the model's kernels (dense decode, paged decode, paged
+    prefill, flash attention, SSD chunk) through the plain versions for
+    CUDA tensors (for the logits comparisons only)."""
     from repro_torch.kernels import ops
 
     names = ("decode_attention", "paged_decode_attention",
-             "paged_prefill_attention")
+             "paged_prefill_attention", "flash_attention", "ssd_chunk")
     kernel_paths = {n: getattr(ops, n) for n in names}
     for n in names:
         setattr(ops, n, getattr(ops, n + "_plain"))
@@ -705,6 +727,369 @@ def phase_paged_engine(model, params):
     return {n.removesuffix("_cuda"): c for n, c in paged.items()}
 
 
+# -------------------------------------------------- whole-sequence kernels
+FS, FB = 4096, 2  # flash attention: internlm2 prefill of 2 x 4096
+SSD = dict(B=2, NC=16, NH=64, G=1, Q=256, HP=64, DS=128)  # mamba2, S=4096
+# SSD chunk against its plain version: both accumulate f32 products (ds =
+# 128 for C.B^T, up to Q = 256 keys for att @ x and the state) in other
+# orders; relative to the output's largest magnitude that stays far below
+# 1e-5 (f32 rounding of a 256-term sum is ~256 * 2^-24 ~ 1.5e-5 at worst,
+# ~1e-6 in practice).
+SSD_RTOL = 1e-5
+
+
+def _flash_inputs(b, s, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, s, H, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((b, s, KV, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((b, s, KV, D), generator=g, device="cuda").to(dtype)
+    return q, k, v
+
+
+def _flash_bound_ms(q, k, causal, window):
+    """QK + PV flops (4 D per attended (row, key) pair) at the card's f32
+    rate, against q, K, V and the output read or written once."""
+    b, s = q.shape[0], q.shape[1]
+    qpos = torch.arange(s, device="cuda")[:, None]
+    kpos = torch.arange(s, device="cuda")[None, :]
+    seen = torch.ones((s, s), dtype=torch.bool, device="cuda")
+    if causal:
+        seen &= kpos <= qpos
+    if window:
+        seen &= qpos - kpos < window
+    pairs = b * H * int(seen.sum())
+    t_ops = 4 * D * pairs / F32_FLOPS * 1e3
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * k.numel() * k.element_size())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _ssd_inputs(B_, NC, NH, G, Q, HP_, DS, seed=0):
+    """Inputs as ``ssm_forward`` makes them, through the same transposed
+    views: x and B/C (B, NC, Q, .) activations, dt in [1e-3, 1e-1] (the
+    init's softplus range), a in [-16, -1], cum the inclusive cumsum of
+    dt * a within each chunk."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = 0.5 * torch.randn((B_, NC, Q, NH, HP_), generator=g, device="cuda")
+    bc = 0.5 * torch.randn((B_, NC, Q, G, 2 * DS), generator=g,
+                           device="cuda")
+    u = torch.rand((B_, NC, Q, NH), generator=g, device="cuda")
+    dt = torch.exp(np.log(1e-3) + (np.log(1e-1) - np.log(1e-3)) * u)
+    a = -(1.0 + 15.0 * torch.rand((NH,), generator=g, device="cuda"))
+    cum = torch.cumsum(dt * a, dim=2)
+    return (x.transpose(2, 3), bc[..., :DS].transpose(2, 3),
+            bc[..., DS:].transpose(2, 3), dt.transpose(2, 3),
+            cum.transpose(2, 3))
+
+
+def _ssd_bound_ms(x, b):
+    """Products over the lower triangle (the pairs i >= j a chunk needs):
+    C.B^T 2 ds flops per pair per (chunk, group), att @ x 2 hp per pair
+    per (chunk, head), the state 2 Q ds hp per (chunk, head), at the
+    card's f32 rate; against x, B, C, dt, cum read once and y, the state
+    written once."""
+    bb, nc, nh, q, hp = x.shape
+    g, ds = b.shape[2], b.shape[4]
+    pairs = q * (q + 1) // 2
+    flops = bb * nc * (g * 2 * ds * pairs + nh * 2 * hp * pairs
+                       + nh * 2 * q * ds * hp)
+    t_ops = flops / F32_FLOPS * 1e3
+    es = x.element_size()
+    nbytes = (2 * x.numel() * es + 2 * b.numel() * es
+              + 2 * bb * nc * nh * q * 4 + bb * nc * nh * ds * hp * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _check_ssd(label, got, want):
+    """Max abs error of y and the state, each against SSD_RTOL times its
+    plain version's largest magnitude."""
+    worst = 0.0
+    for name, a, w in (("y", got[0], want[0]), ("state", got[1], want[1])):
+        err = float((a.float() - w.float()).abs().max())
+        tol = SSD_RTOL * float(w.abs().max())
+        _log(f"[kernels] {label} {name}: max_abs_err {err:.3g} (tol "
+             f"{tol:.3g} = {SSD_RTOL} x max |want| {float(w.abs().max()):.3g})")
+        if not (err <= tol and torch.isfinite(a).all()):
+            raise AssertionError(f"{label} {name} disagrees with its plain "
+                                 f"version")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_forward_kernels():
+    """Flash attention and the SSD chunk against their plain versions at
+    the forward path's shapes, then timed."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ops import flash_attention_plain, ssd_chunk_plain
+    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda
+
+    flash_err = 0.0
+    for s, causal, window, dt in ((FS, True, 0, torch.float32),
+                                  (FS, True, 1024, torch.float32),
+                                  (1024, False, 0, torch.float32),
+                                  (FS, True, 0, torch.bfloat16)):
+        q, k, v = _flash_inputs(FB, s, dt)
+        p_round = None
+        if dt == torch.bfloat16:  # rows near the start see few keys
+            p_round = 2.0 ** -8 * flash_attention_plain(
+                q, k, v.abs(), causal=causal, window=window)
+        err = _check(f"flash_attention S={s} causal={causal} "
+                     f"window={window} {dt}",
+                     flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window),
+                     flash_attention_plain(q, k, v, causal=causal,
+                                           window=window), dt, p_round)
+        if dt == torch.float32:
+            flash_err = max(flash_err, err)
+        del q, k, v, p_round
+    ssd_err = 0.0
+    for shape in (SSD, dict(SSD, B=1, NC=4, NH=16, G=2, DS=64)):
+        args = _ssd_inputs(*shape.values())
+        ssd_err = max(ssd_err, _check_ssd(
+            f"ssd_chunk {shape}", ssd_chunk_cuda(*args),
+            ssd_chunk_plain(*args)))
+    torch.cuda.synchronize()
+
+    rows = []
+    q, k, v = _flash_inputs(FB, FS, torch.float32)
+    bound, bound_by = _flash_bound_ms(q, k, True, 0)
+    kx = k.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+    vx = v.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+    qt = q.transpose(1, 2)
+    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kx, vx, is_causal=True))
+    rows.append(_timed_row(
+        "flash_attention", lambda: flash_attention_cuda(q, k, v),
+        lambda: flash_attention_plain(q, k, v), lib_ms, bound, bound_by,
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:83", flash_err))
+    del q, k, v, kx, vx, qt
+    args = _ssd_inputs(*SSD.values())
+    bound, bound_by = _ssd_bound_ms(args[0], args[1])
+    rows.append(_timed_row(
+        "ssd_chunk", lambda: ssd_chunk_cuda(*args),
+        lambda: ssd_chunk_plain(*args), None, bound, bound_by,
+        "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan.py:54", ssd_err))
+    return rows
+
+
+def _timed_prefill(run, label, n=2):
+    """Host clock around ``run`` ending in a synchronize, ``n`` times."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    _log(f"[forward] {label}: {', '.join(f'{t:.1f}' for t in times)} ms")
+    return times
+
+
+def _check_logits(label, got, want, tol=LOGIT_TOL):
+    err = float((got - want).abs().max())
+    _log(f"[forward] {label}: max_abs_err {err:.3g} (tol {tol}); |logits| "
+         f"max {float(want.abs().max()):.3g}")
+    if not (torch.isfinite(got).all() and err <= tol):
+        raise AssertionError(f"{label}: logits disagree")
+    return err
+
+
+def phase_forward_attention(model, params):
+    """internlm2-1.8b's batched whole-prompt prefill (2 x 4096) through
+    flash attention."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.runtime.steps import make_prefill_step
+
+    cfg = model.cfg
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(FB, FS)),
+                           device="cuda")
+    batch = {"tokens": toks}
+    step = make_prefill_step(model)
+    flash_attention_cuda.launches = 0
+    first, caches = step(params, batch)
+    torch.cuda.synchronize()
+    launches = flash_attention_cuda.launches
+    _log(f"[forward] internlm2 prefill step {FB} x {FS}: flash_attention "
+         f"launches {launches}; first tokens {first.ravel().tolist()}; "
+         f"cache k {tuple(caches['stack']['k'].shape)}")
+    if launches != cfg.num_layers:
+        raise AssertionError(f"flash attention launched {launches} times, "
+                             f"not once per layer ({cfg.num_layers})")
+    if first.shape != (FB, 1) or not bool(((first >= 0) & (
+            first < cfg.vocab_size)).all()):
+        raise AssertionError("prefill tokens outside the vocabulary")
+    del caches
+    logits, _ = model.prefill(params, batch)
+    with _plain_attention():
+        want, _ = model.prefill(params, batch)
+    _check_logits("internlm2 prefill logits, kernel vs plain", logits, want)
+    # the dense engine's route: one slot's chunked prefill of prompt 0
+    from repro_torch.runtime.steps import compiled_step
+
+    chunk_step = compiled_step(model, "prefill_chunk")
+    dense = model.init_cache(1, FS)
+    for off in range(0, FS, CHUNK):
+        _, dense = chunk_step(params, dense, toks[:1, off:off + CHUNK], 0,
+                              off)
+    last, _ = model.prefill_chunk_step(params, dense,
+                                       toks[:1, FS - CHUNK:], 0, FS - CHUNK)
+    _check_logits("internlm2 prefill vs the engine's chunked prefill "
+                  "(prompt 0, last row)", logits[:1], last[-1:])
+    del dense, want
+    times = _timed_prefill(functools.partial(step, params, batch),
+                           f"internlm2 prefill step {FB} x {FS}")
+    _profile_tick(functools.partial(step, params, batch),
+                  f"internlm2 prefill step {FB} x {FS}", ticks=1, top=10)
+    return launches, times
+
+
+def make_ssm_model():
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM, RuntimeKnobs
+
+    cfg = get_config("mamba2-1.3b")
+    model = LM(cfg, RuntimeKnobs(cache_dtype=torch.float32), device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    _log(f"[ssm] {cfg.name}: {cfg.num_layers} layers d_model {cfg.d_model} "
+         f"ssm {cfg.ssm} vocab {cfg.vocab_size}; init "
+         f"{time.perf_counter() - t0:.1f}s")
+    return model, params
+
+
+def phase_ssm(model, params):
+    """mamba2-1.3b: batched prefill through the SSD kernel, decode from its
+    states, the token-fed route, and the engine."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda
+    from repro_torch.runtime.serve import Request, ServeConfig, ServeEngine
+    from repro_torch.runtime.steps import make_prefill_step, make_serve_step
+
+    cfg = model.cfg
+    rng = np.random.default_rng(4)
+    sb, ss = 4, 2048
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(sb, ss)),
+                           device="cuda")
+    batch = {"tokens": toks}
+    step = make_prefill_step(model)
+    ssd_chunk_cuda.launches = 0
+    nxt, caches = step(params, batch)
+    torch.cuda.synchronize()
+    launches = ssd_chunk_cuda.launches
+    _log(f"[ssm] prefill step {sb} x {ss}: ssd_chunk launches {launches}; "
+         f"conv {tuple(caches['stack']['conv'].shape)} state "
+         f"{tuple(caches['stack']['state'].shape)}; |state| max "
+         f"{float(caches['stack']['state'].abs().max()):.3g}")
+    if launches != cfg.num_layers:
+        raise AssertionError(f"SSD kernel launched {launches} times, not "
+                             f"once per layer ({cfg.num_layers})")
+    logits, _ = model.prefill(params, batch)
+    with _plain_attention():
+        want, _ = model.prefill(params, batch)
+    _check_logits("mamba2 prefill logits, kernel vs plain", logits, want)
+    del want
+    # 32 greedy decode steps from the prefill's states
+    serve = make_serve_step(model)
+    out = [nxt]
+    for i in range(32):
+        nxt, caches = serve(params, caches, nxt, ss + i)
+        out.append(nxt)
+    stream = torch.cat(out, 1)
+    if not bool(((stream >= 0) & (stream < cfg.vocab_size)).all()):
+        raise AssertionError("decode tokens outside the vocabulary")
+    _log(f"[ssm] 32 decode steps after the prefill: slot 0 tokens "
+         f"{stream[0, :12].tolist()}...")
+    tick_ms = [_time_ms(functools.partial(serve, params, caches, nxt, ss),
+                        iters=10, warmup=2) for _ in range(3)]
+    _log(f"[ssm] decode tick, batch {sb}: "
+         f"{', '.join(f'{t:.3f}' for t in tick_ms)} ms (median of 10 each)")
+    _profile_tick(functools.partial(serve, params, caches, nxt, ss),
+                  f"mamba2 decode tick batch {sb}")
+    del caches
+
+    # one ~128-token prompt: prefill then decode against the token feed
+    # the engine runs (decode steps from a zeroed slot)
+    prompt = toks[:1, :128]
+    n_new = 8
+    lp, pc = model.prefill(params, {"tokens": prompt})
+    fed = model.init_cache(1, 256)
+    for t in range(128):
+        lf, fed = model.decode_step(params, fed, prompt[:, t:t + 1], t)
+    errs = [_check_logits("mamba2 128-token prompt: prefill vs token feed",
+                          lp, lf, SSM_FEED_TOL)]
+    pref = [int(lp.argmax())]
+    for i in range(n_new - 1):
+        tok = torch.tensor([[pref[-1]]], device="cuda")
+        lp, pc = model.decode_step(params, pc, tok, 128 + i)
+        lf, fed = model.decode_step(params, fed, tok, 128 + i)
+        errs.append(float((lp - lf).abs().max()))
+        pref.append(int(lp.argmax()))
+    _log(f"[ssm] prefill-then-decode vs token-fed logits over {n_new} "
+         f"steps: max_abs_err {max(errs):.3g} (tol {SSM_FEED_TOL})")
+    if max(errs) > SSM_FEED_TOL:
+        raise AssertionError("prefill-then-decode and token-fed logits "
+                             "disagree")
+    eng = ServeEngine(model, params, ServeConfig(batch_slots=4, max_len=256))
+    h = eng.submit(Request(0, prompt[0].cpu().numpy().astype(np.int32),
+                           max_new_tokens=n_new))
+    eng.run()
+    _log(f"[ssm] engine (token-fed) tokens {h.req.output}; prefill-then-"
+         f"decode {pref}")
+    if h.req.output != pref:
+        raise AssertionError("the engine's tokens differ from "
+                             "prefill-then-decode")
+
+    # the engine: more requests than slots, then wave mode
+    reqs = [(i, rng.integers(0, cfg.vocab_size, size=int(n)).astype(
+        np.int32)) for i, n in enumerate((20, 7, 31, 12, 25, 9))]
+    eng = ServeEngine(model, params, ServeConfig(batch_slots=4, max_len=128))
+    handles = [eng.submit(Request(i, p, max_new_tokens=8)) for i, p in reqs]
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks_out = sum(len(r.output) for r in done)
+    _log(f"[ssm] engine continuous: {len(done)}/6 requests, {toks_out} "
+         f"tokens in {wall:.3f}s = {toks_out / wall:.2f} tok/s; ttft p50 "
+         f"{statistics.median(h.metrics()['ttft_s'] for h in handles) * 1e3:.1f} ms")
+    if len(done) != 6 or any(len(r.output) != 8 for r in done):
+        raise AssertionError("mamba2 continuous run did not finish")
+    # the last request was admitted into a reused slot: alone, in a fresh
+    # engine, it must give the same tokens
+    solo = ServeEngine(model, params, ServeConfig(batch_slots=4,
+                                                  max_len=128))
+    hs = solo.submit(Request(5, reqs[5][1], max_new_tokens=8))
+    solo.run()
+    _log(f"[ssm] reused slot vs fresh engine: {handles[5].req.output} vs "
+         f"{hs.req.output}")
+    if hs.req.output != handles[5].req.output:
+        raise AssertionError("a reused slot's tokens differ from a fresh "
+                             "engine's")
+    wave = ServeEngine(model, params, ServeConfig(batch_slots=4, max_len=128,
+                                                  mode="wave"))
+    for i, p in reqs:
+        wave.submit(Request(i, p, max_new_tokens=8))
+    wdone = wave.run()
+    _log(f"[ssm] engine wave: {len(wdone)}/6 requests; streams equal to "
+         f"continuous: "
+         f"{sorted((r.req_id, r.output) for r in wdone) == sorted((r.req_id, r.output) for r in done)}")
+    if len(wdone) != 6:
+        raise AssertionError("mamba2 wave run did not finish")
+
+    times = _timed_prefill(functools.partial(step, params, batch),
+                           f"mamba2 prefill step {sb} x {ss}")
+    _profile_tick(functools.partial(step, params, batch),
+                  f"mamba2 prefill step {sb} x {ss}", ticks=1, top=10)
+    return launches, times
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -712,10 +1097,15 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     name, smi = phase_device()
     phase_build()
-    rows = phase_kernels() + phase_paged_kernels()
+    rows = phase_kernels() + phase_paged_kernels() + phase_forward_kernels()
     model, params = make_model()
     launches = phase_engine(model, params)
     launches.update(phase_paged_engine(model, params))
+    launches["flash_attention"], _ = phase_forward_attention(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    model, params = make_ssm_model()
+    launches["ssd_chunk"], _ = phase_ssm(model, params)
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(smi)

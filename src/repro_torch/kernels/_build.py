@@ -21,7 +21,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("decode_attention", "paged_attention")
+SOURCES = ("decode_attention", "paged_attention", "flash_attention",
+           "ssd_scan")
 
 _LOADED: dict = {}
 build_seconds: dict = {}  # name -> wall seconds of the last nvcc run

@@ -1,9 +1,11 @@
-// Pieces shared by the decode kernels over a dense cache
-// (decode_attention.cu) and over the paged pool (paged_attention.cu):
-// element conversions, warp reductions, the 16-byte score dot, the key-tile
-// loader (parameterised by how a key row's address is found: dense strides
-// or a page-table lookup), the online-softmax step of one row over one key
-// tile, the ragged decode kernel itself and the split-K combine kernel.
+// Pieces shared by the attention kernels over a dense cache
+// (decode_attention.cu, flash_attention.cu) and over the paged pool
+// (paged_attention.cu): element conversions, warp reductions, the 16-byte
+// score dot, the key-tile loader (parameterised by how a key row's address
+// is found: dense strides or a page-table lookup), the online-softmax step
+// of one row over one key tile, the ragged decode kernel, the split-K
+// combine kernel and the many-row kernel that serves both the full-sequence
+// flash attention and the paged chunked prefill.
 //
 // The decode contract (as the TPU kernels'): slot b's query row t sits at
 // absolute position pos[b] + t and attends keys kpos <= pos[b] + t (and
@@ -345,6 +347,223 @@ __global__ void __launch_bounds__(D) splitk_combine_kernel(Params p) {
   }
   const float y = p.active[b] ? num / fmaxf(denom, 1e-30f) : 0.f;
   static_cast<TQ*>(p.out)[((long long)b * p.H + h) * D + d] = from_f<TQ>(y);
+}
+
+// ---------------------------------------------------------------------
+// Many-row attention: full-sequence flash attention (dense, batch B,
+// causal or not, windowed or not) and one slot's paged prefill chunk.
+// Query row t of batch b sits at position q_offset + t.  Key kpos is seen
+// when kpos <= qpos (causal) and qpos - kpos < window (window > 0).
+//
+// One CTA per (KV head j, tile of QT = 64 / G query positions, batch b),
+// serving all G heads of those positions (64 query rows), so each K/V tile
+// is read once per 64 rows and fed to 64 x 32 score dots.  Eight warps own
+// eight rows each for the whole loop: a lane computes its key's score for
+// the warp's rows, runs the online softmax across the warp with shuffles,
+// and accumulates 4 output columns of those rows, so only the K/V tile
+// loads need the whole CTA.  The key loop starts at the window's first
+// tile and (causal) ends at the tile's last position: the TPU kernel's
+// skip of fully masked blocks becomes loop bounds; causal query tiles are
+// issued last-first, heaviest first.  q (f32) and the K/V
+// tiles sit in dynamic shared memory (65 KiB with f32 K/V, 49 KiB with
+// bf16: past the 48 KiB static limit); K/V rows are padded by 16 bytes so
+// a quarter-warp's 16-byte reads of 8 key rows hit distinct banks.  A row
+// that sees no key at all (only possible when Sq > Sk) writes 0.
+constexpr int PF_ROWS = 64;                   // query rows per CTA
+constexpr int PF_WARPS = 8;
+constexpr int PF_THREADS = 32 * PF_WARPS;
+constexpr int PF_RPW = PF_ROWS / PF_WARPS;    // rows per warp
+
+struct PrefillParams {
+  const void* q;        // (B, Sq, H, D) through strides
+  const void* k;        // dense (B, Sk, KV, D); paged (P, page_size, KV, D)
+  const void* v;
+  void* out;            // contiguous (B, Sq, H, D), q's dtype
+  const int* page_row;  // paged only: the slot's page-table row
+  int Sq, Sk, H, KV, q_offset, window, causal, page_size;
+  long long q_sb, q_st, q_sh;
+  // dense: (batch, seq, kv head) strides; paged: (page, token, kv head)
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+};
+
+// Four consecutive elements of a V row as f32.
+__device__ __forceinline__ void load4(const float* v, float* f) {
+  const float4 x = *reinterpret_cast<const float4*>(v);
+  f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* v, float* f) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(v);
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 a = __bfloat1622float2(x[0]), b = __bfloat1622float2(x[1]);
+  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+}
+
+template <typename TKV, int D>
+constexpr int prefill_smem_bytes() {
+  return PF_ROWS * D * (int)sizeof(float) +
+         2 * TK * (D + 16 / (int)sizeof(TKV)) * (int)sizeof(TKV);
+}
+
+// Query row r of a CTA is row t0 + r / G, query head j * G + r % G.
+template <typename TQ, typename TKV, int D, bool PAGED>
+__global__ void __launch_bounds__(PF_THREADS) prefill_kernel(PrefillParams p) {
+  static_assert(D == 32 * 4, "a lane owns 4 output columns");
+  constexpr int VEC = 16 / sizeof(TKV);
+  constexpr int LD = D + VEC;  // padded K/V row, in elements
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);          // [PF_ROWS][D]
+  TKV* Ks = reinterpret_cast<TKV*>(qs + PF_ROWS * D);  // [TK][LD]
+  TKV* Vs = Ks + TK * LD;                              // [TK][LD]
+
+  const int j = blockIdx.x, b = blockIdx.z;
+  const int G = p.H / p.KV, QT = PF_ROWS / G;
+  // causal: the last query tiles see the most keys; issue them first
+  const int t0 = (p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * QT;
+  const int nt = min(QT, p.Sq - t0);  // query rows this CTA holds
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  const TQ* q = static_cast<const TQ*>(p.q) + b * p.q_sb;
+  for (int idx = tid; idx < PF_ROWS * D; idx += PF_THREADS) {
+    const int r = idx / D, d = idx - r * D;
+    const int t = r / G, g = r - t * G;
+    qs[idx] = t < nt ? to_f(q[(t0 + t) * p.q_st + (j * G + g) * p.q_sh + d])
+                     : 0.f;
+  }
+  // keys this CTA may need: [lo, hi); causal: ending at its last row
+  const int qfirst = p.q_offset + t0;
+  const int hi = p.causal ? min(p.Sk, qfirst + nt) : p.Sk;
+  const int lo = p.window ? max(0, qfirst - p.window + 1) : 0;
+
+  float m[PF_RPW], l[PF_RPW], acc[PF_RPW][4];
+#pragma unroll
+  for (int i = 0; i < PF_RPW; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  }
+
+  KeyRows<TKV, PAGED> krows, vrows;
+  krows.row = vrows.row = p.page_row;
+  krows.page_size = vrows.page_size = p.page_size;
+  krows.base = static_cast<const TKV*>(p.k) + j * p.k_sh +
+               (PAGED ? 0 : b * p.k_sb);
+  vrows.base = static_cast<const TKV*>(p.v) + j * p.v_sh +
+               (PAGED ? 0 : b * p.v_sb);
+  krows.s_page = p.k_sb;
+  vrows.s_page = p.v_sb;
+  krows.s_row = p.k_ss;
+  vrows.s_row = p.v_ss;
+  const float scale = 1.0f / sqrtf((float)D);
+  __syncthreads();
+
+  const int kbeg = lo < hi ? (lo / TK) * TK : hi;  // empty range: no tile
+  TileLoader<TKV, D, PF_THREADS> tile;
+  if (kbeg < hi) tile.load(krows, vrows, kbeg, lo, hi);
+  for (int k0 = kbeg; k0 < hi; k0 += TK) {
+    tile.template store<LD>(Ks, Vs);
+    __syncthreads();
+    // the next tile's loads fly while this tile's math runs
+    if (k0 + TK < hi) tile.load(krows, vrows, k0 + TK, lo, hi);
+
+    // scores: lane i holds key k0 + i against each of the warp's rows
+    float s[PF_RPW];
+#pragma unroll
+    for (int i = 0; i < PF_RPW; ++i) s[i] = 0.f;
+    const TKV* krow = Ks + lane * LD;
+#pragma unroll 2
+    for (int c = 0; c < D / VEC; ++c) {
+      float kf[VEC];
+      Chunk<TKV>::get(*reinterpret_cast<const uint4*>(krow + c * VEC), kf);
+#pragma unroll
+      for (int i = 0; i < PF_RPW; ++i) {
+        const float* qr = qs + (warp * PF_RPW + i) * D + c * VEC;
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(qr + e);
+          s[i] = fmaf(a.x, kf[e], s[i]);
+          s[i] = fmaf(a.y, kf[e + 1], s[i]);
+          s[i] = fmaf(a.z, kf[e + 2], s[i]);
+          s[i] = fmaf(a.w, kf[e + 3], s[i]);
+        }
+      }
+    }
+
+    // online softmax, one row at a time across the warp
+    const int kpos = k0 + lane;
+    float pr[PF_RPW];
+#pragma unroll
+    for (int i = 0; i < PF_RPW; ++i) {
+      const int t = (warp * PF_RPW + i) / G;
+      const int qpos = qfirst + t;
+      const bool ok = t < nt && kpos >= lo && kpos < hi &&
+                      (!p.causal || kpos <= qpos) &&
+                      (p.window == 0 || qpos - kpos < p.window);
+      float alpha;
+      pr[i] = softmax_step<TKV>(s[i] * scale, ok, m[i], l[i], alpha);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] *= alpha;
+    }
+
+    // PV: lane owns output columns 4 * lane .. 4 * lane + 3
+#pragma unroll 4
+    for (int k = 0; k < TK; ++k) {
+      float vf[4];
+      load4(Vs + k * LD + lane * 4, vf);
+#pragma unroll
+      for (int i = 0; i < PF_RPW; ++i) {
+        const float pk = __shfl_sync(0xffffffffu, pr[i], k);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(pk, vf[e], acc[i][e]);
+      }
+    }
+    __syncthreads();
+  }
+
+  TQ* out = static_cast<TQ*>(p.out) + (long long)b * p.Sq * p.H * D;
+#pragma unroll
+  for (int i = 0; i < PF_RPW; ++i) {
+    const int r = warp * PF_RPW + i;
+    const int t = r / G, g = r - t * G;
+    if (t >= nt) continue;
+    const float inv = 1.0f / fmaxf(l[i], 1e-30f);
+    TQ* o = out + ((long long)(t0 + t) * p.H + j * G + g) * D + lane * 4;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[e] = from_f<TQ>(acc[i][e] * inv);
+  }
+}
+
+template <typename TQ, typename TKV, bool PAGED>
+cudaError_t launch_prefill_typed(const PrefillParams& p, int B, int D,
+                                 cudaStream_t st) {
+  if (D != 128) return cudaErrorInvalidValue;
+  constexpr int smem = prefill_smem_bytes<TKV, 128>();
+  // above 48 KB dynamic shared memory must be allowed explicitly, once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      prefill_kernel<TQ, TKV, 128, PAGED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const int qt = PF_ROWS / (p.H / p.KV);
+  const dim3 grid(p.KV, (p.Sq + qt - 1) / qt, B);
+  prefill_kernel<TQ, TKV, 128, PAGED><<<grid, PF_THREADS, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+// dtype codes: 0 = float32, 1 = bfloat16
+template <bool PAGED>
+cudaError_t launch_prefill(const PrefillParams& p, int B, int D, int q_dtype,
+                           int kv_dtype, cudaStream_t st) {
+  if (q_dtype == 0 && kv_dtype == 0)
+    return launch_prefill_typed<float, float, PAGED>(p, B, D, st);
+  if (q_dtype == 0 && kv_dtype == 1)
+    return launch_prefill_typed<float, __nv_bfloat16, PAGED>(p, B, D, st);
+  if (q_dtype == 1 && kv_dtype == 0)
+    return launch_prefill_typed<__nv_bfloat16, float, PAGED>(p, B, D, st);
+  if (q_dtype == 1 && kv_dtype == 1)
+    return launch_prefill_typed<__nv_bfloat16, __nv_bfloat16, PAGED>(p, B, D,
+                                                                      st);
+  return cudaErrorInvalidValue;
 }
 
 template <typename TQ, typename TKV, bool SPLIT, bool PAGED>

@@ -1,5 +1,5 @@
-"""Model-layout dispatch of the attention kernels (the counterpart of
-``repro/kernels/ops.py``).
+"""Model-layout dispatch of the attention and SSD kernels (the counterpart
+of ``repro/kernels/ops.py``).
 
 The device decides the path: tensors on the CPU take the plain versions in
 ``ref.py`` (through transposed views); CUDA tensors launch the
@@ -12,9 +12,11 @@ from __future__ import annotations
 from . import ref
 from .decode_attention import (decode_attention_cuda,
                                decode_attention_splitk_cuda)
+from .flash_attention import flash_attention_cuda
 from .paged_attention import (paged_decode_attention_cuda,
                               paged_decode_attention_splitk_cuda,
                               paged_prefill_attention_cuda)
+from .ssd_scan import ssd_chunk_cuda
 
 
 def _split(q, num_splits):
@@ -118,3 +120,37 @@ def paged_prefill_attention(q, k_pages, v_pages, page_idx, slot, offset, *,
     return paged_prefill_attention_cuda(q, k_pages, v_pages,
                                         page_idx[int(slot)], int(offset),
                                         window=window)
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=0):
+    """The full-sequence plain version in model layout, on any device (the
+    CPU path of ``flash_attention``; the on-card checks compare the kernel
+    with it)."""
+    out = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal, window=window)
+    return out.transpose(1, 2)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    """Model layout: q (B,S,H,D); k,v (B,S,KV,D) -> (B,S,H,D).  Query row
+    i attends key j when ``j <= i`` (``causal``) and ``i - j < window``
+    (``window > 0``)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+def ssd_chunk_plain(x, b, c, dt, cum):
+    """The SSD chunk's plain version, on any device (the CPU path of
+    ``ssd_chunk``; the on-card checks compare the kernel with it)."""
+    return ref.ssd_chunk_ref(x, b, c, dt, cum)
+
+
+def ssd_chunk(x, b, c, dt, cum):
+    """SSD intra-chunk compute in the kernel layout of
+    ``repro/kernels/ssd_scan.py``: x (B,NC,NH,Q,hp); b,c (B,NC,G,Q,ds);
+    dt,cum (B,NC,NH,Q) f32 -> (y (B,NC,NH,Q,hp), state (B,NC,NH,ds,hp)
+    f32)."""
+    if x.device.type == "cpu":
+        return ssd_chunk_plain(x, b, c, dt, cum)
+    return ssd_chunk_cuda(x, b, c, dt, cum)

@@ -1,9 +1,9 @@
-"""Plain PyTorch versions of the attention kernels (the correctness
-contract).
+"""Plain PyTorch versions of the attention and SSD kernels (the
+correctness contract).
 
-Deliberately naive: full score matrices, explicit masks, f32 throughout.
-Kernel layout, as ``repro/kernels/ref.py``: q (B, H, T, D), caches
-(B, KV, S, D), page pools (P, KV, page_size, D).  The dispatch in
+Deliberately naive: full score (and SSD decay) matrices, explicit masks,
+f32 throughout.  Kernel layout, as ``repro/kernels/ref.py``: q (B, H, T,
+D), caches (B, KV, S, D), page pools (P, KV, page_size, D).  The dispatch in
 ``ops.py`` passes transposed *views* of the model-layout tensors, so
 nothing is copied on the way in; the paged versions gather each slot's
 pages into a dense view.
@@ -145,3 +145,53 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, page_row, q_offset, *,
     ``paged_prefill_attention_ref``."""
     return paged_decode_attention_ref(q, k_pages, v_pages, page_row[None],
                                       q_offset, window=window)
+
+
+def attention_ref(q, k, v, *, causal=True, window=0):
+    """q (B,H,Sq,D); k,v (B,KV,Sk,D) -> (B,H,Sq,D): one full softmax per
+    row, f32.  Query row i attends key j when ``j <= i`` (``causal``) and
+    ``i - j < window`` (``window > 0``).  Mirrors ``repro/kernels/ref.py``
+    ``attention_ref``, whose fully masked rows (possible only when
+    Sq > Sk) average v over every key."""
+    sq, sk = q.shape[2], k.shape[2]
+    sc = _scores(q, k)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= qpos - kpos < window
+    sc = torch.where(mask, sc, NEG_INF)
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    vx = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1).float()
+    return torch.einsum("bhqk,bhkd->bhqd", p, vx).to(q.dtype)
+
+
+def ssd_chunk_ref(x, b, c, dt, cum):
+    """Mamba2 SSD within each chunk.  x (B,NC,NH,Q,hp); b,c (B,NC,G,Q,ds),
+    head h reading group h // (NH // G); dt, cum (B,NC,NH,Q) f32 (the
+    softplus'd step and the inclusive cumsum of dt * a) ->
+    (y (B,NC,NH,Q,hp) in x's dtype, state (B,NC,NH,ds,hp) f32):
+
+        att[i, j] = (C_i . B_j) * exp(cum_i - cum_j) * dt_j   (j <= i)
+        y = att @ x;  state = (B * exp(cum_last - cum) * dt)^T @ x
+
+    The mask selects after the exp, so the overflowing exp(cum_i - cum_j)
+    of j > i never multiplies a 0.  Mirrors ``repro/kernels/ref.py``
+    ``ssd_chunk_ref``."""
+    rep = x.shape[2] // b.shape[2]
+    q = x.shape[3]
+    bx = b.repeat_interleave(rep, dim=2).float()  # (B,NC,NH,Q,ds)
+    cx = c.repeat_interleave(rep, dim=2).float()
+    cb = torch.einsum("bnhqs,bnhks->bnhqk", cx, bx)
+    decay = torch.exp(cum[..., :, None] - cum[..., None, :])
+    att = cb * decay * dt[..., None, :]
+    mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    att = torch.where(mask, att, 0.0)
+    xf = x.float()
+    y = torch.einsum("bnhqk,bnhkp->bnhqp", att, xf).to(x.dtype)
+    w = torch.exp(cum[..., -1:] - cum) * dt  # (B,NC,NH,Q)
+    st = torch.einsum("bnhqs,bnhqp->bnhsp", bx * w[..., None], xf)
+    return y, st

@@ -13,7 +13,9 @@ dense per-slot stripes for the paged pool (``--page-size``,
 admission then reserves only the pages a request can touch and a shared
 prompt prefix is read from the pages that hold it.  ``--policy`` picks the
 admission policy and ``--tenants N`` spreads the requests round-robin
-over N tenants.  Weights come from the port's own init
+over N tenants.  ``--arch mamba2-1.3b`` serves the SSM plan: its prompts
+are fed token by token and a slot's state is zeroed on admission (it
+takes no ``--cache paged``).  Weights come from the port's own init
 (``torch.Generator`` seeded with ``--seed``), f32 params and f32 cache as
 in the reference launcher.
 """

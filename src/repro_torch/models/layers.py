@@ -1,4 +1,5 @@
-"""Shared layers: RMSNorm, RoPE, gated / GELU MLP, embeddings.
+"""Shared layers: RMSNorm, RoPE, gated / GELU MLP, embeddings, chunked
+next-token cross-entropy.
 
 The PyTorch counterpart of ``repro/models/layers.py``.  Parameters are
 plain dicts of tensors; weight init draws from an explicit
@@ -89,3 +90,30 @@ def embed(params, tokens):
 def unembed(params, x):
     head = params.get("head", params["table"])
     return x @ head.T
+
+
+# --------------------------------------------------- chunked CE next-token
+def chunked_ce_loss(emb_params, x, targets, mask, chunk: int = 1024):
+    """Next-token cross-entropy without materializing (B, S, V) logits.
+
+    x: (B, S, d) final hidden states; targets/mask: (B, S).  A loop over
+    sequence chunks: each chunk's (B, chunk, V) f32 logits exist only
+    transiently, against the tied head when there is no separate one.
+    Forward only (the reference's remat matters only for its gradient).
+    """
+    b, s, d = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by CE chunk {chunk}")
+    head = emb_params.get("head", emb_params["table"])
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, chunk):
+        logits = (x[:, i:i + chunk] @ head.T).float()  # (B, chunk, V)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            targets[:, i:i + chunk, None].long())[..., 0]
+        mc = mask[:, i:i + chunk].float()
+        tot = tot + ((logz - gold) * mc).sum()
+        cnt = cnt + mc.sum()
+    return tot / torch.clamp(cnt, min=1.0)

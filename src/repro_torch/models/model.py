@@ -1,9 +1,11 @@
-"""LM: the model wrapper the serving engine drives.
+"""LM: the model wrapper the serving engine and the prefill step drive.
 
-The PyTorch counterpart of ``repro/models/model.py``, serving subset
-(dense caches and paged pools).  ``LM`` holds the arch config, the runtime knobs and the device;
-its methods are functions of explicit params and caches.  Caches are
-updated in place (the reference donates its buffers instead).
+The PyTorch counterpart of ``repro/models/model.py``: the whole-sequence
+forward (``hidden``, ``prefill``, and ``loss`` forward only), decode and
+chunked prefill over dense caches and paged pools.  ``LM`` holds the arch
+config, the runtime knobs and the device; its methods are functions of
+explicit params and caches.  Caches are updated in place (the reference
+donates its buffers instead).
 """
 from __future__ import annotations
 
@@ -13,10 +15,13 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .layers import embed, embedding_init, rmsnorm, rmsnorm_init, unembed
-from .transformer import (apply_blocks_decode, apply_blocks_prefill_chunk,
+from .layers import (chunked_ce_loss, embed, embedding_init, rmsnorm,
+                     rmsnorm_init, unembed)
+from .transformer import (apply_blocks, apply_blocks_decode,
+                          apply_blocks_prefill_chunk, cache_batch_axes,
                           init_blocks, init_cache, init_cache_paged,
-                          supports_chunked_prefill, supports_paged_cache)
+                          supports_chunked_prefill, supports_paged_cache,
+                          supports_speculative)
 
 
 def resolve_device(device) -> torch.device:
@@ -39,6 +44,7 @@ class RuntimeKnobs:
     compute_dtype: Any = torch.float32
     cache_dtype: Any = torch.bfloat16
     q_chunk: int = 512  # chunked-prefill query block
+    ce_chunk: int = 1024  # chunked cross-entropy block
     # 0 = auto (the serving engine picks per tick from (max(pos), batch)
     # via runtime.steps.pick_decode_splits); >= 1 is a static override.
     # Both 0 and 1 take the single-pass kernel outside the engine.
@@ -79,6 +85,50 @@ class LM:
 
     _page_idx = _pos  # int32 on the model's device, no copy if already so
 
+    # ------------------------------------------------------------ forward
+    def _embed_inputs(self, params, batch):
+        if self.cfg.input_mode == "embeddings":
+            x = batch["embeds"].to(self.device)
+        else:
+            x = embed(params["embed"], self._tokens(batch["tokens"]))
+        return x.to(self.knobs.compute_dtype)
+
+    def hidden(self, params, batch, mode: str):
+        """The whole-sequence forward: batch {"tokens": (B,S)} (or
+        {"embeds"}) -> (final-norm hidden (B,S,dm), aux, caches or None).
+        ``mode`` is "train" (no caches) or "prefill" (every layer's
+        cache)."""
+        x = self._embed_inputs(params, batch)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        x, aux, caches = apply_blocks(params["blocks"], x, positions,
+                                      cfg=self.cfg, knobs=self.knobs,
+                                      mode=mode)
+        x = rmsnorm(params["final_norm"], x)
+        return x, aux, caches
+
+    def loss(self, params, batch):
+        """Next-token CE over batch {"tokens": (B,S)}, forward only:
+        (loss, {"ce_loss", "loss"}).  The MoE auxiliary losses are not
+        ported (MoE plans raise)."""
+        x, _, _ = self.hidden(params, batch, mode="train")
+        tokens = self._tokens(batch["tokens"])
+        targets = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+        mask = torch.nn.functional.pad(
+            torch.ones_like(tokens[:, 1:], dtype=torch.float32), (0, 1))
+        ce = chunked_ce_loss(params["embed"], x, targets, mask,
+                             chunk=self.knobs.ce_chunk)
+        return ce, {"ce_loss": ce, "loss": ce}
+
+    def prefill(self, params, batch):
+        """The batched whole-prompt prefill: (last-position logits (B,V)
+        f32, caches).  Attention caches are (L,B,S,KV,D) in
+        ``knobs.cache_dtype``; SSM caches hold the final conv window and
+        state."""
+        x, _, caches = self.hidden(params, batch, mode="prefill")
+        logits = unembed(params["embed"], x[:, -1:, :])[:, 0, :]
+        return logits.float(), caches
+
     # ------------------------------------------------------------- decode
     def decode_step(self, params, caches, tokens, pos):
         """tokens (B,1) -> (logits (B,V) f32, caches updated in place).
@@ -111,6 +161,9 @@ class LM:
 
     def supports_chunked_prefill(self) -> bool:
         return supports_chunked_prefill(self.cfg)
+
+    def supports_speculative(self) -> bool:
+        return supports_speculative(self.cfg)
 
     # -------------------------------------------------------- paged cache
     def supports_paged_cache(self) -> bool:
@@ -146,6 +199,10 @@ class LM:
         return logits.float(), caches
 
     # -------------------------------------------------------------- cache
+    def cache_batch_axes(self, max_len: int):
+        """Per-leaf batch-axis tree of the dense cache (host-side)."""
+        return cache_batch_axes(self.cfg, self.knobs, max_len)
+
     def init_cache(self, batch: int, max_len: int):
         return init_cache(self.cfg, self.knobs, batch, max_len, self.device)
 

@@ -1,4 +1,4 @@
-"""Transformer assembly, uniform attention plan.
+"""Transformer assembly, uniform plans.
 
 The PyTorch counterpart of ``repro/models/transformer.py``.  Layer
 parameters and caches keep the reference's stacked leading layer axis
@@ -6,10 +6,14 @@ parameters and caches keep the reference's stacked leading layer axis
 as they are; the reference's ``lax.scan`` over that axis becomes a Python
 loop over the layer index.  Caches are written in place.
 
-Only the uniform attention plan (dense, SWA and GQA archs) is ported.  The
-grouped plans (gemma3 local/global, zamba2 shared block), SSM blocks and
-MoE FFNs raise ``NotImplementedError``; ROADMAP.md lists them under the
-port's "grouped / MoE / SSM plans" item.
+The uniform plans are ported: attention (dense, SWA and GQA archs) and
+SSM (mamba2).  The whole-sequence forward (``apply_blocks``, modes
+"prefill" and "train") runs attention through ``ops.flash_attention`` and
+SSM blocks through ``ssm_forward``; it is forward only, so the
+reference's remat of training is left out.  The grouped plans (gemma3
+local/global, zamba2 shared block) and MoE FFNs raise
+``NotImplementedError``; ROADMAP.md lists them under the port's
+"grouped / MoE / hybrid plans" item.
 """
 from __future__ import annotations
 
@@ -20,10 +24,12 @@ import torch
 
 from . import attention as attn
 from .layers import mlp, mlp_init, rmsnorm, rmsnorm_init
+from .ssm import ssm_decode_step, ssm_forward, ssm_init, ssm_init_cache
 from ..kernels import ops
 
-_UNPORTED = ("not ported yet: the port runs the uniform attention plan with "
-             "dense FFNs only (see ROADMAP.md, 'grouped / MoE / SSM plans')")
+_UNPORTED = ("not ported yet: the port runs the uniform attention and SSM "
+             "plans with dense FFNs only (see ROADMAP.md, 'grouped / MoE / "
+             "hybrid plans')")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,8 +76,7 @@ def _ffn_kind(cfg) -> str:
 
 def _ported_plan(cfg) -> Plan:
     plan = build_plan(cfg)
-    if plan.kind != "uniform" or plan.inner_kind != "attn" \
-            or _ffn_kind(cfg) == "moe":
+    if plan.kind != "uniform" or _ffn_kind(cfg) == "moe":
         raise NotImplementedError(f"{cfg.name} (family={cfg.family!r}): "
                                   f"{_UNPORTED}")
     return plan
@@ -93,6 +98,11 @@ def _init_attn_block(gen, cfg, dtype, ffn, device):
     return p
 
 
+def _init_ssm_block(gen, cfg, dtype, device):
+    return {"ln": rmsnorm_init(cfg.d_model, dtype, device),
+            "ssm": ssm_init(gen, cfg.d_model, cfg.ssm, dtype, device)}
+
+
 def _stack_trees(trees):
     first = trees[0]
     if isinstance(first, dict):
@@ -109,8 +119,12 @@ def _index_tree(tree, i):
 def init_blocks(gen, cfg, dtype, device="cpu"):
     plan = _ported_plan(cfg)
     ffn = _ffn_kind(cfg)
-    layers = [_init_attn_block(gen, cfg, dtype, ffn, device)
-              for _ in range(plan.n_layers)]
+    if plan.inner_kind == "attn":
+        layers = [_init_attn_block(gen, cfg, dtype, ffn, device)
+                  for _ in range(plan.n_layers)]
+    else:
+        layers = [_init_ssm_block(gen, cfg, dtype, device)
+                  for _ in range(plan.n_layers)]
     return {"stack": _stack_trees(layers)}
 
 
@@ -129,6 +143,39 @@ def _pool(cache):
     if "k_scale" in cache:
         raise NotImplementedError(_QUANT_UNPORTED)
     return cache["k"], cache["v"]
+
+
+def _apply_attn_block(p, x, positions, *, cfg, window, knobs, collect_cache,
+                      ffn):
+    """Whole-sequence attention block: x (B,S,dm) at ``positions``
+    (B,S).  Attention runs through ``ops.flash_attention`` (the CUDA
+    kernel on the card, its plain version on the CPU); ``collect_cache``
+    returns the block's K/V in ``knobs.cache_dtype``."""
+    h = rmsnorm(p["ln1"], x)
+    q, k, v = attn.qkv_project(p["attn"], h, positions, cfg.rope_theta)
+    ctx = ops.flash_attention(q, k, v, causal=True, window=window)
+    x = x + attn.attn_output(p["attn"], ctx)
+    h2 = rmsnorm(p["ln2"], x)
+    x = x + _ffn_out(p, h2, ffn, cfg=cfg)
+    cache = ({"k": k.to(knobs.cache_dtype), "v": v.to(knobs.cache_dtype)}
+             if collect_cache else None)
+    return x, cache
+
+
+def _apply_ssm_block(p, x, *, cfg, collect_cache):
+    h = rmsnorm(p["ln"], x)
+    if collect_cache:
+        y, state = ssm_forward(p["ssm"], h, cfg.d_model, cfg.ssm,
+                               return_state=True)
+    else:
+        y, state = ssm_forward(p["ssm"], h, cfg.d_model, cfg.ssm), None
+    return x + y, state
+
+
+def _apply_ssm_block_decode(p, x, cache, *, cfg):
+    h = rmsnorm(p["ln"], x)
+    y, _ = ssm_decode_step(p["ssm"], cache, h, cfg.d_model, cfg.ssm)
+    return x + y
 
 
 def _apply_attn_block_decode(p, x, cache, pos, active, *, cfg, window, knobs,
@@ -201,18 +248,57 @@ def _apply_attn_block_prefill_chunk(p, x, cache, slot, offset, *, cfg,
     return x + _ffn_out(p, h2, ffn, cfg=cfg)
 
 
-# ============================================================= stack apply
+# ========================================================== sequence apply
+def apply_blocks(blocks, x, positions, *, cfg, knobs, mode: str):
+    """The whole-sequence forward.  mode: "train" (no caches) or "prefill"
+    (emit each layer's cache: attention K/V (L,B,S,KV,D), SSM conv and
+    state).  Returns (x, aux, caches or None); aux is empty (the MoE
+    losses are not ported)."""
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"unknown mode {mode!r}")
+    plan = _ported_plan(cfg)
+    ffn = _ffn_kind(cfg)
+    collect = mode == "prefill"
+    stack = blocks["stack"]
+    caches = []
+    for i in range(plan.n_layers):
+        p = _index_tree(stack, i)
+        if plan.inner_kind == "attn":
+            x, cache = _apply_attn_block(
+                p, x, positions, cfg=cfg, window=plan.inner_window,
+                knobs=knobs, collect_cache=collect, ffn=ffn)
+        else:
+            x, cache = _apply_ssm_block(p, x, cfg=cfg,
+                                        collect_cache=collect)
+        caches.append(cache)
+    return x, {}, ({"stack": _stack_trees(caches)} if collect else None)
+
+
+# ============================================================ decode apply
 def apply_blocks_decode(blocks, x, caches, pos, *, cfg, knobs, paged=None):
     """Decode every layer; ``pos`` scalar or (B,).  Caches are updated in
     place and returned.  ``paged = (page_idx, page_size)`` takes the page
-    pools (one table serves every layer)."""
+    pools (one table serves every layer).  SSM layers advance one token
+    at a time and ignore ``pos``."""
     plan = _ported_plan(cfg)
     ffn = _ffn_kind(cfg)
+    stack, cstack = blocks["stack"], caches["stack"]
+    if plan.inner_kind == "ssm":
+        if paged is not None:
+            raise NotImplementedError(
+                f"paged KV cache unsupported for family={cfg.family!r}")
+        if x.shape[1] > 1:
+            raise NotImplementedError(
+                f"multi-token decode unsupported for family={cfg.family!r} "
+                f"-- SSM state advances one token at a time")
+        for i in range(plan.n_layers):
+            x = _apply_ssm_block_decode(_index_tree(stack, i), x,
+                                        _index_tree(cstack, i), cfg=cfg)
+        return x, caches
     b = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(b)
     pos = pos.to(torch.int32).contiguous()
     active = (pos >= 0).to(torch.int32)
-    stack, cstack = blocks["stack"], caches["stack"]
     for i in range(plan.n_layers):
         x = _apply_attn_block_decode(
             _index_tree(stack, i), x, _index_tree(cstack, i), pos, active,
@@ -222,7 +308,8 @@ def apply_blocks_decode(blocks, x, caches, pos, *, cfg, knobs, paged=None):
 
 
 def supports_chunked_prefill(cfg) -> bool:
-    """Chunked prefill needs every layer's prefix state in the KV cache."""
+    """Chunked prefill needs every layer's prefix state in the KV cache;
+    SSM plans carry conv and SSD state across chunks and are token-fed."""
     return build_plan(cfg).inner_kind == "attn"
 
 
@@ -232,12 +319,21 @@ def supports_paged_cache(cfg) -> bool:
     return build_plan(cfg).inner_kind == "attn"
 
 
+def supports_speculative(cfg) -> bool:
+    """Multi-token verify needs position-indexed caches only; SSM state
+    advances strictly one token at a time."""
+    return build_plan(cfg).inner_kind == "attn"
+
+
 def apply_blocks_prefill_chunk(blocks, x, caches, slot, offset, *, cfg,
                                knobs, paged=None):
     """Run one slot's chunk x (1,C,dm) through all layers, writing K/V at
     (slot, offset) in place (``paged``: into the pages the slot's table
-    row maps).  Returns (hidden (1,C,dm), caches)."""
+    row maps).  Returns (hidden (1,C,dm), caches).  Attention plans only."""
     plan = _ported_plan(cfg)
+    if plan.inner_kind != "attn":
+        raise NotImplementedError(
+            f"chunked prefill unsupported for family={cfg.family!r}")
     ffn = _ffn_kind(cfg)
     slot, offset = int(slot), int(offset)
     stack, cstack = blocks["stack"], caches["stack"]
@@ -251,8 +347,17 @@ def apply_blocks_prefill_chunk(blocks, x, caches, slot, offset, *, cfg,
 
 # ============================================================== cache init
 def init_cache(cfg, knobs, batch: int, max_len: int, device="cpu"):
-    """Dense caches: {"stack": {"k", "v"}} with (L, B, S, KV, D) leaves."""
+    """Dense caches: {"stack": {...}} with stacked (L, ...) leaves: "k" and
+    "v" (L, B, S, KV, D) for attention plans; "conv" (L, B, conv_width - 1,
+    conv_dim) in ``knobs.cache_dtype`` and "state" (L, B, NH, hp, ds) f32
+    for SSM plans."""
     plan = _ported_plan(cfg)
+    if plan.inner_kind == "ssm":
+        leaf = ssm_init_cache(batch, cfg.d_model, cfg.ssm, knobs.cache_dtype,
+                              device)
+        return {"stack": {k: torch.zeros((plan.n_layers,) + v.shape,
+                                         dtype=v.dtype, device=device)
+                          for k, v in leaf.items()}}
     shape = (plan.n_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"stack": {
         "k": torch.zeros(shape, dtype=knobs.cache_dtype, device=device),
@@ -260,13 +365,36 @@ def init_cache(cfg, knobs, batch: int, max_len: int, device="cpu"):
     }}
 
 
+def cache_batch_axes(cfg, knobs, max_len: int):
+    """Per-leaf batch-axis index of the dense cache tree, found by comparing
+    the shapes for batch 1 and 2 (on the meta device: nothing is
+    allocated).  Drives the engine's slot reset without hardcoding any
+    layout."""
+    s1 = init_cache(cfg, knobs, 1, max_len, device="meta")
+    s2 = init_cache(cfg, knobs, 2, max_len, device="meta")
+
+    def axis(a, b):
+        return next(i for i, (x, y) in enumerate(zip(a.shape, b.shape))
+                    if x != y)
+
+    def walk(a, b):
+        if isinstance(a, dict):
+            return {k: walk(a[k], b[k]) for k in a}
+        return axis(a, b)
+
+    return walk(s1, s2)
+
+
 def init_cache_paged(cfg, knobs, num_pages: int, page_size: int,
                      device="cpu"):
     """Paged KV pools: {"stack": {"k", "v"}} with (L, P, page_size, KV, D)
     leaves, one global pool per layer shared by every slot.  One page table
     addresses every layer: a (page, offset) coordinate is valid in each.
-    Physical page 0 is the null page."""
+    Physical page 0 is the null page.  Attention plans only."""
     plan = _ported_plan(cfg)
+    if not supports_paged_cache(cfg):
+        raise NotImplementedError(
+            f"paged KV cache unsupported for family={cfg.family!r}")
     shape = (plan.n_layers, num_pages, page_size, cfg.num_kv_heads,
              cfg.head_dim)
     return {"stack": {

@@ -22,6 +22,11 @@ on the CPU), so no dense per-slot view is kept.  Paged serving needs
 ``mode="wave"`` is the lockstep baseline: a fresh wave only when every
 slot is free, prompts fed token by token, one scalar position.
 
+SSM plans (mamba2) carry conv and SSD state that no position masks, so
+they cannot take chunked prefill or the paged pool (``cache="paged"``
+raises ``ValueError``): their prompts are fed token by token and a slot's
+state is zeroed on admission (wave mode zeroes every cache per wave).
+
 When ``RuntimeKnobs.decode_splits`` is 0 the continuous engine picks the
 split-K fan-out per tick from ``(max(pos), live slots)``
 (``steps.pick_decode_splits``), on any device: on the card split-K runs
@@ -243,6 +248,10 @@ class ServeEngine:
         # slots) whatever the device
         self._autotune = (config.mode == "continuous"
                           and model.knobs.decode_splits == 0)
+        # SSM state is not position-masked: zero a slot on admission
+        self._needs_reset = model.cfg.family in ("ssm", "hybrid")
+        if self._needs_reset:
+            self._reset = self._make_slot_reset(model, max_len)
         self.bind_telemetry(telemetry, replica=replica)
 
     def _init_paged(self, config: ServeConfig) -> None:
@@ -279,6 +288,25 @@ class ServeEngine:
                                    page_size=page_size)
         self._prefill = compiled_step(self.model, "paged_prefill_chunk",
                                       page_size=page_size)
+
+    @staticmethod
+    def _make_slot_reset(model, max_len):
+        """Zero one slot of every cache leaf along its batch axis (from
+        ``model.cache_batch_axes``: layouts vary across plans), in
+        place."""
+        axes = model.cache_batch_axes(max_len)
+
+        def reset(caches, slot):
+            def zero(c, ax):
+                if isinstance(c, dict):
+                    for k in c:
+                        zero(c[k], ax[k])
+                else:
+                    c.narrow(ax, slot, 1).zero_()
+            zero(caches, axes)
+            return caches
+
+        return reset
 
     def _page_table(self) -> torch.Tensor:
         """The page table on the model's device (one host-to-device copy;
@@ -394,6 +422,8 @@ class ServeEngine:
         s, req = adm.slot, adm.req
         self.active[s] = req
         self._set_state(req, RequestState.PREFILL, slot=s)
+        if self._needs_reset:
+            self.caches = self._reset(self.caches, s)
         if self.chunked:
             # paged: prefill starts where the prefix cache left off; CoW
             # pages (adm.kv.cow) need no device copy, since they span
@@ -467,7 +497,7 @@ class ServeEngine:
         if any(r is not None for r in self.active) or not self.queue:
             return
         for leaf in self.caches["stack"].values():
-            leaf.zero_()
+            leaf.zero_()  # KV stripes, or SSM conv windows and states
         self.pos[:] = 0
         self.tokens[:] = 0
         for adm in self.scheduler.decide(self.active).admissions:

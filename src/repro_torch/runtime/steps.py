@@ -1,5 +1,5 @@
 """Serving step functions and the step cache (dense and paged, greedy
-subset).
+subset), and the batched whole-prompt prefill step.
 
 The PyTorch counterpart of ``repro/runtime/steps.py``.  There is no jit:
 a step is a plain callable that runs eagerly and updates the caches in
@@ -24,6 +24,16 @@ def make_serve_step(model) -> Callable:
         return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], caches
 
     return serve_step
+
+
+def make_prefill_step(model) -> Callable:
+    """Batched whole-prompt prefill: batch {"tokens": (B,S)} -> (greedy
+    first tokens (B,1) int32, caches)."""
+    def prefill_step(params, batch):
+        logits, caches = model.prefill(params, batch)
+        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], caches
+
+    return prefill_step
 
 
 def make_prefill_chunk_step(model) -> Callable:
