@@ -430,8 +430,10 @@ def _timed_row(name, run, plain, lib_ms, bound, bound_by, source, replaces,
                err):
     ms = _time_ms(run)
     plain_ms = _time_ms(plain)
+    lib = ("none (no single PyTorch call)" if lib_ms is None
+           else f"{lib_ms:.4f} ms")
     _log(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-         f"library {lib_ms:.4f} ms, bound {bound:.4f} ms by {bound_by})")
+         f"library {lib}, bound {bound:.4f} ms by {bound_by})")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -731,10 +733,10 @@ def phase_paged_engine(model, params):
 FS, FB = 4096, 2  # flash attention: internlm2 prefill of 2 x 4096
 SSD = dict(B=2, NC=16, NH=64, G=1, Q=256, HP=64, DS=128)  # mamba2, S=4096
 # SSD chunk against its plain version: both accumulate f32 products (ds =
-# 128 for C.B^T, up to Q = 256 keys for att @ x and the state) in other
-# orders; relative to the output's largest magnitude that stays far below
-# 1e-5 (f32 rounding of a 256-term sum is ~256 * 2^-24 ~ 1.5e-5 at worst,
-# ~1e-6 in practice).
+# 128 for C.B^T, up to Q = 256 keys for att @ x and the state); f32
+# rounding of a 256-term sum in another order stays below 256 * 2^-24 ~
+# 1.5e-5 of the largest magnitude, ~1e-5 typically.  (The kernel sums in
+# the plain version's order, so the two agree bitwise: PERF.md.)
 SSD_RTOL = 1e-5
 
 

@@ -406,8 +406,15 @@ constexpr int prefill_smem_bytes() {
 }
 
 // Query row r of a CTA is row t0 + r / G, query head j * G + r % G.
-template <typename TQ, typename TKV, int D, bool PAGED>
-__global__ void __launch_bounds__(PF_THREADS) prefill_kernel(PrefillParams p) {
+// Registers: the paged prefill launches few CTAs (KV x C / QT, 64 for
+// internlm2's 256-row chunk), so one CTA per SM with all the registers it
+// wants runs fastest; the flash attention launches thousands
+// (2048 at B = 2, S = 4096), where two CTAs per SM (at most 128 registers)
+// do.  Left to itself ptxas gives both 128 registers, which made the paged
+// prefill slower than its own kernel of PR 12 (PERF.md, section 6).
+template <typename TQ, typename TKV, int D, bool PAGED, bool CAUSAL>
+__global__ void __launch_bounds__(PF_THREADS, PAGED ? 1 : 2)
+    prefill_kernel(PrefillParams p) {
   static_assert(D == 32 * 4, "a lane owns 4 output columns");
   constexpr int VEC = 16 / sizeof(TKV);
   constexpr int LD = D + VEC;  // padded K/V row, in elements
@@ -419,7 +426,7 @@ __global__ void __launch_bounds__(PF_THREADS) prefill_kernel(PrefillParams p) {
   const int j = blockIdx.x, b = blockIdx.z;
   const int G = p.H / p.KV, QT = PF_ROWS / G;
   // causal: the last query tiles see the most keys; issue them first
-  const int t0 = (p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * QT;
+  const int t0 = (CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * QT;
   const int nt = min(QT, p.Sq - t0);  // query rows this CTA holds
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
@@ -432,7 +439,7 @@ __global__ void __launch_bounds__(PF_THREADS) prefill_kernel(PrefillParams p) {
   }
   // keys this CTA may need: [lo, hi); causal: ending at its last row
   const int qfirst = p.q_offset + t0;
-  const int hi = p.causal ? min(p.Sk, qfirst + nt) : p.Sk;
+  const int hi = CAUSAL ? min(p.Sk, qfirst + nt) : p.Sk;
   const int lo = p.window ? max(0, qfirst - p.window + 1) : 0;
 
   float m[PF_RPW], l[PF_RPW], acc[PF_RPW][4];
@@ -497,8 +504,8 @@ __global__ void __launch_bounds__(PF_THREADS) prefill_kernel(PrefillParams p) {
     for (int i = 0; i < PF_RPW; ++i) {
       const int t = (warp * PF_RPW + i) / G;
       const int qpos = qfirst + t;
-      const bool ok = t < nt && kpos >= lo && kpos < hi &&
-                      (!p.causal || kpos <= qpos) &&
+      const bool ok = t < nt && kpos >= lo &&
+                      (CAUSAL ? kpos <= qpos : kpos < hi) &&
                       (p.window == 0 || qpos - kpos < p.window);
       float alpha;
       pr[i] = softmax_step<TKV>(s[i] * scale, ok, m[i], l[i], alpha);
@@ -534,20 +541,32 @@ __global__ void __launch_bounds__(PF_THREADS) prefill_kernel(PrefillParams p) {
   }
 }
 
-template <typename TQ, typename TKV, bool PAGED>
-cudaError_t launch_prefill_typed(const PrefillParams& p, int B, int D,
-                                 cudaStream_t st) {
-  if (D != 128) return cudaErrorInvalidValue;
+template <typename TQ, typename TKV, bool PAGED, bool CAUSAL>
+cudaError_t launch_prefill_causal(const PrefillParams& p, int B,
+                                  cudaStream_t st) {
   constexpr int smem = prefill_smem_bytes<TKV, 128>();
   // above 48 KB dynamic shared memory must be allowed explicitly, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_kernel<TQ, TKV, 128, PAGED>,
+      prefill_kernel<TQ, TKV, 128, PAGED, CAUSAL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   const int qt = PF_ROWS / (p.H / p.KV);
   const dim3 grid(p.KV, (p.Sq + qt - 1) / qt, B);
-  prefill_kernel<TQ, TKV, 128, PAGED><<<grid, PF_THREADS, smem, st>>>(p);
+  prefill_kernel<TQ, TKV, 128, PAGED, CAUSAL>
+      <<<grid, PF_THREADS, smem, st>>>(p);
   return cudaGetLastError();
+}
+
+template <typename TQ, typename TKV, bool PAGED>
+cudaError_t launch_prefill_typed(const PrefillParams& p, int B, int D,
+                                 cudaStream_t st) {
+  if (D != 128) return cudaErrorInvalidValue;
+  if (p.causal) return launch_prefill_causal<TQ, TKV, PAGED, true>(p, B, st);
+  if constexpr (PAGED) {
+    return cudaErrorInvalidValue;  // the paged prefill is always causal
+  } else {
+    return launch_prefill_causal<TQ, TKV, PAGED, false>(p, B, st);
+  }
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16

@@ -100,9 +100,11 @@ size_t intra_smem_bytes(int Q, int ds) {
   return sizeof(float) * (RB * Q + (phase1 > phase2 ? phase1 : phase2));
 }
 
-// Grid (Q / RB row blocks, NH / hpc head chunks, B * NC).  8 warps.
+// Grid (Q / RB row blocks, NH / hpc head chunks, B * NC).  8 warps.  Its
+// 112 KB of shared memory allows two CTAs per SM, so a thread may use up
+// to 128 registers (without the bound ptxas kept fewer and spilled).
 template <typename T>
-__global__ void __launch_bounds__(NT) ssd_intra_kernel(SsdParams p) {
+__global__ void __launch_bounds__(NT, 2) ssd_intra_kernel(SsdParams p) {
   extern __shared__ __align__(16) float sm[];
   const int Q = p.Q, ds = p.ds, D4 = ds / 4;
   float* cb_s = sm;             // [RB][Q]: C_i . B_j of this row block

@@ -13,6 +13,7 @@ a cache.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .layers import _init, apply_rope
@@ -110,6 +111,14 @@ def flash_attention_xla(q, k, v, *, causal=True, window=0, q_chunk=512,
     return torch.cat(outs, dim=1).reshape(b, sq, h, d)
 
 
+def _host_values(pos):
+    """``pos`` as a numpy array when it is host data (numpy, a number, a
+    CPU tensor), else None: reading a device tensor would sync."""
+    if isinstance(pos, torch.Tensor):
+        return pos.numpy() if pos.device.type == "cpu" else None
+    return np.asarray(pos)
+
+
 def _pos_vector(pos, b, device):
     """Scalar or (B,) position -> (B,) int64 tensor on ``device``."""
     pos = torch.as_tensor(pos, device=device).reshape(-1).long()
@@ -139,41 +148,54 @@ def decode_attention_xla(q, k_cache, v_cache, pos, *, window=0):
 
 
 # ------------------------------------------------------------ cache writes
-def cache_update(k_cache, v_cache, k_new, v_new, pos):
-    """Write (B,1,KV,D) rows at ``pos`` of (B,S,KV,D) caches, in place.
+def cache_write_index(pos, b, s, t=1, device="cpu"):
+    """Where a (B,T,KV,D) block at ``pos`` (scalar or (B,)) lands in
+    (B,S,KV,D) caches: (batch index (B,1), rows (B,T)).  It depends on
+    ``pos`` only, so a decode step computes it once for every layer.
 
-    ``pos`` scalar writes every slot at one position; (B,) writes each slot
-    at its own.  Out-of-range positions follow what the reference computes
-    under jax 0.9, whose ``dynamic_update_slice`` takes a negative start
-    index from the end: a position in [-S, -1] writes row S + pos (a
-    parked slot at pos -1 writes row S-1), anything lower row 0, and a
-    position past the end row S-1.  The reference's own docstring says
-    negative positions clamp to row 0; its behaviour is what the port
-    matches.  A parked slot's row S-1 is written again before any read:
-    a slot at pos S-1 writes that row before it attends it, and the engine
-    finishes a slot at ``max_len - 1``.
-    """
-    b, s = k_cache.shape[0], k_cache.shape[1]
-    pos = _pos_vector(pos, b, k_cache.device)
-    rows = torch.where(pos < 0, pos + s, pos).clamp(0, s - 1)
-    bidx = torch.arange(b, device=k_cache.device)
-    k_cache[bidx, rows] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[bidx, rows] = v_new[:, 0].to(v_cache.dtype)
+    T = 1 follows the reference's ``cache_update`` under jax 0.9, whose
+    ``dynamic_update_slice`` takes a negative start index from the end: a
+    position in [-S, -1] writes row S + pos (a parked slot at pos -1 writes
+    row S-1), anything lower row 0, and a position past the end row S-1.
+    The reference's own docstring says negative positions clamp to row 0;
+    its behaviour is what the port matches.  A parked slot's row S-1 is
+    written again before any read: a slot at pos S-1 writes that row before
+    it attends it, and the engine finishes a slot at ``max_len - 1``.
+    T > 1 follows ``cache_update_multi``: each row ``pos[b] + t`` clips to
+    [0, S-1] on its own."""
+    pos = _pos_vector(pos, b, device)
+    if t == 1:
+        rows = torch.where(pos < 0, pos + s, pos)[:, None]
+    else:
+        rows = pos[:, None] + torch.arange(t, device=device)[None, :]
+    return torch.arange(b, device=device)[:, None], rows.clamp(0, s - 1)
+
+
+def write_cache_rows(k_cache, v_cache, k_new, v_new, index):
+    """Write a (B,T,KV,D) block at ``index`` (``cache_write_index``), in
+    place."""
+    bidx, rows = index
+    k_cache[bidx, rows] = k_new.to(k_cache.dtype)
+    v_cache[bidx, rows] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
+
+
+def cache_update(k_cache, v_cache, k_new, v_new, pos):
+    """Write (B,1,KV,D) rows at ``pos`` (scalar: every slot at one
+    position; (B,): each slot at its own) of (B,S,KV,D) caches, in place;
+    out-of-range positions as ``cache_write_index`` says (pos -1 writes row
+    S-1, as the reference does)."""
+    b, s = k_cache.shape[0], k_cache.shape[1]
+    index = cache_write_index(pos, b, s, 1, k_cache.device)
+    return write_cache_rows(k_cache, v_cache, k_new, v_new, index)
 
 
 def cache_update_multi(k_cache, v_cache, k_new, v_new, pos):
     """Write a (B,T,KV,D) block at rows ``pos[b] + t``, in place; each row
     clips to [0, S-1] individually (as the reference)."""
-    t = k_new.shape[1]
     b, s = k_cache.shape[0], k_cache.shape[1]
-    pos = _pos_vector(pos, b, k_cache.device)
-    rows = (pos[:, None] + torch.arange(t, device=k_cache.device)[None, :]
-            ).clamp(0, s - 1)
-    bidx = torch.arange(b, device=k_cache.device)[:, None]
-    k_cache[bidx, rows] = k_new.to(k_cache.dtype)
-    v_cache[bidx, rows] = v_new.to(v_cache.dtype)
-    return k_cache, v_cache
+    index = cache_write_index(pos, b, s, k_new.shape[1], k_cache.device)
+    return write_cache_rows(k_cache, v_cache, k_new, v_new, index)
 
 
 def prefill_chunk_update(k_cache, v_cache, k_new, v_new, slot, offset):
@@ -188,59 +210,77 @@ def prefill_chunk_update(k_cache, v_cache, k_new, v_new, slot, offset):
 
 
 # ------------------------------------------------------------- paged pool
+def paged_write_index(pos, page_idx, page_size, t=1):
+    """Where a (B,T,KV,D) block at logical ``pos[b] + t`` lands in the
+    pools through the page table (B, max_pages): (page (B,T), offset (B,T),
+    drop).  It depends on ``pos`` and the table only, so a decode step
+    computes it once for every layer.
+
+    Slot ``b`` writes page ``page_idx[b, p // page_size]`` at offset
+    ``p % page_size``.  A parked slot (pos < 0) writes the null page 0 --
+    computed explicitly, never through a torch ``[-1]`` index, which would
+    hit the slot's last mapped page.  Positions past the table's span: for
+    T > 1 they go to the null page (the reference's
+    ``paged_cache_update_multi``, so padding never touches a page the slot
+    does not hold) and ``drop`` is None; for T = 1 the write is dropped, as
+    the reference's ``paged_cache_update`` drops it (its out-of-bounds
+    table read makes the scatter skip the row).  When ``pos`` is host data
+    (numpy, an int, a CPU tensor) and no row is past the span, ``drop`` is
+    None.  Otherwise, without a host sync, ``drop = (src, live)`` makes a
+    dropped row repeat the first kept row's write (same page, offset and
+    value, so the duplicate is harmless); when no row is kept, every row
+    rewrites page 0 offset 0 with what it holds."""
+    b, device = page_idx.shape[0], page_idx.device
+    max_len = page_idx.shape[1] * page_size
+    host = _host_values(pos)
+    pos = _pos_vector(pos, b, device)[:, None]
+    pos_t = pos + torch.arange(t, device=device)[None, :]
+    posc = pos_t.clamp(0, max_len - 1)
+    page = torch.gather(page_idx.long(), 1, posc // page_size)
+    page = torch.where((pos >= 0) & (pos_t < max_len), page, 0)
+    off = posc % page_size
+    if t > 1 or (host is not None and bool((host < max_len).all())):
+        return page, off, None
+    # row b takes row src[b]'s write: itself if kept, else the first kept
+    # row (argmax of a bool is its first True; 0 when there is none)
+    keep = pos[:, 0] < max_len
+    src = torch.where(keep, torch.arange(b, device=device),
+                      keep.int().argmax())
+    live = keep[src][:, None]
+    return (torch.where(live, page[src], 0), torch.where(live, off[src], 0),
+            (src, live))
+
+
+def write_paged_rows(k_pages, v_pages, k_new, v_new, index):
+    """Write a (B,T,KV,D) block at ``index`` (``paged_write_index``) of the
+    (P,page_size,KV,D) pools, in place."""
+    page, off, drop = index
+    for pages, new in ((k_pages, k_new), (v_pages, v_new)):
+        new = new.to(pages.dtype)
+        if drop is not None:
+            src, live = drop
+            new = torch.where(live[:, :, None, None], new[src], pages[0, 0])
+        pages[page, off] = new
+    return k_pages, v_pages
+
+
 def paged_cache_update(k_pages, v_pages, k_new, v_new, pos, page_idx,
                        page_size):
     """Write (B,1,KV,D) rows at logical ``pos`` through the page table, in
-    place: slot ``b`` writes page ``page_idx[b, pos[b] // page_size]`` at
-    offset ``pos[b] % page_size``.  A parked slot (pos < 0) writes the null
-    page 0 at offset 0 -- computed explicitly, never through a torch
-    ``[-1]`` index, which would hit the slot's last mapped page.  A
-    position past the table's span writes nothing, as in the reference
-    (its out-of-bounds table read makes the scatter drop the row).
-
-    Without a host sync: a dropped row repeats the first kept row's write
-    (same page, offset and value, so the duplicate is harmless); when no
-    row is kept, every row rewrites page 0 offset 0 with what it holds."""
-    b = k_new.shape[0]
-    max_len = page_idx.shape[1] * page_size
-    pos = _pos_vector(pos, b, k_pages.device)
-    keep = pos < max_len
-    posc = pos.clamp(0, max_len - 1)
-    page = torch.gather(page_idx.long(), 1, (posc // page_size)[:, None])[:, 0]
-    page = torch.where(pos >= 0, page, 0)
-    off = posc % page_size
-    # row b takes row src[b]'s write: itself if kept, else the first kept
-    # row (argmax of a bool is its first True; 0 when there is none)
-    src = torch.where(keep, torch.arange(b, device=pos.device),
-                      keep.int().argmax())
-    live = keep[src]
-    page = torch.where(live, page[src], 0)
-    off = torch.where(live, off[src], 0)
-    for pages, new in ((k_pages, k_new), (v_pages, v_new)):
-        rows = torch.where(live[:, None, None], new[src, 0].to(pages.dtype),
-                           pages[0, 0])
-        pages[page, off] = rows
-    return k_pages, v_pages
+    place; a parked slot writes the null page and a position past the
+    table's span writes nothing (``paged_write_index``)."""
+    index = paged_write_index(pos, page_idx, page_size, 1)
+    return write_paged_rows(k_pages, v_pages, k_new, v_new, index)
 
 
 def paged_cache_update_multi(k_pages, v_pages, k_new, v_new, pos, page_idx,
                              page_size):
     """Write a (B,T,KV,D) block at logical ``pos[b] + t`` through the page
     table, in place.  Positions clip to [0, max_len - 1] and rows of a
-    parked slot or past the table's span go to the null page 0, so padding
-    beyond a slot's reservation never touches a page it does not hold."""
-    b, t = k_new.shape[0], k_new.shape[1]
-    max_len = page_idx.shape[1] * page_size
-    pos = _pos_vector(pos, b, k_pages.device)[:, None]
-    pos_t = pos + torch.arange(t, device=k_pages.device)[None, :]
-    valid = (pos >= 0) & (pos_t < max_len)
-    pos_t = pos_t.clamp(0, max_len - 1)
-    page = torch.gather(page_idx.long(), 1, pos_t // page_size)
-    page = torch.where(valid, page, 0)
-    off = pos_t % page_size
-    k_pages[page, off] = k_new.to(k_pages.dtype)
-    v_pages[page, off] = v_new.to(v_pages.dtype)
-    return k_pages, v_pages
+    parked slot or past the table's span go to the null page 0
+    (``paged_write_index``)."""
+    index = paged_write_index(pos, page_idx, page_size, k_new.shape[1])
+    return write_paged_rows(k_pages, v_pages, k_new, v_new, index)
 
 
 def paged_prefill_chunk_update(k_pages, v_pages, k_new, v_new, slot, offset,

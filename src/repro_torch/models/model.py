@@ -78,27 +78,19 @@ class LM:
             tokens = torch.as_tensor(np.asarray(tokens, np.int64))
         return tokens.to(self.device)
 
-    def _pos(self, pos):
-        if not isinstance(pos, torch.Tensor):
-            pos = torch.as_tensor(np.asarray(pos, np.int32))
-        return pos.to(self.device, torch.int32)
-
-    _page_idx = _pos  # int32 on the model's device, no copy if already so
+    def _page_idx(self, page_idx):
+        """int32 on the model's device, no copy if already so."""
+        if not isinstance(page_idx, torch.Tensor):
+            page_idx = torch.as_tensor(np.asarray(page_idx, np.int32))
+        return page_idx.to(self.device, torch.int32)
 
     # ------------------------------------------------------------ forward
-    def _embed_inputs(self, params, batch):
-        if self.cfg.input_mode == "embeddings":
-            x = batch["embeds"].to(self.device)
-        else:
-            x = embed(params["embed"], self._tokens(batch["tokens"]))
-        return x.to(self.knobs.compute_dtype)
-
     def hidden(self, params, batch, mode: str):
-        """The whole-sequence forward: batch {"tokens": (B,S)} (or
-        {"embeds"}) -> (final-norm hidden (B,S,dm), aux, caches or None).
-        ``mode`` is "train" (no caches) or "prefill" (every layer's
-        cache)."""
-        x = self._embed_inputs(params, batch)
+        """The whole-sequence forward: batch {"tokens": (B,S)} -> (final-norm
+        hidden (B,S,dm), aux, caches or None).  ``mode`` is "train" (no
+        caches) or "prefill" (every layer's cache)."""
+        x = embed(params["embed"], self._tokens(batch["tokens"]))
+        x = x.to(self.knobs.compute_dtype)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=self.device).expand(b, s)
         x, aux, caches = apply_blocks(params["blocks"], x, positions,
@@ -140,7 +132,7 @@ class LM:
         x = embed(params["embed"], self._tokens(tokens))
         x = x.to(self.knobs.compute_dtype)
         x, caches = apply_blocks_decode(params["blocks"], x, caches,
-                                        self._pos(pos), cfg=self.cfg,
+                                        pos, cfg=self.cfg,
                                         knobs=self.knobs)
         x = rmsnorm(params["final_norm"], x)
         logits = unembed(params["embed"], x)[:, 0, :]
@@ -178,7 +170,7 @@ class LM:
         x = embed(params["embed"], self._tokens(tokens))
         x = x.to(self.knobs.compute_dtype)
         x, caches = apply_blocks_decode(
-            params["blocks"], x, caches, self._pos(pos), cfg=self.cfg,
+            params["blocks"], x, caches, pos, cfg=self.cfg,
             knobs=self.knobs, paged=(self._page_idx(page_idx), page_size))
         x = rmsnorm(params["final_norm"], x)
         logits = unembed(params["embed"], x)[:, 0, :]

@@ -178,33 +178,30 @@ def _apply_ssm_block_decode(p, x, cache, *, cfg):
     return x + y
 
 
-def _apply_attn_block_decode(p, x, cache, pos, active, *, cfg, window, knobs,
-                             ffn, paged=None):
-    """x (B,T,dm): token ``t`` of slot ``b`` sits at ``pos[b] + t`` (pos a
-    (B,) int32 tensor).  All T K/V rows are written to the cache in place
-    before attention, which is causal within the block as well.
+def _apply_attn_block_decode(p, x, cache, pos, active, positions, index, *,
+                             cfg, window, knobs, ffn, paged=None):
+    """x (B,T,dm): token ``t`` of slot ``b`` sits at ``positions[b, t] =
+    pos[b] + t`` (pos a (B,) int32 tensor).  All T K/V rows are written to
+    the cache in place at ``index`` (``attn.cache_write_index``, or
+    ``attn.paged_write_index`` when paged) before attention, which is
+    causal within the block as well.
 
     ``paged = (page_idx, page_size)`` switches the cache from a dense
     per-slot stripe to the shared page pool addressed through each slot's
     page-table row (an int32 tensor on the model's device); the masking is
     the same either way."""
-    b, t = x.shape[0], x.shape[1]
     h = rmsnorm(p["ln1"], x)
-    positions = pos[:, None] + torch.arange(t, device=x.device)[None, :]
     q, k_new, v_new = attn.qkv_project(p["attn"], h, positions,
                                        cfg.rope_theta)
     if paged is not None:
-        page_idx, page_size = paged
+        page_idx, _ = paged
         kc, vc = _pool(cache)
-        upd = (attn.paged_cache_update_multi if t > 1
-               else attn.paged_cache_update)
-        upd(kc, vc, k_new, v_new, pos, page_idx, page_size)
+        attn.write_paged_rows(kc, vc, k_new, v_new, index)
         ctx = ops.paged_decode_attention(q, kc, vc, page_idx, pos,
                                          active=active, window=window,
                                          num_splits=knobs.decode_splits)
     else:
-        upd = attn.cache_update_multi if t > 1 else attn.cache_update
-        upd(cache["k"], cache["v"], k_new, v_new, pos)
+        attn.write_cache_rows(cache["k"], cache["v"], k_new, v_new, index)
         ctx = ops.decode_attention(q, cache["k"], cache["v"], pos,
                                    active=active, window=window,
                                    num_splits=knobs.decode_splits)
@@ -295,15 +292,23 @@ def apply_blocks_decode(blocks, x, caches, pos, *, cfg, knobs, paged=None):
             x = _apply_ssm_block_decode(_index_tree(stack, i), x,
                                         _index_tree(cstack, i), cfg=cfg)
         return x, caches
-    b = x.shape[0]
+    b, t = x.shape[0], x.shape[1]
+    # where this step's K/V rows land: the same in every layer (from the
+    # positions as given, so that host positions decide a drop on the host)
+    if paged is not None:
+        index = attn.paged_write_index(pos, paged[0], paged[1], t)
+    else:
+        index = attn.cache_write_index(pos, b, cstack["k"].shape[2], t,
+                                       x.device)
     pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(b)
     pos = pos.to(torch.int32).contiguous()
     active = (pos >= 0).to(torch.int32)
+    positions = pos[:, None] + torch.arange(t, device=x.device)[None, :]
     for i in range(plan.n_layers):
         x = _apply_attn_block_decode(
             _index_tree(stack, i), x, _index_tree(cstack, i), pos, active,
-            cfg=cfg, window=plan.inner_window, knobs=knobs, ffn=ffn,
-            paged=paged)
+            positions, index, cfg=cfg, window=plan.inner_window,
+            knobs=knobs, ffn=ffn, paged=paged)
     return x, caches
 
 

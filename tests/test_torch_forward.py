@@ -34,10 +34,32 @@ ARCHS = ["internlm2-1.8b", "mamba2-1.3b"]
 B, S = 2, 32  # mamba2 smoke: 4 chunks of 8
 
 
+# The SSM projections at 10x their init scale (0.02): at the init's scale
+# an SSM block adds ~1e-6 to the residual stream, below any tolerance here,
+# so a broken SSD would pass unseen; at 10x its states and outputs are
+# O(0.1-1), as trained weights make them, and removing the SSD diagonal
+# moves the logits by ~5e-3 while the port stays ~2e-7 from JAX.
+SSM_BOOST = 10.0
+
+
+def boost_ssm(params):
+    """A copy of a JAX params tree with every SSM block's in_proj and
+    out_proj scaled by SSM_BOOST (numpy leaves)."""
+    params = jax.tree.map(np.asarray, params)
+    blocks = params["blocks"]["stack"] if "blocks" in params else None
+    ssm = blocks["ssm"] if blocks is not None else params
+    for key in ("in_proj", "out_proj"):
+        ssm[key] = ssm[key] * SSM_BOOST
+    return params
+
+
 def _pair(arch, use_pallas=False):
     """(JAX model, JAX params, port model, port params): the shared tiny
-    config of the serving tests (2 layers, vocab 64, f32 caches)."""
+    config of the serving tests (2 layers, vocab 64, f32 caches); mamba2's
+    SSM projections boosted (``SSM_BOOST``)."""
     jm, jp = tiny_lm(arch)
+    if arch == "mamba2-1.3b":
+        jp = jax.tree.map(jnp.asarray, boost_ssm(jp))
     if use_pallas:
         jm = type(jm)(jm.cfg, jm.knobs.with_(use_pallas=True))
     cfg = dataclasses.replace(get_config(arch, smoke=True), num_layers=2,
@@ -53,10 +75,13 @@ def _tokens(seed, b=B, s=S):
 
 
 def _ssm_params(seed):
-    """One mamba2 smoke SSM block's params from the JAX init, both sides."""
+    """One mamba2 smoke SSM block's params from the JAX init (projections
+    boosted), both sides."""
     cfg = get_config("mamba2-1.3b", smoke=True)
-    jp = jssm.ssm_init(jax.random.PRNGKey(seed), cfg.d_model, cfg.ssm)
-    return cfg, jp, convert.params_from_jax(jax.tree.map(np.asarray, jp))
+    jp = boost_ssm(jssm.ssm_init(jax.random.PRNGKey(seed), cfg.d_model,
+                                 cfg.ssm))
+    return (cfg, jax.tree.map(jnp.asarray, jp),
+            convert.params_from_jax(jp))
 
 
 @pytest.mark.parametrize("s", [32, 8, 2])

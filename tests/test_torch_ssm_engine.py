@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 from conftest import tiny_lm  # noqa: E402
+from test_torch_forward import boost_ssm  # noqa: E402
 from repro.runtime.serve import Request as JRequest  # noqa: E402
 from repro.runtime.serve import ServeConfig as JServeConfig  # noqa: E402
 from repro.runtime.serve import ServeEngine as JServeEngine  # noqa: E402
@@ -32,12 +33,18 @@ def _trace(n=5):
         np.int32)) for i in range(n)]
 
 
+def _jax_params():
+    """The shared tiny mamba2's JAX params with the SSM projections boosted
+    (see ``test_torch_forward.SSM_BOOST``), so that SSM state decides the
+    tokens."""
+    return boost_ssm(tiny_lm(ARCH)[1])
+
+
 def _port():
-    _, jp = tiny_lm(ARCH)
     cfg = dataclasses.replace(get_config(ARCH, smoke=True), num_layers=2,
                               vocab_size=64)
     model = LM(cfg, RuntimeKnobs(cache_dtype=torch.float32), device="cpu")
-    return model, convert.params_from_jax(jax.tree.map(np.asarray, jp))
+    return model, convert.params_from_jax(_jax_params())
 
 
 def _run(engine, req_cls, trace, max_new=6):
@@ -53,7 +60,10 @@ _JAX_STREAMS = {}
 
 def _jax_streams(mode):
     if mode not in _JAX_STREAMS:
-        jm, jp = tiny_lm(ARCH)
+        import jax.numpy as jnp
+
+        jm, _ = tiny_lm(ARCH)
+        jp = jax.tree.map(jnp.asarray, _jax_params())
         eng = JServeEngine(jm, jp, JServeConfig(mode=mode, **CONFIG))
         _JAX_STREAMS[mode] = _run(eng, JRequest, _trace())
     return _JAX_STREAMS[mode]
