@@ -459,6 +459,26 @@ def _plain_attention():
             setattr(ops, n, fn)
 
 
+@contextlib.contextmanager
+def _first_call_args(name):
+    """Record the arguments of the first call the model makes to
+    ``ops.<name>`` (the call itself goes through unchanged)."""
+    from repro_torch.kernels import ops
+
+    fn, seen = getattr(ops, name), []
+
+    def record(*args, **kwargs):
+        if not seen:
+            seen.append(args)
+        return fn(*args, **kwargs)
+
+    setattr(ops, name, record)
+    try:
+        yield seen
+    finally:
+        setattr(ops, name, fn)
+
+
 def _profile_tick(run, label, ticks=3, top=8):
     """Device time of ``run`` by kernel under ``torch.profiler``: the
     kernels that took the most, and the share of the window the card was
@@ -849,7 +869,9 @@ def phase_forward_kernels():
             flash_err = max(flash_err, err)
         del q, k, v, p_round
     ssd_err = 0.0
-    for shape in (SSD, dict(SSD, B=1, NC=4, NH=16, G=2, DS=64)):
+    # mamba2's phase 3c shape, the prefill's (B=4, NC=8), and G > 1
+    for shape in (SSD, dict(SSD, B=4, NC=8),
+                  dict(SSD, B=1, NC=4, NH=16, G=2, DS=64)):
         args = _ssd_inputs(*shape.values())
         ssd_err = max(ssd_err, _check_ssd(
             f"ssd_chunk {shape}", ssd_chunk_cuda(*args),
@@ -970,6 +992,7 @@ def make_ssm_model():
 def phase_ssm(model, params):
     """mamba2-1.3b: batched prefill through the SSD kernel, decode from its
     states, the token-fed route, and the engine."""
+    from repro_torch.kernels.ops import ssd_chunk_plain
     from repro_torch.kernels.ssd_scan import ssd_chunk_cuda
     from repro_torch.runtime.serve import Request, ServeConfig, ServeEngine
     from repro_torch.runtime.steps import make_prefill_step, make_serve_step
@@ -992,7 +1015,13 @@ def phase_ssm(model, params):
     if launches != cfg.num_layers:
         raise AssertionError(f"SSD kernel launched {launches} times, not "
                              f"once per layer ({cfg.num_layers})")
-    logits, _ = model.prefill(params, batch)
+    with _first_call_args("ssd_chunk") as seen:
+        logits, _ = model.prefill(params, batch)
+    # the first layer's own SSD inputs (strided views of its in_proj
+    # output) through the kernel and the plain version
+    _check_ssd("ssd_chunk, mamba2 prefill layer 0",
+               ssd_chunk_cuda(*seen[0]), ssd_chunk_plain(*seen[0]))
+    del seen
     with _plain_attention():
         want, _ = model.prefill(params, batch)
     _check_logits("mamba2 prefill logits, kernel vs plain", logits, want)
@@ -1053,14 +1082,10 @@ def phase_ssm(model, params):
         np.int32)) for i, n in enumerate((20, 7, 31, 12, 25, 9))]
     eng = ServeEngine(model, params, ServeConfig(batch_slots=4, max_len=128))
     handles = [eng.submit(Request(i, p, max_new_tokens=8)) for i, p in reqs]
-    t0 = time.perf_counter()
     done = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    toks_out = sum(len(r.output) for r in done)
-    _log(f"[ssm] engine continuous: {len(done)}/6 requests, {toks_out} "
-         f"tokens in {wall:.3f}s = {toks_out / wall:.2f} tok/s; ttft p50 "
-         f"{statistics.median(h.metrics()['ttft_s'] for h in handles) * 1e3:.1f} ms")
+    # a correctness run: too few and too short requests to time serving
+    _log(f"[ssm] engine continuous: {len(done)}/6 requests, "
+         f"{sum(len(r.output) for r in done)} tokens")
     if len(done) != 6 or any(len(r.output) != 8 for r in done):
         raise AssertionError("mamba2 continuous run did not finish")
     # the last request was admitted into a reused slot: alone, in a fresh

@@ -248,8 +248,9 @@ class ServeEngine:
         # slots) whatever the device
         self._autotune = (config.mode == "continuous"
                           and model.knobs.decode_splits == 0)
-        # SSM state is not position-masked: zero a slot on admission
-        self._needs_reset = model.cfg.family in ("ssm", "hybrid")
+        # SSM state is not position-masked (the plans that cannot chunk
+        # their prefill): zero a slot on admission
+        self._needs_reset = not model.supports_chunked_prefill()
         if self._needs_reset:
             self._reset = self._make_slot_reset(model, max_len)
         self.bind_telemetry(telemetry, replica=replica)

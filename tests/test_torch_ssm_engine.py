@@ -108,6 +108,20 @@ def test_slot_reset_zeroes_only_its_slot():
         assert bool((leaf[:, 1] == 0).all()) and bool((leaf[:, 0] == 1).all())
 
 
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", ARCH])
+def test_engine_resets_slots_as_the_jax_engine(arch):
+    """The port decides the slot reset from the model's plan; the JAX
+    engine from the family name.  They agree for every ported plan."""
+    jm, jp = tiny_lm(arch)
+    jeng = JServeEngine(jm, jp, JServeConfig(**CONFIG))
+    cfg = dataclasses.replace(get_config(arch, smoke=True), num_layers=2,
+                              vocab_size=64)
+    model = LM(cfg, RuntimeKnobs(cache_dtype=torch.float32), device="cpu")
+    eng = ServeEngine(model, convert.params_from_jax(jp),
+                      ServeConfig(**CONFIG))
+    assert eng._needs_reset == jeng._needs_reset == (arch == ARCH)
+
+
 def test_ssm_engine_refuses_paged_cache():
     model, params = _port()
     with pytest.raises(ValueError, match="paged"):
