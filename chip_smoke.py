@@ -12,8 +12,11 @@ Run from the repository root.  Phases, each raising on failure:
    KV=8, D=128; 4 slots; 8192 positions each, as a dense cache or as 512
    pages of 16 tokens from a 2049-page pool through a randomly permuted
    page table; ragged positions including -1 and 8191; paged prefill
-   chunks of 256 rows at offsets 0 and 3840), then times of the kernel,
-   the plain version and one library call;
+   chunks of 256 rows at offsets 0 and 3840 and the ragged last chunk of
+   a 4200-token prompt, 104 rows at 4096, windows 0, 1024 and 200), then
+   times of the kernel, the plain version and one library call, and the
+   bound with the flop rate it assumes (the many-row kernel's tensor-core
+   rate for the paged prefill and flash attention, 3xTF32 for f32);
 4. engine, dense cache: internlm2-1.8b at full width (24 layers, seeded
    random f32 weights, f32 cache) served by ``ServeEngine`` in continuous
    mode -- short requests plus one ~4200-token prompt, so the split-K
@@ -32,9 +35,11 @@ Run from the repository root.  Phases, each raising on failure:
    profiled as in phase 4;
 3c. whole-sequence kernels: flash attention (B=2, S=4096, H=16, KV=8,
    D=128; causal with window 0 and 1024, not causal at S=1024, one bf16
-   case) and the SSD chunk (mamba2-1.3b's B=2, NC=16, NH=64, Q=256, hp=64,
-   ds=128, G=1, and a G=2 case) against their plain versions, then timed
-   against the plain version, SDPA (flash attention only) and the bound;
+   case, and S=1000, no multiple of the tiles, causal and not causal with
+   window 300) and the SSD chunk (mamba2-1.3b's B=2, NC=16, NH=64, Q=256,
+   hp=64, ds=128, G=1, and a G=2 case) against their plain versions, then
+   timed against the plain version, SDPA (flash attention only) and the
+   bound;
 5. the attention forward path: internlm2-1.8b's ``make_prefill_step`` on
    2 prompts x 4096 tokens must launch flash attention 24 times; its
    last-row logits must match the plain path and the dense engine's
@@ -71,18 +76,31 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# The many-row kernel (#4, #6) multiplies on the tensor cores: f32 operands
+# as three TF32 products (3xTF32, f32-accurate), so f32 work runs at most at
+# a third of the 495 TFLOP/s TF32 rate; bf16 q and K/V at the bf16 rate.
+TF32X3_FLOPS = 495e12 / 3
+BF16_TC_FLOPS = 989e12
+RATE_NAMES = {F32_FLOPS: "f32 CUDA cores, 67 TFLOP/s",
+              TF32X3_FLOPS: "3xTF32 tensor cores, 165 TFLOP/s",
+              BF16_TC_FLOPS: "bf16 tensor cores, 989 TFLOP/s"}
 H, KV, D, B, S = 16, 8, 128, 4, 8192
 POS = [-1, 1000, 4200, S - 1]
 PAGE, N_PAGES = 16, 2049  # the paged engine's default pool: 4 * 512 + 1
 MAX_PAGES = S // PAGE
 CHUNK = 256  # the engines' prefill chunk
+RAGGED = 4200 - 4096  # the last chunk of a 4200-token prompt
 # Kernel against plain version.  With these inputs (randn q, k, v) the
 # scores have unit spread, so an output is a softmax average over n = 1k-8k
 # keys: |out| ~ sqrt(e / n) ~ 0.02-0.05, at most ~0.2; a parked slot's are
 # 0.  Leaving out one 32-key tile moves an output by ~9.3 / n rms (1e-3 at
 # n = 8192, 9e-3 at n = 1000), so each tolerance stays below that.
 # - f32 cache: both sides accumulate in f32 in other orders (tiled online
-#   softmax against one full softmax); measured <= 2.7e-7.
+#   softmax against one full softmax); measured <= 2.7e-7.  The paged
+#   prefill and the flash attention multiply on the tensor cores, each f32
+#   product as three TF32 products (3xTF32, ~2^-21 relative) summed by the
+#   mma's truncating f32 accumulation; measured <= 4.7e-6.  One TF32 product
+#   alone (~2^-11) fails this tolerance.
 # - bf16 cache: the kernel rounds p to bf16 before the PV product, as the
 #   TPU kernel does, where the plain version keeps p in f32; measured
 #   2.9e-4 to 3.3e-4 on an H100.  Rounding p on the plain side would not
@@ -189,11 +207,24 @@ def _library_call(q, k, v, pos):
     return lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask)
 
 
+def _bound(t_ops, t_bytes, rate):
+    """(bound ms, what bounds it, the flop rate used)."""
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", RATE_NAMES[rate])
+
+
+def _tc_rate(q, k):
+    """The many-row kernel's flop rate for these operand dtypes."""
+    both_bf16 = q.dtype == k.dtype == torch.bfloat16
+    return BF16_TC_FLOPS if both_bf16 else TF32X3_FLOPS
+
+
 def _bound_ms(q, k, pos, paged=False):
     """Least time for the work these inputs need: the live K/V prefix of
     the active slots read once (``paged``: and the page-table entries that
     map it), q read and the output written once, against the card's memory
-    rate; and QK + PV flops against its f32 rate."""
+    rate; and QK + PV flops against its f32 rate (the decode kernels run
+    on the CUDA cores)."""
     live = sum(p + 1 for p in pos.tolist() if p >= 0)
     kv_bytes = 2 * live * KV * D * k.element_size()
     io_bytes = 2 * q.numel() * q.element_size() + 4 * len(pos)
@@ -202,8 +233,7 @@ def _bound_ms(q, k, pos, paged=False):
                             if p >= 0)
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = 4 * live * H * D * q.shape[1] / F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    return _bound(t_ops, t_bytes, F32_FLOPS)
 
 
 def phase_kernels():
@@ -243,7 +273,7 @@ def phase_kernels():
     # times at the engine's decode shapes: T = 1, f32 cache, no window; the
     # autotuner gives split-K 2 splits at these positions
     q, k, v, pos = _inputs(1, torch.float32, torch.float32)
-    bound, bound_by = _bound_ms(q, k, pos)
+    bound = _bound_ms(q, k, pos)
     lib_ms = _time_ms(_library_call(q, k, v, pos))
     rows = []
     for name, run, plain, replaces in (
@@ -257,7 +287,7 @@ def phase_kernels():
              lambda: decode_attention_plain(q, k, v, pos, num_splits=2),
              "src/repro/kernels/decode_attention.py:236")):
         rows.append(_timed_row(
-            name, run, plain, lib_ms, bound, bound_by,
+            name, run, plain, lib_ms, bound,
             "src/repro_torch/kernels/csrc/decode_attention.cu", replaces,
             errs[name]))
     return rows
@@ -295,17 +325,17 @@ def _paged_library_call(q, k, v, table, pos):
 
 
 def _prefill_bound_ms(q, k, q_offset):
-    """Least time of one chunk: its causal QK + PV flops at the card's f32
-    rate against the live K/V prefix, q and the output at its memory
-    rate."""
+    """Least time of one chunk: its causal QK + PV flops at the many-row
+    kernel's tensor-core rate against the live K/V prefix, q and the output
+    at the card's memory rate."""
     c = q.shape[1]
     keys = c * q_offset + c * (c + 1) // 2  # (row, key) pairs attended
-    t_ops = 4 * H * D * keys / F32_FLOPS * 1e3
+    rate = _tc_rate(q, k)
+    t_ops = 4 * H * D * keys / rate * 1e3
     kv_bytes = 2 * (q_offset + c) * KV * D * k.element_size()
     io_bytes = 2 * q.numel() * q.element_size() + 4 * (q_offset + c) // PAGE
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    return _bound(t_ops, t_bytes, rate)
 
 
 def _prefill_library_call(q, k, v, row, q_offset):
@@ -368,33 +398,39 @@ def phase_paged_kernels():
                 errs["paged_decode_attention_splitk"] = max(
                     errs["paged_decode_attention_splitk"], err)
     slot = B - 1  # a fully mapped row
-    for q_offset in (0, S // 2 - CHUNK):
-        for window in (0, 1024):
-            for kd in (torch.float32, torch.bfloat16):
-                q, k, v, table, _ = _paged_inputs(1, torch.float32, kd,
-                                                  chunk=CHUNK)
-                p_round = None
-                if kd == torch.bfloat16:
-                    p_round = 2.0 ** -8 * paged_prefill_attention_plain(
-                        q, k, v.abs(), table, slot, q_offset, window=window)
-                err = _check(
-                    f"paged_prefill_attention C={CHUNK} q_offset={q_offset} "
-                    f"window={window} pool={kd}",
-                    paged_prefill_attention_cuda(q, k, v, table[slot],
-                                                 q_offset, window=window),
-                    paged_prefill_attention_plain(q, k, v, table, slot,
-                                                  q_offset, window=window),
-                    kd, p_round)
-                if kd == torch.float32:
-                    errs["paged_prefill_attention"] = max(
-                        errs["paged_prefill_attention"], err)
+    # full chunks at offsets 0 and 3840 (the latter split over the key
+    # range), and the engine's ragged last chunk of a 4200-token prompt
+    # (C = 104 at 4096), also under a window shorter than the chunk's span
+    prefill_cases = [(CHUNK, q_offset, window)
+                     for q_offset in (0, S // 2 - CHUNK)
+                     for window in (0, 1024)]
+    prefill_cases += [(RAGGED, S // 2, window) for window in (0, 200)]
+    for c, q_offset, window in prefill_cases:
+        for kd in (torch.float32, torch.bfloat16):
+            q, k, v, table, _ = _paged_inputs(1, torch.float32, kd,
+                                              chunk=c)
+            p_round = None
+            if kd == torch.bfloat16:
+                p_round = 2.0 ** -8 * paged_prefill_attention_plain(
+                    q, k, v.abs(), table, slot, q_offset, window=window)
+            err = _check(
+                f"paged_prefill_attention C={c} q_offset={q_offset} "
+                f"window={window} pool={kd}",
+                paged_prefill_attention_cuda(q, k, v, table[slot],
+                                             q_offset, window=window),
+                paged_prefill_attention_plain(q, k, v, table, slot,
+                                              q_offset, window=window),
+                kd, p_round)
+            if kd == torch.float32:
+                errs["paged_prefill_attention"] = max(
+                    errs["paged_prefill_attention"], err)
     torch.cuda.synchronize()
 
     # times at the paged engine's shapes: f32 pool, no window
     src = "src/repro_torch/kernels/csrc/paged_attention.cu"
     rows = []
     q, k, v, table, pos = _paged_inputs(1, torch.float32, torch.float32)
-    bound, bound_by = _bound_ms(q, k, pos, paged=True)
+    bound = _bound_ms(q, k, pos, paged=True)
     lib_ms = _time_ms(_paged_library_call(q, k, v, table, pos))
     for name, run, plain, line in (
             ("paged_decode_attention",
@@ -407,33 +443,35 @@ def phase_paged_kernels():
              lambda: paged_decode_attention_plain(q, k, v, table, pos,
                                                   num_splits=2),
              325)):
-        rows.append(_timed_row(name, run, plain, lib_ms, bound, bound_by,
-                               src, f"src/repro/kernels/paged_attention.py:"
-                                    f"{line}", errs[name]))
+        rows.append(_timed_row(name, run, plain, lib_ms, bound, src,
+                               f"src/repro/kernels/paged_attention.py:"
+                               f"{line}", errs[name]))
     q_offset = S // 2 - CHUNK
     q, k, v, table, _ = _paged_inputs(1, torch.float32, torch.float32,
                                       chunk=CHUNK)
-    bound, bound_by = _prefill_bound_ms(q, k, q_offset)
+    bound = _prefill_bound_ms(q, k, q_offset)
     lib_ms = _time_ms(_prefill_library_call(q, k, v, table[slot], q_offset))
     rows.append(_timed_row(
         "paged_prefill_attention",
         lambda: paged_prefill_attention_cuda(q, k, v, table[slot], q_offset),
         lambda: paged_prefill_attention_plain(q, k, v, table, slot,
                                               q_offset),
-        lib_ms, bound, bound_by, src,
-        "src/repro/kernels/paged_attention.py:228",
+        lib_ms, bound, src, "src/repro/kernels/paged_attention.py:228",
         errs["paged_prefill_attention"]))
     return rows
 
 
-def _timed_row(name, run, plain, lib_ms, bound, bound_by, source, replaces,
-               err):
+def _timed_row(name, run, plain, lib_ms, bound, source, replaces, err):
+    """Times of the kernel and its plain version; ``bound`` is
+    ``_bound``'s (ms, what bounds it, the flop rate used)."""
+    bound, bound_by, rate = bound
     ms = _time_ms(run)
     plain_ms = _time_ms(plain)
     lib = ("none (no single PyTorch call)" if lib_ms is None
            else f"{lib_ms:.4f} ms")
     _log(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-         f"library {lib}, bound {bound:.4f} ms by {bound_by})")
+         f"library {lib}, bound {bound:.4f} ms by {bound_by}; flops at "
+         f"{rate})")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -769,8 +807,9 @@ def _flash_inputs(b, s, dtype, seed=0):
 
 
 def _flash_bound_ms(q, k, causal, window):
-    """QK + PV flops (4 D per attended (row, key) pair) at the card's f32
-    rate, against q, K, V and the output read or written once."""
+    """QK + PV flops (4 D per attended (row, key) pair) at the many-row
+    kernel's tensor-core rate, against q, K, V and the output read or
+    written once."""
     b, s = q.shape[0], q.shape[1]
     qpos = torch.arange(s, device="cuda")[:, None]
     kpos = torch.arange(s, device="cuda")[None, :]
@@ -780,12 +819,12 @@ def _flash_bound_ms(q, k, causal, window):
     if window:
         seen &= qpos - kpos < window
     pairs = b * H * int(seen.sum())
-    t_ops = 4 * D * pairs / F32_FLOPS * 1e3
+    rate = _tc_rate(q, k)
+    t_ops = 4 * D * pairs / rate * 1e3
     nbytes = (2 * q.numel() * q.element_size()
               + 2 * k.numel() * k.element_size())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    return _bound(t_ops, t_bytes, rate)
 
 
 def _ssd_inputs(B_, NC, NH, G, Q, HP_, DS, seed=0):
@@ -822,8 +861,7 @@ def _ssd_bound_ms(x, b):
     nbytes = (2 * x.numel() * es + 2 * b.numel() * es
               + 2 * bb * nc * nh * q * 4 + bb * nc * nh * ds * hp * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    return _bound(t_ops, t_bytes, F32_FLOPS)
 
 
 def _check_ssd(label, got, want):
@@ -850,10 +888,14 @@ def phase_forward_kernels():
     from repro_torch.kernels.ssd_scan import ssd_chunk_cuda
 
     flash_err = 0.0
+    # the last two: S = 1000 is no multiple of the 32-position query tile
+    # or the 32-key tile
     for s, causal, window, dt in ((FS, True, 0, torch.float32),
                                   (FS, True, 1024, torch.float32),
                                   (1024, False, 0, torch.float32),
-                                  (FS, True, 0, torch.bfloat16)):
+                                  (FS, True, 0, torch.bfloat16),
+                                  (1000, True, 0, torch.float32),
+                                  (1000, False, 300, torch.float32)):
         q, k, v = _flash_inputs(FB, s, dt)
         p_round = None
         if dt == torch.bfloat16:  # rows near the start see few keys
@@ -880,7 +922,7 @@ def phase_forward_kernels():
 
     rows = []
     q, k, v = _flash_inputs(FB, FS, torch.float32)
-    bound, bound_by = _flash_bound_ms(q, k, True, 0)
+    bound = _flash_bound_ms(q, k, True, 0)
     kx = k.transpose(1, 2).repeat_interleave(H // KV, dim=1)
     vx = v.transpose(1, 2).repeat_interleave(H // KV, dim=1)
     qt = q.transpose(1, 2)
@@ -888,15 +930,15 @@ def phase_forward_kernels():
         qt, kx, vx, is_causal=True))
     rows.append(_timed_row(
         "flash_attention", lambda: flash_attention_cuda(q, k, v),
-        lambda: flash_attention_plain(q, k, v), lib_ms, bound, bound_by,
+        lambda: flash_attention_plain(q, k, v), lib_ms, bound,
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:83", flash_err))
     del q, k, v, kx, vx, qt
     args = _ssd_inputs(*SSD.values())
-    bound, bound_by = _ssd_bound_ms(args[0], args[1])
+    bound = _ssd_bound_ms(args[0], args[1])
     rows.append(_timed_row(
         "ssd_chunk", lambda: ssd_chunk_cuda(*args),
-        lambda: ssd_chunk_plain(*args), None, bound, bound_by,
+        lambda: ssd_chunk_plain(*args), None, bound,
         "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan.py:54", ssd_err))
     return rows

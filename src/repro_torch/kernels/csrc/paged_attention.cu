@@ -36,18 +36,18 @@
 //   Bound on an H100: operations.  A chunk at q_offset does
 //   4 * C * H * D * (q_offset + C / 2) flops (QK and PV) against
 //   2 * KV * D * bytes * (q_offset + C) bytes of K/V: C * G / 8 to
-//   C * G / 4 flops per f32 byte (64-128 at C = 256, G = 2), far above the
-//   card's non-tensor f32 balance (67 TFLOP/s over 3.35 TB/s = 20).
-//   Design: the many-row kernel of attention_common.cuh (prefill_kernel,
-//   shared with the dense flash attention) with the page-table row lookup
-//   in its tile loader: one CTA per (KV head, tile of QT = 64 / G query
-//   positions) serving all G heads of those positions, the key loop ending
-//   at the tile's last position (the causal skip) and starting at the
-//   window's first tile.
-//   CUDA-core FMAs for now; mma.sync / wgmma for the 64 x 32 score and PV
-//   tiles is later work.
+//   C * G / 4 flops per f32 byte (64-128 at C = 256, G = 2), above the
+//   card's balance even for f32-accurate TF32 work (165 TFLOP/s over
+//   3.35 TB/s = 49).
+//   Design: the tensor-core many-row kernel of many_row_attention.cuh
+//   (shared with the dense flash attention) with the page-table row lookup
+//   in its cp.async tile loader.  One 256-row chunk is only 64 CTAs (8 KV
+//   heads x 8 query tiles) on 132 SMs, so the wrapper splits each CTA's
+//   key range (4 splits at offset 3840: 256 CTAs, two per SM) and a
+//   combine kernel merges the splits' (acc, m, l).
 
 #include "attention_common.cuh"
+#include "many_row_attention.cuh"
 
 namespace {
 
@@ -109,13 +109,16 @@ extern "C" int paged_decode_attention_splitk_fwd(
 // Fused paged prefill of one slot's chunk: q (1, C, H, D) with strides
 // (token, head) = q_strides[0..1]; pools as above; page_row the slot's
 // contiguous int32 page-table row.  `out` is a contiguous (1, C, H, D)
-// tensor of q's dtype.  (H / KV) must divide 64.
+// tensor of q's dtype.  (H / KV) must divide 64.  num_splits and the f32
+// scratch o_part (ns, 1, C, H, D), m_part and l_part (ns, 1, C, H) as for
+// flash_attention_fwd.
 extern "C" int paged_prefill_attention_fwd(
     const void* q, const void* k, const void* v, void* out,
     const int* page_row, int C, int H, int KV, int page_size, int D,
     int q_offset, int window, const long long* q_strides,
-    const long long* k_strides, const long long* v_strides, int q_dtype,
-    int kv_dtype, void* stream) {
+    const long long* k_strides, const long long* v_strides, int num_splits,
+    float* o_part, float* m_part, float* l_part, int q_dtype, int kv_dtype,
+    void* stream) {
   PrefillParams p{};
   p.q = q; p.k = k; p.v = v; p.out = out; p.page_row = page_row;
   p.Sq = C; p.Sk = q_offset + C; p.H = H; p.KV = KV; p.q_offset = q_offset;
@@ -123,6 +126,8 @@ extern "C" int paged_prefill_attention_fwd(
   p.q_st = q_strides[0]; p.q_sh = q_strides[1];
   p.k_sb = k_strides[0]; p.k_ss = k_strides[1]; p.k_sh = k_strides[2];
   p.v_sb = v_strides[0]; p.v_ss = v_strides[1]; p.v_sh = v_strides[2];
-  return (int)launch_prefill<true>(p, 1, D, q_dtype, kv_dtype,
+  p.num_splits = num_splits;
+  p.o_part = o_part; p.m_part = m_part; p.l_part = l_part;
+  return (int)launch_many_row<true>(p, 1, D, q_dtype, kv_dtype,
                                    (cudaStream_t)stream);
 }

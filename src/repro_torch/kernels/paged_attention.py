@@ -25,8 +25,8 @@ import torch
 from . import _build
 from .decode_attention import (_DTYPE_CODE, MAX_ROWS, _check_device,
                                _check_shapes, _pos_active, _strides)
-
-PREFILL_ROWS = 64  # query rows (positions x heads) one prefill CTA serves
+from .flash_attention import ROWS as PREFILL_ROWS
+from .flash_attention import launch_many_row
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,7 +36,7 @@ _DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
 _SPLITK_ARGS = [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
                 _I, _P, _P, _P, _P, _P, _P, _I, _I, _P]
 _PREFILL_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                 _P, _I, _I, _P]
+                 _P, _I, _P, _P, _P, _I, _I, _P]
 
 
 def _lib():
@@ -176,14 +176,12 @@ def paged_prefill_attention_cuda(q, k_pages, v_pages, page_row, q_offset, *,
     out = torch.empty((1, c, h, d), dtype=q.dtype, device=q.device)
     strides = ((ctypes.c_longlong * 2)(q.stride(1), q.stride(2)),
                _strides(k_pages), _strides(v_pages))
-    err = _lib().paged_prefill_attention_fwd(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
-        page_row.data_ptr(), c, h, kv, page_size, d, q_offset, int(window),
-        *strides, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"paged_prefill_attention_fwd launch failed: "
-                           f"cudaError {err}")
+    launch_many_row(
+        _lib().paged_prefill_attention_fwd, out, kv, q_offset + c,
+        (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+         out.data_ptr(), page_row.data_ptr(), c, h, kv, page_size, d,
+         q_offset, int(window), *strides),
+        (_DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype]))
     paged_prefill_attention_cuda.launches += 1
     return out
 
