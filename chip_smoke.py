@@ -11,12 +11,16 @@ Run from the repository root.  Phases, each raising on failure:
    the card at the serving path's shapes (internlm2-1.8b attention: H=16,
    KV=8, D=128; 4 slots; 8192 positions each, as a dense cache or as 512
    pages of 16 tokens from a 2049-page pool through a randomly permuted
-   page table; ragged positions including -1 and 8191; paged prefill
+   page table; ragged positions including -1 and 8191; the paged decode
+   kernels also at their chunk boundaries, positions 255, 256 and 257, and
+   a slot's output alone against it in the batch, bitwise; paged prefill
    chunks of 256 rows at offsets 0 and 3840 and the ragged last chunk of
-   a 4200-token prompt, 104 rows at 4096, windows 0, 1024 and 200), then
-   times of the kernel, the plain version and one library call, and the
-   bound with the flop rate it assumes (the many-row kernel's tensor-core
-   rate for the paged prefill and flash attention, 3xTF32 for f32);
+   a 4200-token prompt, 104 rows at 4096, windows 0, 1024 and 200), the
+   paged decode kernel's working CTAs, then device times of the kernel,
+   the plain version and one library call (behind a spin kernel, so the
+   host's launch work is not in them), and the bound with the flop rate it
+   assumes (the many-row kernel's tensor-core rate for the paged prefill
+   and flash attention, 3xTF32 for f32);
 4. engine, dense cache: internlm2-1.8b at full width (24 layers, seeded
    random f32 weights, f32 cache) served by ``ServeEngine`` in continuous
    mode -- short requests plus one ~4200-token prompt, so the split-K
@@ -86,6 +90,9 @@ RATE_NAMES = {F32_FLOPS: "f32 CUDA cores, 67 TFLOP/s",
               BF16_TC_FLOPS: "bf16 tensor cores, 989 TFLOP/s"}
 H, KV, D, B, S = 16, 8, 128, 4, 8192
 POS = [-1, 1000, 4200, S - 1]
+# the paged decode kernel's chunk boundaries (256 keys): the last key of a
+# chunk, the first, the second, beside the row's last position
+POS_EDGES = [255, 256, 257, S - 1]
 PAGE, N_PAGES = 16, 2049  # the paged engine's default pool: 4 * 512 + 1
 MAX_PAGES = S // PAGE
 CHUNK = 256  # the engines' prefill chunk
@@ -152,7 +159,16 @@ def phase_build():
          f"(nvcc: {_build.build_seconds})")
 
 
-def _time_ms(fn, iters=20, warmup=3):
+SPIN_CYCLES = 2_000_000  # ~1 ms of the card's clock
+
+
+def _time_ms(fn, iters=20, warmup=3, queued=True):
+    """Median of ``iters`` CUDA-event timings of ``fn``.  ``queued``: a
+    ~1 ms spin kernel (``torch.cuda._sleep``) goes ahead of each start
+    event, so the host enqueues ``fn`` while the card spins and the events
+    see ``fn``'s device time alone (a kernel of tens of microseconds would
+    otherwise read the host's launch work).  The engine ticks, which the
+    host bounds, are timed with ``queued=False``: host time included."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -160,6 +176,8 @@ def _time_ms(fn, iters=20, warmup=3):
     for _ in range(iters):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -293,12 +311,12 @@ def phase_kernels():
     return rows
 
 
-def _paged_inputs(t, q_dtype, kv_dtype, seed=0, chunk=0):
+def _paged_inputs(t, q_dtype, kv_dtype, seed=0, chunk=0, positions=POS):
     """q (B, t, H, D) -- or one slot's chunk (1, chunk, H, D) -- random
-    pools (N_PAGES, PAGE, KV, D) (the null page too) and a (B, MAX_PAGES)
-    page table drawn from a random permutation of pages 1..N_PAGES-1;
-    decode rows map only the pages up to each slot's last query position,
-    the rest are the null page 0."""
+    pools (N_PAGES, PAGE, KV, D) (the null page too), a (B, MAX_PAGES)
+    page table drawn from a random permutation of pages 1..N_PAGES-1 and
+    ``positions``; decode rows map only the pages up to each slot's last
+    query position, the rest are the null page 0."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((1, chunk, H, D) if chunk else (B, t, H, D),
                     generator=g, device="cuda").to(q_dtype)
@@ -309,11 +327,44 @@ def _paged_inputs(t, q_dtype, kv_dtype, seed=0, chunk=0):
     perm = torch.randperm(N_PAGES - 1, generator=g, device="cuda") + 1
     table = perm[:B * MAX_PAGES].reshape(B, MAX_PAGES).to(torch.int32)
     if not chunk:
-        for b, p in enumerate(POS):
+        for b, p in enumerate(positions):
             mapped = -(-(p + t) // PAGE) if p >= 0 else 0
             table[b, mapped:] = 0
-    pos = torch.tensor(POS, dtype=torch.int32, device="cuda")
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     return q, k, v, table.contiguous(), pos
+
+
+def _working_ctas(pos, num_splits):
+    """CTAs of the paged decode kernel (T = 1, no window) that hold keys
+    their slot sees, and the grid's KV x B x chunks."""
+    from repro_torch.kernels.paged_attention import decode_chunks
+
+    _, _, ranges = decode_chunks(MAX_PAGES, PAGE, num_splits)
+    work = sum(lo <= p for p in pos.tolist() for lo, hi in ranges if lo < hi)
+    return KV * work, KV * len(pos) * len(ranges)
+
+
+def _check_slot_alone(decode, splitk):
+    """Slot 3's output computed alone equals, bitwise, its output in the
+    batch of four, for the single-pass kernel (T = 1 and 4) and split-K
+    (2 splits), at both position sets."""
+    for positions in (POS, POS_EDGES):
+        for name, t, run in (
+                ("paged_decode_attention", 1, decode),
+                ("paged_decode_attention", 4, decode),
+                ("paged_decode_attention_splitk ns=2", 1,
+                 functools.partial(splitk, num_splits=2))):
+            q, k, v, table, pos = _paged_inputs(t, torch.float32,
+                                                torch.float32,
+                                                positions=positions)
+            batch = run(q, k, v, table, pos)
+            alone = run(q[3:], k, v, table[3:], pos[3:])
+            same = torch.equal(alone[0], batch[3])
+            _log(f"[kernels] {name} pos={positions} T={t}: slot 3 alone "
+                 f"equals it in the batch bitwise: {same}")
+            if not same:
+                raise AssertionError("a slot's paged decode output depends "
+                                     "on the rest of the batch")
 
 
 def _paged_library_call(q, k, v, table, pos):
@@ -367,36 +418,41 @@ def phase_paged_kernels():
     errs = {"paged_decode_attention": 0.0,
             "paged_decode_attention_splitk": 0.0,
             "paged_prefill_attention": 0.0}
-    for t in (1, 4):
-        for window in (0, 1024):
-            for kd in (torch.float32, torch.bfloat16):
-                q, k, v, table, pos = _paged_inputs(t, torch.float32, kd)
+    for positions in (POS, POS_EDGES):
+        for t in (1, 4):
+            for window in (0, 1024):
+                for kd in (torch.float32, torch.bfloat16):
+                    q, k, v, table, pos = _paged_inputs(
+                        t, torch.float32, kd, positions=positions)
+                    err = _check(
+                        f"paged_decode_attention pos={positions} T={t} "
+                        f"window={window} pool={kd}",
+                        paged_decode_attention_cuda(q, k, v, table, pos,
+                                                    window=window),
+                        paged_decode_attention_plain(q, k, v, table, pos,
+                                                     window=window), kd)
+                    if kd == torch.float32:
+                        errs["paged_decode_attention"] = max(
+                            errs["paged_decode_attention"], err)
+        for ns in (2, 4, 8):
+            for window, kd in ((0, torch.float32), (1024, torch.float32),
+                               (0, torch.bfloat16)):
+                q, k, v, table, pos = _paged_inputs(1, torch.float32, kd,
+                                                    positions=positions)
                 err = _check(
-                    f"paged_decode_attention T={t} window={window} "
-                    f"pool={kd}",
-                    paged_decode_attention_cuda(q, k, v, table, pos,
-                                                window=window),
+                    f"paged_decode_attention_splitk pos={positions} "
+                    f"ns={ns} window={window} pool={kd}",
+                    paged_decode_attention_splitk_cuda(
+                        q, k, v, table, pos, window=window,
+                        num_splits=ns),
                     paged_decode_attention_plain(q, k, v, table, pos,
-                                                 window=window), kd)
+                                                 window=window,
+                                                 num_splits=ns), kd)
                 if kd == torch.float32:
-                    errs["paged_decode_attention"] = max(
-                        errs["paged_decode_attention"], err)
-    for ns in (2, 4, 8):
-        for window, kd in ((0, torch.float32), (1024, torch.float32),
-                           (0, torch.bfloat16)):
-            q, k, v, table, pos = _paged_inputs(1, torch.float32, kd)
-            err = _check(
-                f"paged_decode_attention_splitk ns={ns} window={window} "
-                f"pool={kd}",
-                paged_decode_attention_splitk_cuda(q, k, v, table, pos,
-                                                   window=window,
-                                                   num_splits=ns),
-                paged_decode_attention_plain(q, k, v, table, pos,
-                                             window=window, num_splits=ns),
-                kd)
-            if kd == torch.float32:
-                errs["paged_decode_attention_splitk"] = max(
-                    errs["paged_decode_attention_splitk"], err)
+                    errs["paged_decode_attention_splitk"] = max(
+                        errs["paged_decode_attention_splitk"], err)
+    _check_slot_alone(paged_decode_attention_cuda,
+                      paged_decode_attention_splitk_cuda)
     slot = B - 1  # a fully mapped row
     # full chunks at offsets 0 and 3840 (the latter split over the key
     # range), and the engine's ragged last chunk of a 4200-token prompt
@@ -430,6 +486,10 @@ def phase_paged_kernels():
     src = "src/repro_torch/kernels/csrc/paged_attention.cu"
     rows = []
     q, k, v, table, pos = _paged_inputs(1, torch.float32, torch.float32)
+    for ns in (1, 2):
+        work, grid = _working_ctas(pos, ns)
+        _log(f"[kernels] paged decode at pos {POS}, {ns} split(s): {work} "
+             f"working CTAs of a {grid}-CTA grid")
     bound = _bound_ms(q, k, pos, paged=True)
     lib_ms = _time_ms(_paged_library_call(q, k, v, table, pos))
     for name, run, plain, line in (
@@ -570,7 +630,8 @@ def _time_ticks(ticks, label):
     under the profiler."""
     readings = {s: [] for s in ticks}
     for splits in (1, 2, 2, 1, 1, 2):
-        readings[splits].append(_time_ms(ticks[splits], iters=10, warmup=2))
+        readings[splits].append(_time_ms(ticks[splits], iters=10, warmup=2,
+                                         queued=False))
     for splits, ms in readings.items():
         _log(f"[engine] {label}, splits={splits}: "
              f"{', '.join(f'{x:.3f}' for x in ms)} ms (median of 10 each)")
@@ -1080,7 +1141,7 @@ def phase_ssm(model, params):
     _log(f"[ssm] 32 decode steps after the prefill: slot 0 tokens "
          f"{stream[0, :12].tolist()}...")
     tick_ms = [_time_ms(functools.partial(serve, params, caches, nxt, ss),
-                        iters=10, warmup=2) for _ in range(3)]
+                        iters=10, warmup=2, queued=False) for _ in range(3)]
     _log(f"[ssm] decode tick, batch {sb}: "
          f"{', '.join(f'{t:.3f}' for t in tick_ms)} ms (median of 10 each)")
     _profile_tick(functools.partial(serve, params, caches, nxt, ss),

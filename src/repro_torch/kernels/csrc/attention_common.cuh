@@ -1,11 +1,12 @@
 // Pieces shared by the attention kernels over a dense cache
 // (decode_attention.cu, flash_attention.cu) and over the paged pool
 // (paged_attention.cu): element conversions, warp reductions, the 16-byte
-// score dot, the key-tile loader (parameterised by how a key row's address
-// is found: dense strides or a page-table lookup), the online-softmax step
-// of one row over one key tile, the ragged decode kernel and the split-K
-// combine kernel.  The many-row kernel of the full-sequence flash attention
-// and the paged chunked prefill is in many_row_attention.cuh.
+// score dot, 16-byte cp.async, the key-row addressing (dense strides or a
+// page-table lookup), the key-tile loader, the online-softmax step of one
+// row over one key tile, and the dense ragged decode kernel with its
+// split-K combine kernel.  The many-row kernel of the full-sequence flash
+// attention and the paged chunked prefill is in many_row_attention.cuh; the
+// paged decode kernel is in paged_decode.cuh.
 //
 // The decode contract (as the TPU kernels'): slot b's query row t sits at
 // absolute position pos[b] + t and attends keys kpos <= pos[b] + t (and
@@ -36,12 +37,8 @@ struct Params {
   const int* active;
   int B, T, H, KV, S, window, num_splits;
   long long q_sb, q_st, q_sh;
-  // dense: (batch, seq, kv head) strides; paged: (page, token, kv head)
-  long long k_sb, k_ss, k_sh;
+  long long k_sb, k_ss, k_sh;  // (batch, seq, kv head) strides
   long long v_sb, v_ss, v_sh;
-  const int* page_idx;  // paged only: (B, max_pages) int32 page table
-  long long pt_sb;      // its row stride
-  int page_size;        // paged only; S = max_pages * page_size
   float* o_part;  // (B, H, ns, D) split-K partial accumulators
   float* m_part;  // (B, H, ns)
   float* l_part;  // (B, H, ns)
@@ -109,6 +106,31 @@ __device__ __forceinline__ void dot_chunk(const uint4* kc, const float* q,
   }
 }
 
+// 16 bytes from global to shared memory, bypassing L1 (cp.async.cg); with
+// fill = false nothing is read and the 16 bytes are zeroed.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(fill ? 16 : 0));
+}
+
+// Waits for every cp.async this thread issued.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Closes this thread's cp.async issued since the last commit into a group.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Address of key row kpos of one (slot, KV head).  Dense: the slot's stripe
 // through its sequence stride.  Paged: logical page kpos / page_size is
 // physical page row[kpos / page_size] of the pool, at token offset
@@ -133,7 +155,7 @@ struct KeyRows {
 // spread over NT threads: load() issues every load of the tile into
 // registers at once (so a whole tile is in flight), store() moves them to
 // shared memory tiles of row stride LD elements.  Keys outside [klo, khi)
-// are zero-filled without touching memory (and masked later), so no page
+// are zero-filled without touching memory (and masked later), so no row
 // past the last live key and none wholly before the window is read.
 template <typename TKV, int D, int NT>
 struct TileLoader {
@@ -189,13 +211,12 @@ __device__ __forceinline__ float softmax_step(float s, bool ok, float& m,
   return to_f(from_f<TKV>(pr));
 }
 
-// Ragged decode.  One CTA per (KV head j, slot b[, split]); D threads,
-// thread d owns output column d of every query row.  SPLIT=false writes
-// the normalised output; SPLIT=true writes this split's unnormalised
-// (acc, m, l).  A split owns keys [isp * S/ns, (isp + 1) * S/ns): for the
-// paged pool (S = max_pages * page_size, max_pages % ns == 0) that is
-// logical pages [isp * pps, (isp + 1) * pps), whole pages of the row.
-template <typename TQ, typename TKV, int D, bool SPLIT, bool PAGED>
+// Ragged decode over a dense cache.  One CTA per (KV head j, slot b[,
+// split]); D threads, thread d owns output column d of every query row.
+// SPLIT=false writes the normalised output; SPLIT=true writes this split's
+// unnormalised (acc, m, l).  A split owns keys [isp * S/ns, (isp + 1) *
+// S/ns).
+template <typename TQ, typename TKV, int D, bool SPLIT>
 __global__ void __launch_bounds__(D) decode_kernel(Params p) {
   constexpr int NW = D / 32;
   const int j = blockIdx.x, b = blockIdx.y, isp = blockIdx.z;
@@ -237,17 +258,11 @@ __global__ void __launch_bounds__(D) decode_kernel(Params p) {
 #pragma unroll
   for (int r = 0; r < MAX_ROWS; ++r) acc[r] = 0.f;
 
-  KeyRows<TKV, PAGED> krows, vrows;
-  krows.row = vrows.row = PAGED ? p.page_idx + b * p.pt_sb : nullptr;
-  krows.page_size = vrows.page_size = p.page_size;
-  krows.s_page = p.k_sb;
-  vrows.s_page = p.v_sb;
+  KeyRows<TKV, false> krows, vrows;
   krows.s_row = p.k_ss;
   vrows.s_row = p.v_ss;
-  krows.base = static_cast<const TKV*>(p.k) + j * p.k_sh +
-               (PAGED ? 0 : b * p.k_sb);
-  vrows.base = static_cast<const TKV*>(p.v) + j * p.v_sh +
-               (PAGED ? 0 : b * p.v_sb);
+  krows.base = static_cast<const TKV*>(p.k) + j * p.k_sh + b * p.k_sb;
+  vrows.base = static_cast<const TKV*>(p.v) + j * p.v_sh + b * p.v_sb;
   const float scale = 1.0f / sqrtf((float)D);
   __syncthreads();
 
@@ -361,14 +376,14 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* v, float* f) {
   f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
 }
 
-template <typename TQ, typename TKV, bool SPLIT, bool PAGED>
+template <typename TQ, typename TKV, bool SPLIT>
 cudaError_t launch_decode_typed(const Params& p, int D, cudaStream_t st) {
   // head_dim 128 is the one width built: the served arch's (internlm2)
   // and most configs'; D is a template parameter, so another width
   // (musicgen's 64, zamba2's 80) is one more instantiation
   if (D != 128) return cudaErrorInvalidValue;
   const dim3 grid(p.KV, p.B, SPLIT ? p.num_splits : 1);
-  decode_kernel<TQ, TKV, 128, SPLIT, PAGED><<<grid, 128, 0, st>>>(p);
+  decode_kernel<TQ, TKV, 128, SPLIT><<<grid, 128, 0, st>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !SPLIT) return err;
   splitk_combine_kernel<TQ, 128><<<dim3(p.H, p.B), 128, 0, st>>>(p);
@@ -376,23 +391,23 @@ cudaError_t launch_decode_typed(const Params& p, int D, cudaStream_t st) {
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16
-template <bool SPLIT, bool PAGED>
+template <bool SPLIT>
 cudaError_t launch_decode(const Params& p, int D, int q_dtype, int kv_dtype,
                           cudaStream_t st) {
   if (q_dtype == 0 && kv_dtype == 0)
-    return launch_decode_typed<float, float, SPLIT, PAGED>(p, D, st);
+    return launch_decode_typed<float, float, SPLIT>(p, D, st);
   if (q_dtype == 0 && kv_dtype == 1)
-    return launch_decode_typed<float, __nv_bfloat16, SPLIT, PAGED>(p, D, st);
+    return launch_decode_typed<float, __nv_bfloat16, SPLIT>(p, D, st);
   if (q_dtype == 1 && kv_dtype == 0)
-    return launch_decode_typed<__nv_bfloat16, float, SPLIT, PAGED>(p, D, st);
+    return launch_decode_typed<__nv_bfloat16, float, SPLIT>(p, D, st);
   if (q_dtype == 1 && kv_dtype == 1)
-    return launch_decode_typed<__nv_bfloat16, __nv_bfloat16, SPLIT, PAGED>(
-        p, D, st);
+    return launch_decode_typed<__nv_bfloat16, __nv_bfloat16, SPLIT>(p, D,
+                                                                     st);
   return cudaErrorInvalidValue;
 }
 
-// q strides (batch, token, head) and cache strides (dense: batch, seq, kv
-// head; paged: page, token, kv head), in elements.
+// q strides (batch, token, head) and cache strides (batch, seq, kv head),
+// in elements.
 Params make_params(const void* q, const void* k, const void* v, void* out,
                    const int* pos, const int* active, int B, int T, int H,
                    int KV, int S, int window, const long long* qs,

@@ -1,8 +1,7 @@
 // Ragged flash-decode over a dense per-slot cache for Hopper (sm_90a): a
 // single-pass kernel and a two-phase split-K kernel, with a plain C
 // interface loaded via ctypes.  The kernels themselves live in
-// attention_common.cuh, shared with the paged pool's (paged_attention.cu);
-// this file instantiates them for the dense layout.
+// attention_common.cuh; this file instantiates them.
 //
 // Replaces
 //   decode_attention_tpu        (src/repro/kernels/decode_attention.py,
@@ -49,8 +48,8 @@ extern "C" int decode_attention_fwd(
     const long long* v_strides, int q_dtype, int kv_dtype, void* stream) {
   Params p = make_params(q, k, v, out, pos, active, B, T, H, KV, S, window,
                          q_strides, k_strides, v_strides);
-  return (int)launch_decode<false, false>(p, D, q_dtype, kv_dtype,
-                                          (cudaStream_t)stream);
+  return (int)launch_decode<false>(p, D, q_dtype, kv_dtype,
+                                   (cudaStream_t)stream);
 }
 
 // Two-phase split-K (T = 1, S % num_splits == 0).  o_part (B, H, ns, D),
@@ -67,6 +66,6 @@ extern "C" int decode_attention_splitk_fwd(
   p.o_part = o_part;
   p.m_part = m_part;
   p.l_part = l_part;
-  return (int)launch_decode<true, false>(p, D, q_dtype, kv_dtype,
-                                         (cudaStream_t)stream);
+  return (int)launch_decode<true>(p, D, q_dtype, kv_dtype,
+                                  (cudaStream_t)stream);
 }

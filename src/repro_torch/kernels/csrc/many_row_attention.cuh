@@ -157,18 +157,6 @@ __device__ __forceinline__ void mma_split(float* c, const Frag<4, SA>& a,
   mma_tf32(c, a.big, b.big);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool fill) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(fill ? 16 : 0));
-}
-
-// Waits for every cp.async this thread issued.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // Four consecutive f32 values to memory as f32 or bf16 (16 or 8 bytes).
 __device__ __forceinline__ void store4(float* p, const float* y) {
   *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);

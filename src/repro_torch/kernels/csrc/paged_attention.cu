@@ -18,18 +18,16 @@
 // Logical key kpos of a slot lives in physical page
 // page_idx[b, kpos / page_size] at token offset kpos % page_size; masks
 // use the logical position only.  Unmapped table entries are the null
-// page 0: a kernel reads the table only for keys at or before the slot's
-// last query position (pos + T - 1, or the chunk's last row) and inside
-// the window, so it never computes on an unmapped entry.
+// page 0: a kernel loads K/V only for keys at or before the slot's last
+// query position (pos + T - 1, or the chunk's last row) and inside the
+// window, so it never computes on an unmapped entry (the decode kernel
+// reads its chunk's table entries whole, before it knows the position).
 //
-// Decode and split-K decode are the dense kernels of attention_common.cuh
-// with a page-table row lookup in the tile loader (KeyRows<.., true>): one
-// CTA per (slot, KV head[, split]) serving all G * T query rows.
-//   Bound on an H100: device-memory bytes of the live prefix, as for the
-//   dense decode kernel (2 * KV * D * bytes per live key).  Each K/V byte is
-//   read once; a 32-key tile spans two 16-token pages.  Split-K split i owns
-//   logical pages [i * pps, (i + 1) * pps), max_pages % ns == 0, as the
-//   reference partitions the page table.
+// Decode and split-K decode: one kernel (paged_decode.cuh) that cuts each
+// slot's live prefix into chunks of 256 keys, one CTA per (KV head, slot,
+// chunk), each with a cp.async ring of K/V tiles, merged in chunk order in
+// the same launch.  Bound on an H100: device-memory bytes of the live
+// prefix (2 * KV * D * bytes per live key).
 //
 // Prefill: one slot's chunk of C query rows at absolute q_offset, causal
 // against its own page chain (the chunk's K/V already written).
@@ -46,64 +44,44 @@
 //   key range (4 splits at offset 3840: 256 CTAs, two per SM) and a
 //   combine kernel merges the splits' (acc, m, l).
 
-#include "attention_common.cuh"
 #include "many_row_attention.cuh"
+#include "paged_decode.cuh"
 
-namespace {
-
-Params make_paged_params(const void* q, const void* k, const void* v,
-                         void* out, const int* pos, const int* active,
-                         const int* page_idx, long long pt_stride, int B,
-                         int T, int H, int KV, int max_pages, int page_size,
-                         int window, const long long* qs,
-                         const long long* ks, const long long* vs) {
-  Params p = make_params(q, k, v, out, pos, active, B, T, H, KV,
-                         max_pages * page_size, window, qs, ks, vs);
-  p.page_idx = page_idx;
-  p.pt_sb = pt_stride;
-  p.page_size = page_size;
-  return p;
-}
-
-}  // namespace
-
-// Strides are in elements: q_strides = (batch, token, head), pool strides
-// = (page, token, kv head); the last dimension must be contiguous.
-// page_idx is (B, max_pages) int32 with row stride pt_stride.  `out` is a
-// contiguous (B, T, H, D) tensor of q's dtype.  Returns the launch's
+// Paged decode, single pass (num_splits = 1, T >= 1) or split-K
+// (num_splits > 1, T = 1, max_pages % num_splits == 0).  Strides are in
+// elements: q_strides = (batch, token, head), pool strides = (page, token,
+// kv head); the last dimension must be contiguous.  page_idx is (B,
+// max_pages) int32 with row stride pt_stride.  `chunk` keys per chunk (a
+// multiple of page_size) and `chunks_per_split` chunk slots per split give
+// the grid's num_splits * chunks_per_split chunks.  `out` is a contiguous
+// (B, T, H, D) tensor of q's dtype; o_part (B, KV, chunks, G * T, D) and
+// ml_part (B, KV, chunks, G * T, 2) are f32 scratch and tickets (B * KV)
+// int32 zeros, all allocated by the caller.  Returns the launch's
 // cudaError_t (0 = success).
 extern "C" int paged_decode_attention_fwd(
     const void* q, const void* k, const void* v, void* out, const int* pos,
     const int* active, const int* page_idx, long long pt_stride, int B,
     int T, int H, int KV, int max_pages, int page_size, int D, int window,
+    int num_splits, int chunk, int chunks_per_split,
     const long long* q_strides, const long long* k_strides,
-    const long long* v_strides, int q_dtype, int kv_dtype, void* stream) {
-  Params p = make_paged_params(q, k, v, out, pos, active, page_idx,
-                               pt_stride, B, T, H, KV, max_pages, page_size,
-                               window, q_strides, k_strides, v_strides);
-  return (int)launch_decode<false, true>(p, D, q_dtype, kv_dtype,
-                                         (cudaStream_t)stream);
-}
-
-// Two-phase paged split-K (T = 1, max_pages % num_splits == 0).  o_part
-// (B, H, ns, D), m_part and l_part (B, H, ns) are f32 scratch allocated by
-// the caller.
-extern "C" int paged_decode_attention_splitk_fwd(
-    const void* q, const void* k, const void* v, void* out, const int* pos,
-    const int* active, const int* page_idx, long long pt_stride, int B,
-    int H, int KV, int max_pages, int page_size, int D, int window,
-    int num_splits, const long long* q_strides, const long long* k_strides,
-    const long long* v_strides, float* o_part, float* m_part, float* l_part,
+    const long long* v_strides, float* o_part, float* ml_part, int* tickets,
     int q_dtype, int kv_dtype, void* stream) {
-  Params p = make_paged_params(q, k, v, out, pos, active, page_idx,
-                               pt_stride, B, 1, H, KV, max_pages, page_size,
-                               window, q_strides, k_strides, v_strides);
-  p.num_splits = num_splits;
-  p.o_part = o_part;
-  p.m_part = m_part;
-  p.l_part = l_part;
-  return (int)launch_decode<true, true>(p, D, q_dtype, kv_dtype,
-                                        (cudaStream_t)stream);
+  if (num_splits < 1 || max_pages % num_splits || KV < 1 || H % KV)
+    return (int)cudaErrorInvalidValue;
+  PagedDecodeParams p{};
+  p.q = q; p.k = k; p.v = v; p.out = out; p.pos = pos; p.active = active;
+  p.page_idx = page_idx; p.pt_sb = pt_stride;
+  p.B = B; p.T = T; p.H = H; p.KV = KV; p.S = max_pages * page_size;
+  p.page_size = page_size; p.window = window;
+  p.chunk = chunk; p.split = p.S / num_splits;
+  p.chunks_per_split = chunks_per_split;
+  p.n_chunks = num_splits * chunks_per_split;
+  p.q_sb = q_strides[0]; p.q_st = q_strides[1]; p.q_sh = q_strides[2];
+  p.k_sp = k_strides[0]; p.k_ss = k_strides[1]; p.k_sh = k_strides[2];
+  p.v_sp = v_strides[0]; p.v_ss = v_strides[1]; p.v_sh = v_strides[2];
+  p.o_part = o_part; p.ml_part = ml_part; p.tickets = tickets;
+  return (int)launch_paged_decode(p, D, q_dtype, kv_dtype,
+                                  (cudaStream_t)stream);
 }
 
 // Fused paged prefill of one slot's chunk: q (1, C, H, D) with strides

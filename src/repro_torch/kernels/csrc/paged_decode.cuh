@@ -1,0 +1,489 @@
+// The paged decode kernel for Hopper (sm_90a): the single-pass paged decode
+// and the paged split-K decode are one kernel, which cuts each slot's live
+// prefix into fixed chunks of keys, spreads the chunks over the card and
+// merges them in the same launch.
+//
+// Replaces
+//   paged_decode_attention_tpu
+//     (src/repro/kernels/paged_attention.py:131, _paged_decode_kernel +
+//     _accumulate_page)
+//   paged_decode_attention_splitk_tpu
+//     (src/repro/kernels/paged_attention.py:325, _paged_splitk_partial_kernel
+//     + the shared _splitk_combine_kernel)
+//
+// Contract: attention_common.cuh's decode contract, with each key row found
+// through the page table: logical key kpos of slot b is token
+// kpos % page_size of physical page page_idx[b, kpos / page_size].
+// Split-K (T = 1) gives split i the keys [i * S / ns, (i + 1) * S / ns) of
+// the S = max_pages * page_size positions (whole pages, max_pages % ns ==
+// 0, as the reference partitions the page table) and combines the splits'
+// (acc, m, l) with exp(m_i - m*); ns = 1 is the single-pass decode, which
+// also takes T > 1 (the verify block, G * T <= MAX_ROWS).
+//
+// What bounds it on an H100: device-memory bytes.  A tick reads the live
+// K/V prefix once, 2 * D * bytes per live key and KV head (1 KiB in f32),
+// against 4 * G * T * D flops: ~1 flop per byte, far below the card's
+// balance point.  Reaching the memory rate takes ~3 MB in flight across the
+// card (Little's law at ~1 us), which one CTA per (slot, KV head) walking
+// its whole prefix tile by tile never had.
+//
+// What the design does about it:
+//   * Chunks.  The key axis is cut at multiples of `chunk` keys (256 rounded
+//     up to whole pages) and at the split boundaries; one CTA takes one
+//     (KV head, slot, chunk).  The grid (KV, B, chunks) follows from the
+//     shapes alone, so the host needs no position and the launch could be
+//     captured in a graph.  A CTA whose chunk holds no key its slot may see
+//     (past pos + T - 1, wholly before the window, an inactive slot)
+//     returns at once.  At 8 KV heads and pos [-1, 1000, 4200, 8191] that is
+//     424 working CTAs, 3.2 per SM, against 32 before.
+//   * The page table first.  A CTA reads its chunk's page-table entries
+//     (issued before it knows its slot's position) into shared memory, so
+//     no K/V load waits on a table read.
+//   * A ring of K/V tiles per CTA: 8 KiB of K and 8 KiB of V per stage (16
+//     keys in f32, 32 in bf16), three stages, filled by 16-byte
+//     cp.async.cg; key rows outside the CTA's keys are zero-filled without
+//     a read.  At 50 KiB of shared memory four CTAs share an SM, so the 424
+//     working CTAs above are all resident at once, each with two stages
+//     in flight.  Four stages (three CTAs per SM), 32 KiB stages, and 128-
+//     or 512-key chunks all measured slower (PERF.md).
+//   * Warps own keys.  Each warp takes its quarter of every tile: LPK lanes
+//     share one key's score dot (each a slice of the row, in a rotated order
+//     so that the 16-byte reads of a quarter-warp hit 8 distinct bank
+//     groups), shuffles finish the dot and give the rows' max and sum over
+//     the warp's keys, and in PV each lane owns 4 output columns.  Each warp
+//     keeps its own (m, l, acc) per row; the ring's barrier is the only
+//     CTA-wide one per tile.  f32 on the CUDA cores: at G * T = 2 rows per
+//     KV head a tensor-core tile would be 7/8 empty, and the flops do not
+//     bound this kernel.
+//   * Merges in a fixed order.  At the end of its chunk a CTA merges its
+//     warps in shared memory, in warp order.  A slot whose visible keys lie
+//     in one chunk writes its output there; otherwise each chunk writes its
+//     (acc, m, l) to f32 scratch, and the slot's last CTA to finish (a
+//     ticket counter per (slot, KV head), which that CTA resets) merges
+//     every chunk's partial in chunk order.  Nothing depends on the order in
+//     which CTAs finish or on the other slots, so a slot's output is bitwise
+//     the same alone and in any batch.
+#pragma once
+
+#include "attention_common.cuh"
+
+namespace {
+
+constexpr int PD_THREADS = 128;  // 4 warps; thread d owns column d in merges
+constexpr int PD_WARPS = PD_THREADS / 32;
+constexpr int PD_STAGES = 3;     // ring depth
+constexpr int PD_TABLE = 256;    // most page-table entries a chunk spans
+
+// CTAs an SM should hold: four fit the shared memory of the decode
+// instances (2 or 8 rows); the 16-row instance needs more registers.
+__host__ __device__ constexpr int pd_min_ctas(int max_rows) {
+  return max_rows > 8 ? 2 : 4;
+}
+
+struct PagedDecodeParams {
+  const void* q;        // (B, T, H, D) through strides
+  const void* k;        // pools (P, page_size, KV, D) through strides
+  const void* v;
+  void* out;            // contiguous (B, T, H, D), q's dtype
+  const int* pos;       // (B,)
+  const int* active;    // (B,) 0/1
+  const int* page_idx;  // (B, max_pages) int32, row stride pt_sb
+  long long pt_sb;
+  int B, T, H, KV, S, page_size, window;
+  int chunk;             // keys per chunk, a multiple of page_size
+  int split;             // S / num_splits, a multiple of page_size
+  int chunks_per_split;  // chunk slots of one split (the last may be empty)
+  int n_chunks;          // num_splits * chunks_per_split: the grid's z
+  long long q_sb, q_st, q_sh;
+  long long k_sp, k_ss, k_sh;  // (page, token, kv head) strides
+  long long v_sp, v_ss, v_sh;
+  float* o_part;   // (B, KV, n_chunks, G * T, D) chunk accumulators
+  float* ml_part;  // (B, KV, n_chunks, G * T, 2) chunk (m, l)
+  int* tickets;    // (B, KV) counters, 0 between launches
+};
+
+// Keys [x, y) of chunk z: chunk slot c of split i is the part of key cell
+// i * split / chunk + c (cells of `chunk` keys) inside the split; empty
+// (x >= y) past the split's end.
+__device__ __forceinline__ int2 chunk_keys(const PagedDecodeParams& p,
+                                           int z) {
+  const int i = z / p.chunks_per_split, c = z - i * p.chunks_per_split;
+  const int s0 = i * p.split, cell = s0 / p.chunk + c;
+  return make_int2(max(cell * p.chunk, s0),
+                   min((cell + 1) * p.chunk, s0 + p.split));
+}
+
+// Keys per tile: 8 KiB of K (and of V) per ring stage.
+template <typename TKV>
+__host__ __device__ constexpr int pd_tile_keys() {
+  return 64 / (int)sizeof(TKV);
+}
+
+// Shared memory: the ring, whose space the warps' merge and the last
+// CTA's list of chunks reuse, then q's rows as f32 and the chunk's table.
+template <typename TKV, int MAXR>
+__host__ __device__ constexpr int pd_front_bytes() {
+  const int ring =
+      PD_STAGES * 2 * pd_tile_keys<TKV>() * PD_THREADS * (int)sizeof(TKV);
+  const int merge = PD_WARPS * MAXR * (PD_THREADS + 2) * 4;
+  return ring > merge ? ring : merge;
+}
+template <typename TKV, int MAXR>
+constexpr int pd_smem_bytes() {
+  return pd_front_bytes<TKV, MAXR>() + MAXR * PD_THREADS * 4 + PD_TABLE * 4;
+}
+
+// One CTA per (KV head j, slot b, chunk z); query row r = g * T + t of the
+// CTA is query head j * G + g at position pos[b] + t.
+template <typename TQ, typename TKV, int MAXR>
+__global__ void __launch_bounds__(PD_THREADS, pd_min_ctas(MAXR))
+    paged_decode_kernel(PagedDecodeParams p) {
+  constexpr int D = PD_THREADS;
+  constexpr int TK = pd_tile_keys<TKV>();
+  constexpr int VEC = 16 / sizeof(TKV);        // elements per 16 bytes
+  constexpr int VPR = D / VEC;                 // 16-byte chunks per row
+  constexpr int KPW = TK / PD_WARPS;           // keys per warp per tile
+  constexpr int LPK = 32 / KPW;                // lanes per key's score dot
+  constexpr int CPL = VPR / LPK;               // chunks each lane dots
+  constexpr int NCP = TK * VPR / PD_THREADS;   // cp.async per thread/tensor
+  static_assert(KPW * PD_WARPS == TK && LPK * KPW == 32 &&
+                    CPL * LPK == VPR && NCP * PD_THREADS == TK * VPR &&
+                    (CPL & (CPL - 1)) == 0,
+                "tile shape");
+  extern __shared__ __align__(16) unsigned char smem[];
+  TKV* ring = reinterpret_cast<TKV*>(smem);  // [stage][K | V][TK][D]
+  float* qs = reinterpret_cast<float*>(smem + pd_front_bytes<TKV, MAXR>());
+  int* tbl = reinterpret_cast<int*>(qs + MAXR * D);  // [PD_TABLE]
+  __shared__ int last_s;
+
+  const int j = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = p.H / p.KV, T = p.T, R = G * T;
+  const int ps = p.page_size;
+
+  // the chunk's page-table entries and the q rows, issued before the
+  // slot's position is known
+  const int2 ck = chunk_keys(p, z);
+  const int pg0 = ck.x / ps;
+  const int npg = (ck.y - ck.x + ps - 1) / ps;
+  const int* trow = p.page_idx + b * p.pt_sb + pg0;
+  int ent[PD_TABLE / PD_THREADS];
+#pragma unroll
+  for (int i = 0; i < PD_TABLE / PD_THREADS; ++i) {
+    const int e = tid + i * PD_THREADS;
+    ent[i] = e < npg ? trow[e] : 0;
+  }
+  const TQ* q = static_cast<const TQ*>(p.q) + b * p.q_sb;
+  float qv[MAXR];
+#pragma unroll
+  for (int r = 0; r < MAXR; ++r) {
+    const int g = r / T, t = r - g * T;
+    qv[r] = r < R ? to_f(q[t * p.q_st + (j * G + g) * p.q_sh + tid]) : 0.f;
+  }
+
+  // keys the slot may see, [lo_b, hi_b) (row 0 has the lowest window
+  // bound), and this CTA's share of them, [lo, hi)
+  const int pos = p.pos[b];
+  const int lo_b = p.window ? max(0, pos - p.window + 1) : 0;
+  const int hi_b = p.active[b] ? min(p.S, pos + T) : 0;
+  const int lo = max(ck.x, lo_b), hi = min(ck.y, hi_b);
+  // the slot's working chunks; every CTA of the slot counts the same
+  int n_work = 0;
+  for (int z0 = 0; z0 < p.n_chunks; z0 += 32) {
+    bool w = false;
+    if (z0 + lane < p.n_chunks) {
+      const int2 c = chunk_keys(p, z0 + lane);
+      w = max(c.x, lo_b) < min(c.y, hi_b);
+    }
+    n_work += __popc(__ballot_sync(0xffffffffu, w));
+  }
+  TQ* out = static_cast<TQ*>(p.out);
+  auto out_at = [&](int r) {  // this thread's column of output row r
+    const int g = r / T, t = r - g * T;
+    return out + (((long long)b * T + t) * p.H + j * G + g) * D + tid;
+  };
+  if (lo >= hi) {
+    if (n_work == 0 && z == 0)  // a slot that sees no key writes zeros
+      for (int r = 0; r < R; ++r) *out_at(r) = from_f<TQ>(0.f);
+    return;
+  }
+
+#pragma unroll
+  for (int i = 0; i < PD_TABLE / PD_THREADS; ++i)
+    tbl[tid + i * PD_THREADS] = ent[i];
+#pragma unroll
+  for (int r = 0; r < MAXR; ++r)
+    if (r < R) qs[r * D + tid] = qv[r];
+  __syncthreads();
+
+  const TKV* kpool = static_cast<const TKV*>(p.k) + j * p.k_sh;
+  const TKV* vpool = static_cast<const TKV*>(p.v) + j * p.v_sh;
+  const int ntile = (hi - lo + TK - 1) / TK;
+  // keys [lo + t * TK, + TK) into stage t % PD_STAGES; a warp (f32) or a
+  // half-warp (bf16) copies one whole key row
+  auto issue = [&](int t) {
+    TKV* Ks = ring + (t % PD_STAGES) * 2 * TK * D;
+    TKV* Vs = Ks + TK * D;
+    const int k0 = lo + t * TK;
+#pragma unroll
+    for (int i = 0; i < NCP; ++i) {
+      const int idx = tid + i * PD_THREADS;
+      const int kk = idx / VPR, c = idx - kk * VPR;
+      const int kpos = k0 + kk;
+      const bool in = kpos < hi;
+      long long ko = 0, vo = 0;
+      if (in) {
+        const int pg = kpos / ps;
+        const long long phys = tbl[pg - pg0];
+        const long long off = kpos - pg * ps;
+        ko = phys * p.k_sp + off * p.k_ss + c * VEC;
+        vo = phys * p.v_sp + off * p.v_ss + c * VEC;
+      }
+      cp_async16(Ks + kk * D + c * VEC, kpool + ko, in);
+      cp_async16(Vs + kk * D + c * VEC, vpool + vo, in);
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < PD_STAGES - 1; ++t) {
+    if (t < ntile) issue(t);
+    cp_async_commit();
+  }
+
+  float m[MAXR], l[MAXR], acc[MAXR][4];
+#pragma unroll
+  for (int r = 0; r < MAXR; ++r) {
+    m[r] = NEG_INF;
+    l[r] = 0.f;
+    acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+  }
+  const float scale = 1.0f / sqrtf((float)D);
+  const int kq = lane / LPK, part = lane - kq * LPK;
+  const int key = warp * KPW + kq;  // this lane's key of a tile (scores)
+  // chunk order of the score dot: lane l of a quarter-warp starts CPL * l
+  // / 8 (or l) chunks in, so the quarter-warp reads 8 bank groups
+  const int rot = CPL >= 8 ? (lane & 7) : ((lane & 7) * CPL) >> 3;
+  for (int t = 0; t < ntile; ++t) {
+    // tile t has landed for every thread, and every warp is done with
+    // tile t - 1, whose stage the next copies refill
+    cp_async_wait<PD_STAGES - 2>();
+    __syncthreads();
+    if (t + PD_STAGES - 1 < ntile) issue(t + PD_STAGES - 1);
+    cp_async_commit();
+    const TKV* Ks = ring + (t % PD_STAGES) * 2 * TK * D;
+    const TKV* Vs = Ks + TK * D;
+
+    float s[MAXR];
+#pragma unroll
+    for (int r = 0; r < MAXR; ++r) s[r] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < CPL; ++cc) {
+      const int ch = part * CPL + ((cc + rot) & (CPL - 1));
+      float kf[VEC];
+      Chunk<TKV>::get(
+          *reinterpret_cast<const uint4*>(Ks + key * D + ch * VEC), kf);
+#pragma unroll
+      for (int r = 0; r < MAXR; ++r) {
+        if (r >= R) break;
+        const float* qr = qs + r * D + ch * VEC;
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(qr + e);
+          s[r] = fmaf(a.x, kf[e], s[r]);
+          s[r] = fmaf(a.y, kf[e + 1], s[r]);
+          s[r] = fmaf(a.z, kf[e + 2], s[r]);
+          s[r] = fmaf(a.w, kf[e + 3], s[r]);
+        }
+      }
+    }
+
+    // online softmax over the warp's KPW keys, each row's score held by
+    // the LPK lanes of its key
+    const int kpos = lo + t * TK + key;
+    float pr[MAXR];
+#pragma unroll
+    for (int r = 0; r < MAXR; ++r) {
+      pr[r] = 0.f;
+      if (r >= R) break;
+      float sr = s[r];
+#pragma unroll
+      for (int o = 1; o < LPK; o <<= 1)
+        sr += __shfl_xor_sync(0xffffffffu, sr, o);
+      const int qpos = pos + r % T;
+      const bool ok = kpos < hi && kpos <= qpos &&
+                      (p.window == 0 || qpos - kpos < p.window);
+      const float sv = ok ? sr * scale : NEG_INF;
+      float mx = sv;
+#pragma unroll
+      for (int o = LPK; o < 32; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[r], mx);
+      const float e = ok ? expf(sv - m_new) : 0.f;
+      const float alpha = expf(m[r] - m_new);
+      float sum = e;
+#pragma unroll
+      for (int o = LPK; o < 32; o <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      l[r] = l[r] * alpha + sum;  // l sums the unrounded p
+      m[r] = m_new;
+      pr[r] = to_f(from_f<TKV>(e));  // p rounded to v's dtype
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] *= alpha;
+    }
+
+    // PV: lane owns output columns 4 lane .. 4 lane + 3
+#pragma unroll
+    for (int kk = 0; kk < KPW; ++kk) {
+      float vf[4];
+      load4(Vs + (warp * KPW + kk) * D + lane * 4, vf);
+#pragma unroll
+      for (int r = 0; r < MAXR; ++r) {
+        if (r >= R) break;
+        const float pk = __shfl_sync(0xffffffffu, pr[r], kk * LPK);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(pk, vf[c], acc[r][c]);
+      }
+    }
+  }
+
+  // merge the warps in shared memory (the ring's space), in warp order
+  cp_async_wait<0>();
+  __syncthreads();
+  float* wacc = reinterpret_cast<float*>(smem);   // [warp][MAXR][D]
+  float* wml = wacc + PD_WARPS * MAXR * D;        // [warp][MAXR][m, l]
+#pragma unroll
+  for (int r = 0; r < MAXR; ++r) {
+    if (r >= R) break;
+    *reinterpret_cast<float4*>(wacc + (warp * MAXR + r) * D + lane * 4) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    if (lane == 0) {
+      wml[(warp * MAXR + r) * 2] = m[r];
+      wml[(warp * MAXR + r) * 2 + 1] = l[r];
+    }
+  }
+  __syncthreads();
+  const long long base = ((long long)b * p.KV + j) * p.n_chunks;
+  for (int r = 0; r < R; ++r) {
+    float ms = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < PD_WARPS; ++w)
+      ms = fmaxf(ms, wml[(w * MAXR + r) * 2]);
+    float a = 0.f, ls = 0.f;
+#pragma unroll
+    for (int w = 0; w < PD_WARPS; ++w) {
+      const float e = expf(wml[(w * MAXR + r) * 2] - ms);
+      a += wacc[(w * MAXR + r) * D + tid] * e;
+      ls += wml[(w * MAXR + r) * 2 + 1] * e;
+    }
+    if (n_work == 1) {  // the slot's only chunk: the output itself
+      *out_at(r) = from_f<TQ>(a / fmaxf(ls, 1e-30f));
+      continue;
+    }
+    const long long row = (base + z) * R + r;
+    p.o_part[row * D + tid] = a;
+    if (tid == 0) {
+      p.ml_part[2 * row] = ms;
+      p.ml_part[2 * row + 1] = ls;
+    }
+  }
+  if (n_work == 1) return;
+
+  // the slot's last CTA to finish merges every working chunk, in order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* ticket = p.tickets + b * p.KV + j;
+    const bool last = atomicAdd(ticket, 1) == n_work - 1;
+    if (last) *ticket = 0;  // every other CTA of (b, j) has counted
+    last_s = last;
+  }
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  // the working chunks in order, then their (m, l) fetched all at once
+  int* zl = reinterpret_cast<int*>(smem);
+  float* mls = reinterpret_cast<float*>(zl + p.n_chunks);  // [i][row][m, l]
+  if (warp == 0) {
+    int n = 0;
+    for (int z0 = 0; z0 < p.n_chunks; z0 += 32) {
+      bool w = false;
+      if (z0 + lane < p.n_chunks) {
+        const int2 c = chunk_keys(p, z0 + lane);
+        w = max(c.x, lo_b) < min(c.y, hi_b);
+      }
+      const unsigned ball = __ballot_sync(0xffffffffu, w);
+      if (w) zl[n + __popc(ball & ((1u << lane) - 1))] = z0 + lane;
+      n += __popc(ball);
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < n_work * R; idx += PD_THREADS) {
+    const int i = idx / R, r = idx - i * R;
+    const long long row = (base + zl[i]) * R + r;
+    mls[2 * idx] = __ldcg(p.ml_part + 2 * row);
+    mls[2 * idx + 1] = __ldcg(p.ml_part + 2 * row + 1);
+  }
+  __syncthreads();
+  for (int r = 0; r < R; ++r) {
+    float ms = NEG_INF;
+    for (int i = 0; i < n_work; ++i) ms = fmaxf(ms, mls[2 * (i * R + r)]);
+    float num = 0.f, den = 0.f;
+#pragma unroll 16
+    for (int i = 0; i < n_work; ++i) {
+      const float e = expf(mls[2 * (i * R + r)] - ms);
+      den += mls[2 * (i * R + r) + 1] * e;
+      num += __ldcg(p.o_part + ((base + zl[i]) * R + r) * D + tid) * e;
+    }
+    *out_at(r) = from_f<TQ>(num / fmaxf(den, 1e-30f));
+  }
+}
+
+template <typename TQ, typename TKV, int MAXR>
+cudaError_t launch_paged_decode_rows(const PagedDecodeParams& p,
+                                     cudaStream_t st) {
+  constexpr int smem = pd_smem_bytes<TKV, MAXR>();
+  // the last CTA lists the working chunks and their (m, l) in the front
+  if ((long long)p.n_chunks * (1 + 2 * MAXR) * 4 >
+      pd_front_bytes<TKV, MAXR>())
+    return cudaErrorInvalidValue;
+  // above 48 KB dynamic shared memory must be allowed explicitly, once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      paged_decode_kernel<TQ, TKV, MAXR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(p.KV, p.B, p.n_chunks);
+  paged_decode_kernel<TQ, TKV, MAXR><<<grid, PD_THREADS, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+// The instance for G * T query rows: 2 (decode), 8 or MAX_ROWS.
+template <typename TQ, typename TKV>
+cudaError_t launch_paged_decode_typed(const PagedDecodeParams& p,
+                                      cudaStream_t st) {
+  const int rows = p.H / p.KV * p.T;
+  if (rows <= 2) return launch_paged_decode_rows<TQ, TKV, 2>(p, st);
+  if (rows <= 8) return launch_paged_decode_rows<TQ, TKV, 8>(p, st);
+  if (rows <= MAX_ROWS)
+    return launch_paged_decode_rows<TQ, TKV, MAX_ROWS>(p, st);
+  return cudaErrorInvalidValue;
+}
+
+// dtype codes: 0 = float32, 1 = bfloat16
+cudaError_t launch_paged_decode(const PagedDecodeParams& p, int D,
+                                int q_dtype, int kv_dtype, cudaStream_t st) {
+  // head_dim 128, the served arch's: one thread per output column
+  if (D != PD_THREADS || p.page_size < 1 || p.chunk % p.page_size ||
+      p.chunk / p.page_size > PD_TABLE || p.split % p.page_size ||
+      p.n_chunks < 1)
+    return cudaErrorInvalidValue;
+  if (q_dtype == 0 && kv_dtype == 0)
+    return launch_paged_decode_typed<float, float>(p, st);
+  if (q_dtype == 0 && kv_dtype == 1)
+    return launch_paged_decode_typed<float, __nv_bfloat16>(p, st);
+  if (q_dtype == 1 && kv_dtype == 0)
+    return launch_paged_decode_typed<__nv_bfloat16, float>(p, st);
+  if (q_dtype == 1 && kv_dtype == 1)
+    return launch_paged_decode_typed<__nv_bfloat16, __nv_bfloat16>(p, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace

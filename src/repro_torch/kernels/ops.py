@@ -82,7 +82,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_idx, pos, *,
     """Model layout: q (B,T,H,D); pools (P,page_size,KV,D); page_idx
     (B,max_pages) int32, unmapped entries 0 -> (B,T,H,D).
 
-    ``num_splits > 1`` with T = 1 takes the two-phase paged split-K path
+    ``num_splits > 1`` with T = 1 takes the paged split-K path
     (``max_pages % num_splits == 0``); T > 1 always takes the single-pass
     kernel, as in the reference.
     """

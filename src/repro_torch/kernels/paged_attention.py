@@ -1,6 +1,8 @@
 """Wrappers of the hand-written CUDA paged attention kernels
 (``csrc/paged_attention.cu``): decode, split-K decode and fused chunked
-prefill over the shared page pool.
+prefill over the shared page pool.  Decode and split-K decode launch one
+kernel (``csrc/paged_decode.cuh``) over the chunk grid of
+``decode_chunks``.
 
 Model layout in and out: q (B, T, H, D) (prefill: (1, C, H, D)), pools
 (P, page_size, KV, D), result in q's dtype and q's shape.  The pools are
@@ -19,6 +21,7 @@ device.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,13 +31,12 @@ from .decode_attention import (_DTYPE_CODE, MAX_ROWS, _check_device,
 from .flash_attention import ROWS as PREFILL_ROWS
 from .flash_attention import launch_many_row
 
+CHUNK_KEYS = 256  # keys per chunk of the paged decode, before whole pages
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
-                _I, _P, _P, _P, _I, _I, _P]
-_SPLITK_ARGS = [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
-                _I, _P, _P, _P, _P, _P, _P, _I, _I, _P]
+                _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P]
 _PREFILL_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                  _P, _I, _P, _P, _P, _I, _I, _P]
 
@@ -43,7 +45,6 @@ def _lib():
     lib = _build.load("paged_attention")
     if lib.paged_decode_attention_fwd.argtypes is None:
         for fn, args in (("paged_decode_attention_fwd", _DECODE_ARGS),
-                         ("paged_decode_attention_splitk_fwd", _SPLITK_ARGS),
                          ("paged_prefill_attention_fwd", _PREFILL_ARGS)):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = _I
@@ -86,27 +87,80 @@ def _check_decode(q, k_pages, v_pages, page_idx, pos, active):
     return pos, active, page_size, kv
 
 
+@functools.lru_cache(maxsize=None)
+def decode_chunks(max_pages: int, page_size: int, num_splits: int = 1):
+    """The paged decode kernel's chunk grid: ``(chunk, chunks_per_split,
+    ranges)``.  The S = max_pages * page_size key positions are cut at
+    multiples of ``chunk`` (CHUNK_KEYS rounded up to whole pages) and at
+    the split boundaries (multiples of S / num_splits); ``ranges[z]`` is
+    (lo, hi), the keys of chunk z: chunk slot c of split i is the part of
+    cell ``i * split // chunk + c`` inside split i, empty (lo >= hi) past
+    its end.  It depends on the shapes only, never on positions; the
+    kernel computes the same ranges (``chunk_keys``)."""
+    chunk = -(-CHUNK_KEYS // page_size) * page_size
+    split = max_pages * page_size // num_splits
+    cps = max(((i + 1) * split - 1) // chunk - i * split // chunk + 1
+              for i in range(num_splits))
+    ranges = []
+    for z in range(num_splits * cps):
+        i, c = divmod(z, cps)
+        cell = i * split // chunk + c
+        ranges.append((max(cell * chunk, i * split),
+                       min((cell + 1) * chunk, (i + 1) * split)))
+    return chunk, cps, tuple(ranges)
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device, stream, n):
+    """At least ``n`` int32 ticket counters for launches on ``stream`` of
+    ``device``, zero: each launch leaves the counters it used at 0 again,
+    and launches on one stream never overlap."""
+    t = _TICKETS.get((device, stream))
+    if t is None or t.numel() < n:
+        t = torch.zeros(n, dtype=torch.int32, device=device)
+        _TICKETS[(device, stream)] = t
+    return t
+
+
+def _launch_decode(name, q, k_pages, v_pages, page_idx, pos, active, window,
+                   num_splits):
+    """Launch the paged decode kernel over ``decode_chunks``'s grid with its
+    f32 scratch (each chunk's (acc, m, l)) and the stream's tickets;
+    returns the (B, T, H, D) output."""
+    pos, active, page_size, kv = _check_decode(q, k_pages, v_pages,
+                                               page_idx, pos, active)
+    b, t, h, d = q.shape
+    max_pages = page_idx.shape[1]
+    chunk, cps, _ = decode_chunks(max_pages, page_size, num_splits)
+    rows = b * kv * num_splits * cps * (h // kv) * t  # o_part (rows, D)
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    scratch = torch.empty(rows * (d + 2), dtype=torch.float32,
+                          device=q.device)
+    base = scratch.data_ptr()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    strides = (_strides(q), _strides(k_pages), _strides(v_pages))
+    err = _lib().paged_decode_attention_fwd(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
+        pos.data_ptr(), active.data_ptr(), page_idx.data_ptr(),
+        page_idx.stride(0), b, t, h, kv, max_pages, page_size, d,
+        int(window), int(num_splits), chunk, cps, *strides, base,
+        base + 4 * rows * d, _tickets(q.device, stream, b * kv).data_ptr(),
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return out
+
+
 def paged_decode_attention_cuda(q, k_pages, v_pages, page_idx, pos, *,
                                 active=None, window=0):
     """Single-pass paged decode (replaces ``paged_decode_attention_tpu``).
     q (B, T, H, D) with G*T <= 16; pools (P, page_size, KV, D); page_idx
     (B, max_pages) int32; ``pos`` scalar or (B,); ``active`` (B,) 0/1,
     default ``pos >= 0``."""
-    pos, active, page_size, kv = _check_decode(q, k_pages, v_pages,
-                                               page_idx, pos, active)
-    b, t, h, d = q.shape
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    strides = (_strides(q), _strides(k_pages), _strides(v_pages))
-    err = _lib().paged_decode_attention_fwd(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
-        pos.data_ptr(), active.data_ptr(), page_idx.data_ptr(),
-        page_idx.stride(0), b, t, h, kv, page_idx.shape[1], page_size, d,
-        int(window), *strides, _DTYPE_CODE[q.dtype],
-        _DTYPE_CODE[k_pages.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"paged_decode_attention_fwd launch failed: "
-                           f"cudaError {err}")
+    out = _launch_decode("paged_decode_attention", q, k_pages, v_pages,
+                         page_idx, pos, active, window, 1)
     paged_decode_attention_cuda.launches += 1
     return out
 
@@ -114,11 +168,11 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_idx, pos, *,
 def paged_decode_attention_splitk_cuda(q, k_pages, v_pages, page_idx, pos,
                                        *, active=None, window=0,
                                        num_splits=2):
-    """Two-phase paged split-K decode (replaces
+    """Paged split-K decode (replaces
     ``paged_decode_attention_splitk_tpu``): T = 1, ``max_pages %
     num_splits == 0`` so that each split owns whole pages of the table.
-    Partials go to f32 scratch; the combine kernel writes the (B, 1, H, D)
-    result."""
+    The chunks are clipped at the split boundaries and merged, as the
+    splits' (acc, m, l) are combined, in the same launch."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"split-K decode is single-token, got q "
                          f"{tuple(q.shape)}")
@@ -126,27 +180,8 @@ def paged_decode_attention_splitk_cuda(q, k_pages, v_pages, page_idx, pos,
             or page_idx.shape[1] % num_splits:
         raise ValueError(f"num_splits {num_splits} must divide max_pages "
                          f"{tuple(page_idx.shape[1:])}")
-    pos, active, page_size, kv = _check_decode(q, k_pages, v_pages,
-                                               page_idx, pos, active)
-    b, _, h, d = q.shape
-    out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
-    o_part = torch.empty((b, h, num_splits, d), dtype=torch.float32,
-                         device=q.device)
-    m_part = torch.empty((b, h, num_splits), dtype=torch.float32,
-                         device=q.device)
-    l_part = torch.empty_like(m_part)
-    strides = (_strides(q), _strides(k_pages), _strides(v_pages))
-    err = _lib().paged_decode_attention_splitk_fwd(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
-        pos.data_ptr(), active.data_ptr(), page_idx.data_ptr(),
-        page_idx.stride(0), b, h, kv, page_idx.shape[1], page_size, d,
-        int(window), int(num_splits), *strides, o_part.data_ptr(),
-        m_part.data_ptr(), l_part.data_ptr(), _DTYPE_CODE[q.dtype],
-        _DTYPE_CODE[k_pages.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"paged_decode_attention_splitk_fwd launch "
-                           f"failed: cudaError {err}")
+    out = _launch_decode("paged_decode_attention_splitk", q, k_pages,
+                         v_pages, page_idx, pos, active, window, num_splits)
     paged_decode_attention_splitk_cuda.launches += 1
     return out
 

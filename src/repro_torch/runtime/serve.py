@@ -30,7 +30,7 @@ state is zeroed on admission (wave mode zeroes every cache per wave).
 When ``RuntimeKnobs.decode_splits`` is 0 the continuous engine picks the
 split-K fan-out per tick from ``(max(pos), live slots)``
 (``steps.pick_decode_splits``), on any device: on the card split-K runs
-the CUDA two-phase kernel, on the CPU its plain version.
+the CUDA split-K kernel, on the CPU its plain version.
 
 Not in this slice (the fields exist and raise ``NotImplementedError``
 when set): ``kv_dtype``, ``draft_k``, ``preempt``, ``role`` other than
