@@ -21,6 +21,14 @@ Run from the repository root.  Phases, each raising on failure:
    host's launch work is not in them), and the bound with the flop rate it
    assumes (the many-row kernel's tensor-core rate for the paged prefill
    and flash attention, 3xTF32 for f32);
+3q. quantized pools: the three paged kernels on int8 and on fp8 pools
+   (phase 3's pools quantized per token and KV head, with f32 scale pools)
+   against their plain versions, which dequantize the same values --
+   decode T = 1 and 4 and split-K 2 at both position sets, windows 0 and
+   1024; prefill chunks of 256 rows at 3840 (windows 0, 1024) and of 104
+   at 4096 (windows 0, 200) -- then timed as in phase 3, the library call
+   being SDPA on pools dequantized and gathered outside the timed call,
+   and the byte bound counting 1-byte values and 4-byte scales;
 4. engine, dense cache: internlm2-1.8b at full width (24 layers, seeded
    random f32 weights, f32 cache) served by ``ServeEngine`` in continuous
    mode -- short requests plus one ~4200-token prompt, so the split-K
@@ -37,6 +45,13 @@ Run from the repository root.  Phases, each raising on failure:
    paged decode step's and one paged prefill chunk's logits through the
    kernels must match the plain path; a paged decode tick is timed and
    profiled as in phase 4;
+4c. engine, quantized pools: phase 4b's trace and checks with
+   ``kv_dtype="int8"`` and then ``"fp8"``; the pools must be int8 /
+   float8_e4m3fn with f32 scale leaves, and the logits of one decode step
+   and one prefill chunk through the kernels must match the plain path on
+   the same quantized pools; tokens/s, TTFT, the pool's bytes and its
+   pages per GiB against phase 4b's f32 pool are printed, and a decode
+   tick is timed and profiled;
 3c. whole-sequence kernels: flash attention (B=2, S=4096, H=16, KV=8,
    D=128; causal with window 0 and 1024, not causal at S=1024, one bf16
    case, and S=1000, no multiple of the tiles, causal and not causal with
@@ -84,9 +99,14 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # as three TF32 products (3xTF32, f32-accurate), so f32 work runs at most at
 # a third of the 495 TFLOP/s TF32 rate; bf16 q and K/V at the bf16 rate.
 TF32X3_FLOPS = 495e12 / 3
+# int8 and e4m3 values are exact in TF32, so an f32-accurate product of f32
+# q (or p) with a quantized pool's raw K (or V) takes two TF32 products
+# (big and small part of the f32 side), the per-key scale applied outside.
+TF32X2_FLOPS = 495e12 / 2
 BF16_TC_FLOPS = 989e12
 RATE_NAMES = {F32_FLOPS: "f32 CUDA cores, 67 TFLOP/s",
               TF32X3_FLOPS: "3xTF32 tensor cores, 165 TFLOP/s",
+              TF32X2_FLOPS: "2xTF32 tensor cores, 247.5 TFLOP/s",
               BF16_TC_FLOPS: "bf16 tensor cores, 989 TFLOP/s"}
 H, KV, D, B, S = 16, 8, 128, 4, 8192
 POS = [-1, 1000, 4200, S - 1]
@@ -121,7 +141,12 @@ RAGGED = 4200 - 4096  # the last chunk of a 4200-token prompt
 #   to bf16 moves the output by up to 2^-9 * sum_k p_k |v_k| / l per
 #   element; with a bf16 pool that bound (doubled), computed by the plain
 #   version on |v|, is added to the prefill's tolerance.
-TOL = {torch.float32: 5e-5, torch.bfloat16: 1e-3}
+# - int8 / fp8 pools: the kernels and the plain versions dequantize the same
+#   stored values with the same scales (float(x) * scale, one f32 rounding,
+#   bitwise the same values) and keep p in f32, so what differs is the f32
+#   summation order, as with an f32 pool.
+TOL = {torch.float32: 5e-5, torch.bfloat16: 1e-3, torch.int8: 5e-5,
+       torch.float8_e4m3fn: 5e-5}
 BF16_ULP = 2.0 ** -7
 # Logits after 24 layers: each layer's attention differs by ~1e-6, which
 # the residual stream carries through to the unembedding.
@@ -232,19 +257,29 @@ def _bound(t_ops, t_bytes, rate):
 
 
 def _tc_rate(q, k):
-    """The many-row kernel's flop rate for these operand dtypes."""
-    both_bf16 = q.dtype == k.dtype == torch.bfloat16
-    return BF16_TC_FLOPS if both_bf16 else TF32X3_FLOPS
+    """The least-time flop rate of the many-row kernel's work for these
+    operand dtypes: bf16 at the bf16 rate, a quantized (1-byte) pool at the
+    2xTF32 rate, f32 at the 3xTF32 rate."""
+    if q.dtype == k.dtype == torch.bfloat16:
+        return BF16_TC_FLOPS
+    return TF32X2_FLOPS if k.element_size() == 1 else TF32X3_FLOPS
+
+
+def _scale_bytes(k):
+    """Bytes of a pool's scales per key and KV head: one f32 for a
+    quantized (1-byte) pool, none for f32/bf16."""
+    return 4 if k.element_size() == 1 else 0
 
 
 def _bound_ms(q, k, pos, paged=False):
     """Least time for the work these inputs need: the live K/V prefix of
     the active slots read once (``paged``: and the page-table entries that
-    map it), q read and the output written once, against the card's memory
+    map it; a quantized, 1-byte pool: and its f32 scale per key and KV
+    head), q read and the output written once, against the card's memory
     rate; and QK + PV flops against its f32 rate (the decode kernels run
     on the CUDA cores)."""
     live = sum(p + 1 for p in pos.tolist() if p >= 0)
-    kv_bytes = 2 * live * KV * D * k.element_size()
+    kv_bytes = 2 * live * KV * (D * k.element_size() + _scale_bytes(k))
     io_bytes = 2 * q.numel() * q.element_size() + 4 * len(pos)
     if paged:
         io_bytes += 4 * sum(-(-(p + 1) // PAGE) for p in pos.tolist()
@@ -376,14 +411,15 @@ def _paged_library_call(q, k, v, table, pos):
 
 
 def _prefill_bound_ms(q, k, q_offset):
-    """Least time of one chunk: its causal QK + PV flops at the many-row
-    kernel's tensor-core rate against the live K/V prefix, q and the output
-    at the card's memory rate."""
+    """Least time of one chunk: its causal QK + PV flops at the tensor-core
+    rate of ``_tc_rate`` against the live K/V prefix (a quantized pool: and
+    its f32 scales), q and the output at the card's memory rate."""
     c = q.shape[1]
     keys = c * q_offset + c * (c + 1) // 2  # (row, key) pairs attended
     rate = _tc_rate(q, k)
     t_ops = 4 * H * D * keys / rate * 1e3
-    kv_bytes = 2 * (q_offset + c) * KV * D * k.element_size()
+    kv_bytes = 2 * (q_offset + c) * KV * (D * k.element_size()
+                                          + _scale_bytes(k))
     io_bytes = 2 * q.numel() * q.element_size() + 4 * (q_offset + c) // PAGE
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     return _bound(t_ops, t_bytes, rate)
@@ -518,6 +554,116 @@ def phase_paged_kernels():
                                               q_offset),
         lib_ms, bound, src, "src/repro/kernels/paged_attention.py:228",
         errs["paged_prefill_attention"]))
+    return rows
+
+
+QUANT = ("int8", "fp8")  # the quantized pools' kv_dtype names
+
+
+def _quant_paged_inputs(t, name, chunk=0, positions=POS):
+    """``_paged_inputs``' f32 pools quantized per token and KV head as the
+    engine writes them: (q, k, v, k_scale, v_scale, table, pos)."""
+    from repro_torch.models.attention import KV_QUANT_DTYPES, quantize_kv
+
+    q, k, v, table, pos = _paged_inputs(t, torch.float32, torch.float32,
+                                        chunk=chunk, positions=positions)
+    (kq, ks), (vq, vs) = (quantize_kv(x, KV_QUANT_DTYPES[name])
+                          for x in (k, v))
+    return q, kq, vq, ks, vs, table, pos
+
+
+def phase_quant_kernels():
+    """The three paged kernels on int8 and fp8 pools (their scale branch)
+    against their plain versions at phase 3's shapes, then timed at the
+    paged engine's: T = 1 decode and split-K 2 at POS, and the 256-row
+    prefill chunk at offset 3840.  The library call is SDPA on the pools
+    dequantized and gathered outside the timed call."""
+    from repro_torch.kernels.ops import (paged_decode_attention_plain,
+                                         paged_prefill_attention_plain)
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_splitk_cuda,
+        paged_prefill_attention_cuda)
+    from repro_torch.models.attention import dequantize_kv
+
+    src = "src/repro_torch/kernels/csrc/paged_attention.cu"
+    slot = B - 1
+    rows = []
+    for name in QUANT:
+        errs = {"paged_decode_attention": 0.0,
+                "paged_decode_attention_splitk": 0.0,
+                "paged_prefill_attention": 0.0}
+        for positions in (POS, POS_EDGES):
+            for t, ns, window in ((1, 1, 0), (1, 1, 1024), (4, 1, 0),
+                                  (4, 1, 1024), (1, 2, 0), (1, 2, 1024)):
+                q, k, v, ks, vs, table, pos = _quant_paged_inputs(
+                    t, name, positions=positions)
+                sc = dict(k_scale=ks, v_scale=vs, window=window)
+                if ns == 1:
+                    kname = "paged_decode_attention"
+                    got = paged_decode_attention_cuda(q, k, v, table, pos,
+                                                      **sc)
+                else:
+                    kname = "paged_decode_attention_splitk"
+                    got = paged_decode_attention_splitk_cuda(
+                        q, k, v, table, pos, num_splits=ns, **sc)
+                want = paged_decode_attention_plain(q, k, v, table, pos,
+                                                    num_splits=ns, **sc)
+                errs[kname] = max(errs[kname], _check(
+                    f"{kname} pos={positions} T={t} ns={ns} "
+                    f"window={window} pool={name}", got, want, k.dtype))
+        for c, q_offset, window in ((CHUNK, S // 2 - CHUNK, 0),
+                                    (CHUNK, S // 2 - CHUNK, 1024),
+                                    (RAGGED, S // 2, 0),
+                                    (RAGGED, S // 2, 200)):
+            q, k, v, ks, vs, table, _ = _quant_paged_inputs(1, name,
+                                                            chunk=c)
+            sc = dict(k_scale=ks, v_scale=vs, window=window)
+            errs["paged_prefill_attention"] = max(
+                errs["paged_prefill_attention"], _check(
+                    f"paged_prefill_attention C={c} q_offset={q_offset} "
+                    f"window={window} pool={name}",
+                    paged_prefill_attention_cuda(q, k, v, table[slot],
+                                                 q_offset, **sc),
+                    paged_prefill_attention_plain(q, k, v, table, slot,
+                                                  q_offset, **sc), k.dtype))
+        torch.cuda.synchronize()
+
+        q, k, v, ks, vs, table, pos = _quant_paged_inputs(1, name)
+        sc = dict(k_scale=ks, v_scale=vs)
+        bound = _bound_ms(q, k, pos, paged=True)
+        lib_ms = _time_ms(_paged_library_call(
+            q, dequantize_kv(k, ks), dequantize_kv(v, vs), table, pos))
+        for kname, run, plain, line in (
+                ("paged_decode_attention",
+                 lambda: paged_decode_attention_cuda(q, k, v, table, pos,
+                                                     **sc),
+                 lambda: paged_decode_attention_plain(q, k, v, table, pos,
+                                                      **sc), 131),
+                ("paged_decode_attention_splitk",
+                 lambda: paged_decode_attention_splitk_cuda(
+                     q, k, v, table, pos, num_splits=2, **sc),
+                 lambda: paged_decode_attention_plain(
+                     q, k, v, table, pos, num_splits=2, **sc), 325)):
+            rows.append(_timed_row(
+                f"{kname}_{name}", run, plain, lib_ms, bound, src,
+                f"src/repro/kernels/paged_attention.py:{line}", errs[kname]))
+        q_offset = S // 2 - CHUNK
+        q, k, v, ks, vs, table, _ = _quant_paged_inputs(1, name, chunk=CHUNK)
+        sc = dict(k_scale=ks, v_scale=vs)
+        bound = _prefill_bound_ms(q, k, q_offset)
+        lib_ms = _time_ms(_prefill_library_call(
+            q, dequantize_kv(k, ks), dequantize_kv(v, vs), table[slot],
+            q_offset))
+        rows.append(_timed_row(
+            f"paged_prefill_attention_{name}",
+            lambda: paged_prefill_attention_cuda(q, k, v, table[slot],
+                                                 q_offset, **sc),
+            lambda: paged_prefill_attention_plain(q, k, v, table, slot,
+                                                  q_offset, **sc),
+            lib_ms, bound, src, "src/repro/kernels/paged_attention.py:228",
+            errs["paged_prefill_attention"]))
+        for row in rows[-3:]:
+            row["dtype"] = name
     return rows
 
 
@@ -741,18 +887,22 @@ def phase_engine(model, params):
                 launches["decode_attention_splitk_cuda"]}
 
 
-def phase_paged_engine(model, params):
-    """The same model through ``cache="paged"`` (16-token pages, prefix
-    cache on): prompt A (4200 tokens) and three short prompts, then
-    B = A[:4096] + 50 fresh tokens once A's pages are registered."""
+def _paged_trace(model, params, label, kv_dtype=""):
+    """Serve prompt A (4200 tokens) and three short prompts, then
+    B = A[:4096] + 50 fresh tokens once A's pages are registered, through
+    ``cache="paged"`` (16-token pages, prefix cache on, ``kv_dtype``).
+    Every request must finish with tokens in the vocabulary, B must hit
+    the prefix cache, the three paged kernels and no dense one must launch,
+    and B served alone with the prefix cache off must give B's tokens.
+    Returns (the engine, B's prompt, the paged kernels' launches, the
+    pool's bytes per page)."""
     from repro_torch.runtime.serve import Request, ServeConfig, ServeEngine
-    from repro_torch.runtime.steps import compiled_step
 
     kernels = _all_kernels()
     cfg = model.cfg
     rng = np.random.default_rng(1)
     config = ServeConfig(batch_slots=4, max_len=S, prefill_chunk=CHUNK,
-                         cache="paged", page_size=PAGE)
+                         cache="paged", page_size=PAGE, kv_dtype=kv_dtype)
     eng = ServeEngine(model, params, config)
     prompt_a = rng.integers(0, cfg.vocab_size, size=4200).astype(np.int32)
     # the 1-token request finishes at its prefill, so B finds a free slot
@@ -777,15 +927,17 @@ def phase_paged_engine(model, params):
     toks = sum(len(r.output) for r in done)
     ttft = sorted(h.metrics()["ttft_s"] for h in handles)
     ttft_b = handles[-1].metrics()["ttft_s"]
-    _log(f"[engine] paged continuous: {len(done)}/5 requests, {toks} "
+    page_bytes = eng.kv_reserved_bytes() / eng.kv.pool.num_pages
+    _log(f"[engine] {label} continuous: {len(done)}/5 requests, {toks} "
          f"tokens in {wall:.3f}s = {toks / wall:.2f} tok/s; ttft p50 "
          f"{statistics.median(ttft) * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} "
-         f"ms; B (prefix hit) ttft {ttft_b * 1e3:.1f} ms; kv {stats}; "
-         f"launches {launches}")
+         f"ms; B (prefix hit) ttft {ttft_b * 1e3:.1f} ms; kv {stats}; pool "
+         f"{eng.kv_reserved_bytes()} bytes, {page_bytes:.0f} per page, "
+         f"{2 ** 30 / page_bytes:.1f} pages per GiB; launches {launches}")
     finished = [h.req for h in handles]
     if not all(r.done and len(r.output) == r.max_new_tokens
                for r in finished):
-        raise AssertionError("paged run did not finish every request")
+        raise AssertionError(f"{label} run did not finish every request")
     if any(not 0 <= t < cfg.vocab_size for r in finished for t in r.output):
         raise AssertionError("token outside the vocabulary")
     if stats["prefix_hits"] < 1:
@@ -793,26 +945,34 @@ def phase_paged_engine(model, params):
     paged = {n: c for n, c in launches.items() if n.startswith("paged")}
     if min(paged.values()) <= 0 or any(
             c for n, c in launches.items() if not n.startswith("paged")):
-        raise AssertionError(f"paged run: a paged kernel was not launched, "
-                             f"or a dense one was: {launches}")
+        raise AssertionError(f"{label} run: a paged kernel was not "
+                             f"launched, or a dense one was: {launches}")
 
     # B alone, prefix cache off: the prefix-hit prefill read the same K/V
     # from A's pages that B's own prefill writes
     solo = ServeEngine(model, params, ServeConfig(
         batch_slots=4, max_len=S, prefill_chunk=CHUNK, cache="paged",
-        page_size=PAGE, prefix_cache=False))
+        page_size=PAGE, prefix_cache=False, kv_dtype=kv_dtype))
     h_solo = solo.submit(Request(5, prompt_b.copy(), max_new_tokens=16))
     solo.run()
     ttft_solo = h_solo.metrics()["ttft_s"]
-    _log(f"[engine] B alone, prefix cache off: ttft {ttft_solo * 1e3:.1f} ms "
-         f"(with the hit {ttft_b * 1e3:.1f} ms); tokens equal: "
-         f"{h_solo.req.output == req_b.output}")
+    _log(f"[engine] {label}: B alone, prefix cache off: ttft "
+         f"{ttft_solo * 1e3:.1f} ms (with the hit {ttft_b * 1e3:.1f} ms); "
+         f"tokens equal: {h_solo.req.output == req_b.output}")
     if h_solo.req.output != req_b.output:
         raise AssertionError("B's tokens differ with the prefix cache off")
     del solo
+    return eng, prompt_b, paged, page_bytes
 
-    # one paged decode step and one prefill chunk, kernels against the
-    # plain path, on the run's pool through a permuted table of all pages
+
+def _paged_logits_and_tick(eng, params, prompt_b, label):
+    """One paged decode step (single pass and split-K 2) and one prefill
+    chunk at 3840, kernels against the plain path, on the engine's pools
+    through a permuted table of all pages; then a decode tick timed and
+    profiled, single pass against split-K 2."""
+    from repro_torch.runtime.steps import compiled_step
+
+    model, cfg = eng.model, eng.model.cfg
     g = torch.Generator(device="cuda").manual_seed(2)
     table = (torch.randperm(N_PAGES - 1, generator=g, device="cuda") + 1)[
         :B * MAX_PAGES].reshape(B, MAX_PAGES).to(torch.int32).contiguous()
@@ -829,23 +989,61 @@ def phase_paged_engine(model, params):
     checks.append((f"prefill chunk at {S // 2 - CHUNK}", functools.partial(
         model.prefill_chunk_step_paged, params, eng.caches, chunk, 1,
         S // 2 - CHUNK, table, page_size=PAGE)))
-    for label, run in checks:
+    for what, run in checks:
         got = run()[0]
         with _plain_attention():
             want = run()[0]
         err = float((got - want).abs().max())
-        _log(f"[engine] paged {label} logits, kernels vs plain: max_abs_err "
-             f"{err:.3g} (tol {LOGIT_TOL}); |logits| max "
+        _log(f"[engine] {label} {what} logits, kernels vs plain: "
+             f"max_abs_err {err:.3g} (tol {LOGIT_TOL}); |logits| max "
              f"{float(want.abs().max()):.3g}")
         if not (torch.isfinite(got).all() and err <= LOGIT_TOL
                 and got.shape[-1] == cfg.vocab_size):
-            raise AssertionError(f"paged {label} logits disagree")
+            raise AssertionError(f"{label} {what} logits disagree")
     _time_ticks({s: functools.partial(
         compiled_step(model, "paged_serve", page_size=PAGE,
                       decode_splits=s), params, eng.caches, toks_in, pos,
-        table) for s in (1, 2)}, f"paged decode tick at pos {pos.tolist()}")
+        table) for s in (1, 2)},
+        f"{label} decode tick at pos {pos.tolist()}")
+
+
+def phase_paged_engine(model, params):
+    """The same model through ``cache="paged"`` (f32 pools): phase 4b's
+    trace, then its logits checks and tick.  Returns the paged kernels'
+    launches and the pool's bytes per page."""
+    eng, prompt_b, paged, page_bytes = _paged_trace(model, params, "paged")
+    _paged_logits_and_tick(eng, params, prompt_b, "paged")
     del eng
-    return {n.removesuffix("_cuda"): c for n, c in paged.items()}
+    return {n.removesuffix("_cuda"): c for n, c in paged.items()}, page_bytes
+
+
+def phase_quant_engine(model, params, f32_page_bytes):
+    """Phase 4b's trace on int8 and then fp8 pools (``kv_dtype``): the same
+    checks, pools of the quantized dtype with f32 scale leaves, logits
+    through the kernels against the plain versions on the same quantized
+    pools, and the pool's pages per GiB against the f32 pool's.  Returns
+    the paged kernels' launches per dtype, keyed as phase 3q's rows."""
+    from repro_torch.models.attention import KV_QUANT_DTYPES
+
+    launches = {}
+    for name in QUANT:
+        eng, prompt_b, paged, page_bytes = _paged_trace(
+            model, params, f"paged {name}", kv_dtype=name)
+        pools = eng.caches["stack"]
+        dtypes = {k: v.dtype for k, v in pools.items()}
+        _log(f"[engine] paged {name}: pool leaves {dtypes}; pages per GiB "
+             f"{2 ** 30 / page_bytes:.1f} against the f32 pool's "
+             f"{2 ** 30 / f32_page_bytes:.1f} "
+             f"({f32_page_bytes / page_bytes:.3f}x)")
+        want = {"k": KV_QUANT_DTYPES[name], "v": KV_QUANT_DTYPES[name],
+                "k_scale": torch.float32, "v_scale": torch.float32}
+        if dtypes != want:
+            raise AssertionError(f"{name} pools hold {dtypes}, not {want}")
+        _paged_logits_and_tick(eng, params, prompt_b, f"paged {name}")
+        del eng, pools
+        launches.update({f"{n.removesuffix('_cuda')}_{name}": c
+                         for n, c in paged.items()})
+    return launches
 
 
 # -------------------------------------------------- whole-sequence kernels
@@ -1227,10 +1425,13 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     name, smi = phase_device()
     phase_build()
-    rows = phase_kernels() + phase_paged_kernels() + phase_forward_kernels()
+    rows = (phase_kernels() + phase_paged_kernels() + phase_quant_kernels()
+            + phase_forward_kernels())
     model, params = make_model()
     launches = phase_engine(model, params)
-    launches.update(phase_paged_engine(model, params))
+    paged, f32_page_bytes = phase_paged_engine(model, params)
+    launches.update(paged)
+    launches.update(phase_quant_engine(model, params, f32_page_bytes))
     launches["flash_attention"], _ = phase_forward_attention(model, params)
     del model, params
     torch.cuda.empty_cache()

@@ -22,6 +22,9 @@ def _to_torch(a, device):
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes bf16: go through f32
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":  # ml_dtypes e4m3: its raw bytes
+        t = torch.from_numpy(a.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(np.array(a))  # own, writable copy
     return t.to(device)
@@ -39,26 +42,48 @@ def cache_from_jax(tree, device="cpu"):
 
 
 def cache_to_numpy(tree):
-    """The port's caches -> numpy (bf16 leaves come back as f32)."""
+    """The port's caches -> numpy (bf16 leaves come back as f32, fp8
+    leaves as their raw bytes, uint8)."""
     def leaf(t):
         t = t.detach().cpu()
+        if t.dtype == torch.float8_e4m3fn:
+            return t.view(torch.uint8).numpy()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.numpy()
     return _tree_map(leaf, tree)
 
 
+_POOL_KEYS = {"k", "v"}
+_QUANT_POOL_KEYS = {"k", "v", "k_scale", "v_scale"}
+
+
 def paged_cache_from_jax(tree, device="cpu"):
     """JAX paged pools ({"stack": {"k", "v"}}, (L, P, page_size, KV, D)
     leaves, as numpy; the page axis stays where the reference keeps it) ->
-    the port's pools.  Quantized pools (scale leaves) are not ported."""
-    if "k_scale" in tree.get("stack", {}):
-        raise NotImplementedError("quantized (int8/fp8) paged pools are not "
-                                  "ported yet (see ROADMAP.md)")
-    return cache_from_jax(tree, device)
+    the port's pools.  Quantized pools come with f32 scale leaves
+    "k_scale"/"v_scale" (L, P, page_size, KV, 1); their int8 values cross
+    as int8 and their fp8 (e4m3) values as ml_dtypes arrays or as the raw
+    bytes (uint8), which numpy holds without e4m3 support."""
+    stack = tree["stack"]
+    keys = set(stack)
+    if keys not in (_POOL_KEYS, _QUANT_POOL_KEYS):
+        raise ValueError(f"paged pools hold {sorted(keys)}: expected "
+                         f"{sorted(_POOL_KEYS)} or {sorted(_QUANT_POOL_KEYS)}")
+    out = cache_from_jax(tree, device)
+    if keys == _QUANT_POOL_KEYS:
+        for name in ("k", "v"):
+            leaf = out["stack"][name]
+            if leaf.dtype == torch.uint8:  # raw e4m3 bytes
+                out["stack"][name] = leaf.view(torch.float8_e4m3fn)
+            elif leaf.dtype not in (torch.int8, torch.float8_e4m3fn):
+                raise ValueError(f"quantized pool {name!r} is {leaf.dtype}, "
+                                 f"not int8 or float8_e4m3fn")
+    return out
 
 
 def paged_cache_to_numpy(tree):
     """The port's paged pools -> numpy, (L, P, page_size, KV, D) leaves as
-    the reference lays them out (bf16 leaves come back as f32)."""
+    the reference lays them out (bf16 leaves come back as f32, fp8 pools
+    as their raw bytes, uint8)."""
     return cache_to_numpy(tree)

@@ -16,10 +16,17 @@
 // applied after the dot, and p is rounded to v's dtype before the PV
 // product.  Keys a row may not see add exactly 0 (mask-gated exp).  The
 // denominator is guarded with max(l, 1e-30).
+//
+// Quantized paged pools (int8_t, __nv_fp8_e4m3) hold each K/V row with an
+// f32 scale per (token, KV head): a value is float(x) * scale, computed as
+// the row arrives, and is an f32 value from then on, so p is not rounded
+// (the TPU kernel's quant branch casts p to the dequantized v's f32).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <stdint.h>
 
 namespace {
@@ -47,6 +54,29 @@ struct Params {
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// The type a K/V value has once loaded: the storage type itself, or f32
+// for the quantized pools (`quant`), whose values are dequantized with
+// their row's scale.  p is rounded to this type before the PV product.
+template <typename TKV> struct KVValue {
+  using type = TKV;
+  static constexpr bool quant = false;
+};
+template <> struct KVValue<int8_t> {
+  using type = float;
+  static constexpr bool quant = true;
+};
+template <> struct KVValue<__nv_fp8_e4m3> {
+  using type = float;
+  static constexpr bool quant = true;
+};
+
+// Two e4m3 values (the low byte first) as f32, exactly: e4m3 -> f16 is
+// exact (cvt.rn.f16x2.e4m3x2), and so is f16 -> f32.
+__device__ __forceinline__ float2 fp8x2_to_float2(unsigned short x) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(x, __NV_E4M3);
+  return __half22float2(__half2(h));
 }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
@@ -88,6 +118,32 @@ template <> struct Chunk<__nv_bfloat16> {
     }
   }
 };
+// The quantized pools' raw values (16 per chunk), before their scale.
+template <> struct Chunk<int8_t> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void get(const uint4& raw, float* f) {
+    const char4* c = reinterpret_cast<const char4*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[4 * i] = c[i].x;
+      f[4 * i + 1] = c[i].y;
+      f[4 * i + 2] = c[i].z;
+      f[4 * i + 3] = c[i].w;
+    }
+  }
+};
+template <> struct Chunk<__nv_fp8_e4m3> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void get(const uint4& raw, float* f) {
+    const unsigned short* x2 = reinterpret_cast<const unsigned short*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 x = fp8x2_to_float2(x2[i]);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  }
+};
 
 // s0/s1 += one 16-byte chunk of a key row . the matching f32 query
 // elements (two accumulators shorten the dependent FMA chain).
@@ -113,6 +169,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(fill ? 16 : 0));
+}
+
+// 4 bytes (a scale) from global to shared memory (cp.async.ca, the only
+// form of that size); with fill = false nothing is read and 0 is stored.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(fill ? 4 : 0));
 }
 
 // Waits for every cp.async this thread issued.
@@ -373,6 +438,16 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* v, float* f) {
   const uint2 raw = *reinterpret_cast<const uint2*>(v);
   const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&raw);
   const float2 a = __bfloat1622float2(x[0]), b = __bfloat1622float2(x[1]);
+  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+}
+// The quantized pools' raw values (4 bytes), before their scale.
+__device__ __forceinline__ void load4(const int8_t* v, float* f) {
+  const char4 c = *reinterpret_cast<const char4*>(v);
+  f[0] = c.x; f[1] = c.y; f[2] = c.z; f[3] = c.w;
+}
+__device__ __forceinline__ void load4(const __nv_fp8_e4m3* v, float* f) {
+  const ushort2 raw = *reinterpret_cast<const ushort2*>(v);
+  const float2 a = fp8x2_to_float2(raw.x), b = fp8x2_to_float2(raw.y);
   f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
 }
 

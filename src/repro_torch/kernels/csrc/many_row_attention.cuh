@@ -78,10 +78,20 @@
 //     unnormalised (acc, m, l) to f32 scratch and a combine kernel merges
 //     them with the split-K rule exp(m_i - m*); an empty split has
 //     m = -1e30 and l = 0 and so weighs 0.
+//   * Quantized pools (the paged instance only; the TPU kernel's quant
+//     branch): int8 or fp8 K/V tiles with their rows' f32 scales, 4-byte
+//     cp.async.ca beside the rows.  Each value is dequantized where the
+//     fragment is loaded (float(x) * scale), so K, V and p are f32 values
+//     and take the 3xTF32 split, and p is not rounded: the same products as
+//     f32 operands, from a quarter of the tile bytes.  (int8 and e4m3
+//     values are exact in TF32, so K and V could skip their small parts
+//     with the scale applied to the score and folded into p; that changes
+//     the rounding against the dequantize-first reference and is left to a
+//     later redesign.)
 //   * Registers and occupancy: 128 threads and 99 KB of shared memory per
-//     CTA with f32 K/V (68 KB with bf16), two CTAs per SM for every
-//     instance (__launch_bounds__(128, 2): up to 255 registers a thread,
-//     no spills).  The split makes the paged instance launch as many CTAs
+//     CTA with f32 K/V (68 KB with bf16, 52 KB with int8/fp8), two CTAs per
+//     SM for every instance (__launch_bounds__(128, 2): up to 255 registers
+//     a thread, no spills).  The split makes the paged instance launch as many CTAs
 //     as two per SM hold, so it needs no budget of its own; 16-key tiles
 //     at three CTAs per SM ran no faster (PERF.md).
 #pragma once
@@ -102,6 +112,8 @@ struct PrefillParams {
   const void* q;        // (B, Sq, H, D) through strides
   const void* k;        // dense (B, Sk, KV, D); paged (P, page_size, KV, D)
   const void* v;
+  const float* ks;      // quantized pools: scales (P, page_size, KV, 1)
+  const float* vs;      // through strides; null otherwise
   void* out;            // contiguous (B, Sq, H, D), q's dtype
   const int* page_row;  // paged only: the slot's page-table row
   int Sq, Sk, H, KV, q_offset, window, causal, page_size;
@@ -110,6 +122,8 @@ struct PrefillParams {
   // dense: (batch, seq, kv head) strides; paged: (page, token, kv head)
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
+  long long ks_sb, ks_ss, ks_sh;  // scale strides, as the pools'
+  long long vs_sb, vs_ss, vs_sh;
   float* o_part;  // splits: (ns, B, Sq, H, D) unnormalised accumulators
   float* m_part;  // (ns, B, Sq, H)
   float* l_part;  // (ns, B, Sq, H)
@@ -167,10 +181,12 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* y) {
   *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(v);
 }
 
+// q, the 2-stage K/V ring and (quantized pools) the ring's scales.
 template <typename TKV, int D>
 constexpr int many_row_smem_bytes() {
   return MR_ROWS * (D + 4) * (int)sizeof(float) +
-         2 * 2 * MR_TK * (D + 16 / (int)sizeof(TKV)) * (int)sizeof(TKV);
+         2 * 2 * MR_TK * (D + 16 / (int)sizeof(TKV)) * (int)sizeof(TKV) +
+         (KVValue<TKV>::quant ? 2 * 2 * MR_TK * (int)sizeof(float) : 0);
 }
 
 // Query row r of a CTA is row t0 + r / G, query head j * G + r % G.  Warp
@@ -179,8 +195,10 @@ constexpr int many_row_smem_bytes() {
 template <typename TQ, typename TKV, int D, bool PAGED, bool CAUSAL>
 __global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
     many_row_kernel(PrefillParams p) {
-  constexpr bool SQ = std::is_same<TQ, float>::value;    // q has small parts
-  constexpr bool SKV = std::is_same<TKV, float>::value;  // K, V and p do
+  constexpr bool QUANT = KVValue<TKV>::quant;
+  using TV = typename KVValue<TKV>::type;  // a loaded K/V value's type
+  constexpr bool SQ = std::is_same<TQ, float>::value;   // q has small parts
+  constexpr bool SKV = std::is_same<TV, float>::value;  // K, V and p do
   constexpr int VEC = 16 / sizeof(TKV);
   constexpr int LQ = D + 4;    // q row stride in shared memory (floats)
   constexpr int LD = D + VEC;  // K/V row stride (elements, 16-byte pad)
@@ -189,9 +207,12 @@ __global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
   constexpr int CPR = D / VEC;    // 16-byte chunks per K/V row
   constexpr int NCH = MR_TK * CPR / MR_THREADS;  // chunks per thread
   static_assert(NCH * MR_THREADS == MR_TK * CPR, "tile splits evenly");
+  static_assert(!QUANT || PAGED, "quantized pools are paged");
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);                // [64][LQ]
   TKV* kvs = reinterpret_cast<TKV*>(qs + MR_ROWS * LQ);     // [2][K|V][TK][LD]
+  // quantized pools: the ring's scales, [2][K|V][TK]
+  float* scs = reinterpret_cast<float*>(kvs + 2 * 2 * MR_TK * LD);
 
   const int ns = p.num_splits;
   const int j = blockIdx.x, b = blockIdx.z / ns, isp = blockIdx.z % ns;
@@ -235,9 +256,19 @@ __global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
   vrows.s_page = p.v_sb;
   krows.s_row = p.k_ss;
   vrows.s_row = p.v_ss;
+  KeyRows<float, PAGED> ksrows, vsrows;  // quantized pools' scale rows
+  ksrows.row = vsrows.row = p.page_row;
+  ksrows.page_size = vsrows.page_size = p.page_size;
+  ksrows.base = p.ks + j * p.ks_sh;
+  vsrows.base = p.vs + j * p.vs_sh;
+  ksrows.s_page = p.ks_sb;
+  vsrows.s_page = p.vs_sb;
+  ksrows.s_row = p.ks_ss;
+  vsrows.s_row = p.vs_ss;
 
   // keys [k0, k0 + TK) into ring stage `st`; rows outside [lo, hi) are
-  // zero-filled without a read
+  // zero-filled without a read.  Quantized: thread i < 2 TK also copies the
+  // K (i < TK) or V scale of key i % TK.
   auto load_tile = [&](int k0, int st) {
     TKV* Ks = kvs + st * 2 * MR_TK * LD;
     TKV* Vs = Ks + MR_TK * LD;
@@ -251,6 +282,16 @@ __global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
                  in ? krows(kpos) + c * VEC : krows.base, in);
       cp_async16(Vs + kk * LD + c * VEC,
                  in ? vrows(kpos) + c * VEC : vrows.base, in);
+    }
+    if (QUANT && tid < 2 * MR_TK) {
+      const int kk = tid % MR_TK, isv = tid / MR_TK;
+      const int kpos = k0 + kk;
+      const bool in = kpos >= lo && kpos < hi;
+      // (a reference to one of the two KeyRows would put both in local
+      // memory; select the address instead)
+      const float* src = isv ? (in ? vsrows(kpos) : vsrows.base)
+                             : (in ? ksrows(kpos) : ksrows.base);
+      cp_async4(scs + (st * 2 + isv) * MR_TK + kk, src, in);
     }
   };
 
@@ -274,6 +315,16 @@ __global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
     if (k0 + MR_TK < kend) load_tile(k0 + MR_TK, st ^ 1);
     const TKV* Ks = kvs + st * 2 * MR_TK * LD;
     const TKV* Vs = Ks + MR_TK * LD;
+    // quantized: the scales of this lane's keys, K's of key 8 n + g (QK)
+    // and V's of keys 8 n + 2 tq and 8 n + 2 tq + 1 (PV)
+    float ksc[NS], vsc[NS][2];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const float* sc = scs + st * 2 * MR_TK;
+      ksc[n] = QUANT ? sc[n * 8 + g] : 1.f;
+      vsc[n][0] = QUANT ? sc[MR_TK + n * 8 + 2 * tq] : 1.f;
+      vsc[n][1] = QUANT ? sc[MR_TK + n * 8 + 2 * tq + 1] : 1.f;
+    }
 
     // S = q K^T over D.  The sum over d may take d in any order, so each
     // lane reads 4 consecutive d of q and K at once: d0 = 32 kq + 8 tq +
@@ -302,6 +353,10 @@ __global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
         for (int n = 0; n < NS; ++n) {
           float kf[4];
           load4(Ks + (n * 8 + g) * LD + d0, kf);
+          if (QUANT) {  // dequantized before the product, as the TPU does
+#pragma unroll
+            for (int i = 0; i < 4; ++i) kf[i] *= ksc[n];
+          }
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
             Frag<2, SKV> bk;
@@ -352,7 +407,7 @@ __global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
                                ? __expf(s[n][2 * h + e] - m_new)
                                : 0.f;
           sum += pr;
-          s[n][2 * h + e] = to_f(from_f<TKV>(pr));
+          s[n][2 * h + e] = to_f(from_f<TV>(pr));
         }
       l[h] = l[h] * alpha + sum;
 #pragma unroll
@@ -386,6 +441,13 @@ __global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
         float va[4], vb[4];
         load4(vr + 32 * j, va);       // key 2 tq
         load4(vr + LD + 32 * j, vb);  // key 2 tq + 1
+        if (QUANT) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            va[i] *= vsc[n][0];
+            vb[i] *= vsc[n][1];
+          }
+        }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           Frag<2, SKV> bv;
@@ -490,19 +552,35 @@ cudaError_t launch_many_row_typed(const PrefillParams& p, int B, int D,
   }
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16
+template <typename TQ, bool PAGED>
+cudaError_t launch_many_row_kv(const PrefillParams& p, int B, int D,
+                               int kv_dtype, cudaStream_t st) {
+  if (kv_dtype == 0)
+    return launch_many_row_typed<TQ, float, PAGED>(p, B, D, st);
+  if (kv_dtype == 1)
+    return launch_many_row_typed<TQ, __nv_bfloat16, PAGED>(p, B, D, st);
+  if constexpr (PAGED) {
+    if (kv_dtype == 2)
+      return launch_many_row_typed<TQ, int8_t, PAGED>(p, B, D, st);
+    if (kv_dtype == 3)
+      return launch_many_row_typed<TQ, __nv_fp8_e4m3, PAGED>(p, B, D, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// dtype codes: 0 = float32, 1 = bfloat16; the paged pools also 2 = int8
+// and 3 = float8_e4m3fn, the quantized pools, which need both scale pools
+// (and only they take scales)
 template <bool PAGED>
 cudaError_t launch_many_row(const PrefillParams& p, int B, int D, int q_dtype,
                             int kv_dtype, cudaStream_t st) {
-  if (q_dtype == 0 && kv_dtype == 0)
-    return launch_many_row_typed<float, float, PAGED>(p, B, D, st);
-  if (q_dtype == 0 && kv_dtype == 1)
-    return launch_many_row_typed<float, __nv_bfloat16, PAGED>(p, B, D, st);
-  if (q_dtype == 1 && kv_dtype == 0)
-    return launch_many_row_typed<__nv_bfloat16, float, PAGED>(p, B, D, st);
-  if (q_dtype == 1 && kv_dtype == 1)
-    return launch_many_row_typed<__nv_bfloat16, __nv_bfloat16, PAGED>(p, B,
-                                                                       D, st);
+  const bool quant = kv_dtype == 2 || kv_dtype == 3;
+  if ((p.ks != nullptr) != quant || (p.vs != nullptr) != quant)
+    return cudaErrorInvalidValue;
+  if (q_dtype == 0)
+    return launch_many_row_kv<float, PAGED>(p, B, D, kv_dtype, st);
+  if (q_dtype == 1)
+    return launch_many_row_kv<__nv_bfloat16, PAGED>(p, B, D, kv_dtype, st);
   return cudaErrorInvalidValue;
 }
 

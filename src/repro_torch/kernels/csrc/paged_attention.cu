@@ -23,11 +23,16 @@
 // window, so it never computes on an unmapped entry (the decode kernel
 // reads its chunk's table entries whole, before it knows the position).
 //
+// Quantized pools (int8 or fp8 e4m3, the TPU kernels' scale branch:
+// _accumulate_page(quant=True) with _page_scale_spec) come with f32 scale
+// pools (P, page_size, KV, 1) read through strides and the same page
+// table; the kernels dequantize each row as it arrives.
+//
 // Decode and split-K decode: one kernel (paged_decode.cuh) that cuts each
 // slot's live prefix into chunks of 256 keys, one CTA per (KV head, slot,
 // chunk), each with a cp.async ring of K/V tiles, merged in chunk order in
 // the same launch.  Bound on an H100: device-memory bytes of the live
-// prefix (2 * KV * D * bytes per live key).
+// prefix (2 * KV * (D * bytes + scale bytes) per live key).
 //
 // Prefill: one slot's chunk of C query rows at absolute q_offset, causal
 // against its own page chain (the chunk's K/V already written).
@@ -51,7 +56,10 @@
 // (num_splits > 1, T = 1, max_pages % num_splits == 0).  Strides are in
 // elements: q_strides = (batch, token, head), pool strides = (page, token,
 // kv head); the last dimension must be contiguous.  page_idx is (B,
-// max_pages) int32 with row stride pt_stride.  `chunk` keys per chunk (a
+// max_pages) int32 with row stride pt_stride.  k_scale / v_scale are the
+// f32 scale pools (P, page_size, KV, 1) of an int8 (kv_dtype 2) or fp8 (3)
+// pool, with strides (page, token, kv head) like the pools', and null for
+// an f32 (0) or bf16 (1) pool.  `chunk` keys per chunk (a
 // multiple of page_size) and `chunks_per_split` chunk slots per split give
 // the grid's num_splits * chunks_per_split chunks.  `out` is a contiguous
 // (B, T, H, D) tensor of q's dtype; o_part (B, KV, chunks, G * T, D) and
@@ -64,8 +72,9 @@ extern "C" int paged_decode_attention_fwd(
     int T, int H, int KV, int max_pages, int page_size, int D, int window,
     int num_splits, int chunk, int chunks_per_split,
     const long long* q_strides, const long long* k_strides,
-    const long long* v_strides, float* o_part, float* ml_part, int* tickets,
-    int q_dtype, int kv_dtype, void* stream) {
+    const long long* v_strides, const float* k_scale, const float* v_scale,
+    const long long* ks_strides, const long long* vs_strides, float* o_part,
+    float* ml_part, int* tickets, int q_dtype, int kv_dtype, void* stream) {
   if (num_splits < 1 || max_pages % num_splits || KV < 1 || H % KV)
     return (int)cudaErrorInvalidValue;
   PagedDecodeParams p{};
@@ -79,6 +88,9 @@ extern "C" int paged_decode_attention_fwd(
   p.q_sb = q_strides[0]; p.q_st = q_strides[1]; p.q_sh = q_strides[2];
   p.k_sp = k_strides[0]; p.k_ss = k_strides[1]; p.k_sh = k_strides[2];
   p.v_sp = v_strides[0]; p.v_ss = v_strides[1]; p.v_sh = v_strides[2];
+  p.ks = k_scale; p.vs = v_scale;
+  p.ks_sp = ks_strides[0]; p.ks_ss = ks_strides[1]; p.ks_sh = ks_strides[2];
+  p.vs_sp = vs_strides[0]; p.vs_ss = vs_strides[1]; p.vs_sh = vs_strides[2];
   p.o_part = o_part; p.ml_part = ml_part; p.tickets = tickets;
   return (int)launch_paged_decode(p, D, q_dtype, kv_dtype,
                                   (cudaStream_t)stream);
@@ -86,17 +98,19 @@ extern "C" int paged_decode_attention_fwd(
 
 // Fused paged prefill of one slot's chunk: q (1, C, H, D) with strides
 // (token, head) = q_strides[0..1]; pools as above; page_row the slot's
-// contiguous int32 page-table row.  `out` is a contiguous (1, C, H, D)
-// tensor of q's dtype.  (H / KV) must divide 64.  num_splits and the f32
+// contiguous int32 page-table row; scale pools as for the decode.  `out`
+// is a contiguous (1, C, H, D) tensor of q's dtype.  (H / KV) must divide
+// 64.  num_splits and the f32
 // scratch o_part (ns, 1, C, H, D), m_part and l_part (ns, 1, C, H) as for
 // flash_attention_fwd.
 extern "C" int paged_prefill_attention_fwd(
     const void* q, const void* k, const void* v, void* out,
     const int* page_row, int C, int H, int KV, int page_size, int D,
     int q_offset, int window, const long long* q_strides,
-    const long long* k_strides, const long long* v_strides, int num_splits,
-    float* o_part, float* m_part, float* l_part, int q_dtype, int kv_dtype,
-    void* stream) {
+    const long long* k_strides, const long long* v_strides,
+    const float* k_scale, const float* v_scale, const long long* ks_strides,
+    const long long* vs_strides, int num_splits, float* o_part,
+    float* m_part, float* l_part, int q_dtype, int kv_dtype, void* stream) {
   PrefillParams p{};
   p.q = q; p.k = k; p.v = v; p.out = out; p.page_row = page_row;
   p.Sq = C; p.Sk = q_offset + C; p.H = H; p.KV = KV; p.q_offset = q_offset;
@@ -104,6 +118,9 @@ extern "C" int paged_prefill_attention_fwd(
   p.q_st = q_strides[0]; p.q_sh = q_strides[1];
   p.k_sb = k_strides[0]; p.k_ss = k_strides[1]; p.k_sh = k_strides[2];
   p.v_sb = v_strides[0]; p.v_ss = v_strides[1]; p.v_sh = v_strides[2];
+  p.ks = k_scale; p.vs = v_scale;
+  p.ks_sb = ks_strides[0]; p.ks_ss = ks_strides[1]; p.ks_sh = ks_strides[2];
+  p.vs_sb = vs_strides[0]; p.vs_ss = vs_strides[1]; p.vs_sh = vs_strides[2];
   p.num_splits = num_splits;
   p.o_part = o_part; p.m_part = m_part; p.l_part = l_part;
   return (int)launch_many_row<true>(p, 1, D, q_dtype, kv_dtype,

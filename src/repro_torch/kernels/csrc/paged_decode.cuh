@@ -40,12 +40,19 @@
 //     (issued before it knows its slot's position) into shared memory, so
 //     no K/V load waits on a table read.
 //   * A ring of K/V tiles per CTA: 8 KiB of K and 8 KiB of V per stage (16
-//     keys in f32, 32 in bf16), three stages, filled by 16-byte
-//     cp.async.cg; key rows outside the CTA's keys are zero-filled without
-//     a read.  At 50 KiB of shared memory four CTAs share an SM, so the 424
-//     working CTAs above are all resident at once, each with two stages
-//     in flight.  Four stages (three CTAs per SM), 32 KiB stages, and 128-
-//     or 512-key chunks all measured slower (PERF.md).
+//     keys in f32, 32 in bf16, 64 in int8 or fp8), three stages, filled by
+//     16-byte cp.async.cg; key rows outside the CTA's keys are zero-filled
+//     without a read.  At 50 KiB of shared memory four CTAs share an SM, so
+//     the 424 working CTAs above are all resident at once, each with two
+//     stages in flight.  Four stages (three CTAs per SM), 32 KiB stages, and
+//     128- or 512-key chunks all measured slower (PERF.md).
+//   * Quantized pools (int8, fp8 e4m3; the TPU kernel's quant branch,
+//     _accumulate_page(quant=True) with _page_scale_spec): each stage also
+//     holds the tile's 64 K and 64 V scales, one 4-byte cp.async.ca per
+//     thread, found through the same table entry as the row.  A value is
+//     dequantized where it is read (float(x) * scale, in the score dot and
+//     in PV), so the bytes a tick moves are a quarter of f32's (plus 8 bytes
+//     of scales per key and KV head), and p stays f32.
 //   * Warps own keys.  Each warp takes its quarter of every tile: LPK lanes
 //     share one key's score dot (each a slice of the row, in a rotated order
 //     so that the 16-byte reads of a quarter-warp hit 8 distinct bank
@@ -84,6 +91,8 @@ struct PagedDecodeParams {
   const void* q;        // (B, T, H, D) through strides
   const void* k;        // pools (P, page_size, KV, D) through strides
   const void* v;
+  const float* ks;      // quantized pools: scales (P, page_size, KV, 1)
+  const float* vs;      // through strides; null otherwise
   void* out;            // contiguous (B, T, H, D), q's dtype
   const int* pos;       // (B,)
   const int* active;    // (B,) 0/1
@@ -97,6 +106,8 @@ struct PagedDecodeParams {
   long long q_sb, q_st, q_sh;
   long long k_sp, k_ss, k_sh;  // (page, token, kv head) strides
   long long v_sp, v_ss, v_sh;
+  long long ks_sp, ks_ss, ks_sh;  // scale strides, as the pools'
+  long long vs_sp, vs_ss, vs_sh;
   float* o_part;   // (B, KV, n_chunks, G * T, D) chunk accumulators
   float* ml_part;  // (B, KV, n_chunks, G * T, 2) chunk (m, l)
   int* tickets;    // (B, KV) counters, 0 between launches
@@ -120,7 +131,8 @@ __host__ __device__ constexpr int pd_tile_keys() {
 }
 
 // Shared memory: the ring, whose space the warps' merge and the last
-// CTA's list of chunks reuse, then q's rows as f32 and the chunk's table.
+// CTA's list of chunks reuse, then q's rows as f32, the chunk's table and
+// (quantized pools) the ring's scales, [stage][K | V][TK] f32.
 template <typename TKV, int MAXR>
 __host__ __device__ constexpr int pd_front_bytes() {
   const int ring =
@@ -130,7 +142,8 @@ __host__ __device__ constexpr int pd_front_bytes() {
 }
 template <typename TKV, int MAXR>
 constexpr int pd_smem_bytes() {
-  return pd_front_bytes<TKV, MAXR>() + MAXR * PD_THREADS * 4 + PD_TABLE * 4;
+  return pd_front_bytes<TKV, MAXR>() + MAXR * PD_THREADS * 4 + PD_TABLE * 4 +
+         (KVValue<TKV>::quant ? PD_STAGES * 2 * pd_tile_keys<TKV>() * 4 : 0);
 }
 
 // One CTA per (KV head j, slot b, chunk z); query row r = g * T + t of the
@@ -146,14 +159,17 @@ __global__ void __launch_bounds__(PD_THREADS, pd_min_ctas(MAXR))
   constexpr int LPK = 32 / KPW;                // lanes per key's score dot
   constexpr int CPL = VPR / LPK;               // chunks each lane dots
   constexpr int NCP = TK * VPR / PD_THREADS;   // cp.async per thread/tensor
+  constexpr bool QUANT = KVValue<TKV>::quant;
+  using TV = typename KVValue<TKV>::type;      // a loaded K/V value's type
   static_assert(KPW * PD_WARPS == TK && LPK * KPW == 32 &&
                     CPL * LPK == VPR && NCP * PD_THREADS == TK * VPR &&
-                    (CPL & (CPL - 1)) == 0,
+                    (CPL & (CPL - 1)) == 0 && 2 * TK <= PD_THREADS,
                 "tile shape");
   extern __shared__ __align__(16) unsigned char smem[];
   TKV* ring = reinterpret_cast<TKV*>(smem);  // [stage][K | V][TK][D]
   float* qs = reinterpret_cast<float*>(smem + pd_front_bytes<TKV, MAXR>());
   int* tbl = reinterpret_cast<int*>(qs + MAXR * D);  // [PD_TABLE]
+  float* scs = reinterpret_cast<float*>(tbl + PD_TABLE);  // quantized only
   __shared__ int last_s;
 
   const int j = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
@@ -219,8 +235,10 @@ __global__ void __launch_bounds__(PD_THREADS, pd_min_ctas(MAXR))
   const TKV* kpool = static_cast<const TKV*>(p.k) + j * p.k_sh;
   const TKV* vpool = static_cast<const TKV*>(p.v) + j * p.v_sh;
   const int ntile = (hi - lo + TK - 1) / TK;
-  // keys [lo + t * TK, + TK) into stage t % PD_STAGES; a warp (f32) or a
-  // half-warp (bf16) copies one whole key row
+  // keys [lo + t * TK, + TK) into stage t % PD_STAGES; a warp (f32), a
+  // half-warp (bf16) or a quarter-warp (int8, fp8) copies one whole key
+  // row, and (quantized) thread i < 2 TK the K (i < TK) or V scale of key
+  // i % TK
   auto issue = [&](int t) {
     TKV* Ks = ring + (t % PD_STAGES) * 2 * TK * D;
     TKV* Vs = Ks + TK * D;
@@ -241,6 +259,20 @@ __global__ void __launch_bounds__(PD_THREADS, pd_min_ctas(MAXR))
       }
       cp_async16(Ks + kk * D + c * VEC, kpool + ko, in);
       cp_async16(Vs + kk * D + c * VEC, vpool + vo, in);
+    }
+    if (QUANT && tid < 2 * TK) {
+      const int kk = tid % TK, isv = tid / TK;
+      const int kpos = k0 + kk;
+      const bool in = kpos < hi;
+      const float* src = isv ? p.vs + j * p.vs_sh : p.ks + j * p.ks_sh;
+      if (in) {
+        const int pg = kpos / ps;
+        const long long phys = tbl[pg - pg0];
+        const long long off = kpos - pg * ps;
+        src += isv ? phys * p.vs_sp + off * p.vs_ss
+                   : phys * p.ks_sp + off * p.ks_ss;
+      }
+      cp_async4(scs + ((t % PD_STAGES) * 2 + isv) * TK + kk, src, in);
     }
   };
 #pragma unroll
@@ -271,6 +303,9 @@ __global__ void __launch_bounds__(PD_THREADS, pd_min_ctas(MAXR))
     cp_async_commit();
     const TKV* Ks = ring + (t % PD_STAGES) * 2 * TK * D;
     const TKV* Vs = Ks + TK * D;
+    const float* Ksc = scs + (t % PD_STAGES) * 2 * TK;  // quantized only
+    const float* Vsc = Ksc + TK;
+    const float ksc = QUANT ? Ksc[key] : 1.f;
 
     float s[MAXR];
 #pragma unroll
@@ -281,6 +316,10 @@ __global__ void __launch_bounds__(PD_THREADS, pd_min_ctas(MAXR))
       float kf[VEC];
       Chunk<TKV>::get(
           *reinterpret_cast<const uint4*>(Ks + key * D + ch * VEC), kf);
+      if (QUANT) {  // dequantized before the dot, as the TPU kernel does
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) kf[e] *= ksc;
+      }
 #pragma unroll
       for (int r = 0; r < MAXR; ++r) {
         if (r >= R) break;
@@ -325,7 +364,7 @@ __global__ void __launch_bounds__(PD_THREADS, pd_min_ctas(MAXR))
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
       l[r] = l[r] * alpha + sum;  // l sums the unrounded p
       m[r] = m_new;
-      pr[r] = to_f(from_f<TKV>(e));  // p rounded to v's dtype
+      pr[r] = to_f(from_f<TV>(e));  // p rounded to v's (loaded) dtype
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[r][c] *= alpha;
     }
@@ -335,6 +374,11 @@ __global__ void __launch_bounds__(PD_THREADS, pd_min_ctas(MAXR))
     for (int kk = 0; kk < KPW; ++kk) {
       float vf[4];
       load4(Vs + (warp * KPW + kk) * D + lane * 4, vf);
+      if (QUANT) {
+        const float vsc = Vsc[warp * KPW + kk];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) vf[c] *= vsc;
+      }
 #pragma unroll
       for (int r = 0; r < MAXR; ++r) {
         if (r >= R) break;
@@ -467,7 +511,21 @@ cudaError_t launch_paged_decode_typed(const PagedDecodeParams& p,
   return cudaErrorInvalidValue;
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16
+template <typename TQ>
+cudaError_t launch_paged_decode_kv(const PagedDecodeParams& p, int kv_dtype,
+                                   cudaStream_t st) {
+  switch (kv_dtype) {
+    case 0: return launch_paged_decode_typed<TQ, float>(p, st);
+    case 1: return launch_paged_decode_typed<TQ, __nv_bfloat16>(p, st);
+    case 2: return launch_paged_decode_typed<TQ, int8_t>(p, st);
+    case 3: return launch_paged_decode_typed<TQ, __nv_fp8_e4m3>(p, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// dtype codes: 0 = float32, 1 = bfloat16; the pools also 2 = int8 and
+// 3 = float8_e4m3fn, the quantized pools, which need both scale pools (and
+// only they take scales)
 cudaError_t launch_paged_decode(const PagedDecodeParams& p, int D,
                                 int q_dtype, int kv_dtype, cudaStream_t st) {
   // head_dim 128, the served arch's: one thread per output column
@@ -475,14 +533,12 @@ cudaError_t launch_paged_decode(const PagedDecodeParams& p, int D,
       p.chunk / p.page_size > PD_TABLE || p.split % p.page_size ||
       p.n_chunks < 1)
     return cudaErrorInvalidValue;
-  if (q_dtype == 0 && kv_dtype == 0)
-    return launch_paged_decode_typed<float, float>(p, st);
-  if (q_dtype == 0 && kv_dtype == 1)
-    return launch_paged_decode_typed<float, __nv_bfloat16>(p, st);
-  if (q_dtype == 1 && kv_dtype == 0)
-    return launch_paged_decode_typed<__nv_bfloat16, float>(p, st);
-  if (q_dtype == 1 && kv_dtype == 1)
-    return launch_paged_decode_typed<__nv_bfloat16, __nv_bfloat16>(p, st);
+  const bool quant = kv_dtype == 2 || kv_dtype == 3;
+  if ((p.ks != nullptr) != quant || (p.vs != nullptr) != quant)
+    return cudaErrorInvalidValue;
+  if (q_dtype == 0) return launch_paged_decode_kv<float>(p, kv_dtype, st);
+  if (q_dtype == 1)
+    return launch_paged_decode_kv<__nv_bfloat16>(p, kv_dtype, st);
   return cudaErrorInvalidValue;
 }
 

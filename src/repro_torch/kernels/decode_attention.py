@@ -21,7 +21,12 @@ from . import _build
 
 MAX_ROWS = 16  # G * T query rows one CTA serves (csrc MAX_ROWS)
 HEAD_DIMS = (128,)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# dtype codes of the C entry points; int8 and float8_e4m3fn are the
+# quantized paged pools, which only the paged kernels take (with scales)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float8_e4m3fn: 3}
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,19 +46,22 @@ def _lib():
     return lib
 
 
-def _check_shapes(q, k, v, what, layout):
+def _check_shapes(q, k, v, what, layout, quant=False):
     """Shape and dtype checks the kernels of both layouts share: q
     (B,T,H,D) and k/v 4-D (``layout``) of one shape and dtype,
-    float32/bfloat16, a built head dim."""
+    float32/bfloat16 (``quant``: or int8/float8_e4m3fn), a built head
+    dim."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"expected q (B,T,H,D) and {what}s {layout}, got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
     if k.shape != v.shape:
         raise ValueError(f"k/v {what} shapes differ: {tuple(k.shape)} vs "
                          f"{tuple(v.shape)}")
-    if q.dtype not in _DTYPE_CODE or k.dtype not in _DTYPE_CODE:
+    kv_dtypes = FLOAT_DTYPES + (QUANT_DTYPES if quant else ())
+    if q.dtype not in FLOAT_DTYPES or k.dtype not in kv_dtypes:
+        names = "/".join(str(t).removeprefix("torch.") for t in kv_dtypes)
         raise ValueError(f"dtypes q={q.dtype} {what}={k.dtype}: kernel "
-                         f"takes float32/bfloat16")
+                         f"takes {names}")
     if v.dtype != k.dtype:
         raise ValueError(f"k/v {what} dtypes differ: {k.dtype} vs "
                          f"{v.dtype}")

@@ -3,9 +3,11 @@ of ``repro/kernels/ops.py``).
 
 The device decides the path: tensors on the CPU take the plain versions in
 ``ref.py`` (through transposed views); CUDA tensors launch the
-hand-written kernels, or the call raises.  There is no fallback.  Paged
-pools stay in the model layout (P, page_size, KV, D): the kernels read them
-through strides, so no pool is transposed or copied per call.
+hand-written kernels, or the call raises.  There is no fallback: a
+quantized pool on the card is read by the kernels, never dequantized into
+an f32 pool for them.  Paged pools stay in the model layout
+(P, page_size, KV, D), scale pools (P, page_size, KV, 1): the kernels read
+them through strides, so no pool is transposed or copied per call.
 """
 from __future__ import annotations
 
@@ -61,65 +63,91 @@ def decode_attention(q, k_cache, v_cache, pos, *, active=None, window=0,
                                  window=window)
 
 
+def _t(x):
+    """The kernel-layout view of a model-layout tensor (None stays None)."""
+    return None if x is None else x.transpose(1, 2)
+
+
 def paged_decode_attention_plain(q, k_pages, v_pages, page_idx, pos, *,
-                                 active=None, window=0, num_splits=1):
+                                 active=None, window=0, num_splits=1,
+                                 k_scale=None, v_scale=None):
     """The paged plain versions in model layout, on any device (the CPU
     path of ``paged_decode_attention``; the on-card checks compare the
-    kernels with it)."""
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k_pages, v_pages))
+    kernels with it).  With ``k_scale``/``v_scale`` the quantized pools
+    are dequantized whole first."""
+    qt, kt, vt, kst, vst = map(_t, (q, k_pages, v_pages, k_scale, v_scale))
+    kw = dict(active=active, window=window)
     if _split(q, num_splits):
-        out = ref.paged_decode_attention_splitk_ref(
-            qt, kt, vt, page_idx, pos, active=active, window=window,
-            num_splits=num_splits)
+        kw["num_splits"] = num_splits
+        if k_scale is None:
+            out = ref.paged_decode_attention_splitk_ref(qt, kt, vt, page_idx,
+                                                        pos, **kw)
+        else:
+            out = ref.paged_decode_attention_splitk_quant_ref(
+                qt, kt, vt, kst, vst, page_idx, pos, **kw)
+    elif k_scale is None:
+        out = ref.paged_decode_attention_ref(qt, kt, vt, page_idx, pos, **kw)
     else:
-        out = ref.paged_decode_attention_ref(qt, kt, vt, page_idx, pos,
-                                             active=active, window=window)
+        out = ref.paged_decode_attention_quant_ref(qt, kt, vt, kst, vst,
+                                                   page_idx, pos, **kw)
     return out.transpose(1, 2)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_idx, pos, *,
-                           active=None, window=0, num_splits=1):
+                           active=None, window=0, num_splits=1, k_scale=None,
+                           v_scale=None):
     """Model layout: q (B,T,H,D); pools (P,page_size,KV,D); page_idx
     (B,max_pages) int32, unmapped entries 0 -> (B,T,H,D).
 
     ``num_splits > 1`` with T = 1 takes the paged split-K path
     (``max_pages % num_splits == 0``); T > 1 always takes the single-pass
-    kernel, as in the reference.
+    kernel, as in the reference.  ``k_scale``/``v_scale``
+    (P,page_size,KV,1) f32 go with int8/fp8 pools: the kernels read the
+    quantized pools and dequantize on the card (no swap to the TPU
+    layout: they read the scales through strides).
     """
+    kw = dict(active=active, window=window, k_scale=k_scale,
+              v_scale=v_scale)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
-            q, k_pages, v_pages, page_idx, pos, active=active, window=window,
-            num_splits=num_splits)
+            q, k_pages, v_pages, page_idx, pos, num_splits=num_splits, **kw)
     if _split(q, num_splits):
         return paged_decode_attention_splitk_cuda(
-            q, k_pages, v_pages, page_idx, pos, active=active, window=window,
-            num_splits=num_splits)
+            q, k_pages, v_pages, page_idx, pos, num_splits=num_splits, **kw)
     return paged_decode_attention_cuda(q, k_pages, v_pages, page_idx, pos,
-                                       active=active, window=window)
+                                       **kw)
 
 
 def paged_prefill_attention_plain(q, k_pages, v_pages, page_idx, slot,
-                                  offset, *, window=0):
+                                  offset, *, window=0, k_scale=None,
+                                  v_scale=None):
     """The fused paged prefill's plain version in model layout, on any
-    device."""
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k_pages, v_pages))
-    out = ref.paged_prefill_attention_ref(qt, kt, vt, page_idx[slot],
-                                          offset, window=window)
+    device (quantized pools dequantized whole first)."""
+    qt, kt, vt, kst, vst = map(_t, (q, k_pages, v_pages, k_scale, v_scale))
+    if k_scale is None:
+        out = ref.paged_prefill_attention_ref(qt, kt, vt, page_idx[slot],
+                                              offset, window=window)
+    else:
+        out = ref.paged_prefill_attention_quant_ref(
+            qt, kt, vt, kst, vst, page_idx[slot], offset, window=window)
     return out.transpose(1, 2)
 
 
 def paged_prefill_attention(q, k_pages, v_pages, page_idx, slot, offset, *,
-                            window=0):
+                            window=0, k_scale=None, v_scale=None):
     """Model layout: q (1,C,H,D), one slot's prefill chunk at absolute
     ``offset``, against pools (P,page_size,KV,D) through row ``slot`` of
     ``page_idx`` (slots, max_pages) -> (1,C,H,D).  The chunk's K/V must
-    already be written to its pages."""
+    already be written to its pages; ``k_scale``/``v_scale`` as for
+    ``paged_decode_attention``."""
     if q.device.type == "cpu":
-        return paged_prefill_attention_plain(q, k_pages, v_pages, page_idx,
-                                             slot, offset, window=window)
+        return paged_prefill_attention_plain(
+            q, k_pages, v_pages, page_idx, slot, offset, window=window,
+            k_scale=k_scale, v_scale=v_scale)
     return paged_prefill_attention_cuda(q, k_pages, v_pages,
                                         page_idx[int(slot)], int(offset),
-                                        window=window)
+                                        window=window, k_scale=k_scale,
+                                        v_scale=v_scale)
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0):

@@ -7,7 +7,9 @@ kernel (``csrc/paged_decode.cuh``) over the chunk grid of
 Model layout in and out: q (B, T, H, D) (prefill: (1, C, H, D)), pools
 (P, page_size, KV, D), result in q's dtype and q's shape.  The pools are
 passed by pointer and strides in that layout; nothing is transposed,
-gathered or copied.  The page table is an int32 CUDA tensor
+gathered or copied.  Quantized pools (int8, float8_e4m3fn) come with f32
+scale pools ``k_scale``/``v_scale`` (P, page_size, KV, 1), also read
+through strides: the kernels dequantize each K/V row as it arrives.  The page table is an int32 CUDA tensor
 (B, max_pages) whose unmapped entries are the null page 0.  Each wrapper
 checks what the kernel takes and raises on anything else, allocates its
 output and scratch with ``torch.empty``, launches on the current stream and
@@ -26,8 +28,9 @@ import functools
 import torch
 
 from . import _build
-from .decode_attention import (_DTYPE_CODE, MAX_ROWS, _check_device,
-                               _check_shapes, _pos_active, _strides)
+from .decode_attention import (_DTYPE_CODE, MAX_ROWS, QUANT_DTYPES,
+                               _check_device, _check_shapes, _pos_active,
+                               _strides)
 from .flash_attention import ROWS as PREFILL_ROWS
 from .flash_attention import launch_many_row
 
@@ -36,9 +39,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
-                _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P]
+                _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                _I, _P]
 _PREFILL_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                 _P, _I, _P, _P, _P, _I, _I, _P]
+                 _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P]
 
 
 def _lib():
@@ -51,15 +55,33 @@ def _lib():
     return lib
 
 
-def _check_pools(q, k_pages, v_pages):
-    """Shape checks of q against the pools; returns (page_size, KV)."""
-    _check_shapes(q, k_pages, v_pages, "pool", "(P,page_size,KV,D)")
+def _check_pools(q, k_pages, v_pages, k_scale, v_scale):
+    """Shape checks of q against the pools, and of the scale pools: an
+    int8/fp8 pool needs both, an f32/bf16 pool takes none.  Returns
+    (page_size, KV, the scale arguments of the C entry points)."""
+    _check_shapes(q, k_pages, v_pages, "pool", "(P,page_size,KV,D)",
+                  quant=True)
     h, d = q.shape[2], q.shape[3]
     _, page_size, kv, kd = k_pages.shape
     if kd != d or kv == 0 or h % kv:
         raise ValueError(f"q {tuple(q.shape)} does not fit pools "
                          f"{tuple(k_pages.shape)}")
-    return page_size, kv
+    quant = k_pages.dtype in QUANT_DTYPES
+    if quant != (k_scale is not None) or quant != (v_scale is not None):
+        raise ValueError(f"a {k_pages.dtype} pool takes "
+                         f"{'both' if quant else 'no'} scale pools")
+    if not quant:
+        zero = (ctypes.c_longlong * 3)()
+        return page_size, kv, (None, None, zero, zero)
+    want = k_pages.shape[:-1] + (1,)
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if sc.dtype != torch.float32 or sc.shape != want \
+                or sc.device != k_pages.device:
+            raise ValueError(f"{name} must be float32 {tuple(want)} on "
+                             f"{k_pages.device}, got {sc.dtype} "
+                             f"{tuple(sc.shape)} on {sc.device}")
+    return page_size, kv, (k_scale.data_ptr(), v_scale.data_ptr(),
+                           _strides(k_scale), _strides(v_scale))
 
 
 def _check_table(table, q, rows, name):
@@ -72,8 +94,10 @@ def _check_table(table, q, rows, name):
                          f"shape {tuple(table.shape)}")
 
 
-def _check_decode(q, k_pages, v_pages, page_idx, pos, active):
-    page_size, kv = _check_pools(q, k_pages, v_pages)
+def _check_decode(q, k_pages, v_pages, page_idx, pos, active, k_scale,
+                  v_scale):
+    page_size, kv, scales = _check_pools(q, k_pages, v_pages, k_scale,
+                                         v_scale)
     _check_table(page_idx, q, 2, "page_idx")
     b, t, h, _ = q.shape
     if page_idx.shape[0] != b:
@@ -84,7 +108,7 @@ def _check_decode(q, k_pages, v_pages, page_idx, pos, active):
                          f"exceeds {MAX_ROWS}")
     _check_device(q, k_pages, v_pages, "pool")
     pos, active = _pos_active(pos, active, b, q.device)
-    return pos, active, page_size, kv
+    return pos, active, page_size, kv, scales
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,12 +149,12 @@ def _tickets(device, stream, n):
 
 
 def _launch_decode(name, q, k_pages, v_pages, page_idx, pos, active, window,
-                   num_splits):
+                   num_splits, k_scale, v_scale):
     """Launch the paged decode kernel over ``decode_chunks``'s grid with its
     f32 scratch (each chunk's (acc, m, l)) and the stream's tickets;
     returns the (B, T, H, D) output."""
-    pos, active, page_size, kv = _check_decode(q, k_pages, v_pages,
-                                               page_idx, pos, active)
+    pos, active, page_size, kv, scales = _check_decode(
+        q, k_pages, v_pages, page_idx, pos, active, k_scale, v_scale)
     b, t, h, d = q.shape
     max_pages = page_idx.shape[1]
     chunk, cps, _ = decode_chunks(max_pages, page_size, num_splits)
@@ -145,7 +169,7 @@ def _launch_decode(name, q, k_pages, v_pages, page_idx, pos, active, window,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
         pos.data_ptr(), active.data_ptr(), page_idx.data_ptr(),
         page_idx.stride(0), b, t, h, kv, max_pages, page_size, d,
-        int(window), int(num_splits), chunk, cps, *strides, base,
+        int(window), int(num_splits), chunk, cps, *strides, *scales, base,
         base + 4 * rows * d, _tickets(q.device, stream, b * kv).data_ptr(),
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], stream)
     if err:
@@ -154,20 +178,23 @@ def _launch_decode(name, q, k_pages, v_pages, page_idx, pos, active, window,
 
 
 def paged_decode_attention_cuda(q, k_pages, v_pages, page_idx, pos, *,
-                                active=None, window=0):
+                                active=None, window=0, k_scale=None,
+                                v_scale=None):
     """Single-pass paged decode (replaces ``paged_decode_attention_tpu``).
     q (B, T, H, D) with G*T <= 16; pools (P, page_size, KV, D); page_idx
     (B, max_pages) int32; ``pos`` scalar or (B,); ``active`` (B,) 0/1,
-    default ``pos >= 0``."""
+    default ``pos >= 0``; ``k_scale``/``v_scale`` (P, page_size, KV, 1) f32
+    with int8/fp8 pools."""
     out = _launch_decode("paged_decode_attention", q, k_pages, v_pages,
-                         page_idx, pos, active, window, 1)
+                         page_idx, pos, active, window, 1, k_scale, v_scale)
     paged_decode_attention_cuda.launches += 1
     return out
 
 
 def paged_decode_attention_splitk_cuda(q, k_pages, v_pages, page_idx, pos,
                                        *, active=None, window=0,
-                                       num_splits=2):
+                                       num_splits=2, k_scale=None,
+                                       v_scale=None):
     """Paged split-K decode (replaces
     ``paged_decode_attention_splitk_tpu``): T = 1, ``max_pages %
     num_splits == 0`` so that each split owns whole pages of the table.
@@ -181,19 +208,22 @@ def paged_decode_attention_splitk_cuda(q, k_pages, v_pages, page_idx, pos,
         raise ValueError(f"num_splits {num_splits} must divide max_pages "
                          f"{tuple(page_idx.shape[1:])}")
     out = _launch_decode("paged_decode_attention_splitk", q, k_pages,
-                         v_pages, page_idx, pos, active, window, num_splits)
+                         v_pages, page_idx, pos, active, window, num_splits,
+                         k_scale, v_scale)
     paged_decode_attention_splitk_cuda.launches += 1
     return out
 
 
 def paged_prefill_attention_cuda(q, k_pages, v_pages, page_row, q_offset, *,
-                                 window=0):
+                                 window=0, k_scale=None, v_scale=None):
     """Fused paged prefill (replaces ``paged_prefill_attention_tpu``): one
     slot's chunk q (1, C, H, D) at absolute ``q_offset`` against its own
     page chain ``page_row`` (max_pages,) int32, causal, with the chunk's
     K/V already written to the pool.  ``q_offset + C`` must fit the row's
-    ``max_pages * page_size`` positions; H / KV must divide 64."""
-    page_size, kv = _check_pools(q, k_pages, v_pages)
+    ``max_pages * page_size`` positions; H / KV must divide 64;
+    ``k_scale``/``v_scale`` as for ``paged_decode_attention_cuda``."""
+    page_size, kv, scales = _check_pools(q, k_pages, v_pages, k_scale,
+                                         v_scale)
     _check_table(page_row, q, 1, "page_row")
     _, c, h, d = q.shape
     q_offset = int(q_offset)
@@ -215,7 +245,7 @@ def paged_prefill_attention_cuda(q, k_pages, v_pages, page_row, q_offset, *,
         _lib().paged_prefill_attention_fwd, out, kv, q_offset + c,
         (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
          out.data_ptr(), page_row.data_ptr(), c, h, kv, page_size, d,
-         q_offset, int(window), *strides),
+         q_offset, int(window), *strides, *scales),
         (_DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype]))
     paged_prefill_attention_cuda.launches += 1
     return out

@@ -3,10 +3,11 @@ correctness contract).
 
 Deliberately naive: full score (and SSD decay) matrices, explicit masks,
 f32 throughout.  Kernel layout, as ``repro/kernels/ref.py``: q (B, H, T,
-D), caches (B, KV, S, D), page pools (P, KV, page_size, D).  The dispatch in
-``ops.py`` passes transposed *views* of the model-layout tensors, so
-nothing is copied on the way in; the paged versions gather each slot's
-pages into a dense view.
+D), caches (B, KV, S, D), page pools (P, KV, page_size, D) (quantized
+pools with scales (P, KV, page_size, 1)).  The dispatch in ``ops.py``
+passes transposed *views* of the model-layout tensors, so nothing is
+copied on the way in; the paged versions gather each slot's pages into a
+dense view, the quantized ones after dequantizing the whole pool.
 
 ``active`` (B,) 0/1 gates each slot (default ``pos >= 0``); an inactive
 slot returns zeros, as the kernels write them.
@@ -145,6 +146,47 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, page_row, q_offset, *,
     ``paged_prefill_attention_ref``."""
     return paged_decode_attention_ref(q, k_pages, v_pages, page_row[None],
                                       q_offset, window=window)
+
+
+def dequantize_ref(pages, scales):
+    """Per-token/per-head dequantization: pages (..., page_size, D)
+    int8/fp8, scales (..., page_size, 1) f32 -> f32 values.  Mirrors
+    ``repro/kernels/ref.py`` ``dequantize_ref``."""
+    return pages.float() * scales
+
+
+def paged_decode_attention_quant_ref(q, k_pages, v_pages, k_scale, v_scale,
+                                     page_idx, pos, *, active=None,
+                                     window=0):
+    """The quantized paged decode: pools (P,KV,page_size,D) int8/fp8 with
+    per-token scales (P,KV,page_size,1) f32.  Dequantizes the whole pool
+    and defers to ``paged_decode_attention_ref``, so a kernel reading the
+    same quantized values must match it within f32 rounding.  Mirrors
+    ``repro/kernels/ref.py`` ``paged_decode_attention_quant_ref``."""
+    return paged_decode_attention_ref(
+        q, dequantize_ref(k_pages, k_scale), dequantize_ref(v_pages, v_scale),
+        page_idx, pos, active=active, window=window)
+
+
+def paged_decode_attention_splitk_quant_ref(q, k_pages, v_pages, k_scale,
+                                            v_scale, page_idx, pos, *,
+                                            active=None, window=0,
+                                            num_splits=2):
+    """The quantized paged split-K decode, built as
+    ``paged_decode_attention_quant_ref``: the dequantized pools through
+    ``paged_decode_attention_splitk_ref``."""
+    return paged_decode_attention_splitk_ref(
+        q, dequantize_ref(k_pages, k_scale), dequantize_ref(v_pages, v_scale),
+        page_idx, pos, active=active, window=window, num_splits=num_splits)
+
+
+def paged_prefill_attention_quant_ref(q, k_pages, v_pages, k_scale, v_scale,
+                                      page_row, q_offset, *, window=0):
+    """The quantized fused paged prefill: the dequantized pools through
+    ``paged_prefill_attention_ref``."""
+    return paged_prefill_attention_ref(
+        q, dequantize_ref(k_pages, k_scale), dequantize_ref(v_pages, v_scale),
+        page_row, q_offset, window=window)
 
 
 def attention_ref(q, k, v, *, causal=True, window=0):

@@ -20,7 +20,7 @@ import ctypes
 import torch
 
 from . import _build
-from .decode_attention import _DTYPE_CODE
+from .decode_attention import _DTYPE_CODE, FLOAT_DTYPES
 
 HEAD_DIM = 64  # hp, the built width (csrc HP)
 MAX_CHUNK = 256
@@ -60,7 +60,7 @@ def _check(x, b, c, dt, cum):
             raise ValueError(f"{name} must be f32 (B,NC,NH,Q) = "
                              f"{(bb, nc, nh, q)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    if x.dtype not in _DTYPE_CODE or b.dtype != x.dtype \
+    if x.dtype not in FLOAT_DTYPES or b.dtype != x.dtype \
             or c.dtype != x.dtype:
         raise ValueError(f"x/b/c must share one dtype of float32/bfloat16, "
                          f"got {x.dtype}, {b.dtype}, {c.dtype}")

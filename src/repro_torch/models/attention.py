@@ -2,16 +2,22 @@
 plain decode attention (dense and paged) and the cache writes (dense
 stripes and the paged pool).
 
-The PyTorch counterpart of ``repro/models/attention.py`` (its unquantized
-subset).  Weights keep the head-explicit layout wq (dm, H, hd), wk/wv
-(dm, KV, hd), wo (H, hd, dm).  Dense caches are (B, S, KV, D); paged pools
-are (P, page_size, KV, D) shared by every slot, addressed through an int32
+The PyTorch counterpart of ``repro/models/attention.py``.  Weights keep
+the head-explicit layout wq (dm, H, hd), wk/wv (dm, KV, hd), wo
+(H, hd, dm).  Dense caches are (B, S, KV, D); paged pools are
+(P, page_size, KV, D) shared by every slot, addressed through an int32
 page table (slots, max_pages) whose unmapped entries are the null page 0.
 Both are written IN PLACE: the reference's buffer donation becomes a row
 write into the caller's tensor, so a decode tick never rebuilds or copies
 a cache.
+
+Quantized pools (int8 or fp8 e4m3) hold K/V rows quantized per token and
+KV head, with f32 scale pools (P, page_size, KV, 1) beside them, written
+through the same page table (``quantize_kv``, ``*_quant``).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -52,15 +58,27 @@ def qkv_project(params, x, positions, rope_theta):
     return q, k, v
 
 
+def _promoted(*xs):
+    """``xs`` cast to their promoted dtype, as ``jnp.einsum`` promotes its
+    operands (f32 with bf16 is f32); a no-op when they already agree."""
+    dt = functools.reduce(torch.promote_types, (x.dtype for x in xs))
+    return [x.to(dt) for x in xs]
+
+
 def attn_output(params, ctx):
-    return torch.einsum("bshk,hkd->bsd", ctx, params["wo"])
+    """ctx (B,S,H,hd) -> (B,S,dm); a bf16 ctx (the chunked prefill over a
+    bf16 cache) is promoted to the weights' dtype, as the reference's
+    einsum promotes it."""
+    return torch.einsum("bshk,hkd->bsd", *_promoted(ctx, params["wo"]))
 
 
 # ------------------------------------------------------- grouped attention
 def _grouped_scores(q, k):
-    """q (B,bq,KV,G,D), k (B,Sk,KV,D) -> scores (B,KV,G,bq,Sk) fp32."""
+    """q (B,bq,KV,G,D), k (B,Sk,KV,D) -> scores (B,KV,G,bq,Sk) fp32.  An
+    f32 q against a bf16 cache multiplies in f32 (the reference's einsum
+    promotes the operands)."""
     scale = q.shape[-1] ** -0.5
-    return torch.einsum("bqhgd,bshd->bhgqs", q, k).float() * scale
+    return torch.einsum("bqhgd,bshd->bhgqs", *_promoted(q, k)).float() * scale
 
 
 def _grouped_context(probs, v):
@@ -251,12 +269,20 @@ def paged_write_index(pos, page_idx, page_size, t=1):
             (src, live))
 
 
+def _raw(pages, new):
+    """A 1-byte pool and its rows as uint8 views (the same bytes), so that
+    an fp8 pool is indexed and selected as plain bytes on any device."""
+    if pages.element_size() == 1:
+        return pages.view(torch.uint8), new.view(torch.uint8)
+    return pages, new
+
+
 def write_paged_rows(k_pages, v_pages, k_new, v_new, index):
     """Write a (B,T,KV,D) block at ``index`` (``paged_write_index``) of the
     (P,page_size,KV,D) pools, in place."""
     page, off, drop = index
     for pages, new in ((k_pages, k_new), (v_pages, v_new)):
-        new = new.to(pages.dtype)
+        pages, new = _raw(pages, new.to(pages.dtype))
         if drop is not None:
             src, live = drop
             new = torch.where(live[:, :, None, None], new[src], pages[0, 0])
@@ -303,31 +329,118 @@ def paged_prefill_chunk_update(k_pages, v_pages, k_new, v_new, slot, offset,
                          f"{page_idx.shape[1] * page_size} positions of the "
                          f"page table")
     pages = page_idx[int(slot), start:start + m].long()
-    k_pages[pages] = k_new.reshape(m, page_size, kv, d).to(k_pages.dtype)
-    v_pages[pages] = v_new.reshape(m, page_size, kv, d).to(v_pages.dtype)
+    for pool, new in ((k_pages, k_new), (v_pages, v_new)):
+        pool, new = _raw(pool, new.reshape(m, page_size, kv, d).to(
+            pool.dtype))
+        pool[pages] = new
     return k_pages, v_pages
 
 
-def _gather(pages, rows):
+def _gather(pages, rows, scale=None):
     """Pool (P,page_size,KV,D) through table rows (B,max_pages) -> dense
-    (B, max_pages * page_size, KV, D)."""
+    (B, max_pages * page_size, KV, D); with the pool's ``scale``
+    (P,page_size,KV,1) the gathered rows are dequantized to f32."""
     b, n = rows.shape
     _, page_size, kv, d = pages.shape
-    return pages[rows.long()].reshape(b, n * page_size, kv, d)
+    x = pages[rows.long()].reshape(b, n * page_size, kv, d)
+    if scale is None:
+        return x
+    return dequantize_kv(x, scale[rows.long()].reshape(b, n * page_size,
+                                                       kv, 1))
 
 
-def gather_slot_pages(k_pages, v_pages, page_idx, slot):
+def gather_slot_pages(k_pages, v_pages, page_idx, slot, k_scale=None,
+                      v_scale=None):
     """Dense (1, S, KV, D) views of one slot's page chain, S = max_pages *
-    page_size; unmapped blocks gather the null page (masked by position)."""
+    page_size; unmapped blocks gather the null page (masked by position).
+    With ``k_scale``/``v_scale`` the quantized pools are gathered and
+    dequantized: the views are f32."""
     row = page_idx[int(slot)][None]
-    return _gather(k_pages, row), _gather(v_pages, row)
+    return _gather(k_pages, row, k_scale), _gather(v_pages, row, v_scale)
 
 
 def paged_decode_attention_xla(q, k_pages, v_pages, page_idx, pos, *,
-                               window=0):
+                               window=0, k_scale=None, v_scale=None):
     """Paged decode attention, plain tensor ops: q (B,T,H,D); pools
     (P,page_size,KV,D); page_idx (B,max_pages).  Gathers each slot's pages
-    into a dense view and defers to ``decode_attention_xla``."""
-    return decode_attention_xla(q, _gather(k_pages, page_idx),
-                                _gather(v_pages, page_idx), pos,
+    into a dense view (dequantized with ``k_scale``/``v_scale``
+    (P,page_size,KV,1) f32 when the pools are quantized) and defers to
+    ``decode_attention_xla``."""
+    return decode_attention_xla(q, _gather(k_pages, page_idx, k_scale),
+                                _gather(v_pages, page_idx, v_scale), pos,
                                 window=window)
+
+
+# ------------------------------------------------------------ quantized KV
+KV_QUANT_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+# qmax of each pool dtype (448: e4m3fn's largest finite value)
+_QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
+
+
+def kv_quant_dtype(kv_quant: str):
+    """Pool dtype for a ``RuntimeKnobs.kv_quant`` mode string ("" -- the
+    unquantized default -- maps to None: store at cache_dtype)."""
+    return KV_QUANT_DTYPES[kv_quant] if kv_quant else None
+
+
+def quantize_kv(x, qdtype):
+    """Per-token/per-head symmetric quantization of fresh K/V rows, as the
+    reference's: x (..., D) -> (q (..., D) ``qdtype``, scale (..., 1) f32)
+    with scale = absmax / qmax over the head dim.  The rows are multiplied
+    by ``inv = 1 / max(scale, 1e-30)`` (not divided by the scale); int8
+    rounds half to even and clips to +-127, fp8 is a plain cast.  All-zero
+    rows get scale 0 and inv 0, so they dequantize to exact zeros."""
+    qmax = _QMAX[qdtype]
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = amax / qmax
+    inv = torch.where(amax > 0, 1.0 / torch.clamp(scale, min=1e-30), 0.0)
+    if qdtype == torch.int8:
+        q = torch.clamp(torch.round(xf * inv), -qmax, qmax).to(torch.int8)
+    else:
+        q = (xf * inv).to(qdtype)
+    return q, scale
+
+
+def dequantize_kv(q, scale):
+    """Inverse of ``quantize_kv``: (..., D) quantized and (..., 1) f32 ->
+    f32."""
+    return q.float() * scale
+
+
+def write_paged_rows_quant(k_pages, v_pages, k_scale, v_scale, k_new, v_new,
+                           index):
+    """``write_paged_rows`` for quantized pools: the (B,T,KV,D) rows are
+    quantized per token and head, the values land in the int8/fp8 pools
+    and the scales in the (P,page_size,KV,1) scale pools at the same
+    ``index``, in place."""
+    kq, ks = quantize_kv(k_new, k_pages.dtype)
+    vq, vs = quantize_kv(v_new, v_pages.dtype)
+    write_paged_rows(k_pages, v_pages, kq, vq, index)
+    write_paged_rows(k_scale, v_scale, ks, vs, index)
+    return k_pages, v_pages, k_scale, v_scale
+
+
+def paged_cache_update_quant(k_pages, v_pages, k_scale, v_scale, k_new,
+                             v_new, pos, page_idx, page_size):
+    """Quantized ``paged_cache_update``: (B,1,KV,D) rows quantized and
+    written, values and scales, through the page table, in place.  Every
+    write is a fresh row: no page is read back and requantized, so the
+    quantization error never accumulates."""
+    index = paged_write_index(pos, page_idx, page_size, 1)
+    return write_paged_rows_quant(k_pages, v_pages, k_scale, v_scale, k_new,
+                                  v_new, index)
+
+
+def paged_prefill_chunk_update_quant(k_pages, v_pages, k_scale, v_scale,
+                                     k_new, v_new, slot, offset, page_idx,
+                                     page_size):
+    """Quantized ``paged_prefill_chunk_update``: the chunk's values and
+    scales land in the pages the slot's table row maps, in place."""
+    kq, ks = quantize_kv(k_new, k_pages.dtype)
+    vq, vs = quantize_kv(v_new, v_pages.dtype)
+    paged_prefill_chunk_update(k_pages, v_pages, kq, vq, slot, offset,
+                               page_idx, page_size)
+    paged_prefill_chunk_update(k_scale, v_scale, ks, vs, slot, offset,
+                               page_idx, page_size)
+    return k_pages, v_pages, k_scale, v_scale

@@ -49,6 +49,9 @@ class RuntimeKnobs:
     # via runtime.steps.pick_decode_splits); >= 1 is a static override.
     # Both 0 and 1 take the single-pass kernel outside the engine.
     decode_splits: int = 0
+    # quantized paged KV: "" (pools at cache_dtype), "int8" or "fp8"
+    # (float8_e4m3fn); set by ServeEngine from ServeConfig.kv_dtype
+    kv_quant: str = ""
 
     def with_(self, **kw) -> "RuntimeKnobs":
         return dataclasses.replace(self, **kw)
@@ -85,12 +88,26 @@ class LM:
         return page_idx.to(self.device, torch.int32)
 
     # ------------------------------------------------------------ forward
+    def _embed_inputs(self, params, batch):
+        """The input rows of the whole-sequence forward: ``batch["embeds"]``
+        (B,S,dm) for an arch whose ``input_mode`` is "embeddings" (the VLM
+        stub front end), else the embedded ``batch["tokens"]``; in
+        ``knobs.compute_dtype``."""
+        if self.cfg.input_mode == "embeddings":
+            x = batch["embeds"]
+            if not isinstance(x, torch.Tensor):
+                x = torch.as_tensor(np.asarray(x))
+            x = x.to(self.device)
+        else:
+            x = embed(params["embed"], self._tokens(batch["tokens"]))
+        return x.to(self.knobs.compute_dtype)
+
     def hidden(self, params, batch, mode: str):
-        """The whole-sequence forward: batch {"tokens": (B,S)} -> (final-norm
+        """The whole-sequence forward: batch {"tokens": (B,S)} (and
+        "embeds" (B,S,dm) for an embeddings-input arch) -> (final-norm
         hidden (B,S,dm), aux, caches or None).  ``mode`` is "train" (no
         caches) or "prefill" (every layer's cache)."""
-        x = embed(params["embed"], self._tokens(batch["tokens"]))
-        x = x.to(self.knobs.compute_dtype)
+        x = self._embed_inputs(params, batch)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=self.device).expand(b, s)
         x, aux, caches = apply_blocks(params["blocks"], x, positions,
@@ -100,7 +117,8 @@ class LM:
         return x, aux, caches
 
     def loss(self, params, batch):
-        """Next-token CE over batch {"tokens": (B,S)}, forward only:
+        """Next-token CE over batch {"tokens": (B,S)} (and "embeds"),
+        forward only:
         (loss, {"ce_loss", "loss"}).  The MoE auxiliary losses are not
         ported (MoE plans raise)."""
         x, _, _ = self.hidden(params, batch, mode="train")

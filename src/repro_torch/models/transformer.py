@@ -135,14 +135,10 @@ def _ffn_out(p, h2, ffn, *, cfg):
 
 
 # ============================================================ block bodies
-_QUANT_UNPORTED = ("quantized (int8/fp8) paged pools are not ported yet "
-                   "(see ROADMAP.md, 'int8/fp8 paged pools')")
-
-
 def _pool(cache):
-    if "k_scale" in cache:
-        raise NotImplementedError(_QUANT_UNPORTED)
-    return cache["k"], cache["v"]
+    """A layer's paged pools: (k, v, k_scale, v_scale); the scales are None
+    unless the pools are quantized (they carry scale leaves)."""
+    return cache["k"], cache["v"], cache.get("k_scale"), cache.get("v_scale")
 
 
 def _apply_attn_block(p, x, positions, *, cfg, window, knobs, collect_cache,
@@ -195,11 +191,16 @@ def _apply_attn_block_decode(p, x, cache, pos, active, positions, index, *,
                                        cfg.rope_theta)
     if paged is not None:
         page_idx, _ = paged
-        kc, vc = _pool(cache)
-        attn.write_paged_rows(kc, vc, k_new, v_new, index)
+        kc, vc, ksc, vsc = _pool(cache)
+        if ksc is not None:
+            attn.write_paged_rows_quant(kc, vc, ksc, vsc, k_new, v_new,
+                                        index)
+        else:
+            attn.write_paged_rows(kc, vc, k_new, v_new, index)
         ctx = ops.paged_decode_attention(q, kc, vc, page_idx, pos,
                                          active=active, window=window,
-                                         num_splits=knobs.decode_splits)
+                                         num_splits=knobs.decode_splits,
+                                         k_scale=ksc, v_scale=vsc)
     else:
         attn.write_cache_rows(cache["k"], cache["v"], k_new, v_new, index)
         ctx = ops.decode_attention(q, cache["k"], cache["v"], pos,
@@ -228,11 +229,17 @@ def _apply_attn_block_prefill_chunk(p, x, cache, slot, offset, *, cfg,
                                        cfg.rope_theta)
     if paged is not None:
         page_idx, page_size = paged
-        kc, vc = _pool(cache)
-        attn.paged_prefill_chunk_update(kc, vc, k_new, v_new, slot, offset,
-                                        page_idx, page_size)
+        kc, vc, ksc, vsc = _pool(cache)
+        if ksc is not None:
+            attn.paged_prefill_chunk_update_quant(kc, vc, ksc, vsc, k_new,
+                                                  v_new, slot, offset,
+                                                  page_idx, page_size)
+        else:
+            attn.paged_prefill_chunk_update(kc, vc, k_new, v_new, slot,
+                                            offset, page_idx, page_size)
         ctx = ops.paged_prefill_attention(q, kc, vc, page_idx, slot, offset,
-                                          window=window)
+                                          window=window, k_scale=ksc,
+                                          v_scale=vsc)
     else:
         attn.prefill_chunk_update(cache["k"], cache["v"], k_new, v_new,
                                   slot, offset)
@@ -395,14 +402,24 @@ def init_cache_paged(cfg, knobs, num_pages: int, page_size: int,
     """Paged KV pools: {"stack": {"k", "v"}} with (L, P, page_size, KV, D)
     leaves, one global pool per layer shared by every slot.  One page table
     addresses every layer: a (page, offset) coordinate is valid in each.
-    Physical page 0 is the null page.  Attention plans only."""
+    Physical page 0 is the null page.  Attention plans only.
+
+    ``knobs.kv_quant`` ("int8"/"fp8") stores the pools at that dtype and
+    adds per-token, per-head f32 scale leaves "k_scale"/"v_scale"
+    (L, P, page_size, KV, 1), the reference's layout: the page axis stays
+    where the pools keep it, so a page's scales go wherever its values
+    go."""
     plan = _ported_plan(cfg)
     if not supports_paged_cache(cfg):
         raise NotImplementedError(
             f"paged KV cache unsupported for family={cfg.family!r}")
     shape = (plan.n_layers, num_pages, page_size, cfg.num_kv_heads,
              cfg.head_dim)
-    return {"stack": {
-        "k": torch.zeros(shape, dtype=knobs.cache_dtype, device=device),
-        "v": torch.zeros(shape, dtype=knobs.cache_dtype, device=device),
-    }}
+    dt = attn.kv_quant_dtype(knobs.kv_quant) or knobs.cache_dtype
+    pools = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+    if knobs.kv_quant:
+        for name in ("k_scale", "v_scale"):
+            pools[name] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                      device=device)
+    return {"stack": pools}

@@ -32,9 +32,15 @@ split-K fan-out per tick from ``(max(pos), live slots)``
 (``steps.pick_decode_splits``), on any device: on the card split-K runs
 the CUDA split-K kernel, on the CPU its plain version.
 
+``kv_dtype="int8"|"fp8"`` (with ``cache="paged"``) stores the pools
+quantized per token and KV head with f32 scale pools beside them: the
+engine rebuilds the model with ``RuntimeKnobs.kv_quant`` set, and the
+paged kernels read the quantized pools directly.  Shared prefix pages
+share their scales, which the same page ids index.
+
 Not in this slice (the fields exist and raise ``NotImplementedError``
-when set): ``kv_dtype``, ``draft_k``, ``preempt``, ``role`` other than
-"unified", ``mesh_shape``; requests with ``temperature > 0``.
+when set): ``draft_k``, ``preempt``, ``role`` other than "unified",
+``mesh_shape``; requests with ``temperature > 0``.
 """
 from __future__ import annotations
 
@@ -184,8 +190,7 @@ class ServeConfig:
 
 
 def _check_ported(config: ServeConfig) -> None:
-    unported = {"kv_dtype": bool(config.kv_dtype),
-                "draft_k > 0": config.draft_k > 0,
+    unported = {"draft_k > 0": config.draft_k > 0,
                 "preempt": config.preempt,
                 "role != 'unified'": config.role != "unified",
                 "mesh_shape": config.mesh_shape is not None}
@@ -208,6 +213,20 @@ class ServeEngine:
         if config.on_stall not in ("raise", "warn"):
             raise ValueError(f"unknown on_stall {config.on_stall!r}")
         _check_ported(config)
+        if config.kv_dtype:
+            if config.cache != "paged":
+                raise ValueError("kv_dtype requires cache='paged' (dense "
+                                 "caches store at RuntimeKnobs.cache_dtype)")
+            if config.kv_dtype not in ("int8", "fp8"):
+                raise ValueError(f"unknown kv_dtype {config.kv_dtype!r} "
+                                 f"(expected int8/fp8)")
+            # quantization is a property of the model's pools: rebuild the
+            # model with the knob, so that pool init, the cache writes and
+            # attention agree (the knob keys the step cache too)
+            if model.knobs.kv_quant != config.kv_dtype:
+                model = type(model)(
+                    model.cfg, model.knobs.with_(kv_quant=config.kv_dtype),
+                    model.device)
         self.config = config
         self.model = model
         self.params = params
@@ -308,6 +327,15 @@ class ServeEngine:
             return caches
 
         return reset
+
+    def kv_reserved_bytes(self) -> int:
+        """Device bytes held by the KV cache (dense stripes, or the page
+        pools and their scale pools)."""
+        def walk(tree):
+            if isinstance(tree, dict):
+                return sum(walk(v) for v in tree.values())
+            return tree.numel() * tree.element_size()
+        return walk(self.caches)
 
     def _page_table(self) -> torch.Tensor:
         """The page table on the model's device (one host-to-device copy;

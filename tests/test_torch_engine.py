@@ -69,6 +69,25 @@ def test_engine_matches_jax_engine(mode, decode_splits):
     assert _run(eng, Request) == _jax_streams(mode)
 
 
+@pytest.mark.parametrize("mode", ["continuous", "wave"])
+def test_engine_bf16_cache_matches_jax_engine(mode):
+    """Both engines on their default knobs (a bf16 cache): the dense
+    chunked prefill multiplies the f32 queries with the bf16 stripe in f32,
+    as the reference's einsum promotes them, and the streams agree."""
+    from repro.models import LM as JLM
+    from repro.models import RuntimeKnobs as JRuntimeKnobs
+
+    jm, jp = tiny_lm()
+    jm = JLM(jm.cfg, JRuntimeKnobs())
+    model, params = _port()
+    model = LM(model.cfg, RuntimeKnobs(), device="cpu")
+    assert model.knobs.cache_dtype == torch.bfloat16
+    config = dict(batch_slots=2, max_len=32, mode=mode, prefill_chunk=4)
+    want = _run(JServeEngine(jm, jp, JServeConfig(**config)), JRequest)
+    assert _run(ServeEngine(model, params, ServeConfig(**config)),
+                Request) == want
+
+
 @pytest.mark.parametrize("decode_splits", [0, 2])
 def test_continuous_equals_wave_within_port(decode_splits):
     model, params = _port(decode_splits)
@@ -122,8 +141,13 @@ def test_engine_api_edges():
     ("kv_dtype", "int8"), ("draft_k", 2), ("preempt", True),
     ("role", "prefill"), ("mesh_shape", (1, 2))])
 def test_unported_serve_config_fields_raise(field, value):
+    """The fields of later slices raise NotImplementedError; ``kv_dtype``
+    is ported and on the (default) dense cache raises the reference's
+    ValueError."""
     model, params = _port()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    error, match = ((ValueError, "cache='paged'") if field == "kv_dtype"
+                    else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(error, match=match):
         ServeEngine(model, params, ServeConfig(**{field: value}))
 
 

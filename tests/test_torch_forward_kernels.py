@@ -130,6 +130,9 @@ def test_flash_wrapper_refuses_cpu_and_bad_shapes():
     k5 = torch.zeros((1, 8, 5, 128))
     with pytest.raises(ValueError, match="does not fit"):
         flash_attention_cuda(q3, k5, k5)
+    for qd in (torch.int8, torch.float8_e4m3fn):  # pool dtypes only
+        with pytest.raises(ValueError, match="kernel takes"):
+            flash_attention_cuda(q, k.to(qd), v.to(qd))
     assert flash_attention_cuda.launches == before
 
 
@@ -146,6 +149,9 @@ def test_ssd_wrapper_refuses_cpu_and_bad_shapes():
         ssd_chunk_cuda(x[..., :16], bm, bm, dt, dt)
     with pytest.raises(ValueError, match="f32"):
         ssd_chunk_cuda(x, bm, bm, dt.double(), dt)
+    for qd in (torch.int8, torch.float8_e4m3fn):  # pool dtypes only
+        with pytest.raises(ValueError, match="float32/bfloat16"):
+            ssd_chunk_cuda(x.to(qd), bm.to(qd), bm.to(qd), dt, dt)
     with pytest.raises(ValueError, match="do not fit"):
         ssd_chunk_cuda(x, torch.zeros((1, 2, 3, 32, 32)),
                        torch.zeros((1, 2, 3, 32, 32)), dt, dt)

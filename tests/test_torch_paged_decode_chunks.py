@@ -3,8 +3,9 @@
 The CUDA kernel (``csrc/paged_decode.cuh``) cuts each slot's key axis into
 the chunks of ``paged_attention.decode_chunks`` (multiples of 256 keys,
 rounded up to whole pages, clipped at the split-K boundaries), computes an
-unnormalised (acc, m, l) per chunk with p rounded to the pool's dtype, and
-merges the chunks in chunk order.  Here a few lines of torch do the same on
+unnormalised (acc, m, l) per chunk with p rounded to the pool's dtype (kept
+f32 over a quantized pool, whose values are dequantized f32), and merges
+the chunks in chunk order.  Here a few lines of torch do the same on
 the same grid, and the result is held to the JAX package's oracle
 (``repro.kernels.ref.paged_decode_attention_ref``) on seeded numpy inputs,
 at the tolerances of ``tests/test_torch_paged_kernels.py``.  A model that
@@ -18,6 +19,8 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro_torch import convert  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     CHUNK_KEYS, decode_chunks)
 
@@ -59,15 +62,21 @@ def _inputs(page_size, t, dtype, seed=0):
 
 
 def chunked_decode(q, k_pages, v_pages, page_idx, pos, *, window=0,
-                   num_splits=1, drop_last=False):
+                   num_splits=1, drop_last=False, k_scale=None, v_scale=None):
     """The kernel's arithmetic on its chunk grid: per live chunk the rows'
     (acc, m, l), masked keys adding exactly 0 and p rounded to the pool's
     dtype, then merged in chunk order with exp(m_i - m*) and divided by
     max(l, 1e-30); a slot with pos < 0 writes zeros.  ``drop_last`` leaves
-    out each slot's last live chunk (the mutant)."""
+    out each slot's last live chunk (the mutant).  With ``k_scale`` /
+    ``v_scale`` the int8/fp8 pools are dequantized as they are read and p
+    stays f32."""
     b, t, h, d = q.shape
     _, page_size, kv, _ = k_pages.shape
     _, _, ranges = decode_chunks(page_idx.shape[1], page_size, num_splits)
+    p_dtype = v_pages.dtype
+    if k_scale is not None:
+        k_pages, v_pages = k_pages.float() * k_scale, v_pages.float() * v_scale
+        p_dtype = torch.float32
     kd, vd = (x[page_idx.long()].flatten(1, 2) for x in (k_pages, v_pages))
     out = torch.zeros((b, t, h, d))
     for s in range(b):
@@ -89,7 +98,7 @@ def chunked_decode(q, k_pages, v_pages, page_idx, pos, *, window=0,
             sc = torch.where(mask[:, None], sc, NEG_INF)
             m = sc.amax(-1)
             e = torch.where(mask[:, None], torch.exp(sc - m[..., None]), 0.0)
-            pr = e.to(v_pages.dtype).float()
+            pr = e.to(p_dtype).float()
             parts.append((torch.einsum("thn,nhd->thd", pr, vx), m,
                           e.sum(-1)))
         if drop_last:
@@ -130,6 +139,33 @@ def test_chunked_model_matches_jax_oracle(case, page_size, dtype):
     for s, p in enumerate(pos):
         if p < 0:
             assert float(got[s].abs().max()) == 0.0  # a parked slot
+
+
+@pytest.mark.parametrize("name", ["int8", "fp8"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_chunked_model_on_quantized_pools_matches_jax_oracle(case, name):
+    """1-byte pools: the kernel's ring tiles hold 64 keys instead of 16 or
+    32, but tiles lie inside a chunk and the chunk grid takes no dtype, so
+    the partition is the one above.  Over int8/fp8 pools quantized by the
+    JAX package, dequantized as read and with p kept f32, the model holds
+    to the JAX quantized oracle at the f32 tolerance."""
+    pos, t, window, ns = CASES[case]
+    q, k, v, table = _inputs(8, t, "float32")
+    qd = jattn.KV_QUANT_DTYPES[name]
+    (kq, ks), (vq, vs) = (jattn.quantize_kv(jnp.asarray(x.numpy()), qd)
+                          for x in (k, v))
+    tk, tv, tks, tvs = (convert.cache_from_jax(np.asarray(x))
+                        for x in (kq, vq, ks, vs))
+    got = chunked_decode(q, tk, tv, table, pos, window=window,
+                         num_splits=ns, k_scale=tks, v_scale=tvs)
+    want = jref.paged_decode_attention_quant_ref(
+        jnp.asarray(q.numpy()).transpose(0, 2, 1, 3),
+        *(x.transpose(0, 2, 1, 3) for x in (kq, vq, ks, vs)),
+        jnp.asarray(table.numpy()), jnp.asarray(pos, jnp.int32),
+        window=window)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want).transpose(0, 2, 1, 3),
+                               atol=TOL["float32"], rtol=TOL["float32"])
 
 
 @pytest.mark.parametrize("case", ["chunk_edges", "verify_t4", "splits2",

@@ -225,12 +225,24 @@ def test_prefill_chunk_step_paged_matches_jax():
 
 
 def test_quantized_pools_raise():
+    """Scale-carrying pools convert (int8 as int8, fp8 from its raw bytes)
+    and serve a step; a pool tree that is neither plain nor quantized, or a
+    float pool beside scale leaves, raises."""
     jm, jp, tm, tp = _pair()
-    pools = tm.init_cache_paged(3, PAGE)
-    pools["stack"]["k_scale"] = torch.zeros(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.decode_step_paged(tp, pools, np.zeros((1, 1), np.int64), [0],
-                             np.zeros((1, MAX_PAGES), np.int32),
-                             page_size=PAGE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    qm = LM(tm.cfg, tm.knobs.with_(kv_quant="int8"), device="cpu")
+    pools = qm.init_cache_paged(3, PAGE)
+    raw = convert.paged_cache_to_numpy(pools)
+    got = convert.paged_cache_from_jax(raw)
+    assert got["stack"]["k"].dtype == torch.int8
+    assert got["stack"]["k_scale"].shape == (2, 3, PAGE, 2, 1)
+    qm.decode_step_paged(tp, got, np.zeros((1, 1), np.int64), [0],
+                         np.zeros((1, MAX_PAGES), np.int32), page_size=PAGE)
+    raw8 = dict(raw["stack"], k=raw["stack"]["k"].view(np.uint8),
+                v=raw["stack"]["v"].view(np.uint8))
+    got8 = convert.paged_cache_from_jax({"stack": raw8})
+    assert got8["stack"]["v"].dtype == torch.float8_e4m3fn
+    with pytest.raises(ValueError, match="expected"):
         convert.paged_cache_from_jax({"stack": {"k_scale": np.zeros(1)}})
+    f32 = dict(raw["stack"], k=raw["stack"]["k"].astype(np.float32))
+    with pytest.raises(ValueError, match="not int8 or float8_e4m3fn"):
+        convert.paged_cache_from_jax({"stack": f32})
