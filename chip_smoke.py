@@ -6,21 +6,24 @@ Run from the repository root.  Phases, each raising on failure:
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``,
-   one ``nvcc`` per source, all at once;
+   one ``nvcc`` per source, all at once; print ptxas's registers, stack
+   and spills of every kernel instance, and fail on a spill;
 3. kernels: each of the five kernels against its plain PyTorch version on
    the card at the serving path's shapes (internlm2-1.8b attention: H=16,
    KV=8, D=128; 4 slots; 8192 positions each, as a dense cache or as 512
    pages of 16 tokens from a 2049-page pool through a randomly permuted
-   page table; ragged positions including -1 and 8191; the paged decode
-   kernels also at their chunk boundaries, positions 255, 256 and 257, and
-   a slot's output alone against it in the batch, bitwise; paged prefill
-   chunks of 256 rows at offsets 0 and 3840 and the ragged last chunk of
-   a 4200-token prompt, 104 rows at 4096, windows 0, 1024 and 200), the
-   paged decode kernel's working CTAs, then device times of the kernel,
-   the plain version and one library call (behind a spin kernel, so the
-   host's launch work is not in them), and the bound with the flop rate it
-   assumes (the many-row kernel's tensor-core rate for the paged prefill
-   and flash attention, 3xTF32 for f32);
+   page table; ragged positions including -1 and 8191; the four decode
+   kernels -- one chunked kernel, dense and paged -- also at their chunk
+   boundaries, positions 255, 256 and 257, and a slot's output alone
+   against it in the batch, bitwise; dense split-K at 2, 4 and 8 splits
+   against the dense single pass, bitwise (its splits are whole chunks);
+   paged prefill chunks of 256 rows at offsets 0 and 3840 and the ragged
+   last chunk of a 4200-token prompt, 104 rows at 4096, windows 0, 1024
+   and 200), the decode kernel's working CTAs, then device times of the
+   kernel, the plain version and one library call (behind a spin kernel,
+   so the host's launch work is not in them), and the bound with the flop
+   rate it assumes (the many-row kernel's tensor-core rate for the paged
+   prefill and flash attention, 3xTF32 for f32);
 3q. quantized pools: the three paged kernels on int8 and on fp8 pools
    (phase 3's pools quantized per token and KV head, with f32 scale pools)
    against their plain versions, which dequantize the same values --
@@ -34,7 +37,8 @@ Run from the repository root.  Phases, each raising on failure:
    mode -- short requests plus one ~4200-token prompt, so the split-K
    autotuner engages -- then a short wave-mode trace; both dense kernels
    must have been launched by the serving run, and one decode step's
-   logits through the kernels must match the plain path; one decode tick
+   logits through the kernels must match the plain path, and with 2
+   splits equal those of the single pass bitwise; one decode tick
    is timed, single pass against split-K, over alternating rounds, and its
    device time is broken down by kernel with ``torch.profiler``;
 4b. engine, paged pool (``cache="paged"``, 16-token pages, prefix cache):
@@ -110,7 +114,7 @@ RATE_NAMES = {F32_FLOPS: "f32 CUDA cores, 67 TFLOP/s",
               BF16_TC_FLOPS: "bf16 tensor cores, 989 TFLOP/s"}
 H, KV, D, B, S = 16, 8, 128, 4, 8192
 POS = [-1, 1000, 4200, S - 1]
-# the paged decode kernel's chunk boundaries (256 keys): the last key of a
+# the decode kernel's chunk boundaries (256 keys): the last key of a
 # chunk, the first, the second, beside the row's last position
 POS_EDGES = [255, 256, 257, S - 1]
 PAGE, N_PAGES = 16, 2049  # the paged engine's default pool: 4 * 512 + 1
@@ -175,6 +179,31 @@ def phase_device():
     return name, smi
 
 
+def _ptxas_report(log):
+    """{kernel: (registers, stack bytes, spill store bytes, spill load
+    bytes)} from an ``nvcc -Xptxas -v`` log, names demangled where
+    ``c++filt`` is installed."""
+    found, cur = {}, None
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            cur = line.split("Function properties for ")[1].strip()
+            found[cur] = [None, 0, 0, 0]
+        elif cur and "bytes stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            found[cur][1:] = nums[:3]
+        elif cur and "Used " in line and " registers" in line:
+            found[cur][0] = int(line.split("Used ")[1].split()[0])
+            cur = None
+    names = list(found)
+    with contextlib.suppress(OSError):
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+    return {n.replace("(anonymous namespace)::", "").replace("void ", "")
+            .split("(")[0]: tuple(v) for n, v in zip(names, found.values())}
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
@@ -182,6 +211,15 @@ def phase_build():
     libs = _build.build_all()
     _log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f}s "
          f"(nvcc: {_build.build_seconds})")
+    spills = []
+    for src, log in sorted(_build.build_logs.items()):
+        for kern, (regs, stack, st, ld) in sorted(_ptxas_report(log).items()):
+            _log(f"[build] ptxas {src}: {kern}: {regs} registers, {stack} B "
+                 f"stack, {st} B spill stores, {ld} B spill loads")
+            if st or ld:
+                spills.append(kern)
+    if spills:
+        raise AssertionError(f"kernels spill registers: {spills}")
 
 
 SPIN_CYCLES = 2_000_000  # ~1 ms of the card's clock
@@ -211,12 +249,12 @@ def _time_ms(fn, iters=20, warmup=3, queued=True):
     return statistics.median(times)
 
 
-def _inputs(t, q_dtype, kv_dtype, seed=0):
+def _inputs(t, q_dtype, kv_dtype, seed=0, positions=POS):
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, t, H, D), generator=g, device="cuda").to(q_dtype)
     k = torch.randn((B, S, KV, D), generator=g, device="cuda").to(kv_dtype)
     v = torch.randn((B, S, KV, D), generator=g, device="cuda").to(kv_dtype)
-    return q, k, v, torch.tensor(POS, dtype=torch.int32, device="cuda")
+    return q, k, v, torch.tensor(positions, dtype=torch.int32, device="cuda")
 
 
 def _check(label, got, want, kv_dtype, p_round=None):
@@ -290,6 +328,10 @@ def _bound_ms(q, k, pos, paged=False):
 
 
 def phase_kernels():
+    """The dense decode kernels (#1, #2: the chunked decode kernel in its
+    dense mode) against their plain versions at both position sets, a
+    slot alone against the batch and split-K against the single pass,
+    bitwise, then timed at the dense engine's shapes."""
     from repro_torch.kernels.decode_attention import (
         decode_attention_cuda, decode_attention_splitk_cuda)
     from repro_torch.kernels.ops import decode_attention_plain
@@ -299,33 +341,57 @@ def phase_kernels():
              for qd, kd in ((torch.float32, torch.float32),
                             (torch.float32, torch.bfloat16))]
     cases.append((1, 0, torch.bfloat16, torch.bfloat16))
-    for t, window, qd, kd in cases:
-        q, k, v, pos = _inputs(t, qd, kd)
-        err = _check(f"decode_attention T={t} window={window} q={qd} "
-                     f"cache={kd}",
-                     decode_attention_cuda(q, k, v, pos, window=window),
-                     decode_attention_plain(q, k, v, pos, window=window), kd)
-        if kd == torch.float32:
-            errs["decode_attention"] = max(errs["decode_attention"], err)
-    for ns in (2, 4, 8):
+    for positions in (POS, POS_EDGES):
+        for t, window, qd, kd in cases:
+            q, k, v, pos = _inputs(t, qd, kd, positions=positions)
+            err = _check(f"decode_attention pos={positions} T={t} "
+                         f"window={window} q={qd} cache={kd}",
+                         decode_attention_cuda(q, k, v, pos, window=window),
+                         decode_attention_plain(q, k, v, pos,
+                                                window=window), kd)
+            if kd == torch.float32:
+                errs["decode_attention"] = max(errs["decode_attention"], err)
         for window, kd in ((0, torch.float32), (1024, torch.float32),
                            (0, torch.bfloat16)):
-            q, k, v, pos = _inputs(1, torch.float32, kd)
-            err = _check(
-                f"decode_attention_splitk ns={ns} window={window} "
-                f"cache={kd}",
-                decode_attention_splitk_cuda(q, k, v, pos, window=window,
-                                             num_splits=ns),
-                decode_attention_plain(q, k, v, pos, window=window,
-                                       num_splits=ns), kd)
-            if kd == torch.float32:
-                errs["decode_attention_splitk"] = max(
-                    errs["decode_attention_splitk"], err)
+            q, k, v, pos = _inputs(1, torch.float32, kd, positions=positions)
+            one = decode_attention_cuda(q, k, v, pos, window=window)
+            for ns in (2, 4, 8):
+                got = decode_attention_splitk_cuda(q, k, v, pos,
+                                                   window=window,
+                                                   num_splits=ns)
+                err = _check(
+                    f"decode_attention_splitk pos={positions} ns={ns} "
+                    f"window={window} cache={kd}", got,
+                    decode_attention_plain(q, k, v, pos, window=window,
+                                           num_splits=ns), kd)
+                if kd == torch.float32:
+                    errs["decode_attention_splitk"] = max(
+                        errs["decode_attention_splitk"], err)
+                same = torch.equal(got, one)
+                _log(f"[kernels] decode_attention_splitk pos={positions} "
+                     f"ns={ns} window={window} cache={kd}: equals "
+                     f"decode_attention bitwise: {same}")
+                if not same:
+                    raise AssertionError("dense split-K with whole-chunk "
+                                         "splits differs from the single "
+                                         "pass")
+
+    def dense(t, positions):
+        q, k, v, pos = _inputs(t, torch.float32, torch.float32,
+                               positions=positions)
+        return (q, k, v, pos), (q[3:], k[3:], v[3:], pos[3:])
+
+    _check_slot_alone("decode_attention", dense, decode_attention_cuda,
+                      decode_attention_splitk_cuda)
     torch.cuda.synchronize()
 
     # times at the engine's decode shapes: T = 1, f32 cache, no window; the
     # autotuner gives split-K 2 splits at these positions
     q, k, v, pos = _inputs(1, torch.float32, torch.float32)
+    for ns in (1, 2):
+        work, grid = _working_ctas(pos, ns, S, 1)
+        _log(f"[kernels] dense decode at pos {POS}, {ns} split(s): {work} "
+             f"working CTAs of a {grid}-CTA grid")
     bound = _bound_ms(q, k, pos)
     lib_ms = _time_ms(_library_call(q, k, v, pos))
     rows = []
@@ -369,37 +435,36 @@ def _paged_inputs(t, q_dtype, kv_dtype, seed=0, chunk=0, positions=POS):
     return q, k, v, table.contiguous(), pos
 
 
-def _working_ctas(pos, num_splits):
-    """CTAs of the paged decode kernel (T = 1, no window) that hold keys
-    their slot sees, and the grid's KV x B x chunks."""
-    from repro_torch.kernels.paged_attention import decode_chunks
+def _working_ctas(pos, num_splits, max_pages=MAX_PAGES, page_size=PAGE):
+    """CTAs of the chunked decode kernel (T = 1, no window) that hold keys
+    their slot sees, and the grid's KV x B x chunks; a dense cache is
+    ``max_pages`` = S pages of one token."""
+    from repro_torch.kernels.decode_attention import decode_chunks
 
-    _, _, ranges = decode_chunks(MAX_PAGES, PAGE, num_splits)
+    _, _, ranges = decode_chunks(max_pages, page_size, num_splits)
     work = sum(lo <= p for p in pos.tolist() for lo, hi in ranges if lo < hi)
     return KV * work, KV * len(pos) * len(ranges)
 
 
-def _check_slot_alone(decode, splitk):
+def _check_slot_alone(name, inputs, decode, splitk):
     """Slot 3's output computed alone equals, bitwise, its output in the
     batch of four, for the single-pass kernel (T = 1 and 4) and split-K
-    (2 splits), at both position sets."""
+    (2 splits), at both position sets.  ``inputs(t, positions)`` gives the
+    batch's arguments and slot 3's."""
     for positions in (POS, POS_EDGES):
-        for name, t, run in (
-                ("paged_decode_attention", 1, decode),
-                ("paged_decode_attention", 4, decode),
-                ("paged_decode_attention_splitk ns=2", 1,
+        for label, t, run in (
+                (name, 1, decode), (name, 4, decode),
+                (f"{name}_splitk ns=2", 1,
                  functools.partial(splitk, num_splits=2))):
-            q, k, v, table, pos = _paged_inputs(t, torch.float32,
-                                                torch.float32,
-                                                positions=positions)
-            batch = run(q, k, v, table, pos)
-            alone = run(q[3:], k, v, table[3:], pos[3:])
+            args, alone_args = inputs(t, positions)
+            batch = run(*args)
+            alone = run(*alone_args)
             same = torch.equal(alone[0], batch[3])
-            _log(f"[kernels] {name} pos={positions} T={t}: slot 3 alone "
+            _log(f"[kernels] {label} pos={positions} T={t}: slot 3 alone "
                  f"equals it in the batch bitwise: {same}")
             if not same:
-                raise AssertionError("a slot's paged decode output depends "
-                                     "on the rest of the batch")
+                raise AssertionError(f"a slot's {name} output depends on "
+                                     f"the rest of the batch")
 
 
 def _paged_library_call(q, k, v, table, pos):
@@ -487,7 +552,13 @@ def phase_paged_kernels():
                 if kd == torch.float32:
                     errs["paged_decode_attention_splitk"] = max(
                         errs["paged_decode_attention_splitk"], err)
-    _check_slot_alone(paged_decode_attention_cuda,
+    def paged(t, positions):
+        q, k, v, table, pos = _paged_inputs(t, torch.float32, torch.float32,
+                                            positions=positions)
+        return (q, k, v, table, pos), (q[3:], k, v, table[3:], pos[3:])
+
+    _check_slot_alone("paged_decode_attention", paged,
+                      paged_decode_attention_cuda,
                       paged_decode_attention_splitk_cuda)
     slot = B - 1  # a fully mapped row
     # full chunks at offsets 0 and 3840 (the latter split over the key
@@ -842,9 +913,11 @@ def phase_engine(model, params):
     # one decode step, kernels against the plain path, on the run's cache
     toks_in = torch.tensor([[5], [6], [7], [8]], device="cuda")
     pos = np.array([4300, 300, -1, 4200], np.int32)
+    logits = {}
     for splits in (1, 2):
         step = compiled_step(model, "decode_one", decode_splits=splits)
         got, _ = step(params, eng.caches, toks_in, pos)
+        logits[splits] = got
         with _plain_attention():
             want, _ = step(params, eng.caches, toks_in, pos)
         err = float((got - want).abs().max())
@@ -854,6 +927,12 @@ def phase_engine(model, params):
         if not (torch.isfinite(got).all() and err <= LOGIT_TOL
                 and got.shape == (4, cfg.vocab_size)):
             raise AssertionError("decode logits disagree")
+    # S / 2 = 4096 is whole chunks, so split-K is the single pass
+    same = torch.equal(logits[1], logits[2])
+    _log(f"[engine] decode logits, splits=2 equal splits=1 bitwise: {same}")
+    if not same:
+        raise AssertionError("split-K decode logits differ from the single "
+                             "pass")
     # one whole decode tick (24 layers + unembedding + argmax) at these
     # positions, single pass against split-K 2, alternated over rounds;
     # then each under the profiler

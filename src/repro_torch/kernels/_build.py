@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` becomes ``build/kernels/<name>-<hash>.so`` under
 the repository root (a directory ``.gitignore`` lists), compiled for
 ``sm_90a`` on first use.  The hash covers the source, every shared header
 in ``csrc/`` (``*.cuh``) and the flags, so an edited source or header
-rebuilds.  ``build_all`` starts one ``nvcc`` per source, all at once.
-Nothing here runs at import time.
+rebuilds.  ``build_all`` starts one ``nvcc`` per source, all at once, and
+keeps each build's output, with ptxas's registers, stack and spills of
+every kernel (``-Xptxas -v``), in ``build_logs``.  Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
@@ -20,12 +22,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("decode_attention", "paged_attention", "flash_attention",
            "ssd_scan")
 
 _LOADED: dict = {}
 build_seconds: dict = {}  # name -> wall seconds of the last nvcc run
+build_logs: dict = {}  # name -> output of the last nvcc run
 
 
 def _nvcc() -> str:
@@ -67,6 +70,7 @@ def build_all(names=SOURCES) -> dict:
     for name, (proc, tmp, t0) in procs.items():
         log, _ = proc.communicate()
         build_seconds[name] = time.perf_counter() - t0
+        build_logs[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue

@@ -1,12 +1,12 @@
-// Pieces shared by the attention kernels over a dense cache
-// (decode_attention.cu, flash_attention.cu) and over the paged pool
-// (paged_attention.cu): element conversions, warp reductions, the 16-byte
-// score dot, 16-byte cp.async, the key-row addressing (dense strides or a
-// page-table lookup), the key-tile loader, the online-softmax step of one
-// row over one key tile, and the dense ragged decode kernel with its
-// split-K combine kernel.  The many-row kernel of the full-sequence flash
-// attention and the paged chunked prefill is in many_row_attention.cuh; the
-// paged decode kernel is in paged_decode.cuh.
+// Pieces shared by the attention kernels (decode_attention.cu,
+// paged_attention.cu, flash_attention.cu) and the SSD chunk (ssd_scan.cu):
+// element conversions, the loaded-value type of a K/V storage type, 16-byte
+// chunks of a key row as f32, 16- and 4-byte cp.async, the key-row
+// addressing of the many-row kernel (dense strides or a page-table lookup)
+// and 4-element row loads.  The chunked decode kernel of the dense and the
+// paged decode is in chunked_decode.cuh; the many-row kernel of the
+// full-sequence flash attention and the paged chunked prefill is in
+// many_row_attention.cuh.
 //
 // The decode contract (as the TPU kernels'): slot b's query row t sits at
 // absolute position pos[b] + t and attends keys kpos <= pos[b] + t (and
@@ -31,25 +31,8 @@
 
 namespace {
 
-constexpr int TK = 32;        // keys per tile (one per lane in the softmax)
 constexpr int MAX_ROWS = 16;  // G * T query rows a decode CTA serves
 constexpr float NEG_INF = -1e30f;
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* out;
-  const int* pos;
-  const int* active;
-  int B, T, H, KV, S, window, num_splits;
-  long long q_sb, q_st, q_sh;
-  long long k_sb, k_ss, k_sh;  // (batch, seq, kv head) strides
-  long long v_sb, v_ss, v_sh;
-  float* o_part;  // (B, H, ns, D) split-K partial accumulators
-  float* m_part;  // (B, H, ns)
-  float* l_part;  // (B, H, ns)
-};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -87,17 +70,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// One 16-byte chunk of a key row (4 f32 or 8 bf16) as f32 values.
+// One 16-byte chunk of a key row (4 f32, 8 bf16) as f32 values.
 template <typename TKV> struct Chunk;
 template <> struct Chunk<float> {
   static constexpr int N = 4;
@@ -144,23 +117,6 @@ template <> struct Chunk<__nv_fp8_e4m3> {
     }
   }
 };
-
-// s0/s1 += one 16-byte chunk of a key row . the matching f32 query
-// elements (two accumulators shorten the dependent FMA chain).
-template <typename TKV>
-__device__ __forceinline__ void dot_chunk(const uint4* kc, const float* q,
-                                          float& s0, float& s1) {
-  float k[Chunk<TKV>::N];
-  Chunk<TKV>::get(*kc, k);
-#pragma unroll
-  for (int i = 0; i < Chunk<TKV>::N; i += 4) {
-    const float4 a = *reinterpret_cast<const float4*>(q + i);
-    s0 = fmaf(a.x, k[i], s0);
-    s1 = fmaf(a.y, k[i + 1], s1);
-    s0 = fmaf(a.z, k[i + 2], s0);
-    s1 = fmaf(a.w, k[i + 3], s1);
-  }
-}
 
 // 16 bytes from global to shared memory, bypassing L1 (cp.async.cg); with
 // fill = false nothing is read and the 16 bytes are zeroed.
@@ -216,219 +172,6 @@ struct KeyRows {
   }
 };
 
-// Stages keys [k0, k0 + TK) of one (slot, KV head) with 16-byte loads
-// spread over NT threads: load() issues every load of the tile into
-// registers at once (so a whole tile is in flight), store() moves them to
-// shared memory tiles of row stride LD elements.  Keys outside [klo, khi)
-// are zero-filled without touching memory (and masked later), so no row
-// past the last live key and none wholly before the window is read.
-template <typename TKV, int D, int NT>
-struct TileLoader {
-  static constexpr int VEC = 16 / sizeof(TKV);
-  static constexpr int VPR = D / VEC;      // 16-byte vectors per key row
-  static constexpr int N = TK * VPR / NT;  // vectors per thread per tensor
-  static_assert(N * NT == TK * VPR, "tile must split evenly over threads");
-  uint4 k[N], v[N];
-
-  template <typename Rows>
-  __device__ __forceinline__ void load(const Rows& krows, const Rows& vrows,
-                                       int k0, int klo, int khi) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int idx = threadIdx.x + i * NT;
-      const int kk = idx / VPR, c = idx - kk * VPR;
-      const int kpos = k0 + kk;
-      k[i] = v[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (kpos >= klo && kpos < khi) {
-        k[i] = *reinterpret_cast<const uint4*>(krows(kpos) + c * VEC);
-        v[i] = *reinterpret_cast<const uint4*>(vrows(kpos) + c * VEC);
-      }
-    }
-  }
-
-  template <int LD>
-  __device__ __forceinline__ void store(TKV* Ks, TKV* Vs) const {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int idx = threadIdx.x + i * NT;
-      const int kk = idx / VPR, c = idx - kk * VPR;
-      *reinterpret_cast<uint4*>(Ks + kk * LD + c * VEC) = k[i];
-      *reinterpret_cast<uint4*>(Vs + kk * LD + c * VEC) = v[i];
-    }
-  }
-};
-
-// Online-softmax step of one query row over one key tile, run by one warp
-// with lane i holding the row's (scaled) score for key k0 + i and `ok`
-// whether the row may see it.  Updates the row's running max m and sum l
-// and returns p = exp(s - m_new) rounded to v's dtype (0 where !ok);
-// `alpha` = exp(m_old - m_new) rescales the row's accumulator.  l sums the
-// unrounded p, as the TPU kernel does.
-template <typename TKV>
-__device__ __forceinline__ float softmax_step(float s, bool ok, float& m,
-                                              float& l, float& alpha) {
-  const float sv = ok ? s : NEG_INF;
-  const float m_new = fmaxf(m, warp_max(sv));
-  const float pr = ok ? expf(sv - m_new) : 0.f;
-  alpha = expf(m - m_new);
-  l = l * alpha + warp_sum(pr);
-  m = m_new;
-  return to_f(from_f<TKV>(pr));
-}
-
-// Ragged decode over a dense cache.  One CTA per (KV head j, slot b[,
-// split]); D threads, thread d owns output column d of every query row.
-// SPLIT=false writes the normalised output; SPLIT=true writes this split's
-// unnormalised (acc, m, l).  A split owns keys [isp * S/ns, (isp + 1) *
-// S/ns).
-template <typename TQ, typename TKV, int D, bool SPLIT>
-__global__ void __launch_bounds__(D) decode_kernel(Params p) {
-  constexpr int NW = D / 32;
-  const int j = blockIdx.x, b = blockIdx.y, isp = blockIdx.z;
-  const int G = p.H / p.KV, T = p.T, R = G * T;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  constexpr int VEC = 16 / sizeof(TKV);  // elements per 16-byte chunk
-  // lanes per score dot: the most of 1, 2, 4 that R * TK * P threads fill
-  const int P = R * TK * 4 <= D ? 4 : (R * TK * 2 <= D ? 2 : 1);
-  const int CPP = D / VEC / P;  // chunks per lane per dot (a power of 2)
-
-  __shared__ __align__(16) TKV Ks[TK][D];
-  __shared__ __align__(16) TKV Vs[TK][D];
-  __shared__ __align__(16) float qs[MAX_ROWS][D];
-  __shared__ float ps[MAX_ROWS][TK];
-  __shared__ float m_s[MAX_ROWS], l_s[MAX_ROWS], alpha_s[MAX_ROWS];
-
-  const int pos = p.pos[b];
-  // keys this CTA may need: [lo, hi).  Row 0 has the lowest window bound.
-  int lo = 0, hi = min(p.S, pos + T);
-  if (p.window) lo = max(lo, pos - p.window + 1);
-  if (SPLIT) {
-    const int L = p.S / p.num_splits;
-    lo = max(lo, isp * L);
-    hi = min(hi, (isp + 1) * L);
-  }
-  if (p.active[b] == 0) hi = lo;  // inactive: no tile, output 0
-
-  const TQ* q = static_cast<const TQ*>(p.q) + b * p.q_sb;
-  for (int idx = tid; idx < R * D; idx += D) {
-    const int r = idx / D, d = idx - r * D;
-    const int g = r / T, t = r - g * T;
-    qs[r][d] = to_f(q[t * p.q_st + (j * G + g) * p.q_sh + d]);
-  }
-  if (tid < R) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  float acc[MAX_ROWS];
-#pragma unroll
-  for (int r = 0; r < MAX_ROWS; ++r) acc[r] = 0.f;
-
-  KeyRows<TKV, false> krows, vrows;
-  krows.s_row = p.k_ss;
-  vrows.s_row = p.v_ss;
-  krows.base = static_cast<const TKV*>(p.k) + j * p.k_sh + b * p.k_sb;
-  vrows.base = static_cast<const TKV*>(p.v) + j * p.v_sh + b * p.v_sb;
-  const float scale = 1.0f / sqrtf((float)D);
-  __syncthreads();
-
-  const int kbeg = lo < hi ? (lo / TK) * TK : hi;  // empty range: no tile
-  TileLoader<TKV, D, D> tile;
-  if (kbeg < hi) tile.load(krows, vrows, kbeg, lo, hi);
-  for (int k0 = kbeg; k0 < hi; k0 += TK) {
-    tile.template store<D>(&Ks[0][0], &Vs[0][0]);
-    __syncthreads();
-    // the next tile's loads fly while this tile's math runs
-    if (k0 + TK < hi) tile.load(krows, vrows, k0 + TK, lo, hi);
-    // scores: P adjacent lanes share one (row, key) dot, each over 1/P of
-    // the 16-byte chunks of the row (P fills the CTA when G*T is small);
-    // the chunk order is rotated per key and part so that the lanes of a
-    // quarter-warp read 8 different 16-byte bank groups
-    for (int idx = tid; idx < R * TK * P; idx += D) {
-      const int dot = idx / P, part = idx - dot * P;
-      const int r = dot / TK, k = dot - r * TK;
-      const int shift = part * (8 / P);
-      float s0 = 0.f, s1 = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < CPP; ++c) {
-        const int ch = part * CPP + ((c + k + shift) & (CPP - 1));
-        dot_chunk<TKV>(reinterpret_cast<const uint4*>(&Ks[k][ch * VEC]),
-                       &qs[r][ch * VEC], s0, s1);
-      }
-      float s = s0 + s1;
-      for (int o = 1; o < P; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (part == 0) ps[r][k] = s * scale;
-    }
-    __syncthreads();
-    // online softmax: one warp per row, one lane per key
-    for (int r = warp; r < R; r += NW) {
-      const int qpos = pos + (r % T);
-      const int kpos = k0 + lane;
-      const bool ok = kpos >= lo && kpos < hi && kpos <= qpos &&
-                      (p.window == 0 || qpos - kpos < p.window);
-      float m = m_s[r], l = l_s[r], alpha;
-      const float pr = softmax_step<TKV>(ps[r][lane], ok, m, l, alpha);
-      __syncwarp();
-      ps[r][lane] = pr;
-      if (lane == 0) {
-        alpha_s[r] = alpha;
-        l_s[r] = l;
-        m_s[r] = m;
-      }
-    }
-    __syncthreads();
-    // PV: thread d accumulates column d of every row
-#pragma unroll
-    for (int r = 0; r < MAX_ROWS; ++r)
-      if (r < R) acc[r] *= alpha_s[r];
-#pragma unroll 8
-    for (int k = 0; k < TK; ++k) {
-      const float vk = to_f(Vs[k][tid]);
-#pragma unroll
-      for (int r = 0; r < MAX_ROWS; ++r)
-        if (r < R) acc[r] += ps[r][k] * vk;
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < MAX_ROWS; ++r) {
-    if (r >= R) break;
-    const int g = r / T, t = r - g * T, h = j * G + g;
-    if (SPLIT) {
-      const long long row = ((long long)b * p.H + h) * p.num_splits + isp;
-      p.o_part[row * D + tid] = acc[r];
-      if (tid == 0) {
-        p.m_part[row] = m_s[r];
-        p.l_part[row] = l_s[r];
-      }
-    } else {
-      TQ* out = static_cast<TQ*>(p.out);
-      const float y = acc[r] / fmaxf(l_s[r], 1e-30f);
-      out[(((long long)b * T + t) * p.H + h) * D + tid] = from_f<TQ>(y);
-    }
-  }
-}
-
-// Phase 2 of split-K: one CTA per (query head h, slot b), thread d merges
-// column d of the num_splits partials.  An empty split has m = -1e30 and
-// l = 0, so it weighs exp(-1e30 - m*) = 0.
-template <typename TQ, int D>
-__global__ void __launch_bounds__(D) splitk_combine_kernel(Params p) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int ns = p.num_splits;
-  const long long base = ((long long)b * p.H + h) * ns;
-  float m_star = NEG_INF;
-  for (int i = 0; i < ns; ++i) m_star = fmaxf(m_star, p.m_part[base + i]);
-  float denom = 0.f, num = 0.f;
-  for (int i = 0; i < ns; ++i) {
-    const float a = expf(p.m_part[base + i] - m_star);
-    denom += p.l_part[base + i] * a;
-    num += p.o_part[(base + i) * D + d] * a;
-  }
-  const float y = p.active[b] ? num / fmaxf(denom, 1e-30f) : 0.f;
-  static_cast<TQ*>(p.out)[((long long)b * p.H + h) * D + d] = from_f<TQ>(y);
-}
-
 // Four consecutive elements of a row as f32.
 __device__ __forceinline__ void load4(const float* v, float* f) {
   const float4 x = *reinterpret_cast<const float4*>(v);
@@ -449,52 +192,6 @@ __device__ __forceinline__ void load4(const __nv_fp8_e4m3* v, float* f) {
   const ushort2 raw = *reinterpret_cast<const ushort2*>(v);
   const float2 a = fp8x2_to_float2(raw.x), b = fp8x2_to_float2(raw.y);
   f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-}
-
-template <typename TQ, typename TKV, bool SPLIT>
-cudaError_t launch_decode_typed(const Params& p, int D, cudaStream_t st) {
-  // head_dim 128 is the one width built: the served arch's (internlm2)
-  // and most configs'; D is a template parameter, so another width
-  // (musicgen's 64, zamba2's 80) is one more instantiation
-  if (D != 128) return cudaErrorInvalidValue;
-  const dim3 grid(p.KV, p.B, SPLIT ? p.num_splits : 1);
-  decode_kernel<TQ, TKV, 128, SPLIT><<<grid, 128, 0, st>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || !SPLIT) return err;
-  splitk_combine_kernel<TQ, 128><<<dim3(p.H, p.B), 128, 0, st>>>(p);
-  return cudaGetLastError();
-}
-
-// dtype codes: 0 = float32, 1 = bfloat16
-template <bool SPLIT>
-cudaError_t launch_decode(const Params& p, int D, int q_dtype, int kv_dtype,
-                          cudaStream_t st) {
-  if (q_dtype == 0 && kv_dtype == 0)
-    return launch_decode_typed<float, float, SPLIT>(p, D, st);
-  if (q_dtype == 0 && kv_dtype == 1)
-    return launch_decode_typed<float, __nv_bfloat16, SPLIT>(p, D, st);
-  if (q_dtype == 1 && kv_dtype == 0)
-    return launch_decode_typed<__nv_bfloat16, float, SPLIT>(p, D, st);
-  if (q_dtype == 1 && kv_dtype == 1)
-    return launch_decode_typed<__nv_bfloat16, __nv_bfloat16, SPLIT>(p, D,
-                                                                     st);
-  return cudaErrorInvalidValue;
-}
-
-// q strides (batch, token, head) and cache strides (batch, seq, kv head),
-// in elements.
-Params make_params(const void* q, const void* k, const void* v, void* out,
-                   const int* pos, const int* active, int B, int T, int H,
-                   int KV, int S, int window, const long long* qs,
-                   const long long* ks, const long long* vs) {
-  Params p{};
-  p.q = q; p.k = k; p.v = v; p.out = out; p.pos = pos; p.active = active;
-  p.B = B; p.T = T; p.H = H; p.KV = KV; p.S = S; p.window = window;
-  p.num_splits = 1;
-  p.q_sb = qs[0]; p.q_st = qs[1]; p.q_sh = qs[2];
-  p.k_sb = ks[0]; p.k_ss = ks[1]; p.k_sh = ks[2];
-  p.v_sb = vs[0]; p.v_ss = vs[1]; p.v_sh = vs[2];
-  return p;
 }
 
 }  // namespace

@@ -1,9 +1,16 @@
-// The paged decode kernel for Hopper (sm_90a): the single-pass paged decode
-// and the paged split-K decode are one kernel, which cuts each slot's live
-// prefix into fixed chunks of keys, spreads the chunks over the card and
-// merges them in the same launch.
+// The chunked decode kernel for Hopper (sm_90a): the dense decode and
+// split-K decode over per-slot caches and the paged decode and split-K
+// decode over the page pool are one kernel body, which cuts each slot's
+// live prefix into fixed chunks of keys, spreads the chunks over the card
+// and merges them in the same launch.  A template flag says how a key row
+// is found: through the page table (PAGED) or the slot's dense stripe.
 //
 // Replaces
+//   decode_attention_tpu
+//     (src/repro/kernels/decode_attention.py:131, _decode_kernel)
+//   decode_attention_splitk_tpu
+//     (src/repro/kernels/decode_attention.py:236, _splitk_partial_kernel +
+//     _splitk_combine_kernel)
 //   paged_decode_attention_tpu
 //     (src/repro/kernels/paged_attention.py:131, _paged_decode_kernel +
 //     _accumulate_page)
@@ -11,14 +18,14 @@
 //     (src/repro/kernels/paged_attention.py:325, _paged_splitk_partial_kernel
 //     + the shared _splitk_combine_kernel)
 //
-// Contract: attention_common.cuh's decode contract, with each key row found
-// through the page table: logical key kpos of slot b is token
-// kpos % page_size of physical page page_idx[b, kpos / page_size].
-// Split-K (T = 1) gives split i the keys [i * S / ns, (i + 1) * S / ns) of
-// the S = max_pages * page_size positions (whole pages, max_pages % ns ==
-// 0, as the reference partitions the page table) and combines the splits'
-// (acc, m, l) with exp(m_i - m*); ns = 1 is the single-pass decode, which
-// also takes T > 1 (the verify block, G * T <= MAX_ROWS).
+// Contract: attention_common.cuh's decode contract.  Key kpos of slot b is
+// row kpos of the slot's stripe (dense: cache + b * sb + kpos * ss) or
+// token kpos % page_size of physical page page_idx[b, kpos / page_size]
+// (paged).  Split-K (T = 1) gives split i the keys [i * S / ns, (i + 1) *
+// S / ns) of the S positions (paged: whole pages, max_pages % ns == 0, as
+// the reference partitions the page table) and combines the splits' (acc,
+// m, l) with exp(m_i - m*); ns = 1 is the single-pass decode, which also
+// takes T > 1 (the verify block, G * T <= MAX_ROWS).
 //
 // What bounds it on an H100: device-memory bytes.  A tick reads the live
 // K/V prefix once, 2 * D * bytes per live key and KV head (1 KiB in f32),
@@ -28,17 +35,19 @@
 // its whole prefix tile by tile never had.
 //
 // What the design does about it:
-//   * Chunks.  The key axis is cut at multiples of `chunk` keys (256 rounded
-//     up to whole pages) and at the split boundaries; one CTA takes one
-//     (KV head, slot, chunk).  The grid (KV, B, chunks) follows from the
+//   * Chunks.  The key axis is cut at multiples of `chunk` keys (256; paged:
+//     rounded up to whole pages) and at the split boundaries; one CTA takes
+//     one (KV head, slot, chunk).  The grid (KV, B, chunks) follows from the
 //     shapes alone, so the host needs no position and the launch could be
 //     captured in a graph.  A CTA whose chunk holds no key its slot may see
 //     (past pos + T - 1, wholly before the window, an inactive slot)
 //     returns at once.  At 8 KV heads and pos [-1, 1000, 4200, 8191] that is
-//     424 working CTAs, 3.2 per SM, against 32 before.
-//   * The page table first.  A CTA reads its chunk's page-table entries
-//     (issued before it knows its slot's position) into shared memory, so
-//     no K/V load waits on a table read.
+//     424 working CTAs, 3.2 per SM, against 32 before.  Split-K needs no
+//     combine launch: its splits are chunks clipped at S / ns.
+//   * Paged: the page table first.  A CTA reads its chunk's page-table
+//     entries (issued before it knows its slot's position) into shared
+//     memory, so no K/V load waits on a table read.  Dense: no table; the
+//     row is the slot's base plus kpos times the sequence stride.
 //   * A ring of K/V tiles per CTA: 8 KiB of K and 8 KiB of V per stage (16
 //     keys in f32, 32 in bf16, 64 in int8 or fp8), three stages, filled by
 //     16-byte cp.async.cg; key rows outside the CTA's keys are zero-filled
@@ -46,13 +55,13 @@
 //     the 424 working CTAs above are all resident at once, each with two
 //     stages in flight.  Four stages (three CTAs per SM), 32 KiB stages, and
 //     128- or 512-key chunks all measured slower (PERF.md).
-//   * Quantized pools (int8, fp8 e4m3; the TPU kernel's quant branch,
-//     _accumulate_page(quant=True) with _page_scale_spec): each stage also
-//     holds the tile's 64 K and 64 V scales, one 4-byte cp.async.ca per
-//     thread, found through the same table entry as the row.  A value is
-//     dequantized where it is read (float(x) * scale, in the score dot and
-//     in PV), so the bytes a tick moves are a quarter of f32's (plus 8 bytes
-//     of scales per key and KV head), and p stays f32.
+//   * Quantized pools (paged only: int8, fp8 e4m3; the TPU kernel's quant
+//     branch, _accumulate_page(quant=True) with _page_scale_spec): each
+//     stage also holds the tile's 64 K and 64 V scales, one 4-byte
+//     cp.async.ca per thread, found through the same table entry as the
+//     row.  A value is dequantized where it is read (float(x) * scale, in
+//     the score dot and in PV), so the bytes a tick moves are a quarter of
+//     f32's (plus 8 bytes of scales per key and KV head), and p stays f32.
 //   * Warps own keys.  Each warp takes its quarter of every tile: LPK lanes
 //     share one key's score dot (each a slice of the row, in a rotated order
 //     so that the 16-byte reads of a quarter-warp hit 8 distinct bank
@@ -69,45 +78,49 @@
 //     ticket counter per (slot, KV head), which that CTA resets) merges
 //     every chunk's partial in chunk order.  Nothing depends on the order in
 //     which CTAs finish or on the other slots, so a slot's output is bitwise
-//     the same alone and in any batch.
+//     the same alone and in any batch, and split-K whose splits are whole
+//     chunks is bitwise the single pass.
 #pragma once
 
 #include "attention_common.cuh"
 
 namespace {
 
-constexpr int PD_THREADS = 128;  // 4 warps; thread d owns column d in merges
-constexpr int PD_WARPS = PD_THREADS / 32;
-constexpr int PD_STAGES = 3;     // ring depth
-constexpr int PD_TABLE = 256;    // most page-table entries a chunk spans
+constexpr int CD_THREADS = 128;  // 4 warps; thread d owns column d in merges
+constexpr int CD_WARPS = CD_THREADS / 32;
+constexpr int CD_STAGES = 3;     // ring depth
+constexpr int CD_TABLE = 256;    // most page-table entries a chunk spans
 
 // CTAs an SM should hold: four fit the shared memory of the decode
 // instances (2 or 8 rows); the 16-row instance needs more registers.
-__host__ __device__ constexpr int pd_min_ctas(int max_rows) {
+__host__ __device__ constexpr int cd_min_ctas(int max_rows) {
   return max_rows > 8 ? 2 : 4;
 }
 
-struct PagedDecodeParams {
+// Dense caches are (B, S, KV, D), paged pools (P, page_size, KV, D).  In
+// the chunk arithmetic a dense slot is S pages of one token (page_size 1);
+// its rows lie at the slot's base, b * s0, plus kpos * ss.
+struct DecodeParams {
   const void* q;        // (B, T, H, D) through strides
-  const void* k;        // pools (P, page_size, KV, D) through strides
+  const void* k;        // caches or pools, through strides
   const void* v;
   const float* ks;      // quantized pools: scales (P, page_size, KV, 1)
   const float* vs;      // through strides; null otherwise
   void* out;            // contiguous (B, T, H, D), q's dtype
   const int* pos;       // (B,)
   const int* active;    // (B,) 0/1
-  const int* page_idx;  // (B, max_pages) int32, row stride pt_sb
+  const int* page_idx;  // paged: (B, max_pages) int32, row stride pt_sb
   long long pt_sb;
-  int B, T, H, KV, S, page_size, window;
+  int B, T, H, KV, S, page_size, window;  // dense: page_size 1
   int chunk;             // keys per chunk, a multiple of page_size
   int split;             // S / num_splits, a multiple of page_size
   int chunks_per_split;  // chunk slots of one split (the last may be empty)
   int n_chunks;          // num_splits * chunks_per_split: the grid's z
   long long q_sb, q_st, q_sh;
-  long long k_sp, k_ss, k_sh;  // (page, token, kv head) strides
-  long long v_sp, v_ss, v_sh;
-  long long ks_sp, ks_ss, ks_sh;  // scale strides, as the pools'
-  long long vs_sp, vs_ss, vs_sh;
+  long long k_s0, k_ss, k_sh;  // (page | slot, token, kv head) strides
+  long long v_s0, v_ss, v_sh;
+  long long ks_s0, ks_ss, ks_sh;  // scale strides, as the pools'
+  long long vs_s0, vs_ss, vs_sh;
   float* o_part;   // (B, KV, n_chunks, G * T, D) chunk accumulators
   float* ml_part;  // (B, KV, n_chunks, G * T, 2) chunk (m, l)
   int* tickets;    // (B, KV) counters, 0 between launches
@@ -116,7 +129,7 @@ struct PagedDecodeParams {
 // Keys [x, y) of chunk z: chunk slot c of split i is the part of key cell
 // i * split / chunk + c (cells of `chunk` keys) inside the split; empty
 // (x >= y) past the split's end.
-__device__ __forceinline__ int2 chunk_keys(const PagedDecodeParams& p,
+__device__ __forceinline__ int2 chunk_keys(const DecodeParams& p,
                                            int z) {
   const int i = z / p.chunks_per_split, c = z - i * p.chunks_per_split;
   const int s0 = i * p.split, cell = s0 / p.chunk + c;
@@ -126,50 +139,51 @@ __device__ __forceinline__ int2 chunk_keys(const PagedDecodeParams& p,
 
 // Keys per tile: 8 KiB of K (and of V) per ring stage.
 template <typename TKV>
-__host__ __device__ constexpr int pd_tile_keys() {
+__host__ __device__ constexpr int cd_tile_keys() {
   return 64 / (int)sizeof(TKV);
 }
 
 // Shared memory: the ring, whose space the warps' merge and the last
-// CTA's list of chunks reuse, then q's rows as f32, the chunk's table and
-// (quantized pools) the ring's scales, [stage][K | V][TK] f32.
+// CTA's list of chunks reuse, then q's rows as f32, the chunk's table
+// (paged) and the ring's scales (quantized pools), [stage][K | V][TK] f32.
 template <typename TKV, int MAXR>
-__host__ __device__ constexpr int pd_front_bytes() {
+__host__ __device__ constexpr int cd_front_bytes() {
   const int ring =
-      PD_STAGES * 2 * pd_tile_keys<TKV>() * PD_THREADS * (int)sizeof(TKV);
-  const int merge = PD_WARPS * MAXR * (PD_THREADS + 2) * 4;
+      CD_STAGES * 2 * cd_tile_keys<TKV>() * CD_THREADS * (int)sizeof(TKV);
+  const int merge = CD_WARPS * MAXR * (CD_THREADS + 2) * 4;
   return ring > merge ? ring : merge;
 }
-template <typename TKV, int MAXR>
-constexpr int pd_smem_bytes() {
-  return pd_front_bytes<TKV, MAXR>() + MAXR * PD_THREADS * 4 + PD_TABLE * 4 +
-         (KVValue<TKV>::quant ? PD_STAGES * 2 * pd_tile_keys<TKV>() * 4 : 0);
+template <typename TKV, int MAXR, bool PAGED>
+constexpr int cd_smem_bytes() {
+  return cd_front_bytes<TKV, MAXR>() + MAXR * CD_THREADS * 4 +
+         (PAGED ? CD_TABLE * 4 : 0) +
+         (KVValue<TKV>::quant ? CD_STAGES * 2 * cd_tile_keys<TKV>() * 4 : 0);
 }
 
 // One CTA per (KV head j, slot b, chunk z); query row r = g * T + t of the
 // CTA is query head j * G + g at position pos[b] + t.
-template <typename TQ, typename TKV, int MAXR>
-__global__ void __launch_bounds__(PD_THREADS, pd_min_ctas(MAXR))
-    paged_decode_kernel(PagedDecodeParams p) {
-  constexpr int D = PD_THREADS;
-  constexpr int TK = pd_tile_keys<TKV>();
+template <typename TQ, typename TKV, int MAXR, bool PAGED>
+__global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
+    chunked_decode_kernel(DecodeParams p) {
+  constexpr int D = CD_THREADS;
+  constexpr int TK = cd_tile_keys<TKV>();
   constexpr int VEC = 16 / sizeof(TKV);        // elements per 16 bytes
   constexpr int VPR = D / VEC;                 // 16-byte chunks per row
-  constexpr int KPW = TK / PD_WARPS;           // keys per warp per tile
+  constexpr int KPW = TK / CD_WARPS;           // keys per warp per tile
   constexpr int LPK = 32 / KPW;                // lanes per key's score dot
   constexpr int CPL = VPR / LPK;               // chunks each lane dots
-  constexpr int NCP = TK * VPR / PD_THREADS;   // cp.async per thread/tensor
+  constexpr int NCP = TK * VPR / CD_THREADS;   // cp.async per thread/tensor
   constexpr bool QUANT = KVValue<TKV>::quant;
   using TV = typename KVValue<TKV>::type;      // a loaded K/V value's type
-  static_assert(KPW * PD_WARPS == TK && LPK * KPW == 32 &&
-                    CPL * LPK == VPR && NCP * PD_THREADS == TK * VPR &&
-                    (CPL & (CPL - 1)) == 0 && 2 * TK <= PD_THREADS,
+  static_assert(KPW * CD_WARPS == TK && LPK * KPW == 32 &&
+                    CPL * LPK == VPR && NCP * CD_THREADS == TK * VPR &&
+                    (CPL & (CPL - 1)) == 0 && 2 * TK <= CD_THREADS,
                 "tile shape");
   extern __shared__ __align__(16) unsigned char smem[];
   TKV* ring = reinterpret_cast<TKV*>(smem);  // [stage][K | V][TK][D]
-  float* qs = reinterpret_cast<float*>(smem + pd_front_bytes<TKV, MAXR>());
-  int* tbl = reinterpret_cast<int*>(qs + MAXR * D);  // [PD_TABLE]
-  float* scs = reinterpret_cast<float*>(tbl + PD_TABLE);  // quantized only
+  float* qs = reinterpret_cast<float*>(smem + cd_front_bytes<TKV, MAXR>());
+  int* tbl = reinterpret_cast<int*>(qs + MAXR * D);  // paged: [CD_TABLE]
+  float* scs = reinterpret_cast<float*>(tbl + (PAGED ? CD_TABLE : 0));
   __shared__ int last_s;
 
   const int j = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
@@ -177,17 +191,19 @@ __global__ void __launch_bounds__(PD_THREADS, pd_min_ctas(MAXR))
   const int G = p.H / p.KV, T = p.T, R = G * T;
   const int ps = p.page_size;
 
-  // the chunk's page-table entries and the q rows, issued before the
-  // slot's position is known
+  // the chunk's page-table entries (paged) and the q rows, issued before
+  // the slot's position is known
   const int2 ck = chunk_keys(p, z);
   const int pg0 = ck.x / ps;
-  const int npg = (ck.y - ck.x + ps - 1) / ps;
-  const int* trow = p.page_idx + b * p.pt_sb + pg0;
-  int ent[PD_TABLE / PD_THREADS];
+  int ent[CD_TABLE / CD_THREADS];
+  if (PAGED) {
+    const int npg = (ck.y - ck.x + ps - 1) / ps;
+    const int* trow = p.page_idx + b * p.pt_sb + pg0;
 #pragma unroll
-  for (int i = 0; i < PD_TABLE / PD_THREADS; ++i) {
-    const int e = tid + i * PD_THREADS;
-    ent[i] = e < npg ? trow[e] : 0;
+    for (int i = 0; i < CD_TABLE / CD_THREADS; ++i) {
+      const int e = tid + i * CD_THREADS;
+      ent[i] = e < npg ? trow[e] : 0;
+    }
   }
   const TQ* q = static_cast<const TQ*>(p.q) + b * p.q_sb;
   float qv[MAXR];
@@ -224,59 +240,66 @@ __global__ void __launch_bounds__(PD_THREADS, pd_min_ctas(MAXR))
     return;
   }
 
+  if (PAGED) {
 #pragma unroll
-  for (int i = 0; i < PD_TABLE / PD_THREADS; ++i)
-    tbl[tid + i * PD_THREADS] = ent[i];
+    for (int i = 0; i < CD_TABLE / CD_THREADS; ++i)
+      tbl[tid + i * CD_THREADS] = ent[i];
+  }
 #pragma unroll
   for (int r = 0; r < MAXR; ++r)
     if (r < R) qs[r * D + tid] = qv[r];
   __syncthreads();
 
-  const TKV* kpool = static_cast<const TKV*>(p.k) + j * p.k_sh;
-  const TKV* vpool = static_cast<const TKV*>(p.v) + j * p.v_sh;
+  // key rows of this (slot, KV head): (page, token) of key kpos, dense:
+  // (0, kpos) from the slot's own base
+  const long long slot = PAGED ? 0 : b;
+  const TKV* kbase = static_cast<const TKV*>(p.k) + j * p.k_sh + slot * p.k_s0;
+  const TKV* vbase = static_cast<const TKV*>(p.v) + j * p.v_sh + slot * p.v_s0;
+  auto row_of = [&](int kpos) {
+    if (!PAGED) return make_longlong2(0, kpos);
+    const int pg = kpos / ps;
+    return make_longlong2(tbl[pg - pg0], kpos - pg * ps);
+  };
   const int ntile = (hi - lo + TK - 1) / TK;
-  // keys [lo + t * TK, + TK) into stage t % PD_STAGES; a warp (f32), a
+  // keys [lo + t * TK, + TK) into stage t % CD_STAGES; a warp (f32), a
   // half-warp (bf16) or a quarter-warp (int8, fp8) copies one whole key
   // row, and (quantized) thread i < 2 TK the K (i < TK) or V scale of key
   // i % TK
   auto issue = [&](int t) {
-    TKV* Ks = ring + (t % PD_STAGES) * 2 * TK * D;
+    TKV* Ks = ring + (t % CD_STAGES) * 2 * TK * D;
     TKV* Vs = Ks + TK * D;
     const int k0 = lo + t * TK;
 #pragma unroll
     for (int i = 0; i < NCP; ++i) {
-      const int idx = tid + i * PD_THREADS;
+      const int idx = tid + i * CD_THREADS;
       const int kk = idx / VPR, c = idx - kk * VPR;
       const int kpos = k0 + kk;
       const bool in = kpos < hi;
       long long ko = 0, vo = 0;
       if (in) {
-        const int pg = kpos / ps;
-        const long long phys = tbl[pg - pg0];
-        const long long off = kpos - pg * ps;
-        ko = phys * p.k_sp + off * p.k_ss + c * VEC;
-        vo = phys * p.v_sp + off * p.v_ss + c * VEC;
+        const longlong2 r = row_of(kpos);
+        ko = r.x * p.k_s0 + r.y * p.k_ss + c * VEC;
+        vo = r.x * p.v_s0 + r.y * p.v_ss + c * VEC;
       }
-      cp_async16(Ks + kk * D + c * VEC, kpool + ko, in);
-      cp_async16(Vs + kk * D + c * VEC, vpool + vo, in);
+      cp_async16(Ks + kk * D + c * VEC, kbase + ko, in);
+      cp_async16(Vs + kk * D + c * VEC, vbase + vo, in);
     }
     if (QUANT && tid < 2 * TK) {
       const int kk = tid % TK, isv = tid / TK;
       const int kpos = k0 + kk;
       const bool in = kpos < hi;
-      const float* src = isv ? p.vs + j * p.vs_sh : p.ks + j * p.ks_sh;
+      const float* src = isv ? p.vs + j * p.vs_sh + slot * p.vs_s0
+                             : p.ks + j * p.ks_sh + slot * p.ks_s0;
       if (in) {
-        const int pg = kpos / ps;
-        const long long phys = tbl[pg - pg0];
-        const long long off = kpos - pg * ps;
-        src += isv ? phys * p.vs_sp + off * p.vs_ss
-                   : phys * p.ks_sp + off * p.ks_ss;
+        const longlong2 r = row_of(kpos);
+        src += isv ? r.x * p.vs_s0 + r.y * p.vs_ss
+                   : r.x * p.ks_s0 + r.y * p.ks_ss;
       }
-      cp_async4(scs + ((t % PD_STAGES) * 2 + isv) * TK + kk, src, in);
+      cp_async4(scs + ((t % CD_STAGES) * 2 + isv) * TK + kk, src, in);
     }
   };
 #pragma unroll
-  for (int t = 0; t < PD_STAGES - 1; ++t) {
+  for (int t = 0; t < CD_STAGES - 1; ++t) {
     if (t < ntile) issue(t);
     cp_async_commit();
   }
@@ -297,13 +320,13 @@ __global__ void __launch_bounds__(PD_THREADS, pd_min_ctas(MAXR))
   for (int t = 0; t < ntile; ++t) {
     // tile t has landed for every thread, and every warp is done with
     // tile t - 1, whose stage the next copies refill
-    cp_async_wait<PD_STAGES - 2>();
+    cp_async_wait<CD_STAGES - 2>();
     __syncthreads();
-    if (t + PD_STAGES - 1 < ntile) issue(t + PD_STAGES - 1);
+    if (t + CD_STAGES - 1 < ntile) issue(t + CD_STAGES - 1);
     cp_async_commit();
-    const TKV* Ks = ring + (t % PD_STAGES) * 2 * TK * D;
+    const TKV* Ks = ring + (t % CD_STAGES) * 2 * TK * D;
     const TKV* Vs = Ks + TK * D;
-    const float* Ksc = scs + (t % PD_STAGES) * 2 * TK;  // quantized only
+    const float* Ksc = scs + (t % CD_STAGES) * 2 * TK;  // quantized only
     const float* Vsc = Ksc + TK;
     const float ksc = QUANT ? Ksc[key] : 1.f;
 
@@ -393,7 +416,7 @@ __global__ void __launch_bounds__(PD_THREADS, pd_min_ctas(MAXR))
   cp_async_wait<0>();
   __syncthreads();
   float* wacc = reinterpret_cast<float*>(smem);   // [warp][MAXR][D]
-  float* wml = wacc + PD_WARPS * MAXR * D;        // [warp][MAXR][m, l]
+  float* wml = wacc + CD_WARPS * MAXR * D;        // [warp][MAXR][m, l]
 #pragma unroll
   for (int r = 0; r < MAXR; ++r) {
     if (r >= R) break;
@@ -409,11 +432,11 @@ __global__ void __launch_bounds__(PD_THREADS, pd_min_ctas(MAXR))
   for (int r = 0; r < R; ++r) {
     float ms = NEG_INF;
 #pragma unroll
-    for (int w = 0; w < PD_WARPS; ++w)
+    for (int w = 0; w < CD_WARPS; ++w)
       ms = fmaxf(ms, wml[(w * MAXR + r) * 2]);
     float a = 0.f, ls = 0.f;
 #pragma unroll
-    for (int w = 0; w < PD_WARPS; ++w) {
+    for (int w = 0; w < CD_WARPS; ++w) {
       const float e = expf(wml[(w * MAXR + r) * 2] - ms);
       a += wacc[(w * MAXR + r) * D + tid] * e;
       ls += wml[(w * MAXR + r) * 2 + 1] * e;
@@ -460,7 +483,7 @@ __global__ void __launch_bounds__(PD_THREADS, pd_min_ctas(MAXR))
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < n_work * R; idx += PD_THREADS) {
+  for (int idx = tid; idx < n_work * R; idx += CD_THREADS) {
     const int i = idx / R, r = idx - i * R;
     const long long row = (base + zl[i]) * R + r;
     mls[2 * idx] = __ldcg(p.ml_part + 2 * row);
@@ -481,64 +504,74 @@ __global__ void __launch_bounds__(PD_THREADS, pd_min_ctas(MAXR))
   }
 }
 
-template <typename TQ, typename TKV, int MAXR>
-cudaError_t launch_paged_decode_rows(const PagedDecodeParams& p,
-                                     cudaStream_t st) {
-  constexpr int smem = pd_smem_bytes<TKV, MAXR>();
+template <typename TQ, typename TKV, int MAXR, bool PAGED>
+cudaError_t launch_chunked_decode_rows(const DecodeParams& p,
+                                       cudaStream_t st) {
+  constexpr int smem = cd_smem_bytes<TKV, MAXR, PAGED>();
   // the last CTA lists the working chunks and their (m, l) in the front
   if ((long long)p.n_chunks * (1 + 2 * MAXR) * 4 >
-      pd_front_bytes<TKV, MAXR>())
+      cd_front_bytes<TKV, MAXR>())
     return cudaErrorInvalidValue;
   // above 48 KB dynamic shared memory must be allowed explicitly, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_decode_kernel<TQ, TKV, MAXR>,
+      chunked_decode_kernel<TQ, TKV, MAXR, PAGED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(p.KV, p.B, p.n_chunks);
-  paged_decode_kernel<TQ, TKV, MAXR><<<grid, PD_THREADS, smem, st>>>(p);
+  chunked_decode_kernel<TQ, TKV, MAXR, PAGED>
+      <<<grid, CD_THREADS, smem, st>>>(p);
   return cudaGetLastError();
 }
 
 // The instance for G * T query rows: 2 (decode), 8 or MAX_ROWS.
-template <typename TQ, typename TKV>
-cudaError_t launch_paged_decode_typed(const PagedDecodeParams& p,
-                                      cudaStream_t st) {
+template <typename TQ, typename TKV, bool PAGED>
+cudaError_t launch_chunked_decode_typed(const DecodeParams& p,
+                                        cudaStream_t st) {
   const int rows = p.H / p.KV * p.T;
-  if (rows <= 2) return launch_paged_decode_rows<TQ, TKV, 2>(p, st);
-  if (rows <= 8) return launch_paged_decode_rows<TQ, TKV, 8>(p, st);
+  if (rows <= 2) return launch_chunked_decode_rows<TQ, TKV, 2, PAGED>(p, st);
+  if (rows <= 8) return launch_chunked_decode_rows<TQ, TKV, 8, PAGED>(p, st);
   if (rows <= MAX_ROWS)
-    return launch_paged_decode_rows<TQ, TKV, MAX_ROWS>(p, st);
+    return launch_chunked_decode_rows<TQ, TKV, MAX_ROWS, PAGED>(p, st);
   return cudaErrorInvalidValue;
 }
 
-template <typename TQ>
-cudaError_t launch_paged_decode_kv(const PagedDecodeParams& p, int kv_dtype,
-                                   cudaStream_t st) {
+template <typename TQ, bool PAGED>
+cudaError_t launch_chunked_decode_kv(const DecodeParams& p, int kv_dtype,
+                                     cudaStream_t st) {
   switch (kv_dtype) {
-    case 0: return launch_paged_decode_typed<TQ, float>(p, st);
-    case 1: return launch_paged_decode_typed<TQ, __nv_bfloat16>(p, st);
-    case 2: return launch_paged_decode_typed<TQ, int8_t>(p, st);
-    case 3: return launch_paged_decode_typed<TQ, __nv_fp8_e4m3>(p, st);
+    case 0: return launch_chunked_decode_typed<TQ, float, PAGED>(p, st);
+    case 1:
+      return launch_chunked_decode_typed<TQ, __nv_bfloat16, PAGED>(p, st);
+  }
+  if constexpr (PAGED) {
+    switch (kv_dtype) {
+      case 2: return launch_chunked_decode_typed<TQ, int8_t, true>(p, st);
+      case 3:
+        return launch_chunked_decode_typed<TQ, __nv_fp8_e4m3, true>(p, st);
+    }
   }
   return cudaErrorInvalidValue;
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16; the pools also 2 = int8 and
-// 3 = float8_e4m3fn, the quantized pools, which need both scale pools (and
-// only they take scales)
-cudaError_t launch_paged_decode(const PagedDecodeParams& p, int D,
-                                int q_dtype, int kv_dtype, cudaStream_t st) {
+// dtype codes: 0 = float32, 1 = bfloat16; the paged pools also 2 = int8
+// and 3 = float8_e4m3fn, the quantized pools, which need both scale pools
+// (and only they take scales).  Each of decode_attention.cu (dense) and
+// paged_attention.cu (paged) instantiates its own mode.
+template <bool PAGED>
+cudaError_t launch_chunked_decode(const DecodeParams& p, int D, int q_dtype,
+                                  int kv_dtype, cudaStream_t st) {
   // head_dim 128, the served arch's: one thread per output column
-  if (D != PD_THREADS || p.page_size < 1 || p.chunk % p.page_size ||
-      p.chunk / p.page_size > PD_TABLE || p.split % p.page_size ||
-      p.n_chunks < 1)
+  if (D != CD_THREADS || p.page_size < 1 || p.chunk % p.page_size ||
+      p.split % p.page_size || p.n_chunks < 1 ||
+      (PAGED && p.chunk / p.page_size > CD_TABLE))
     return cudaErrorInvalidValue;
   const bool quant = kv_dtype == 2 || kv_dtype == 3;
   if ((p.ks != nullptr) != quant || (p.vs != nullptr) != quant)
     return cudaErrorInvalidValue;
-  if (q_dtype == 0) return launch_paged_decode_kv<float>(p, kv_dtype, st);
+  if (q_dtype == 0)
+    return launch_chunked_decode_kv<float, PAGED>(p, kv_dtype, st);
   if (q_dtype == 1)
-    return launch_paged_decode_kv<__nv_bfloat16>(p, kv_dtype, st);
+    return launch_chunked_decode_kv<__nv_bfloat16, PAGED>(p, kv_dtype, st);
   return cudaErrorInvalidValue;
 }
 

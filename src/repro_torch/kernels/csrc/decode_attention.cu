@@ -1,71 +1,95 @@
-// Ragged flash-decode over a dense per-slot cache for Hopper (sm_90a): a
-// single-pass kernel and a two-phase split-K kernel, with a plain C
-// interface loaded via ctypes.  The kernels themselves live in
-// attention_common.cuh; this file instantiates them.
+// Ragged decode over a dense per-slot cache for Hopper (sm_90a): the
+// single-pass decode and the split-K decode, with a plain C interface
+// loaded via ctypes.  Both launch the chunked decode kernel of
+// chunked_decode.cuh (shared with the paged decode) in its dense mode,
+// once per call; this file instantiates that mode.
 //
 // Replaces
-//   decode_attention_tpu        (src/repro/kernels/decode_attention.py,
+//   decode_attention_tpu        (src/repro/kernels/decode_attention.py:131,
 //                                _decode_kernel)
-//   decode_attention_splitk_tpu (src/repro/kernels/decode_attention.py,
+//   decode_attention_splitk_tpu (src/repro/kernels/decode_attention.py:236,
 //                                _splitk_partial_kernel +
 //                                _splitk_combine_kernel)
 //
 // Layout: q (B, T, H, D), caches (B, S, KV, D) -- the MODEL layout, read in
-// place through strides, so no cache is transposed or copied.  The
-// contract is in attention_common.cuh.
+// place through strides, so no cache is transposed or copied (a layer's
+// slice of the engine's stacked (L, B, S, KV, D) cache is passed as it
+// is).  The contract is in attention_common.cuh.
 //
-// What bounds it on an H100: device-memory bytes.  Decode reads the live
-// K/V prefix once, 2 * KV * D * bytes * sum_b(pos_b + 1) per layer, and
-// does ~2 * G * T flops per K/V element -- far below the card's
-// ops-per-byte balance point.
-//
-// What the design does about it:
-//   * one CTA per (slot b, KV head j) -- per (b, j, split) for split-K --
-//     serving all G * T query rows of that KV head, so each K/V byte is
-//     read from device memory once (the TPU grid (b, h, kv_block) re-reads
-//     K/V once per query head);
-//   * loop bounds come from pos and window: tiles past pos[b] + T - 1 or
-//     wholly before the window are never loaded, inactive slots load none;
-//   * 32-key tiles are staged in shared memory with 16-byte vector loads,
-//     the next tile's loads issued into registers before this tile's math
-//     (a two-stage register pipeline);
-//   * split-K spreads one slot's long prefix over num_splits CTAs so that
-//     few slots still put enough loads in flight; a small combine kernel
-//     (one CTA per (b, h)) merges the partials with exp(m_i - m*).
-// Not yet done (later work): deeper cp.async / TMA rings, more CTAs per
-// slot when few slots are live, and wgmma for the G*T x 32 score tile.
+// Bound on an H100: device-memory bytes of the live prefix, 2 * KV * D *
+// bytes per live key, at ~1 flop per byte.  Design: chunked_decode.cuh --
+// 256-key chunks over the card, one CTA per (KV head, slot, chunk) with a
+// cp.async ring, merged in chunk order by the slot's last CTA in the same
+// launch.  Split-K's splits are the chunks clipped at S / num_splits, so
+// it needs no combine launch, and with (S / num_splits) % 256 == 0 it is
+// the single pass, bitwise.
 
-#include "attention_common.cuh"
+#include "chunked_decode.cuh"
+
+namespace {
+
+DecodeParams dense_params(const void* q, const void* k, const void* v,
+                          void* out, const int* pos, const int* active, int B,
+                          int T, int H, int KV, int S, int window,
+                          int num_splits, int chunk, int chunks_per_split,
+                          const long long* qs, const long long* ks,
+                          const long long* vs, float* o_part, float* ml_part,
+                          int* tickets) {
+  DecodeParams p{};
+  p.q = q; p.k = k; p.v = v; p.out = out; p.pos = pos; p.active = active;
+  p.B = B; p.T = T; p.H = H; p.KV = KV; p.S = S; p.window = window;
+  p.page_size = 1;
+  p.chunk = chunk; p.split = S / num_splits;
+  p.chunks_per_split = chunks_per_split;
+  p.n_chunks = num_splits * chunks_per_split;
+  p.q_sb = qs[0]; p.q_st = qs[1]; p.q_sh = qs[2];
+  p.k_s0 = ks[0]; p.k_ss = ks[1]; p.k_sh = ks[2];
+  p.v_s0 = vs[0]; p.v_ss = vs[1]; p.v_sh = vs[2];
+  p.o_part = o_part; p.ml_part = ml_part; p.tickets = tickets;
+  return p;
+}
+
+}  // namespace
 
 // Strides are in elements: q_strides = (batch, token, head), cache strides
 // = (batch, seq, kv head); the last dimension must be contiguous.  `out`
-// is a contiguous (B, T, H, D) tensor of q's dtype.  Returns the launch's
-// cudaError_t (0 = success).
+// is a contiguous (B, T, H, D) tensor of q's dtype.  `chunk` keys per
+// chunk and `chunks` chunks give the grid (KV, B, chunks) (the wrapper's
+// decode_chunks(S, 1, 1)); o_part (B, KV, chunks, G * T, D) and ml_part
+// (B, KV, chunks, G * T, 2) are f32 scratch and tickets (B * KV) int32
+// zeros, all allocated by the caller.  dtype codes: 0 = float32,
+// 1 = bfloat16.  Returns the launch's cudaError_t (0 = success).
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, void* out, const int* pos,
     const int* active, int B, int T, int H, int KV, int S, int D, int window,
-    const long long* q_strides, const long long* k_strides,
-    const long long* v_strides, int q_dtype, int kv_dtype, void* stream) {
-  Params p = make_params(q, k, v, out, pos, active, B, T, H, KV, S, window,
-                         q_strides, k_strides, v_strides);
-  return (int)launch_decode<false>(p, D, q_dtype, kv_dtype,
-                                   (cudaStream_t)stream);
+    int chunk, int chunks, const long long* q_strides,
+    const long long* k_strides, const long long* v_strides, float* o_part,
+    float* ml_part, int* tickets, int q_dtype, int kv_dtype, void* stream) {
+  if (KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
+  const DecodeParams p = dense_params(
+      q, k, v, out, pos, active, B, T, H, KV, S, window, 1, chunk, chunks,
+      q_strides, k_strides, v_strides, o_part, ml_part, tickets);
+  return (int)launch_chunked_decode<false>(p, D, q_dtype, kv_dtype,
+                                           (cudaStream_t)stream);
 }
 
-// Two-phase split-K (T = 1, S % num_splits == 0).  o_part (B, H, ns, D),
-// m_part and l_part (B, H, ns) are f32 scratch allocated by the caller.
+// Split-K (T = 1, S % num_splits == 0): split i owns keys [i * S / ns,
+// (i + 1) * S / ns), cut into `chunks_per_split` chunk slots of `chunk`
+// keys (decode_chunks(S, 1, num_splits)), all merged in the same launch.
+// The rest as for decode_attention_fwd.
 extern "C" int decode_attention_splitk_fwd(
     const void* q, const void* k, const void* v, void* out, const int* pos,
     const int* active, int B, int H, int KV, int S, int D, int window,
-    int num_splits, const long long* q_strides, const long long* k_strides,
-    const long long* v_strides, float* o_part, float* m_part, float* l_part,
+    int num_splits, int chunk, int chunks_per_split,
+    const long long* q_strides, const long long* k_strides,
+    const long long* v_strides, float* o_part, float* ml_part, int* tickets,
     int q_dtype, int kv_dtype, void* stream) {
-  Params p = make_params(q, k, v, out, pos, active, B, 1, H, KV, S, window,
-                         q_strides, k_strides, v_strides);
-  p.num_splits = num_splits;
-  p.o_part = o_part;
-  p.m_part = m_part;
-  p.l_part = l_part;
-  return (int)launch_decode<true>(p, D, q_dtype, kv_dtype,
-                                  (cudaStream_t)stream);
+  if (num_splits < 1 || S % num_splits || KV < 1 || H % KV)
+    return (int)cudaErrorInvalidValue;
+  const DecodeParams p = dense_params(
+      q, k, v, out, pos, active, B, 1, H, KV, S, window, num_splits, chunk,
+      chunks_per_split, q_strides, k_strides, v_strides, o_part, ml_part,
+      tickets);
+  return (int)launch_chunked_decode<false>(p, D, q_dtype, kv_dtype,
+                                           (cudaStream_t)stream);
 }

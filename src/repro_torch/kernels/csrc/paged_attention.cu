@@ -28,11 +28,12 @@
 // pools (P, page_size, KV, 1) read through strides and the same page
 // table; the kernels dequantize each row as it arrives.
 //
-// Decode and split-K decode: one kernel (paged_decode.cuh) that cuts each
-// slot's live prefix into chunks of 256 keys, one CTA per (KV head, slot,
-// chunk), each with a cp.async ring of K/V tiles, merged in chunk order in
-// the same launch.  Bound on an H100: device-memory bytes of the live
-// prefix (2 * KV * (D * bytes + scale bytes) per live key).
+// Decode and split-K decode: the chunked decode kernel (chunked_decode.cuh,
+// shared with the dense decode of decode_attention.cu) in its paged mode,
+// which cuts each slot's live prefix into chunks of 256 keys, one CTA per
+// (KV head, slot, chunk), each with a cp.async ring of K/V tiles, merged in
+// chunk order in the same launch.  Bound on an H100: device-memory bytes
+// of the live prefix (2 * KV * (D * bytes + scale bytes) per live key).
 //
 // Prefill: one slot's chunk of C query rows at absolute q_offset, causal
 // against its own page chain (the chunk's K/V already written).
@@ -50,7 +51,7 @@
 //   combine kernel merges the splits' (acc, m, l).
 
 #include "many_row_attention.cuh"
-#include "paged_decode.cuh"
+#include "chunked_decode.cuh"
 
 // Paged decode, single pass (num_splits = 1, T >= 1) or split-K
 // (num_splits > 1, T = 1, max_pages % num_splits == 0).  Strides are in
@@ -77,7 +78,7 @@ extern "C" int paged_decode_attention_fwd(
     float* ml_part, int* tickets, int q_dtype, int kv_dtype, void* stream) {
   if (num_splits < 1 || max_pages % num_splits || KV < 1 || H % KV)
     return (int)cudaErrorInvalidValue;
-  PagedDecodeParams p{};
+  DecodeParams p{};
   p.q = q; p.k = k; p.v = v; p.out = out; p.pos = pos; p.active = active;
   p.page_idx = page_idx; p.pt_sb = pt_stride;
   p.B = B; p.T = T; p.H = H; p.KV = KV; p.S = max_pages * page_size;
@@ -86,14 +87,14 @@ extern "C" int paged_decode_attention_fwd(
   p.chunks_per_split = chunks_per_split;
   p.n_chunks = num_splits * chunks_per_split;
   p.q_sb = q_strides[0]; p.q_st = q_strides[1]; p.q_sh = q_strides[2];
-  p.k_sp = k_strides[0]; p.k_ss = k_strides[1]; p.k_sh = k_strides[2];
-  p.v_sp = v_strides[0]; p.v_ss = v_strides[1]; p.v_sh = v_strides[2];
+  p.k_s0 = k_strides[0]; p.k_ss = k_strides[1]; p.k_sh = k_strides[2];
+  p.v_s0 = v_strides[0]; p.v_ss = v_strides[1]; p.v_sh = v_strides[2];
   p.ks = k_scale; p.vs = v_scale;
-  p.ks_sp = ks_strides[0]; p.ks_ss = ks_strides[1]; p.ks_sh = ks_strides[2];
-  p.vs_sp = vs_strides[0]; p.vs_ss = vs_strides[1]; p.vs_sh = vs_strides[2];
+  p.ks_s0 = ks_strides[0]; p.ks_ss = ks_strides[1]; p.ks_sh = ks_strides[2];
+  p.vs_s0 = vs_strides[0]; p.vs_ss = vs_strides[1]; p.vs_sh = vs_strides[2];
   p.o_part = o_part; p.ml_part = ml_part; p.tickets = tickets;
-  return (int)launch_paged_decode(p, D, q_dtype, kv_dtype,
-                                  (cudaStream_t)stream);
+  return (int)launch_chunked_decode<true>(p, D, q_dtype, kv_dtype,
+                                          (cudaStream_t)stream);
 }
 
 // Fused paged prefill of one slot's chunk: q (1, C, H, D) with strides

@@ -1,5 +1,11 @@
-"""Wrappers of the hand-written CUDA decode kernels
-(``csrc/decode_attention.cu``).
+"""Wrappers of the hand-written CUDA decode kernels over a dense cache
+(``csrc/decode_attention.cu``), and the chunk grid they share with the
+paged decode.
+
+Decode and split-K decode launch one kernel, the chunked decode kernel of
+``csrc/chunked_decode.cuh`` (the paged decode's too), once per call over
+the chunk grid of ``decode_chunks``: split-K's splits are chunks clipped at
+``S / num_splits``, merged in the same launch.
 
 Model layout in and out: q (B, T, H, D), caches (B, S, KV, D), result
 (B, T, H, D) in q's dtype.  The caches are passed by pointer and strides;
@@ -14,12 +20,14 @@ between them by the tensors' device.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 
 MAX_ROWS = 16  # G * T query rows one CTA serves (csrc MAX_ROWS)
+CHUNK_KEYS = 256  # keys per chunk of the chunked decode, before whole pages
 HEAD_DIMS = (128,)
 # dtype codes of the C entry points; int8 and float8_e4m3fn are the
 # quantized paged pools, which only the paged kernels take (with scales)
@@ -30,19 +38,17 @@ QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_FWD_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-             _P, _P, _P, _I, _I, _P]
-_SPLITK_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                _P, _P, _P, _P, _P, _P, _I, _I, _P]
+# both entry points: 6 pointers, 9 ints, strides, scratch, tickets, codes
+_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+         _P, _P, _P, _P, _P, _P, _I, _I, _P]
 
 
 def _lib():
     lib = _build.load("decode_attention")
     if lib.decode_attention_fwd.argtypes is None:
-        lib.decode_attention_fwd.argtypes = _FWD_ARGS
-        lib.decode_attention_fwd.restype = _I
-        lib.decode_attention_splitk_fwd.argtypes = _SPLITK_ARGS
-        lib.decode_attention_splitk_fwd.restype = _I
+        for fn in (lib.decode_attention_fwd, lib.decode_attention_splitk_fwd):
+            fn.argtypes = _ARGS
+            fn.restype = _I
     return lib
 
 
@@ -70,6 +76,14 @@ def _check_shapes(q, k, v, what, layout, quant=False):
                          f"{HEAD_DIMS})")
 
 
+def rows_aligned(c):
+    """Whether every row of the 4-D cache or pool ``c`` starts on 16 bytes
+    (its pointer and its three outer strides), as the kernels' 16-byte
+    loads need."""
+    return c.data_ptr() % 16 == 0 and all(
+        (c.stride(i) * c.element_size()) % 16 == 0 for i in range(3))
+
+
 def _check_device(q, k, v, what):
     """CUDA tensors on one device, contiguous head dims and 16-byte
     aligned K/V rows (the kernels load 16 bytes at a time)."""
@@ -81,12 +95,10 @@ def _check_device(q, k, v, what):
             raise ValueError(f"{name} {what} on {t.device}, q on {q.device}")
     if q.stride(-1) != 1:
         raise ValueError("q's head dim must be contiguous")
-    esize = k.element_size()
     for name, c in (("k", k), ("v", v)):
         if c.stride(-1) != 1:
             raise ValueError(f"{name} {what}'s head dim must be contiguous")
-        if c.data_ptr() % 16 or any((c.stride(i) * esize) % 16
-                                    for i in range(3)):
+        if not rows_aligned(c):
             raise ValueError(f"{name} {what} rows are not 16-byte aligned")
 
 
@@ -123,6 +135,86 @@ def _strides(x):
     return (ctypes.c_longlong * 3)(x.stride(0), x.stride(1), x.stride(2))
 
 
+@functools.lru_cache(maxsize=None)
+def decode_chunks(max_pages: int, page_size: int, num_splits: int = 1):
+    """The chunked decode kernel's grid: ``(chunk, chunks_per_split,
+    ranges)``.  The S = max_pages * page_size key positions (a dense
+    cache: S pages of one token) are cut at multiples of ``chunk``
+    (CHUNK_KEYS rounded up to whole pages) and at the split boundaries
+    (multiples of S / num_splits); ``ranges[z]`` is (lo, hi), the keys of
+    chunk z: chunk slot c of split i is the part of cell ``i * split //
+    chunk + c`` inside split i, empty (lo >= hi) past its end.  It depends
+    on the shapes only, never on positions; the kernel computes the same
+    ranges (``chunk_keys``)."""
+    chunk = -(-CHUNK_KEYS // page_size) * page_size
+    split = max_pages * page_size // num_splits
+    cps = max(((i + 1) * split - 1) // chunk - i * split // chunk + 1
+              for i in range(num_splits))
+    ranges = []
+    for z in range(num_splits * cps):
+        i, c = divmod(z, cps)
+        cell = i * split // chunk + c
+        ranges.append((max(cell * chunk, i * split),
+                       min((cell + 1) * chunk, (i + 1) * split)))
+    return chunk, cps, tuple(ranges)
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device, stream, n):
+    """At least ``n`` int32 ticket counters for launches on ``stream`` of
+    ``device``, zero: each launch (dense or paged) leaves the counters it
+    used at 0 again, and launches on one stream never overlap."""
+    t = _TICKETS.get((device, stream))
+    if t is None or t.numel() < n:
+        t = torch.zeros(n, dtype=torch.int32, device=device)
+        _TICKETS[(device, stream)] = t
+    return t
+
+
+def chunk_scratch(rows, d, device):
+    """f32 scratch of ``rows`` chunk rows: each row's accumulator (``d``
+    floats, first) and its (m, l) (two floats, after all accumulators)."""
+    return torch.empty(rows * (d + 2), dtype=torch.float32, device=device)
+
+
+def launch_chunked_decode(fn, name, q, k, max_pages, page_size, num_splits,
+                          head, mid):
+    """Launch ``fn``, a C entry point of the chunked decode kernel, once
+    over ``decode_chunks(max_pages, page_size, num_splits)``'s grid:
+    ``fn(*head, chunk, chunks_per_split, *mid, o_part, ml_part, tickets,
+    q's dtype code, k's dtype code, stream)``, with f32 scratch for each
+    chunk's (acc, m, l) and the stream's tickets.  ``k`` is a cache
+    (B, S, KV, D) or a pool (P, page_size, KV, D).  Raises if the launch
+    returns a CUDA error."""
+    b, t, h, d = q.shape
+    kv = k.shape[2]
+    chunk, cps, _ = decode_chunks(max_pages, page_size, num_splits)
+    rows = b * kv * num_splits * cps * (h // kv) * t  # o_part (rows, D)
+    scratch = chunk_scratch(rows, d, q.device)
+    base = scratch.data_ptr()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(*head, chunk, cps, *mid, base, base + 4 * rows * d,
+             _tickets(q.device, stream, b * kv).data_ptr(),
+             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _launch(fn, name, q, k_cache, v_cache, pos, active, num_splits, head):
+    """Launch the dense chunked decode through ``fn`` with the C arguments
+    ``head`` that follow the pointers, pos and active; returns the
+    (B, T, H, D) output."""
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    launch_chunked_decode(
+        fn, name, q, k_cache, k_cache.shape[1], 1, num_splits,
+        (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+         out.data_ptr(), pos.data_ptr(), active.data_ptr(), *head),
+        (_strides(q), _strides(k_cache), _strides(v_cache)))
+    return out
+
+
 def decode_attention_cuda(q, k_cache, v_cache, pos, *, active=None,
                           window=0):
     """Single-pass ragged decode (replaces ``decode_attention_tpu``).
@@ -131,25 +223,19 @@ def decode_attention_cuda(q, k_cache, v_cache, pos, *, active=None,
     pos, active = _check(q, k_cache, v_cache, pos, active)
     b, t, h, d = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    strides = (_strides(q), _strides(k_cache), _strides(v_cache))
-    err = _lib().decode_attention_fwd(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        pos.data_ptr(), active.data_ptr(), b, t, h, kv, s, d, int(window),
-        *strides, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"decode_attention_fwd launch failed: "
-                           f"cudaError {err}")
+    out = _launch(_lib().decode_attention_fwd, "decode_attention_fwd", q,
+                  k_cache, v_cache, pos, active, 1,
+                  (b, t, h, kv, s, d, int(window)))
     decode_attention_cuda.launches += 1
     return out
 
 
 def decode_attention_splitk_cuda(q, k_cache, v_cache, pos, *, active=None,
                                  window=0, num_splits=2):
-    """Two-phase split-K decode (replaces ``decode_attention_splitk_tpu``):
-    T = 1, ``S % num_splits == 0``.  Partials go to f32 scratch; the
-    combine kernel writes the (B, 1, H, D) result."""
+    """Split-K decode (replaces ``decode_attention_splitk_tpu``): T = 1,
+    ``S % num_splits == 0``.  The splits are chunks clipped at
+    ``S / num_splits``, merged as the reference's combine does in the same
+    launch: one kernel launch, no combine launch."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"split-K decode is single-token, got q "
                          f"{tuple(q.shape)}")
@@ -160,22 +246,10 @@ def decode_attention_splitk_cuda(q, k_cache, v_cache, pos, *, active=None,
     pos, active = _check(q, k_cache, v_cache, pos, active)
     b, _, h, d = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
-    out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
-    o_part = torch.empty((b, h, num_splits, d), dtype=torch.float32,
-                         device=q.device)
-    m_part = torch.empty((b, h, num_splits), dtype=torch.float32,
-                         device=q.device)
-    l_part = torch.empty_like(m_part)
-    strides = (_strides(q), _strides(k_cache), _strides(v_cache))
-    err = _lib().decode_attention_splitk_fwd(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        pos.data_ptr(), active.data_ptr(), b, h, kv, s, d, int(window),
-        int(num_splits), *strides, o_part.data_ptr(), m_part.data_ptr(),
-        l_part.data_ptr(), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"decode_attention_splitk_fwd launch failed: "
-                           f"cudaError {err}")
+    out = _launch(_lib().decode_attention_splitk_fwd,
+                  "decode_attention_splitk_fwd", q, k_cache, v_cache, pos,
+                  active, num_splits,
+                  (b, h, kv, s, d, int(window), int(num_splits)))
     decode_attention_splitk_cuda.launches += 1
     return out
 

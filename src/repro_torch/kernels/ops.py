@@ -48,7 +48,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, active=None, window=0,
     """Model layout: q (B,T,H,D); caches (B,S,KV,D) -> (B,T,H,D).
 
     ``pos`` scalar or (B,); ``active`` (B,) 0/1 (default ``pos >= 0``).
-    ``num_splits > 1`` with T = 1 takes the two-phase split-K path; T > 1
+    ``num_splits > 1`` with T = 1 takes the split-K path; T > 1
     always takes the single-pass kernel, as in the reference.
     """
     if q.device.type == "cpu":

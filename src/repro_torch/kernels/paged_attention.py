@@ -1,8 +1,9 @@
 """Wrappers of the hand-written CUDA paged attention kernels
 (``csrc/paged_attention.cu``): decode, split-K decode and fused chunked
 prefill over the shared page pool.  Decode and split-K decode launch one
-kernel (``csrc/paged_decode.cuh``) over the chunk grid of
-``decode_chunks``.
+kernel, the chunked decode kernel of ``csrc/chunked_decode.cuh`` (shared
+with the dense decode), over the chunk grid of
+``decode_attention.decode_chunks``.
 
 Model layout in and out: q (B, T, H, D) (prefill: (1, C, H, D)), pools
 (P, page_size, KV, D), result in q's dtype and q's shape.  The pools are
@@ -23,18 +24,15 @@ device.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from . import _build
 from .decode_attention import (_DTYPE_CODE, MAX_ROWS, QUANT_DTYPES,
                                _check_device, _check_shapes, _pos_active,
-                               _strides)
+                               _strides, launch_chunked_decode)
 from .flash_attention import ROWS as PREFILL_ROWS
 from .flash_attention import launch_many_row
-
-CHUNK_KEYS = 256  # keys per chunk of the paged decode, before whole pages
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -111,69 +109,23 @@ def _check_decode(q, k_pages, v_pages, page_idx, pos, active, k_scale,
     return pos, active, page_size, kv, scales
 
 
-@functools.lru_cache(maxsize=None)
-def decode_chunks(max_pages: int, page_size: int, num_splits: int = 1):
-    """The paged decode kernel's chunk grid: ``(chunk, chunks_per_split,
-    ranges)``.  The S = max_pages * page_size key positions are cut at
-    multiples of ``chunk`` (CHUNK_KEYS rounded up to whole pages) and at
-    the split boundaries (multiples of S / num_splits); ``ranges[z]`` is
-    (lo, hi), the keys of chunk z: chunk slot c of split i is the part of
-    cell ``i * split // chunk + c`` inside split i, empty (lo >= hi) past
-    its end.  It depends on the shapes only, never on positions; the
-    kernel computes the same ranges (``chunk_keys``)."""
-    chunk = -(-CHUNK_KEYS // page_size) * page_size
-    split = max_pages * page_size // num_splits
-    cps = max(((i + 1) * split - 1) // chunk - i * split // chunk + 1
-              for i in range(num_splits))
-    ranges = []
-    for z in range(num_splits * cps):
-        i, c = divmod(z, cps)
-        cell = i * split // chunk + c
-        ranges.append((max(cell * chunk, i * split),
-                       min((cell + 1) * chunk, (i + 1) * split)))
-    return chunk, cps, tuple(ranges)
-
-
-_TICKETS: dict = {}
-
-
-def _tickets(device, stream, n):
-    """At least ``n`` int32 ticket counters for launches on ``stream`` of
-    ``device``, zero: each launch leaves the counters it used at 0 again,
-    and launches on one stream never overlap."""
-    t = _TICKETS.get((device, stream))
-    if t is None or t.numel() < n:
-        t = torch.zeros(n, dtype=torch.int32, device=device)
-        _TICKETS[(device, stream)] = t
-    return t
-
-
 def _launch_decode(name, q, k_pages, v_pages, page_idx, pos, active, window,
                    num_splits, k_scale, v_scale):
-    """Launch the paged decode kernel over ``decode_chunks``'s grid with its
-    f32 scratch (each chunk's (acc, m, l)) and the stream's tickets;
-    returns the (B, T, H, D) output."""
+    """Launch the chunked decode kernel in its paged mode; returns the
+    (B, T, H, D) output."""
     pos, active, page_size, kv, scales = _check_decode(
         q, k_pages, v_pages, page_idx, pos, active, k_scale, v_scale)
     b, t, h, d = q.shape
     max_pages = page_idx.shape[1]
-    chunk, cps, _ = decode_chunks(max_pages, page_size, num_splits)
-    rows = b * kv * num_splits * cps * (h // kv) * t  # o_part (rows, D)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    scratch = torch.empty(rows * (d + 2), dtype=torch.float32,
-                          device=q.device)
-    base = scratch.data_ptr()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    strides = (_strides(q), _strides(k_pages), _strides(v_pages))
-    err = _lib().paged_decode_attention_fwd(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
-        pos.data_ptr(), active.data_ptr(), page_idx.data_ptr(),
-        page_idx.stride(0), b, t, h, kv, max_pages, page_size, d,
-        int(window), int(num_splits), chunk, cps, *strides, *scales, base,
-        base + 4 * rows * d, _tickets(q.device, stream, b * kv).data_ptr(),
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    launch_chunked_decode(
+        _lib().paged_decode_attention_fwd, name, q, k_pages, max_pages,
+        page_size, num_splits,
+        (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+         out.data_ptr(), pos.data_ptr(), active.data_ptr(),
+         page_idx.data_ptr(), page_idx.stride(0), b, t, h, kv, max_pages,
+         page_size, d, int(window), int(num_splits)),
+        (_strides(q), _strides(k_pages), _strides(v_pages), *scales))
     return out
 
 

@@ -3,7 +3,9 @@ JAX package's Pallas kernels (interpret mode) on the same numpy inputs.
 
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
 them against these plain versions there.  Here the wrappers are checked
-for refusing what the kernels do not take.
+for refusing what the kernels do not take, and, on a fake card (the
+library and the device check stubbed), for launching the chunked kernel
+once per call with its grid, scratch and tickets.
 """
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import decode_attention as jax_decode  # noqa: E402
+from repro_torch.kernels import decode_attention as tdecode  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_cuda, decode_attention_splitk_cuda)
@@ -121,3 +124,121 @@ def test_splitk_wrapper_refuses_multi_token():
     _, (tq, tk, tv) = _inputs(1, 3, "float32")
     with pytest.raises(ValueError, match="single-token"):
         decode_attention_splitk_cuda(tq, tk, tv, 3, num_splits=2)
+
+
+# ------------------------------------------------- the launch, on a fake card
+class _FakeLib:
+    """Stands in for the built library: records each entry point's
+    arguments and returns the error code it is given."""
+
+    def __init__(self, err):
+        self.err, self.calls = err, []
+        for name in ("decode_attention_fwd", "decode_attention_splitk_fwd"):
+            setattr(self, name, self._entry(name))
+
+    def _entry(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return self.err
+        return call
+
+
+def _fake_card(monkeypatch, err):
+    """Run the dense wrappers on CPU tensors up to the launch: the device
+    check and the stream are stubbed, the library is ``_FakeLib``, and the
+    chunk scratch each launch allocates is recorded."""
+    lib = _FakeLib(err)
+    monkeypatch.setattr(tdecode, "_lib", lambda: lib)
+    monkeypatch.setattr(tdecode, "_check_device", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    scratch, alloc = [], tdecode.chunk_scratch
+
+    def record(rows, d, device):
+        scratch.append(alloc(rows, d, device))
+        return scratch[-1]
+
+    monkeypatch.setattr(tdecode, "chunk_scratch", record)
+    return lib, scratch
+
+
+def _card_shaped(s, t):
+    """q (2, t, 4, 128) and caches (2, s, 2, 128)."""
+    k = torch.zeros((2, s, 2, 128))
+    return torch.zeros((2, t, 4, 128)), k, k.clone()
+
+
+# fwd and split-K: pointers (q, k, v, out, pos, active) 0-5, then ints:
+# fwd B, T, H, KV, S, D, window; split-K B, H, KV, S, D, window, ns; then
+# chunk 13, chunks per split 14, strides 15-17, o_part 18, ml_part 19,
+# tickets 20, dtype codes 21-22, stream 23
+@pytest.mark.parametrize("s", [520, 8192])
+@pytest.mark.parametrize("t,ns", [(1, 1), (4, 1), (1, 2), (1, 4), (1, 8)])
+def test_dense_wrappers_launch_the_chunked_kernel_once(t, ns, s,
+                                                       monkeypatch):
+    """One C call per wrapper call, split-K included (no combine launch),
+    over ``decode_chunks(S, 1, ns)``'s grid, with f32 scratch of
+    B * KV * n_chunks * G * T rows of D + 2 floats (accumulators, then
+    (m, l)) and at least B * KV zeroed tickets."""
+    q, k, v = _card_shaped(s, t)
+    lib, scratch = _fake_card(monkeypatch, 0)
+    wrapper = decode_attention_cuda if ns == 1 else \
+        decode_attention_splitk_cuda
+    kw = {} if ns == 1 else {"num_splits": ns}
+    before = wrapper.launches
+    out = wrapper(q, k, v, [3, s - 1], **kw)
+    (name, args), = lib.calls
+    assert name == ("decode_attention_fwd" if ns == 1
+                    else "decode_attention_splitk_fwd")
+    assert wrapper.launches == before + 1
+    assert out.shape == q.shape and args[3] == out.data_ptr()
+    chunk, cps, ranges = tdecode.decode_chunks(s, 1, ns)
+    assert args[13:15] == (chunk, cps) and len(ranges) == ns * cps
+    rows = 2 * 2 * len(ranges) * 2 * t  # B * KV * n_chunks * G * T
+    (buf,) = scratch
+    assert buf.dtype == torch.float32 and buf.numel() == rows * (128 + 2)
+    assert args[18] == buf.data_ptr()
+    assert args[19] == buf.data_ptr() + 4 * rows * 128
+    tickets = tdecode._TICKETS[(q.device, 0)]
+    assert args[20] == tickets.data_ptr() and tickets.numel() >= 2 * 2
+    assert not tickets.any()
+    assert args[21:23] == (0, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ns", [1, 2])
+def test_dense_wrapper_reads_a_stacked_layer_slice_in_place(ns, dtype,
+                                                            monkeypatch):
+    """A layer's slice of the engine's stacked (L, B, S, KV, D) cache goes
+    to the kernel as it is: its own pointer and its real strides, no copy;
+    every layer's slice has 16-byte-aligned rows, as the kernel's 16-byte
+    loads need."""
+    s = 520
+    stack = torch.zeros((3, 2, s, 2, 128), dtype=dtype)
+    assert all(tdecode.rows_aligned(stack[i]) for i in range(3))
+    q, k, v = torch.zeros((2, 1, 4, 128)), stack[2], stack[1]
+    assert k.storage_offset() > 0  # a view into the stack, not a copy
+    lib, _ = _fake_card(monkeypatch, 0)
+    if ns == 1:
+        decode_attention_cuda(q, k, v, 5)
+    else:
+        decode_attention_splitk_cuda(q, k, v, 5, num_splits=ns)
+    (_, args), = lib.calls
+    assert args[1:3] == (k.data_ptr(), v.data_ptr())
+    assert list(args[16]) == list(k.stride()[:3]) == [s * 256, 256, 128]
+    assert args[22] == {torch.float32: 0, torch.bfloat16: 1}[dtype]
+
+
+@pytest.mark.parametrize("ns", [1, 2])
+def test_dense_wrapper_raises_on_a_refused_launch(ns, monkeypatch):
+    """A launch the kernel refuses (cudaErrorInvalidValue, 1) raises and
+    counts no launch; nothing moves to a plain version."""
+    q, k, v = _card_shaped(520, 1)
+    lib, _ = _fake_card(monkeypatch, 1)
+    wrapper = decode_attention_cuda if ns == 1 else \
+        decode_attention_splitk_cuda
+    kw = {} if ns == 1 else {"num_splits": ns}
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="launch failed: cudaError 1"):
+        wrapper(q, k, v, [3, 9], **kw)
+    assert wrapper.launches == before and len(lib.calls) == 1

@@ -1,7 +1,7 @@
 """The paged decode kernel's chunk partition, modelled on the CPU.
 
-The CUDA kernel (``csrc/paged_decode.cuh``) cuts each slot's key axis into
-the chunks of ``paged_attention.decode_chunks`` (multiples of 256 keys,
+The CUDA kernel (``csrc/chunked_decode.cuh``) cuts each slot's key axis
+into the chunks of ``decode_attention.decode_chunks`` (multiples of 256 keys,
 rounded up to whole pages, clipped at the split-K boundaries), computes an
 unnormalised (acc, m, l) per chunk with p rounded to the pool's dtype (kept
 f32 over a quantized pool, whose values are dequantized f32), and merges
@@ -21,7 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.kernels.paged_attention import (  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
     CHUNK_KEYS, decode_chunks)
 
 B, KV, G, D, S = 4, 2, 2, 16, 768  # three 256-key chunks per slot
@@ -217,7 +217,7 @@ def test_chunks_tile_the_key_axis(page_size, ns):
 
 def test_working_ctas_at_the_chip_shape():
     """The card's shape (16-token pages, 512 per slot, 8 KV heads) at pos
-    [-1, 1000, 4200, 8191]: 424 CTAs do work, as csrc/paged_decode.cuh
+    [-1, 1000, 4200, 8191]: 424 CTAs do work, as csrc/chunked_decode.cuh
     states, single pass and at 2 splits alike (4096 is a multiple of the
     chunk)."""
     for ns in (1, 2):

@@ -260,7 +260,8 @@ def test_build_target_tracks_shared_header(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     assert sorted(p.name for p in csrc.glob("*.cuh")) == [
-        "attention_common.cuh", "many_row_attention.cuh", "paged_decode.cuh"]
+        "attention_common.cuh", "chunked_decode.cuh",
+        "many_row_attention.cuh"]
     before = {name: _build._target(name) for name in _build.SOURCES}
     assert all(t.parent == tmp_path / "build" for t in before.values())
     assert before == {name: _build._target(name) for name in _build.SOURCES}
