@@ -60,9 +60,12 @@ Run from the repository root.  Phases, each raising on failure:
    D=128; causal with window 0 and 1024, not causal at S=1024, one bf16
    case, and S=1000, no multiple of the tiles, causal and not causal with
    window 300) and the SSD chunk (mamba2-1.3b's B=2, NC=16, NH=64, Q=256,
-   hp=64, ds=128, G=1, and a G=2 case) against their plain versions, then
+   hp=64, ds=128, G=1, the prefill's B=4, NC=8, a G=2 case, and Q=160
+   with ds=96, f32; the first shape in bf16) against their plain versions,
+   a batch row and a chunk alone against them in the batch, bitwise, then
    timed against the plain version, SDPA (flash attention only) and the
-   bound;
+   bound (the SSD chunk's at its route's tensor-core rate, with the
+   CUDA-core bound beside it);
 5. the attention forward path: internlm2-1.8b's ``make_prefill_step`` on
    2 prompts x 4096 tokens must launch flash attention 24 times; its
    last-row logits must match the plain path and the dense engine's
@@ -289,9 +292,10 @@ def _library_call(q, k, v, pos):
 
 
 def _bound(t_ops, t_bytes, rate):
-    """(bound ms, what bounds it, the flop rate used)."""
+    """(bound ms, what bounds it, the flop rate used); ``rate`` is a key of
+    ``RATE_NAMES`` or, for mixed rates, their description."""
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", RATE_NAMES[rate])
+            else "operations", RATE_NAMES.get(rate, rate))
 
 
 def _tc_rate(q, k):
@@ -1128,12 +1132,22 @@ def phase_quant_engine(model, params, f32_page_bytes):
 # -------------------------------------------------- whole-sequence kernels
 FS, FB = 4096, 2  # flash attention: internlm2 prefill of 2 x 4096
 SSD = dict(B=2, NC=16, NH=64, G=1, Q=256, HP=64, DS=128)  # mamba2, S=4096
-# SSD chunk against its plain version: both accumulate f32 products (ds =
-# 128 for C.B^T, up to Q = 256 keys for att @ x and the state); f32
-# rounding of a 256-term sum in another order stays below 256 * 2^-24 ~
-# 1.5e-5 of the largest magnitude, ~1e-5 typically.  (The kernel sums in
-# the plain version's order, so the two agree bitwise: PERF.md.)
+# SSD chunk against its plain version, f32: the kernel multiplies on the
+# tensor cores, each f32 product as three TF32 products (3xTF32: the
+# dropped small.small term is <= 2^-22 of the product), summed 32 deep by
+# the mma's truncating f32 accumulation and then in f32; the plain version
+# sums f32 products in another order.  Emulated on the CPU for mamba2's
+# chunk (tests/test_torch_ssd_tf32.py) the 3xTF32 route stays within
+# 3.7e-7 of max |want| and one TF32 product misses by 3e-4 to 6e-4, so the
+# check bites on the split.
 SSD_RTOL = 1e-5
+# bf16 x, B, C: the kernel rounds att to bf16 before att @ x, as the TPU
+# kernel does, where the plain version keeps att in f32, so y moves by up
+# to 2^-9 sum_j |att_ij| |x_j| (bounded with |C| |B| for |C.B^T|, doubled);
+# and both sides round y to bf16, where a value next to a boundary may
+# round either way (one bf16 ulp, 2^-7 |y|).  The state is f32 from the
+# same bf16 values on both sides: SSD_RTOL.
+SSD_BF16_ATT = 2.0 ** -8
 
 
 def _flash_inputs(b, s, dtype, seed=0):
@@ -1165,15 +1179,16 @@ def _flash_bound_ms(q, k, causal, window):
     return _bound(t_ops, t_bytes, rate)
 
 
-def _ssd_inputs(B_, NC, NH, G, Q, HP_, DS, seed=0):
+def _ssd_inputs(B_, NC, NH, G, Q, HP_, DS, seed=0, dtype=torch.float32):
     """Inputs as ``ssm_forward`` makes them, through the same transposed
-    views: x and B/C (B, NC, Q, .) activations, dt in [1e-3, 1e-1] (the
-    init's softplus range), a in [-16, -1], cum the inclusive cumsum of
-    dt * a within each chunk."""
+    views: x and B/C (B, NC, Q, .) activations in ``dtype``, dt in [1e-3,
+    1e-1] (the init's softplus range), a in [-16, -1], cum the inclusive
+    cumsum of dt * a within each chunk."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = 0.5 * torch.randn((B_, NC, Q, NH, HP_), generator=g, device="cuda")
-    bc = 0.5 * torch.randn((B_, NC, Q, G, 2 * DS), generator=g,
-                           device="cuda")
+    x = (0.5 * torch.randn((B_, NC, Q, NH, HP_), generator=g,
+                           device="cuda")).to(dtype)
+    bc = (0.5 * torch.randn((B_, NC, Q, G, 2 * DS), generator=g,
+                            device="cuda")).to(dtype)
     u = torch.rand((B_, NC, Q, NH), generator=g, device="cuda")
     dt = torch.exp(np.log(1e-3) + (np.log(1e-1) - np.log(1e-3)) * u)
     a = -(1.0 + 15.0 * torch.rand((NH,), generator=g, device="cuda"))
@@ -1183,39 +1198,75 @@ def _ssd_inputs(B_, NC, NH, G, Q, HP_, DS, seed=0):
             cum.transpose(2, 3))
 
 
-def _ssd_bound_ms(x, b):
+def _ssd_bound_ms(x, b, cuda_cores=False):
     """Products over the lower triangle (the pairs i >= j a chunk needs):
     C.B^T 2 ds flops per pair per (chunk, group), att @ x 2 hp per pair
-    per (chunk, head), the state 2 Q ds hp per (chunk, head), at the
-    card's f32 rate; against x, B, C, dt, cum read once and y, the state
-    written once."""
+    per (chunk, head), the state 2 Q ds hp per (chunk, head); against x,
+    B, C, dt, cum read once and y, the state written once.  Each product
+    at its route's rate: f32 inputs at the 3xTF32 rate; bf16 inputs C.B^T
+    and att @ x (bf16 x bf16) at the bf16 rate and the state (f32 B * w
+    against bf16 x) at the 2xTF32 rate.  ``cuda_cores``: all at the f32
+    CUDA-core rate (the PR 13 design's bound)."""
     bb, nc, nh, q, hp = x.shape
     g, ds = b.shape[2], b.shape[4]
     pairs = q * (q + 1) // 2
-    flops = bb * nc * (g * 2 * ds * pairs + nh * 2 * hp * pairs
-                       + nh * 2 * q * ds * hp)
-    t_ops = flops / F32_FLOPS * 1e3
+    cb = bb * nc * g * 2 * ds * pairs
+    att_x = bb * nc * nh * 2 * hp * pairs
+    state = bb * nc * nh * 2 * q * ds * hp
+    if cuda_cores:
+        rate = F32_FLOPS
+        t_ops = (cb + att_x + state) / F32_FLOPS * 1e3
+    elif x.dtype == torch.float32:
+        rate = TF32X3_FLOPS
+        t_ops = (cb + att_x + state) / TF32X3_FLOPS * 1e3
+    else:
+        rate = (f"{RATE_NAMES[BF16_TC_FLOPS]} (C.B^T, att @ x) and "
+                f"{RATE_NAMES[TF32X2_FLOPS]} (state)")
+        t_ops = ((cb + att_x) / BF16_TC_FLOPS + state / TF32X2_FLOPS) * 1e3
     es = x.element_size()
     nbytes = (2 * x.numel() * es + 2 * b.numel() * es
               + 2 * bb * nc * nh * q * 4 + bb * nc * nh * ds * hp * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return _bound(t_ops, t_bytes, F32_FLOPS)
+    return _bound(t_ops, t_bytes, rate)
 
 
-def _check_ssd(label, got, want):
+def _check_ssd(label, got, want, y_extra=None):
     """Max abs error of y and the state, each against SSD_RTOL times its
-    plain version's largest magnitude."""
+    plain version's largest magnitude; ``y_extra`` (bf16 inputs) is added
+    to y's limit element by element."""
     worst = 0.0
     for name, a, w in (("y", got[0], want[0]), ("state", got[1], want[1])):
-        err = float((a.float() - w.float()).abs().max())
+        err = (a.float() - w.float()).abs()
         tol = SSD_RTOL * float(w.abs().max())
-        _log(f"[kernels] {label} {name}: max_abs_err {err:.3g} (tol "
-             f"{tol:.3g} = {SSD_RTOL} x max |want| {float(w.abs().max()):.3g})")
-        if not (err <= tol and torch.isfinite(a).all()):
+        limit, extra = tol, ""
+        if name == "y" and y_extra is not None:
+            limit = tol + y_extra
+            extra = " + 2^-7 |want| + 2^-8 y(|x|, |B|, |C|)"
+        _log(f"[kernels] {label} {name}: max_abs_err {float(err.max()):.3g} "
+             f"(tol {tol:.3g} = {SSD_RTOL} x max |want| "
+             f"{float(w.abs().max()):.3g}{extra})")
+        if not (bool((err <= limit).all()) and torch.isfinite(a).all()):
             raise AssertionError(f"{label} {name} disagrees with its plain "
                                  f"version")
-        worst = max(worst, err)
+        worst = max(worst, float(err.max()))
     return worst
+
+
+def _check_ssd_batch_invariance(args):
+    """Batch row 0 alone, and chunk (0, 5) alone, give the bits they give
+    in the whole call: each chunk's work is its own CTAs'."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda
+
+    full = ssd_chunk_cuda(*args)
+    for label, idx in (("batch row 0", (slice(0, 1),)),
+                       ("chunk (0, 5)", (slice(0, 1), slice(5, 6)))):
+        alone = ssd_chunk_cuda(*(a[idx] for a in args))
+        same = all(torch.equal(p, f[idx]) for p, f in zip(alone, full))
+        _log(f"[kernels] ssd_chunk {label} alone vs in the batch: "
+             f"{'bitwise equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError(f"ssd_chunk {label} alone differs from it "
+                                 f"in the batch")
 
 
 def phase_forward_kernels():
@@ -1249,13 +1300,26 @@ def phase_forward_kernels():
             flash_err = max(flash_err, err)
         del q, k, v, p_round
     ssd_err = 0.0
-    # mamba2's phase 3c shape, the prefill's (B=4, NC=8), and G > 1
+    # mamba2's phase 3c shape, the prefill's (B=4, NC=8), G > 1, and a
+    # chunk of 160 positions with ds = 96 (a partial row block of 32 rows
+    # and a partial state slice of 32 rows)
     for shape in (SSD, dict(SSD, B=4, NC=8),
-                  dict(SSD, B=1, NC=4, NH=16, G=2, DS=64)):
+                  dict(SSD, B=1, NC=4, NH=16, G=2, DS=64),
+                  dict(SSD, B=1, NC=4, NH=16, G=2, Q=160, DS=96)):
         args = _ssd_inputs(*shape.values())
         ssd_err = max(ssd_err, _check_ssd(
             f"ssd_chunk {shape}", ssd_chunk_cuda(*args),
             ssd_chunk_plain(*args)))
+    _check_ssd_batch_invariance(_ssd_inputs(*SSD.values()))
+    bf16 = _ssd_inputs(*SSD.values(), dtype=torch.bfloat16)
+    x, b, c, dt, cum = bf16
+    y_abs = ssd_chunk_plain(x.abs().float(), b.abs().float(),
+                            c.abs().float(), dt, cum)[0]
+    want = ssd_chunk_plain(*bf16)
+    _check_ssd(f"ssd_chunk {SSD} bf16", ssd_chunk_cuda(*bf16), want,
+               BF16_ULP * want[0].float().abs() + SSD_BF16_ATT * y_abs)
+    _check_ssd_batch_invariance(bf16)
+    del y_abs, want, x, b, c, dt, cum
     torch.cuda.synchronize()
 
     rows = []
@@ -1274,11 +1338,19 @@ def phase_forward_kernels():
     del q, k, v, kx, vx, qt
     args = _ssd_inputs(*SSD.values())
     bound = _ssd_bound_ms(args[0], args[1])
+    _log(f"[kernels] ssd_chunk f32 bound on the CUDA cores (the PR 13 "
+         f"design's): {_ssd_bound_ms(args[0], args[1], True)[0]:.4f} ms")
     rows.append(_timed_row(
         "ssd_chunk", lambda: ssd_chunk_cuda(*args),
         lambda: ssd_chunk_plain(*args), None, bound,
         "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan.py:54", ssd_err))
+    # the bf16 instance, timed for the record (not on the served path)
+    bound, bound_by, rate = _ssd_bound_ms(bf16[0], bf16[1])
+    _log(f"[kernels] ssd_chunk bf16: "
+         f"{_time_ms(lambda: ssd_chunk_cuda(*bf16)):.4f} ms (plain "
+         f"{_time_ms(lambda: ssd_chunk_plain(*bf16)):.4f} ms, bound "
+         f"{bound:.4f} ms by {bound_by}; flops at {rate})")
     return rows
 
 

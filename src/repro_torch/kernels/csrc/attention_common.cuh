@@ -1,10 +1,12 @@
 // Pieces shared by the attention kernels (decode_attention.cu,
 // paged_attention.cu, flash_attention.cu) and the SSD chunk (ssd_scan.cu):
 // element conversions, the loaded-value type of a K/V storage type, 16-byte
-// chunks of a key row as f32, 16- and 4-byte cp.async, the key-row
-// addressing of the many-row kernel (dense strides or a page-table lookup)
-// and 4-element row loads.  The chunked decode kernel of the dense and the
-// paged decode is in chunked_decode.cuh; the many-row kernel of the
+// chunks of a key row as f32, 16-, 8- and 4-byte cp.async, the key-row
+// addressing of the many-row kernel (dense strides or a page-table lookup),
+// 4-element row loads and stores, and the tensor-core products of the
+// many-row kernel and the SSD chunk (mma.sync TF32 with the 3xTF32 split).
+// The chunked decode kernel of the dense and the paged decode is in
+// chunked_decode.cuh; the many-row kernel of the
 // full-sequence flash attention and the paged chunked prefill is in
 // many_row_attention.cuh.
 //
@@ -127,6 +129,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(fill ? 16 : 0));
 }
 
+// 8 bytes from global to shared memory (cp.async.ca: .cg copies 16 bytes
+// only); with fill = false nothing is read and the 8 bytes are zeroed.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(fill ? 8 : 0));
+}
+
 // 4 bytes (a scale) from global to shared memory (cp.async.ca, the only
 // form of that size); with fill = false nothing is read and 0 is stored.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -192,6 +203,60 @@ __device__ __forceinline__ void load4(const __nv_fp8_e4m3* v, float* f) {
   const ushort2 raw = *reinterpret_cast<const ushort2*>(v);
   const float2 a = fp8x2_to_float2(raw.x), b = fp8x2_to_float2(raw.y);
   f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+}
+
+// ---- tensor-core products (the many-row kernel and the SSD chunk) -------
+
+// cvt.rna.tf32.f32 for finite x: round to the nearest TF32 value, ties
+// away from zero.  Adding half a TF32 ulp (bit 12) to the sign-magnitude
+// bits and clearing the 13 low ones does it in two integer operations;
+// sm_90's cvt.rna.tf32.f32 is a sequence of about five (it also handles
+// NaN and infinity, which attention inputs do not hold).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// N operand values as TF32 registers: big parts, and (SPLIT, f32 values)
+// the rounded remainders.  Values that are exact in TF32 (from bf16) pass
+// through unchanged.
+template <int N, bool SPLIT>
+struct Frag {
+  uint32_t big[N], small[N];
+  __device__ __forceinline__ void set(int i, float x) {
+    if (SPLIT) {
+      big[i] = tf32_rna(x);
+      small[i] = tf32_rna(x - __uint_as_float(big[i]));
+    } else {
+      big[i] = __float_as_uint(x);
+    }
+  }
+};
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a . b: the small-part products first, then big . big.
+template <bool SA, bool SB>
+__device__ __forceinline__ void mma_split(float* c, const Frag<4, SA>& a,
+                                          const Frag<2, SB>& b) {
+  if (SA) mma_tf32(c, a.small, b.big);
+  if (SB) mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.big, b.big);
+}
+
+// Four consecutive f32 values to memory as f32 or bf16 (16 or 8 bytes).
+__device__ __forceinline__ void store4(float* p, const float* y) {
+  *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* y) {
+  __nv_bfloat162 v[2] = {__floats2bfloat162_rn(y[0], y[1]),
+                         __floats2bfloat162_rn(y[2], y[3])};
+  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(v);
 }
 
 }  // namespace

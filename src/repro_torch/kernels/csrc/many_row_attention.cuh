@@ -41,7 +41,8 @@
 //     bf16 x bf16 one, each exact as a bf16 product.  (mma m16n8k16 bf16
 //     would run bf16 x bf16 at twice the TF32 rate; TF32 on the exact bf16
 //     values gives the same products with one code path, and the served
-//     model is f32.)  The split is integer work (tf32_rna below): sm_90's
+//     model is f32.)  The split is integer work (tf32_rna, in
+//     attention_common.cuh with the other TF32 helpers): sm_90's
 //     cvt.rna.tf32.f32 is a sequence of about five instructions, and with
 //     it the split, not the mma, set the kernel's time.
 //   * Softmax in the accumulator layout: a row's 8 key scores of a tile
@@ -128,58 +129,6 @@ struct PrefillParams {
   float* m_part;  // (ns, B, Sq, H)
   float* l_part;  // (ns, B, Sq, H)
 };
-
-// cvt.rna.tf32.f32 for finite x: round to the nearest TF32 value, ties
-// away from zero.  Adding half a TF32 ulp (bit 12) to the sign-magnitude
-// bits and clearing the 13 low ones does it in two integer operations;
-// sm_90's cvt.rna.tf32.f32 is a sequence of about five (it also handles
-// NaN and infinity, which attention inputs do not hold).
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// N operand values as TF32 registers: big parts, and (SPLIT, f32 values)
-// the rounded remainders.  Values that are exact in TF32 (from bf16) pass
-// through unchanged.
-template <int N, bool SPLIT>
-struct Frag {
-  uint32_t big[N], small[N];
-  __device__ __forceinline__ void set(int i, float x) {
-    if (SPLIT) {
-      big[i] = tf32_rna(x);
-      small[i] = tf32_rna(x - __uint_as_float(big[i]));
-    } else {
-      big[i] = __float_as_uint(x);
-    }
-  }
-};
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a . b: the small-part products first, then big . big.
-template <bool SA, bool SB>
-__device__ __forceinline__ void mma_split(float* c, const Frag<4, SA>& a,
-                                          const Frag<2, SB>& b) {
-  if (SA) mma_tf32(c, a.small, b.big);
-  if (SB) mma_tf32(c, a.big, b.small);
-  mma_tf32(c, a.big, b.big);
-}
-
-// Four consecutive f32 values to memory as f32 or bf16 (16 or 8 bytes).
-__device__ __forceinline__ void store4(float* p, const float* y) {
-  *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* y) {
-  __nv_bfloat162 v[2] = {__floats2bfloat162_rn(y[0], y[1]),
-                         __floats2bfloat162_rn(y[2], y[3])};
-  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(v);
-}
 
 // q, the 2-stage K/V ring and (quantized pools) the ring's scales.
 template <typename TKV, int D>

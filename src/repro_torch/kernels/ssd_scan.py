@@ -7,8 +7,12 @@ Q, hp) in x's dtype and state (B, NC, NH, ds, hp) f32.  The inputs are
 passed by pointer and strides, so the transposed views the model hands in
 are not copied.  The wrapper checks what the kernel takes and raises on
 anything else, allocates its outputs with ``torch.empty``, launches on the
-current stream and raises if the launch returns a CUDA error.
+current stream (one kernel launch per call: y and the state come from the
+same launch) and raises if the launch returns a CUDA error.
 ``ssd_chunk_cuda.launches`` counts its launches.
+
+``work_units`` is the kernel's partition of a chunk's work over the CTAs
+of one (head block, chunk), for the tests to check on the CPU.
 
 The plain version is ``ref.ssd_chunk_ref``; ``ops.ssd_chunk`` chooses
 between them by the tensors' device.
@@ -26,6 +30,8 @@ HEAD_DIM = 64  # hp, the built width (csrc HP)
 MAX_CHUNK = 256
 MAX_STATE = 128
 HEADS_PER_CTA = 8  # heads that share one C.B^T block (csrc hpc, at most)
+ROW_BLOCK = 64  # query rows of a CTA (csrc RB): 4 warps of 16
+STATE_SLICE = 64  # state rows (of ds) of a CTA (csrc SL): 4 warps of 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,8 +70,8 @@ def _check(x, b, c, dt, cum):
             or c.dtype != x.dtype:
         raise ValueError(f"x/b/c must share one dtype of float32/bfloat16, "
                          f"got {x.dtype}, {b.dtype}, {c.dtype}")
-    if hp != HEAD_DIM or ds % 32 or ds > MAX_STATE or q % 32 \
-            or q > MAX_CHUNK:
+    if hp != HEAD_DIM or ds % 32 or not 32 <= ds <= MAX_STATE or q % 32 \
+            or not 32 <= q <= MAX_CHUNK:
         raise ValueError(f"kernel takes hp = {HEAD_DIM}, ds a multiple of "
                          f"32 up to {MAX_STATE}, Q a multiple of 32 up to "
                          f"{MAX_CHUNK}; got hp={hp} ds={ds} Q={q}")
@@ -83,12 +89,25 @@ def _check(x, b, c, dt, cum):
     return max(d for d in range(1, HEADS_PER_CTA + 1) if rep % d == 0)
 
 
+def work_units(q, ds):
+    """The CTAs of one (head block, chunk), in launch order: unit u holds
+    row block ``NRB - 1 - u`` (rows [64 rb, 64 rb + 64) clipped at Q; the
+    heaviest first) and state slice ``u`` (state rows [64 u, 64 u + 64)
+    clipped at ds), each None where it does not exist.  NRB = ceil(Q / 64),
+    ND = ceil(ds / 64), NX = max(NRB, ND), as ``ssd_chunk_fwd`` computes
+    them."""
+    nrb = -(-q // ROW_BLOCK)
+    nd = -(-ds // STATE_SLICE)
+    return [(nrb - 1 - u if u < nrb else None, u if u < nd else None)
+            for u in range(max(nrb, nd))]
+
+
 def ssd_chunk_cuda(x, b, c, dt, cum):
     """SSD intra-chunk compute (replaces ``ssd_chunk_tpu``): y = (C.B^T *
     exp(cum_i - cum_j) * dt_j, j <= i) @ x and the chunk's state
     (B * exp(cum_last - cum) * dt)^T @ x, per (batch, chunk, head); head h
     reads group h // (NH // G).  Needs hp = 64, ds a multiple of 32 up to
-    128, Q a multiple of 32 up to 256."""
+    128, Q a multiple of 32 up to 256.  One kernel launch."""
     hpc = _check(x, b, c, dt, cum)
     bb, nc, nh, q, hp = x.shape
     g, ds = b.shape[2], b.shape[4]
