@@ -56,6 +56,27 @@ Run from the repository root.  Phases, each raising on failure:
    the same quantized pools; tokens/s, TTFT, the pool's bytes and its
    pages per GiB against phase 4b's f32 pool are printed, and a decode
    tick is timed and profiled;
+4d. the verify block of speculative decode (T = draft_k + 1 = 4 rows per
+   slot), sampling and preemption on the same model: #1, #3 and #3q
+   (int8) at T = 4, every row bitwise the T = 1 launch at pos + t (pos
+   [-1, 1000, 4200, 8188] and [253, 1021, 4093, 8188], the latter across
+   the 256-key chunk boundaries; windows 0 and 1024), then #1 and #3
+   timed at T = 4 as in phase 3 with their bound and SDPA; the verify
+   block's logits (``decode_step_spec(_paged)``) against four sequential
+   decode steps, bitwise, on dense, f32 and int8 paged caches; the greedy
+   speculative engine (draft_k = 3, n-gram drafter) on three ~1000-token
+   repeating prompts and a 4200-token one against the plain engine, equal
+   streams, dense, paged f32 and paged int8, its verify ticks launching
+   the layout's decode kernel at T = 4 (counted apart), with acceptance,
+   tokens per verify tick, tokens/s of both engines and a plain and a
+   verify tick timed and profiled; seeded sampling (temperature 0.8, top-k
+   50, top-p 0.9): the same requests in other slots, the speculative
+   engine, top-k 1 and temperature 0 against greedy, and the card's
+   sampler against the CPU's on one logits tensor (bits and uniforms
+   bitwise, tokens equal); preemption (``policy="priority"``, a
+   high-priority tenant preempting a running one) with streams equal to
+   the run without it, dense and paged (no page left in use), and the
+   dense checkpoint's bytes and copy times;
 3c. whole-sequence kernels: flash attention (B=2, S=4096, H=16, KV=8,
    D=128; causal with window 0 and 1024, not causal at S=1024, one bf16
    case, and S=1000, no multiple of the tiles, causal and not causal with
@@ -282,12 +303,14 @@ def _check(label, got, want, kv_dtype, p_round=None):
 
 def _library_call(q, k, v, pos):
     """One PyTorch call computing the same function (GQA heads expanded
-    and a boolean mask prepared outside the timed call)."""
+    and a boolean mask prepared outside the timed call); row t of a
+    T-row q attends keys <= pos + t."""
     qt = q.transpose(1, 2)
     kx = k.transpose(1, 2).repeat_interleave(H // KV, dim=1)
     vx = v.transpose(1, 2).repeat_interleave(H // KV, dim=1)
     kpos = torch.arange(S, device="cuda")
-    mask = (kpos[None, :] <= pos[:, None].long())[:, None, None, :]
+    qpos = pos[:, None].long() + torch.arange(q.shape[1], device="cuda")
+    mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]
     return lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask)
 
 
@@ -315,19 +338,22 @@ def _scale_bytes(k):
 
 def _bound_ms(q, k, pos, paged=False):
     """Least time for the work these inputs need: the live K/V prefix of
-    the active slots read once (``paged``: and the page-table entries that
-    map it; a quantized, 1-byte pool: and its f32 scale per key and KV
-    head), q read and the output written once, against the card's memory
-    rate; and QK + PV flops against its f32 rate (the decode kernels run
-    on the CUDA cores)."""
-    live = sum(p + 1 for p in pos.tolist() if p >= 0)
+    the active slots read once (keys up to pos + T - 1 for a T-row q;
+    ``paged``: and the page-table entries that map it; a quantized, 1-byte
+    pool: and its f32 scale per key and KV head), q read and the output
+    written once, against the card's memory rate; and QK + PV flops
+    (row t sees pos + t + 1 keys) against its f32 rate (the decode
+    kernels run on the CUDA cores)."""
+    t = q.shape[1]
+    active = [p for p in pos.tolist() if p >= 0]
+    live = sum(min(p + t, S) for p in active)
     kv_bytes = 2 * live * KV * (D * k.element_size() + _scale_bytes(k))
     io_bytes = 2 * q.numel() * q.element_size() + 4 * len(pos)
     if paged:
-        io_bytes += 4 * sum(-(-(p + 1) // PAGE) for p in pos.tolist()
-                            if p >= 0)
+        io_bytes += 4 * sum(-(-min(p + t, S) // PAGE) for p in active)
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * live * H * D * q.shape[1] / F32_FLOPS * 1e3
+    pairs = sum(min(p + i + 1, S) for p in active for i in range(t))
+    t_ops = 4 * pairs * H * D / F32_FLOPS * 1e3
     return _bound(t_ops, t_bytes, F32_FLOPS)
 
 
@@ -1129,6 +1155,381 @@ def phase_quant_engine(model, params, f32_page_bytes):
     return launches
 
 
+# ------------------------------------------------ 4d: the verify block
+DRAFT_K = 3
+VERIFY_T = DRAFT_K + 1  # query rows per slot of a verify block; G * T = 8
+# every row of the block inside the cache; 253, 1021 and 4093 put the
+# block across the chunk boundaries at 256, 1024 and 4096
+POS_V = [-1, 1000, 4200, S - VERIFY_T]
+POS_V_EDGES = [253, 1021, 4093, S - VERIFY_T]
+
+
+def _rows_alone(label, run, q, pos):
+    """Row t of ``run(q, pos)`` on the T-row block equals, bitwise, ``run``
+    on row t alone at pos + t (under the block's ``active``)."""
+    block = run(q, pos, None)
+    active = (pos >= 0).to(torch.int32)
+    differ = [t for t in range(q.shape[1]) if not torch.equal(
+        block[:, t:t + 1], run(q[:, t:t + 1].contiguous(), pos + t, active))]
+    _log(f"[verify] {label}: rows of the T={q.shape[1]} block equal the "
+         f"T=1 launches at pos + t bitwise: {not differ}")
+    if differ:
+        raise AssertionError(f"{label}: rows {differ} of the block differ "
+                             f"from the one-token launches")
+
+
+def phase_verify_kernels():
+    """#1, #3 and #3q (int8) at T = 4: each row bitwise the T = 1 launch at
+    pos + t, at both position sets and windows 0 and 1024; then #1 and #3
+    timed at T = 4 (the errors against the plain versions at T = 4 are
+    phases 3's and 3q's)."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.ops import (decode_attention_plain,
+                                         paged_decode_attention_plain)
+    from repro_torch.kernels.paged_attention import \
+        paged_decode_attention_cuda
+
+    f32 = torch.float32
+    for positions in (POS_V, POS_V_EDGES):
+        for window in (0, 1024):
+            q, k, v, pos = _inputs(VERIFY_T, f32, f32, positions=positions)
+            _rows_alone(f"decode_attention pos={positions} window={window}",
+                        lambda qq, p, a: decode_attention_cuda(
+                            qq, k, v, p, active=a, window=window), q, pos)
+            q, k, v, table, pos = _paged_inputs(VERIFY_T, f32, f32,
+                                                positions=positions)
+            _rows_alone(f"paged_decode_attention pos={positions} "
+                        f"window={window}",
+                        lambda qq, p, a: paged_decode_attention_cuda(
+                            qq, k, v, table, p, active=a, window=window),
+                        q, pos)
+            q, k, v, ks, vs, table, pos = _quant_paged_inputs(
+                VERIFY_T, "int8", positions=positions)
+            _rows_alone(f"paged_decode_attention int8 pos={positions} "
+                        f"window={window}",
+                        lambda qq, p, a: paged_decode_attention_cuda(
+                            qq, k, v, table, p, active=a, window=window,
+                            k_scale=ks, v_scale=vs), q, pos)
+    torch.cuda.synchronize()
+    rows = []
+    q, k, v, pos = _inputs(VERIFY_T, f32, f32, positions=POS_V)
+    err = _check(f"decode_attention T={VERIFY_T} pos={POS_V}",
+                 decode_attention_cuda(q, k, v, pos),
+                 decode_attention_plain(q, k, v, pos), f32)
+    rows.append(_timed_row(
+        "decode_attention_verify", lambda: decode_attention_cuda(q, k, v, pos),
+        lambda: decode_attention_plain(q, k, v, pos),
+        _time_ms(_library_call(q, k, v, pos)), _bound_ms(q, k, pos),
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:131", err))
+    q, k, v, table, pos = _paged_inputs(VERIFY_T, f32, f32, positions=POS_V)
+    err = _check(f"paged_decode_attention T={VERIFY_T} pos={POS_V}",
+                 paged_decode_attention_cuda(q, k, v, table, pos),
+                 paged_decode_attention_plain(q, k, v, table, pos), f32)
+    rows.append(_timed_row(
+        "paged_decode_attention_verify",
+        lambda: paged_decode_attention_cuda(q, k, v, table, pos),
+        lambda: paged_decode_attention_plain(q, k, v, table, pos),
+        _time_ms(_paged_library_call(q, k, v, table, pos)),
+        _bound_ms(q, k, pos, paged=True),
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:131", err))
+    for row in rows:
+        row["rows_per_slot"] = VERIFY_T
+    return rows
+
+
+def _repeating_prompts(vocab, rng):
+    """Three ~1000-token prompts, each a 64-token pattern repeated (the
+    n-gram drafter finds continuations in them), and a 4200-token random
+    one (the split-K autotuner's prompt of phase 4), with their token
+    budgets."""
+    out = []
+    for n in (1000, 1010, 1020):
+        pattern = rng.integers(0, vocab, size=64).astype(np.int32)
+        out.append((np.tile(pattern, -(-n // 64))[:n], 48))
+    out.append((rng.integers(0, vocab, size=4200).astype(np.int32), 16))
+    return out
+
+
+def _run_engine(model, params, config, requests):
+    """Serve ``requests`` [(prompt, max_new, sampling or None, priority,
+    tenant)] on a fresh engine; returns (engine, {req_id: tokens}, wall
+    seconds, tokens)."""
+    from repro_torch.runtime.serve import (Request, SamplingParams,
+                                           ServeEngine)
+
+    eng = ServeEngine(model, params, config)
+    for i, (prompt, max_new, sp, prio, tenant) in enumerate(requests):
+        eng.submit(Request(i, prompt.copy(), max_new_tokens=max_new,
+                           sampling=sp or SamplingParams(), priority=prio,
+                           tenant=tenant))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    streams = {r.req_id: list(r.output) for r in done}
+    if len(streams) != len(requests) or any(
+            not 0 <= t < model.cfg.vocab_size for o in streams.values()
+            for t in o):
+        raise AssertionError("a request did not finish, or a token is "
+                             "outside the vocabulary")
+    return eng, streams, wall, sum(len(o) for o in streams.values())
+
+
+def _verify_logits(eng, params, label):
+    """The verify block's logits against T sequential one-token steps,
+    bitwise, on the engine's caches, at pos [253, 1000, -1, 4200] (slot 0's
+    block straddles the chunk boundary at 256)."""
+    model = eng.model
+    pos = np.array([253, 1000, -1, 4200], np.int32)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    toks = torch.randint(0, model.cfg.vocab_size, (B, VERIFY_T),
+                         generator=g, device="cuda")
+    extra = {}
+    if eng.kv is not None:
+        table = (torch.randperm(eng.kv.pool.num_pages - 1, generator=g,
+                                device="cuda") + 1)[:B * MAX_PAGES]
+        extra = dict(page_idx=table.reshape(B, MAX_PAGES).to(
+            torch.int32).contiguous(), page_size=PAGE)
+        dec, spec = model.decode_step_paged, model.decode_step_spec_paged
+    else:
+        dec, spec = model.decode_step, model.decode_step_spec
+    seq = torch.stack([dec(params, eng.caches, toks[:, t:t + 1], pos + t,
+                           **extra)[0] for t in range(VERIFY_T)], dim=1)
+    got = spec(params, eng.caches, toks, pos, **extra)[0]
+    live = torch.as_tensor(pos >= 0, device="cuda")
+    same = torch.equal(got[live], seq[live])
+    _log(f"[verify] {label}: decode_step_spec logits (T={VERIFY_T}) equal "
+         f"{VERIFY_T} sequential decode steps bitwise: {same}; finite "
+         f"{bool(torch.isfinite(got).all())}")
+    if not same or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: verify logits differ from "
+                             f"sequential decode")
+
+
+def _spec_pair(model, params, label, cache_kw):
+    """The greedy trace on the plain engine and on the speculative one
+    (draft_k = 3): equal streams, verify launches of the layout's decode
+    kernel only, each at T = 4 once per layer per verify tick; then the
+    verify logits check, and a plain tick against a verify tick, timed and
+    profiled.  Returns the verify launches."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.paged_attention import \
+        paged_decode_attention_cuda
+    from repro_torch.runtime.serve import ServeConfig
+
+    rng = np.random.default_rng(5)
+    reqs = [(p, m, None, 0, "default")
+            for p, m in _repeating_prompts(model.cfg.vocab_size, rng)]
+    base = dict(batch_slots=B, max_len=S, prefill_chunk=CHUNK, **cache_kw)
+    eng, plain, wall_p, toks_p = _run_engine(model, params,
+                                             ServeConfig(**base), reqs)
+    del eng
+    kernels = (decode_attention_cuda, paged_decode_attention_cuda)
+    for kern in kernels:
+        kern.verify_launches = 0
+    eng, spec, wall_s, toks_s = _run_engine(
+        model, params, ServeConfig(draft_k=DRAFT_K, **base), reqs)
+    verify = {k.__name__: k.verify_launches for k in kernels}
+    st = eng.spec_stats()
+    _log(f"[verify] {label}: plain engine {toks_p} tokens in {wall_p:.3f}s "
+         f"= {toks_p / wall_p:.2f} tok/s; speculative (draft_k={DRAFT_K}) "
+         f"{toks_s} tokens in {wall_s:.3f}s = {toks_s / wall_s:.2f} tok/s; "
+         f"acceptance {st['acceptance_rate']:.3f} ({st['accepted']}/"
+         f"{st['proposed']}), {st['tokens_per_tick']:.3f} tokens per verify "
+         f"tick over {st['spec_ticks']} verify ticks; verify launches "
+         f"{verify}; streams equal: {spec == plain}")
+    if spec != plain:
+        raise AssertionError(f"{label}: speculative streams differ from the "
+                             f"plain engine's")
+    want = "paged_decode_attention_cuda" if eng.kv is not None \
+        else "decode_attention_cuda"
+    if st["spec_ticks"] < 1 or verify[want] != \
+            st["spec_ticks"] * model.cfg.num_layers or any(
+                n != want and c for n, c in verify.items()):
+        raise AssertionError(f"{label}: the verify ticks did not run the "
+                             f"{want} kernel at T={VERIFY_T}: {verify}")
+    _verify_logits(eng, params, label)
+    # a plain tick and a verify tick at pos [4300, 300, -1, 4200]
+    pos = np.array([4300, 300, -1, 4200], np.int32)
+    feed = np.tile(np.array([[5], [6], [7], [8]], np.int32), (1, VERIFY_T))
+    extra = () if eng.kv is None else (eng._page_table(),)
+    ticks = {"plain": functools.partial(eng._step, params, eng.caches,
+                                        feed[:, :1], pos, *extra),
+             "verify": functools.partial(eng._spec_step, params, eng.caches,
+                                         feed, pos, *extra)}
+    for name, run in ticks.items():
+        ms = [_time_ms(run, iters=10, warmup=2, queued=False)
+              for _ in range(2)]
+        _log(f"[verify] {label} {name} tick at pos {pos.tolist()}: "
+             f"{', '.join(f'{x:.3f}' for x in ms)} ms (median of 10 each)")
+        _profile_tick(run, f"{label} {name} tick")
+    del eng
+    torch.cuda.empty_cache()
+    return verify[want]
+
+
+def _sampled_checks(model, params):
+    """Seeded sampling at temperature 0.8, top-k 50, top-p 0.9 on the dense
+    cache: the same requests in other slots give the same streams, the
+    speculative engine equals the plain one, top-k 1 and temperature 0
+    equal greedy; and on one logits tensor the card's sampler equals the
+    CPU's (bits and uniforms bitwise, tokens equal)."""
+    from repro_torch.runtime import sampling
+    from repro_torch.runtime.serve import SamplingParams, ServeConfig
+
+    rng = np.random.default_rng(6)
+    prompts = [p[:256] for p, _ in _repeating_prompts(model.cfg.vocab_size,
+                                                      rng)[:3]]
+    sp = [SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=100 + i)
+          for i in range(3)]
+    cfg = dict(batch_slots=B, max_len=S, prefill_chunk=CHUNK)
+    reqs = [(p, 24, s, 0, "default") for p, s in zip(prompts, sp)]
+    _, first, wall, toks = _run_engine(model, params, ServeConfig(**cfg),
+                                       reqs)
+    # other slots: a greedy request first, the sampled ones reversed
+    filler = (prompts[0][:17], 40, None, 0, "default")
+    _, moved, _, _ = _run_engine(model, params, ServeConfig(**cfg),
+                                 [filler] + reqs[::-1])
+    moved = {2 - (i - 1): moved[i] for i in range(1, 4)}
+    _, spec, _, _ = _run_engine(model, params,
+                                ServeConfig(draft_k=DRAFT_K, **cfg), reqs)
+    greedy_reqs = [(p, 24, None, 0, "default") for p in prompts]
+    _, greedy, _, _ = _run_engine(model, params, ServeConfig(**cfg),
+                                  greedy_reqs)
+    topk1 = [(p, 24, SamplingParams(temperature=0.8, top_k=1, seed=7), 0,
+              "default") for p in prompts]
+    _, k1, _, _ = _run_engine(model, params, ServeConfig(**cfg), topk1)
+    # temperature 0 beside a sampled request: every tick is a sampled one
+    temp0 = [(p, 24, SamplingParams(temperature=0.0, top_k=5, top_p=0.5),
+              0, "default") for p in prompts] + [reqs[0]]
+    _, t0, _, _ = _run_engine(model, params, ServeConfig(**cfg), temp0)
+    t0 = {i: t0[i] for i in range(3)}
+    results = {"slots moved": moved == first, "speculative": spec == first,
+               "top_k=1 is greedy": k1 == greedy,
+               "temperature 0 is greedy": t0 == greedy}
+    _log(f"[verify] sampled engine (T=0.8, top-k 50, top-p 0.9): {toks} "
+         f"tokens in {wall:.3f}s; {results}")
+    if not all(results.values()):
+        raise AssertionError(f"sampled engine checks failed: {results}")
+    # the card's sampler against the CPU's on one logits tensor
+    g = torch.Generator(device="cuda").manual_seed(8)
+    logits = torch.randn((B, model.cfg.vocab_size), generator=g,
+                         device="cuda") * 3
+    keys = np.array([s.key_data(0) for s in sp] + [sp[0].key_data(9)])
+    pos = np.array([5, 900, 4200, 0], np.int32)
+    args = (pos, np.full(B, 0.8, np.float32), np.full(B, 50, np.int32),
+            np.full(B, 0.9, np.float32), keys)
+    folded = [sampling.fold_in(sampling.as_key_words(keys, d),
+                               torch.as_tensor(pos, device=d))
+              for d in ("cuda", "cpu")]
+    bits = [sampling.random_bits(f, model.cfg.vocab_size).cpu()
+            for f in folded]
+    unif = [sampling.uniform(f, model.cfg.vocab_size).cpu() for f in folded]
+    tok = [sampling.sample_tokens(x, *args).cpu()
+           for x in (logits, logits.cpu())]
+    same = {"keys": torch.equal(folded[0].cpu(), folded[1]),
+            "bits": torch.equal(*bits),
+            "uniforms": torch.equal(unif[0].view(torch.int32),
+                                    unif[1].view(torch.int32)),
+            "tokens": torch.equal(*tok)}
+    _log(f"[verify] sampler on the card against the CPU's, {B} rows of "
+         f"{model.cfg.vocab_size}: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"the card's sampler differs from the CPU's: "
+                             f"{same}")
+
+
+def _preemption_checks(model, params):
+    """``preempt=True``, ``policy="priority"``: four low-priority requests
+    of tenant "batch" fill the slots, then two high-priority ones of
+    tenant "interactive" arrive and preempt; every stream equals the run
+    without preemption, dense and paged (prefix cache off: no page may
+    stay in use after the drain).  Prints the dense checkpoint's bytes
+    and its copy-out and copy-in times."""
+    from repro_torch.runtime.serve import Request, ServeConfig, ServeEngine
+
+    rng = np.random.default_rng(7)
+    vocab = model.cfg.vocab_size
+    low = [rng.integers(0, vocab, size=n).astype(np.int32)
+           for n in (300, 257, 420, 199)]
+    high = [rng.integers(0, vocab, size=n).astype(np.int32)
+            for n in (64, 90)]
+
+    def serve(config):
+        eng = ServeEngine(model, params, config)
+        for i, p in enumerate(low):
+            eng.submit(Request(i, p.copy(), max_new_tokens=24,
+                               tenant="batch"))
+        eng.step()
+        eng.step()
+        for i, p in enumerate(high):
+            eng.submit(Request(10 + i, p.copy(), max_new_tokens=8,
+                               tenant="interactive", priority=5))
+        done = eng.run()
+        return eng, {r.req_id: (list(r.output), r.preempt_count)
+                     for r in done}
+
+    for label, kw in (("dense", {}),
+                      ("paged", dict(cache="paged", page_size=PAGE,
+                                     prefix_cache=False))):
+        cfg = dict(batch_slots=B, max_len=S, prefill_chunk=CHUNK,
+                   policy="priority", **kw)
+        _, want = serve(ServeConfig(**cfg))
+        eng, got = serve(ServeConfig(preempt=True, **cfg))
+        preempted = [i for i, (_, n) in got.items() if n]
+        same = {i: o for i, (o, _) in got.items()} == \
+            {i: o for i, (o, _) in want.items()}
+        stats = eng.kv.stats() if eng.kv is not None else {}
+        _log(f"[verify] preemption {label}: {eng.scheduler.preempted_total} "
+             f"preemptions, requests preempted {preempted}; streams equal "
+             f"the run without preemption: {same}; kv {stats}")
+        if not (same and preempted):
+            raise AssertionError(f"preemption {label}: no preemption, or a "
+                                 f"resumed stream differs")
+        if eng.kv is not None and (stats["in_use_pages"]
+                                   or eng.kv.page_table.any()):
+            raise AssertionError(f"preemption {label}: pages leaked: "
+                                 f"{stats}")
+        if eng.kv is None:
+            eng._ensure_ckpt_fns()
+            outs, ins = [], []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                snap = eng._copy_out(eng.caches, 0)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                eng._copy_in(eng.caches, snap, 0)
+                torch.cuda.synchronize()
+                outs.append((t1 - t0) * 1e3)
+                ins.append((time.perf_counter() - t1) * 1e3)
+            nbytes = sum(x.numel() * x.element_size()
+                         for x in snap["stack"].values())
+            _log(f"[verify] dense checkpoint of one slot: {nbytes} bytes; "
+                 f"copy-out {', '.join(f'{x:.1f}' for x in outs)} ms, "
+                 f"copy-in {', '.join(f'{x:.1f}' for x in ins)} ms")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def phase_spec_engine(model, params):
+    """Phase 4d on the full-width internlm2: speculative decode (greedy:
+    dense, paged f32, paged int8), sampling and preemption.  Returns the
+    verify launches, keyed as phase 4d's kernel rows."""
+    launches = {
+        "decode_attention_verify": _spec_pair(model, params, "dense", {}),
+        "paged_decode_attention_verify": _spec_pair(
+            model, params, "paged", dict(cache="paged", page_size=PAGE))}
+    _spec_pair(model, params, "paged int8",
+               dict(cache="paged", page_size=PAGE, kv_dtype="int8"))
+    _sampled_checks(model, params)
+    _preemption_checks(model, params)
+    return launches
+
+
 # -------------------------------------------------- whole-sequence kernels
 FS, FB = 4096, 2  # flash attention: internlm2 prefill of 2 x 4096
 SSD = dict(B=2, NC=16, NH=64, G=1, Q=256, HP=64, DS=128)  # mamba2, S=4096
@@ -1577,12 +1978,13 @@ def main():
     name, smi = phase_device()
     phase_build()
     rows = (phase_kernels() + phase_paged_kernels() + phase_quant_kernels()
-            + phase_forward_kernels())
+            + phase_forward_kernels() + phase_verify_kernels())
     model, params = make_model()
     launches = phase_engine(model, params)
     paged, f32_page_bytes = phase_paged_engine(model, params)
     launches.update(paged)
     launches.update(phase_quant_engine(model, params, f32_page_bytes))
+    launches.update(phase_spec_engine(model, params))
     launches["flash_attention"], _ = phase_forward_attention(model, params)
     del model, params
     torch.cuda.empty_cache()

@@ -71,6 +71,15 @@
 //     CTA-wide one per tile.  f32 on the CUDA cores: at G * T = 2 rows per
 //     KV head a tensor-core tile would be 7/8 empty, and the flops do not
 //     bound this kernel.
+//   * Rows that do not depend on T.  The verify block of speculative
+//     decode runs T rows per slot, and row t must be bitwise the T = 1
+//     launch at pos + t.  A key's tile, warp and lanes follow from its
+//     position alone: tiles start at multiples of TK from the chunk's
+//     start, even when the window cuts the chunk's first keys (those rows
+//     are zero-filled, not read).  Keys past a row's position, which the
+//     other rows of the block see, enter that row as e = 0 with alpha = 1:
+//     m, l and acc come out unchanged, bit for bit; so does a chunk that
+//     holds none of the row's keys, which merges as (0, NEG_INF, 0).
 //   * Merges in a fixed order.  At the end of its chunk a CTA merges its
 //     warps in shared memory, in warp order.  A slot whose visible keys lie
 //     in one chunk writes its output there; otherwise each chunk writes its
@@ -260,21 +269,23 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
     const int pg = kpos / ps;
     return make_longlong2(tbl[pg - pg0], kpos - pg * ps);
   };
-  const int ntile = (hi - lo + TK - 1) / TK;
-  // keys [lo + t * TK, + TK) into stage t % CD_STAGES; a warp (f32), a
+  // tiles on the chunk's grid of TK keys (a window moves lo, not the grid)
+  const int lo_t = ck.x + (lo - ck.x) / TK * TK;
+  const int ntile = (hi - lo_t + TK - 1) / TK;
+  // keys [lo_t + t * TK, + TK) into stage t % CD_STAGES; a warp (f32), a
   // half-warp (bf16) or a quarter-warp (int8, fp8) copies one whole key
   // row, and (quantized) thread i < 2 TK the K (i < TK) or V scale of key
-  // i % TK
+  // i % TK; keys outside [lo, hi) are zero-filled
   auto issue = [&](int t) {
     TKV* Ks = ring + (t % CD_STAGES) * 2 * TK * D;
     TKV* Vs = Ks + TK * D;
-    const int k0 = lo + t * TK;
+    const int k0 = lo_t + t * TK;
 #pragma unroll
     for (int i = 0; i < NCP; ++i) {
       const int idx = tid + i * CD_THREADS;
       const int kk = idx / VPR, c = idx - kk * VPR;
       const int kpos = k0 + kk;
-      const bool in = kpos < hi;
+      const bool in = kpos >= lo && kpos < hi;
       long long ko = 0, vo = 0;
       if (in) {
         const longlong2 r = row_of(kpos);
@@ -287,7 +298,7 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
     if (QUANT && tid < 2 * TK) {
       const int kk = tid % TK, isv = tid / TK;
       const int kpos = k0 + kk;
-      const bool in = kpos < hi;
+      const bool in = kpos >= lo && kpos < hi;
       const float* src = isv ? p.vs + j * p.vs_sh + slot * p.vs_s0
                              : p.ks + j * p.ks_sh + slot * p.ks_s0;
       if (in) {
@@ -359,8 +370,9 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
     }
 
     // online softmax over the warp's KPW keys, each row's score held by
-    // the LPK lanes of its key
-    const int kpos = lo + t * TK + key;
+    // the LPK lanes of its key (keys below lo are outside every row's
+    // window, so the window test masks them)
+    const int kpos = lo_t + t * TK + key;
     float pr[MAXR];
 #pragma unroll
     for (int r = 0; r < MAXR; ++r) {

@@ -12,7 +12,9 @@ Model layout in and out: q (B, T, H, D), caches (B, S, KV, D), result
 nothing is transposed or copied.  Each wrapper checks what the kernel
 takes and raises on anything else, allocates its output and scratch with
 ``torch.empty``, launches on the current stream and raises if the launch
-returns a CUDA error.  ``<wrapper>.launches`` counts its kernel launches.
+returns a CUDA error.  ``<wrapper>.launches`` counts its kernel launches;
+``decode_attention_cuda.verify_launches`` counts those of them with T > 1
+(the speculative verify block).
 
 The plain versions live in ``ref.py``; ``ops.decode_attention`` chooses
 between them by the tensors' device.
@@ -227,6 +229,7 @@ def decode_attention_cuda(q, k_cache, v_cache, pos, *, active=None,
                   k_cache, v_cache, pos, active, 1,
                   (b, t, h, kv, s, d, int(window)))
     decode_attention_cuda.launches += 1
+    decode_attention_cuda.verify_launches += int(t > 1)
     return out
 
 
@@ -255,4 +258,5 @@ def decode_attention_splitk_cuda(q, k_cache, v_cache, pos, *, active=None,
 
 
 decode_attention_cuda.launches = 0
+decode_attention_cuda.verify_launches = 0
 decode_attention_splitk_cuda.launches = 0

@@ -11,6 +11,8 @@ them through strides, so no pool is transposed or copied per call.
 """
 from __future__ import annotations
 
+import torch
+
 from . import ref
 from .decode_attention import (decode_attention_cuda,
                                decode_attention_splitk_cuda)
@@ -27,20 +29,37 @@ def _split(q, num_splits):
     return num_splits > 1 and q.shape[1] == 1
 
 
+def _row_by_row(plain, q, pos, active):
+    """A T > 1 block through ``plain(q_t, pos_t, active)`` one row at a
+    time: row t is the one-token call at ``pos + t`` under the block's
+    ``active`` (default ``pos >= 0``), in the one-token call's layout.  So
+    a row does not depend on T, as the kernels' rows do not (the CPU's
+    batched products choose their blocking by the row count)."""
+    t = q.shape[1]
+    if t == 1:
+        return plain(q, pos, active)
+    pos = torch.as_tensor(pos, device=q.device).reshape(-1).long()
+    if active is None:
+        active = pos >= 0
+    return torch.cat([plain(q[:, i:i + 1].contiguous(), pos + i, active)
+                      for i in range(t)], dim=1)
+
+
 def decode_attention_plain(q, k_cache, v_cache, pos, *, active=None,
                            window=0, num_splits=1):
     """The plain versions in model layout, on any device (the CPU path of
     ``decode_attention``; the on-card checks compare the kernels with it).
+    A T > 1 block goes row by row (``_row_by_row``).
     """
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k_cache, v_cache))
+    kt, vt = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
     if _split(q, num_splits):
         out = ref.decode_attention_splitk_ref(
-            qt, kt, vt, pos, active=active, window=window,
+            q.transpose(1, 2), kt, vt, pos, active=active, window=window,
             num_splits=num_splits)
-    else:
-        out = ref.decode_attention_ref(qt, kt, vt, pos, active=active,
-                                       window=window)
-    return out.transpose(1, 2)
+        return out.transpose(1, 2)
+    return _row_by_row(lambda qr, p, a: ref.decode_attention_ref(
+        qr.transpose(1, 2), kt, vt, p, active=a,
+        window=window).transpose(1, 2), q, pos, active)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, active=None, window=0,
@@ -74,23 +93,30 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_idx, pos, *,
     """The paged plain versions in model layout, on any device (the CPU
     path of ``paged_decode_attention``; the on-card checks compare the
     kernels with it).  With ``k_scale``/``v_scale`` the quantized pools
-    are dequantized whole first."""
-    qt, kt, vt, kst, vst = map(_t, (q, k_pages, v_pages, k_scale, v_scale))
-    kw = dict(active=active, window=window)
+    are dequantized whole first.  A T > 1 block goes row by row
+    (``_row_by_row``)."""
+    kt, vt, kst, vst = map(_t, (k_pages, v_pages, k_scale, v_scale))
     if _split(q, num_splits):
-        kw["num_splits"] = num_splits
+        kw = dict(active=active, window=window, num_splits=num_splits)
         if k_scale is None:
-            out = ref.paged_decode_attention_splitk_ref(qt, kt, vt, page_idx,
-                                                        pos, **kw)
+            out = ref.paged_decode_attention_splitk_ref(
+                q.transpose(1, 2), kt, vt, page_idx, pos, **kw)
         else:
             out = ref.paged_decode_attention_splitk_quant_ref(
-                qt, kt, vt, kst, vst, page_idx, pos, **kw)
-    elif k_scale is None:
-        out = ref.paged_decode_attention_ref(qt, kt, vt, page_idx, pos, **kw)
-    else:
-        out = ref.paged_decode_attention_quant_ref(qt, kt, vt, kst, vst,
-                                                   page_idx, pos, **kw)
-    return out.transpose(1, 2)
+                q.transpose(1, 2), kt, vt, kst, vst, page_idx, pos, **kw)
+        return out.transpose(1, 2)
+
+    def one_row(qr, p, a):
+        kw = dict(active=a, window=window)
+        if k_scale is None:
+            out = ref.paged_decode_attention_ref(qr.transpose(1, 2), kt, vt,
+                                                 page_idx, p, **kw)
+        else:
+            out = ref.paged_decode_attention_quant_ref(
+                qr.transpose(1, 2), kt, vt, kst, vst, page_idx, p, **kw)
+        return out.transpose(1, 2)
+
+    return _row_by_row(one_row, q, pos, active)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_idx, pos, *,

@@ -15,7 +15,8 @@ through strides: the kernels dequantize each K/V row as it arrives.  The page ta
 checks what the kernel takes and raises on anything else, allocates its
 output and scratch with ``torch.empty``, launches on the current stream and
 raises if the launch returns a CUDA error.  ``<wrapper>.launches`` counts
-its launches.
+its launches; ``paged_decode_attention_cuda.verify_launches`` those of
+them with T > 1 (the speculative verify block).
 
 The plain versions live in ``ref.py``; ``ops.paged_decode_attention`` and
 ``ops.paged_prefill_attention`` choose between them by the tensors'
@@ -140,6 +141,7 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_idx, pos, *,
     out = _launch_decode("paged_decode_attention", q, k_pages, v_pages,
                          page_idx, pos, active, window, 1, k_scale, v_scale)
     paged_decode_attention_cuda.launches += 1
+    paged_decode_attention_cuda.verify_launches += int(q.shape[1] > 1)
     return out
 
 
@@ -204,5 +206,6 @@ def paged_prefill_attention_cuda(q, k_pages, v_pages, page_row, q_offset, *,
 
 
 paged_decode_attention_cuda.launches = 0
+paged_decode_attention_cuda.verify_launches = 0
 paged_decode_attention_splitk_cuda.launches = 0
 paged_prefill_attention_cuda.launches = 0

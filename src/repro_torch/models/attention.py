@@ -432,6 +432,17 @@ def paged_cache_update_quant(k_pages, v_pages, k_scale, v_scale, k_new,
                                   v_new, index)
 
 
+def paged_cache_update_multi_quant(k_pages, v_pages, k_scale, v_scale,
+                                   k_new, v_new, pos, page_idx, page_size):
+    """Quantized ``paged_cache_update_multi`` (the verify block): the
+    (B,T,KV,D) rows quantized and written, values and scales, at logical
+    ``pos[b] + t``, in place; rows of a parked slot or past the table's
+    span send both to the null page 0."""
+    index = paged_write_index(pos, page_idx, page_size, k_new.shape[1])
+    return write_paged_rows_quant(k_pages, v_pages, k_scale, v_scale, k_new,
+                                  v_new, index)
+
+
 def paged_prefill_chunk_update_quant(k_pages, v_pages, k_scale, v_scale,
                                      k_new, v_new, slot, offset, page_idx,
                                      page_size):

@@ -1,8 +1,9 @@
 """LM: the model wrapper the serving engine and the prefill step drive.
 
 The PyTorch counterpart of ``repro/models/model.py``: the whole-sequence
-forward (``hidden``, ``prefill``, and ``loss`` forward only), decode and
-chunked prefill over dense caches and paged pools.  ``LM`` holds the arch
+forward (``hidden``, ``prefill``, and ``loss`` forward only), decode, the
+speculative verify block and chunked prefill over dense caches and paged
+pools, and the dense checkpoint copies of preemption.  ``LM`` holds the arch
 config, the runtime knobs and the device; its methods are functions of
 explicit params and caches.  Caches are updated in place (the reference
 donates its buffers instead).
@@ -17,9 +18,10 @@ import torch
 
 from .layers import (chunked_ce_loss, embed, embedding_init, rmsnorm,
                      rmsnorm_init, unembed)
-from .transformer import (apply_blocks, apply_blocks_decode,
+from .transformer import (_cat_rows, _row, apply_blocks, apply_blocks_decode,
                           apply_blocks_prefill_chunk, cache_batch_axes,
-                          init_blocks, init_cache, init_cache_paged,
+                          copy_cache_in, copy_cache_out, init_blocks,
+                          init_cache, init_cache_paged,
                           supports_chunked_prefill, supports_paged_cache,
                           supports_speculative)
 
@@ -140,6 +142,21 @@ class LM:
         return logits.float(), caches
 
     # ------------------------------------------------------------- decode
+    def _decode(self, params, caches, tokens, pos, paged=None):
+        """tokens (B,T) at positions pos[b] + t -> (logits (B,T,V) f32,
+        caches).  A verify block (T > 1) takes the final norm and the
+        unembedding row by row, in the one-token tick's shape, as its
+        layers do (``transformer._apply_attn_block_decode``)."""
+        x = embed(params["embed"], self._tokens(tokens))
+        x = x.to(self.knobs.compute_dtype)
+        x, caches = apply_blocks_decode(params["blocks"], x, caches, pos,
+                                        cfg=self.cfg, knobs=self.knobs,
+                                        paged=paged)
+        logits = _cat_rows([unembed(params["embed"],
+                                    rmsnorm(params["final_norm"], _row(x, t)))
+                            for t in range(x.shape[1])])
+        return logits.float(), caches
+
     def decode_step(self, params, caches, tokens, pos):
         """tokens (B,1) -> (logits (B,V) f32, caches updated in place).
 
@@ -147,14 +164,29 @@ class LM:
         per-slot positions; slots parked at pos = -1 are inactive and give
         don't-care logits.
         """
-        x = embed(params["embed"], self._tokens(tokens))
-        x = x.to(self.knobs.compute_dtype)
-        x, caches = apply_blocks_decode(params["blocks"], x, caches,
-                                        pos, cfg=self.cfg,
-                                        knobs=self.knobs)
-        x = rmsnorm(params["final_norm"], x)
-        logits = unembed(params["embed"], x)[:, 0, :]
-        return logits.float(), caches
+        logits, caches = self._decode(params, caches, tokens, pos)
+        return logits[:, 0, :], caches
+
+    def decode_step_spec(self, params, caches, tokens, pos):
+        """The speculative verify block: tokens (B,T), the feed token and
+        up to T-1 drafted continuations at positions ``pos[b] ..
+        pos[b] + T-1`` -> (logits (B,T,V) f32, caches).
+
+        All T K/V rows are written before attention, which is causal
+        within the block, so logits row ``t`` is the next-token
+        distribution given tokens[:, :t+1]: bitwise the logits of the
+        one-token ``decode_step`` at ``pos + t`` after the rows before it.
+        Rejected drafts roll back by position: stale K/V past the accepted
+        position is masked until a later write overwrites it."""
+        return self._decode(params, caches, tokens, pos)
+
+    def decode_step_spec_paged(self, params, caches, tokens, pos, page_idx,
+                               *, page_size: int):
+        """Paged ``decode_step_spec``: the block's K/V land in the pages
+        the slot's table row maps; rows past the table's span write the
+        null page (``attention.paged_cache_update_multi``)."""
+        return self._decode(params, caches, tokens, pos,
+                            (self._page_idx(page_idx), page_size))
 
     def prefill_chunk_step(self, params, caches, tokens, slot, offset):
         """One slot's prompt chunk: tokens (1,C) at positions
@@ -185,14 +217,9 @@ class LM:
         ``b``'s KV prefix lives in pages ``page_idx[b]`` (0 = null page).
         Pass ``page_idx`` as an int32 tensor on the model's device (the
         engine copies its table once per tick); every layer reads it."""
-        x = embed(params["embed"], self._tokens(tokens))
-        x = x.to(self.knobs.compute_dtype)
-        x, caches = apply_blocks_decode(
-            params["blocks"], x, caches, pos, cfg=self.cfg,
-            knobs=self.knobs, paged=(self._page_idx(page_idx), page_size))
-        x = rmsnorm(params["final_norm"], x)
-        logits = unembed(params["embed"], x)[:, 0, :]
-        return logits.float(), caches
+        logits, caches = self._decode(params, caches, tokens, pos,
+                                      (self._page_idx(page_idx), page_size))
+        return logits[:, 0, :], caches
 
     def prefill_chunk_step_paged(self, params, caches, tokens, slot, offset,
                                  page_idx, *, page_size: int):
@@ -212,6 +239,17 @@ class LM:
     def cache_batch_axes(self, max_len: int):
         """Per-leaf batch-axis tree of the dense cache (host-side)."""
         return cache_batch_axes(self.cfg, self.knobs, max_len)
+
+    def copy_cache_out(self, caches, slot, axes, device=None):
+        """A copy of slot ``slot``'s stripe of every dense cache leaf (KV,
+        or SSM state) on ``device`` (default: the caches'): a preemption
+        checkpoint."""
+        return copy_cache_out(caches, slot, axes, device)
+
+    def copy_cache_in(self, caches, snapshot, slot, axes):
+        """Restore a ``copy_cache_out`` snapshot into slot ``slot``, in
+        place."""
+        return copy_cache_in(caches, snapshot, slot, axes)
 
     def init_cache(self, batch: int, max_len: int):
         return init_cache(self.cfg, self.knobs, batch, max_len, self.device)

@@ -174,21 +174,41 @@ def _apply_ssm_block_decode(p, x, cache, *, cfg):
     return x + y
 
 
-def _apply_attn_block_decode(p, x, cache, pos, active, positions, index, *,
-                             cfg, window, knobs, ffn, paged=None):
-    """x (B,T,dm): token ``t`` of slot ``b`` sits at ``positions[b, t] =
-    pos[b] + t`` (pos a (B,) int32 tensor).  All T K/V rows are written to
-    the cache in place at ``index`` (``attn.cache_write_index``, or
+def _cat_rows(rows):
+    return rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
+
+
+def _row(x, t):
+    """Row ``t`` of a (B,T,...) block as a contiguous (B,1,...) tensor, the
+    layout of the one-token tick's; the block itself when T = 1."""
+    return x if x.shape[1] == 1 else x[:, t:t + 1].contiguous()
+
+
+def _apply_attn_block_decode(p, xs, cache, pos, active, index, *, cfg,
+                             window, knobs, ffn, paged=None):
+    """``xs``: the T rows of the block, each (B,1,dm); row ``t`` of slot
+    ``b`` sits at position ``pos[b] + t`` (pos a (B,) int32 tensor).
+    Returns the T rows after the block.
+
+    Each row runs the block's norms, projections and FFN on its own, in
+    the one-token tick's shape (B,1,.), so that its result does not depend
+    on T: matmuls and reductions choose their kernels and their summation
+    order by the row count, and a T-row verify block must give, row by
+    row, the bits of T one-token ticks.  Only the cache write and the
+    attention take the T rows at once: all T K/V rows are written in
+    place at ``index`` (``attn.cache_write_index``, or
     ``attn.paged_write_index`` when paged) before attention, which is
-    causal within the block as well.
+    causal within the block, and whose rows are each the one-token
+    attention at their position.
 
     ``paged = (page_idx, page_size)`` switches the cache from a dense
     per-slot stripe to the shared page pool addressed through each slot's
     page-table row (an int32 tensor on the model's device); the masking is
     the same either way."""
-    h = rmsnorm(p["ln1"], x)
-    q, k_new, v_new = attn.qkv_project(p["attn"], h, positions,
-                                       cfg.rope_theta)
+    qkv = [attn.qkv_project(p["attn"], rmsnorm(p["ln1"], x),
+                            pos[:, None] + t, cfg.rope_theta)
+           for t, x in enumerate(xs)]
+    q, k_new, v_new = (_cat_rows(rows) for rows in zip(*qkv))
     if paged is not None:
         page_idx, _ = paged
         kc, vc, ksc, vsc = _pool(cache)
@@ -206,9 +226,12 @@ def _apply_attn_block_decode(p, x, cache, pos, active, positions, index, *,
         ctx = ops.decode_attention(q, cache["k"], cache["v"], pos,
                                    active=active, window=window,
                                    num_splits=knobs.decode_splits)
-    x = x + attn.attn_output(p["attn"], ctx)
-    h2 = rmsnorm(p["ln2"], x)
-    return x + _ffn_out(p, h2, ffn, cfg=cfg)
+    out = []
+    for t, x in enumerate(xs):
+        x = x + attn.attn_output(p["attn"], _row(ctx, t))
+        h2 = rmsnorm(p["ln2"], x)
+        out.append(x + _ffn_out(p, h2, ffn, cfg=cfg))
+    return out
 
 
 def _apply_attn_block_prefill_chunk(p, x, cache, slot, offset, *, cfg,
@@ -280,8 +303,11 @@ def apply_blocks(blocks, x, positions, *, cfg, knobs, mode: str):
 
 # ============================================================ decode apply
 def apply_blocks_decode(blocks, x, caches, pos, *, cfg, knobs, paged=None):
-    """Decode every layer; ``pos`` scalar or (B,).  Caches are updated in
-    place and returned.  ``paged = (page_idx, page_size)`` takes the page
+    """Decode every layer; ``pos`` scalar or (B,).  x (B,T,dm): T = 1 is
+    the one-token tick, T > 1 a verify block (attention plans only), whose
+    rows each go through the layers in the one-token tick's shape
+    (``_apply_attn_block_decode``).  Caches are updated in place.  Returns
+    (x (B,T,dm), caches); ``paged = (page_idx, page_size)`` takes the page
     pools (one table serves every layer).  SSM layers advance one token
     at a time and ignore ``pos``."""
     plan = _ported_plan(cfg)
@@ -310,13 +336,13 @@ def apply_blocks_decode(blocks, x, caches, pos, *, cfg, knobs, paged=None):
     pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(b)
     pos = pos.to(torch.int32).contiguous()
     active = (pos >= 0).to(torch.int32)
-    positions = pos[:, None] + torch.arange(t, device=x.device)[None, :]
+    xs = [_row(x, i) for i in range(t)]
     for i in range(plan.n_layers):
-        x = _apply_attn_block_decode(
-            _index_tree(stack, i), x, _index_tree(cstack, i), pos, active,
-            positions, index, cfg=cfg, window=plan.inner_window,
-            knobs=knobs, ffn=ffn, paged=paged)
-    return x, caches
+        xs = _apply_attn_block_decode(
+            _index_tree(stack, i), xs, _index_tree(cstack, i), pos, active,
+            index, cfg=cfg, window=plan.inner_window, knobs=knobs, ffn=ffn,
+            paged=paged)
+    return _cat_rows(xs), caches
 
 
 def supports_chunked_prefill(cfg) -> bool:
@@ -395,6 +421,29 @@ def cache_batch_axes(cfg, knobs, max_len: int):
         return axis(a, b)
 
     return walk(s1, s2)
+
+
+def copy_cache_out(caches, slot, axes, device=None):
+    """A copy of slot ``slot``'s stripe of every dense cache leaf (the
+    size-1 batch dim kept) on ``device`` (default: the caches'): a
+    preemption checkpoint.  ``axes`` is the ``cache_batch_axes`` tree."""
+    if isinstance(caches, dict):
+        return {k: copy_cache_out(caches[k], slot, axes[k], device)
+                for k in caches}
+    return caches.narrow(axes, int(slot), 1).to(device or caches.device,
+                                                copy=True)
+
+
+def copy_cache_in(caches, snapshot, slot, axes):
+    """Write a ``copy_cache_out`` snapshot (on any device) back into slot
+    ``slot`` of every leaf, in place.  The whole stripe is rewritten, so
+    the slot's previous occupant leaves nothing behind."""
+    if isinstance(caches, dict):
+        for k in caches:
+            copy_cache_in(caches[k], snapshot[k], slot, axes[k])
+    else:
+        caches.narrow(axes, int(slot), 1).copy_(snapshot)
+    return caches
 
 
 def init_cache_paged(cfg, knobs, num_pages: int, page_size: int,

@@ -1,5 +1,5 @@
 """Policy-driven serving front-end over the batched decode loop (dense
-cache or paged pool, greedy).
+cache or paged pool; greedy or sampled; speculative decode; preemption).
 
 The PyTorch counterpart of ``repro/runtime/serve.py``.  ``ServeEngine``
 admits requests through the copied ``Scheduler`` (fcfs / priority / sjf /
@@ -38,9 +38,35 @@ engine rebuilds the model with ``RuntimeKnobs.kv_quant`` set, and the
 paged kernels read the quantized pools directly.  Shared prefix pages
 share their scales, which the same page ids index.
 
+Sampling: a request's ``SamplingParams`` land in per-slot arrays
+(``samp_temp``, ``samp_topk``, ``samp_topp``, ``samp_keys``); a tick in
+which some live slot samples takes the sampled step, whose greedy rows
+stay the bitwise argmax, and an all-greedy tick pays no sampling math.
+Each draw folds the token's absolute position into the request's key, so
+a seeded request decodes the same tokens in any slot, in wave mode (which
+samples from the wave logits) and under speculation or preemption.
+
+Speculative decode (``draft_k > 0``, continuous mode, attention plans):
+each tick a host-side drafter (``runtime/draft.py``) proposes up to
+``draft_k`` tokens per slot, one verify step scores the feed token and
+the drafts at T = draft_k + 1 positions per slot (the chunked decode
+kernel at T rows, dense or paged), and the engine emits the longest
+confirmed prefix plus the correction token.  The verify block's rows are
+bitwise one-token ticks (``transformer._apply_attn_block_decode``), so
+the streams equal the plain engine's.  Rejected drafts roll back by
+position.  On the card G * (draft_k + 1) query rows per KV head must fit
+the decode kernels' ``MAX_ROWS``; the engine checks this at
+construction.
+
+Preemption (``preempt=True``, continuous mode): the scheduler may evict a
+running request when a swap strictly improves weighted-DRF fairness; the
+engine checkpoints the slot (paged: the detached page chain, zero-copy;
+dense: a host copy of the slot's cache stripe) and later resumes the
+request in any free slot at its position without re-running prefill.
+
 Not in this slice (the fields exist and raise ``NotImplementedError``
-when set): ``draft_k``, ``preempt``, ``role`` other than "unified",
-``mesh_shape``; requests with ``temperature > 0``.
+when set): ``role`` other than "unified", ``mesh_shape``; and
+``release()`` (the disaggregated handoff).
 """
 from __future__ import annotations
 
@@ -54,15 +80,19 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.decode_attention import MAX_ROWS
+from repro_torch.runtime.draft import get_drafter
 from repro_torch.runtime.kv_pool import KVCacheManager
-from repro_torch.runtime.sampling import SamplingParams, matches_stop
+from repro_torch.runtime.sampling import (SamplingParams, matches_stop,
+                                          sample_tokens, speculative_accept)
 from repro_torch.runtime.scheduler import Scheduler
 from repro_torch.runtime.steps import (compiled_step, pick_decode_splits,
                                        step_cache_stats)
 from repro_torch.runtime.telemetry import Telemetry
 
-__all__ = ["Request", "RequestHandle", "RequestState", "SamplingParams",
-           "ServeConfig", "ServeEngine", "ServeStalled", "request_metrics"]
+__all__ = ["Checkpoint", "Request", "RequestHandle", "RequestState",
+           "SamplingParams", "ServeConfig", "ServeEngine", "ServeStalled",
+           "request_metrics"]
 
 
 def request_metrics(req: "Request") -> dict:
@@ -78,6 +108,20 @@ def request_metrics(req: "Request") -> dict:
     return out
 
 
+def _ckpt_fns(model, max_len: int):
+    """(copy_out, copy_in) of a dense checkpoint: one slot's stripe of
+    every cache leaf to a host copy, and back in place."""
+    axes = model.cache_batch_axes(max_len)
+
+    def copy_out(caches, slot):
+        return model.copy_cache_out(caches, slot, axes, device="cpu")
+
+    def copy_in(caches, snap, slot):
+        return model.copy_cache_in(caches, snap, slot, axes)
+
+    return copy_out, copy_in
+
+
 class ServeStalled(RuntimeError):
     """``run()`` exhausted its tick budget with requests undrained, or a
     streaming handle stopped making progress."""
@@ -89,6 +133,18 @@ class RequestState(enum.Enum):
     DECODE = "decode"
     PREEMPTED = "preempted"
     FINISHED = "finished"
+
+
+@dataclass
+class Checkpoint:
+    """A preempted request's resume point.  ``pages`` (paged cache) is
+    the detached page chain -- the K/V never left the card; ``kv`` (dense)
+    is the host copy of the slot's cache stripe."""
+
+    pos: int  # decode position to resume at
+    last_token: int  # the token to feed at ``pos``
+    pages: Optional[list] = None
+    kv: object = None
 
 
 @dataclass
@@ -190,16 +246,40 @@ class ServeConfig:
 
 
 def _check_ported(config: ServeConfig) -> None:
-    unported = {"draft_k > 0": config.draft_k > 0,
-                "preempt": config.preempt,
-                "role != 'unified'": config.role != "unified",
+    unported = {"role != 'unified'": config.role != "unified",
                 "mesh_shape": config.mesh_shape is not None}
     asked = [name for name, on in unported.items() if on]
     if asked:
         raise NotImplementedError(
             f"ServeConfig {', '.join(asked)}: not ported yet (the port "
-            f"serves greedy requests from the dense cache or the paged pool; "
-            f"see ROADMAP.md)")
+            f"serves one unsharded engine; see ROADMAP.md)")
+
+
+def _check_speculative(config: ServeConfig, model) -> None:
+    """The reference's checks of ``draft_k``, and on the card the decode
+    kernels' limit: G * (draft_k + 1) query rows per KV head."""
+    if config.draft_k < 0:
+        raise ValueError(f"draft_k must be >= 0: {config.draft_k}")
+    if not config.draft_k:
+        return
+    if config.mode != "continuous":
+        raise ValueError("speculative decode (draft_k > 0) requires "
+                         "mode='continuous'")
+    if not model.supports_speculative():
+        raise ValueError(
+            f"speculative decode unsupported for "
+            f"family={model.cfg.family!r} (SSM state advances one "
+            f"token at a time)")
+    if config.draft_k + 1 >= config.max_len:
+        raise ValueError(f"draft_k {config.draft_k} too deep for "
+                         f"max_len {config.max_len}")
+    rows = model.cfg.num_heads // model.cfg.num_kv_heads \
+        * (config.draft_k + 1)
+    if model.device.type == "cuda" and rows > MAX_ROWS:
+        raise ValueError(
+            f"draft_k {config.draft_k}: the verify block has G * "
+            f"(draft_k + 1) = {rows} query rows per KV head, past the "
+            f"decode kernels' MAX_ROWS = {MAX_ROWS}")
 
 
 class ServeEngine:
@@ -213,6 +293,10 @@ class ServeEngine:
         if config.on_stall not in ("raise", "warn"):
             raise ValueError(f"unknown on_stall {config.on_stall!r}")
         _check_ported(config)
+        if config.preempt and config.mode != "continuous":
+            raise ValueError("preempt=True requires mode='continuous' "
+                             "(wave slots drain in lockstep)")
+        _check_speculative(config, model)
         if config.kv_dtype:
             if config.cache != "paged":
                 raise ValueError("kv_dtype requires cache='paged' (dense "
@@ -237,15 +321,24 @@ class ServeEngine:
         self.active: list[Optional[Request]] = [None] * batch_slots
         self.pos = np.full(batch_slots, -1, dtype=np.int32)
         self.tokens = np.zeros((batch_slots, 1), dtype=np.int32)
+        # per-slot sampling arrays: one step serves any mix of greedy
+        # (temp 0) and sampled requests
+        self.samp_temp = np.zeros(batch_slots, np.float32)
+        self.samp_topk = np.zeros(batch_slots, np.int32)
+        self.samp_topp = np.ones(batch_slots, np.float32)
+        self.samp_keys = np.zeros((batch_slots, 2), np.uint32)
         self._finished: list[Request] = []
         self._admit_emitted = 0  # tokens emitted by chunked prefill
         self._decode_one = compiled_step(model, "decode_one")
+        # checkpoint/restore (dense): built on first preemption
+        self._copy_out = self._copy_in = None
         self.kv: Optional[KVCacheManager] = None
         if config.cache == "paged":
             self._init_paged(config)
         else:
             self.caches = model.init_cache(batch_slots, max_len)
             self._step = compiled_step(model, "serve")
+            self._step_sampled = compiled_step(model, "serve", sampled=True)
             # chunked prefill: one (1, C) step reused for every slot and
             # offset; C rounded down to a divisor of max_len so padded
             # chunk writes never clamp
@@ -258,10 +351,31 @@ class ServeEngine:
             self.prefill_chunk = c
             if self.chunked:
                 self._prefill = compiled_step(model, "prefill_chunk")
+                self._prefill_sampled = compiled_step(
+                    model, "prefill_chunk", sampled=True)
+        # speculative decode: one verify step of width T = k + 1 per
+        # (cache layout, sampled) variant; the drafter is pure host
+        self.draft_k = config.draft_k
+        if self.draft_k:
+            self.drafter = get_drafter(config.drafter)
+            spec_kind = ("paged_spec_serve" if config.cache == "paged"
+                         else "spec_serve")
+            spec_ps = config.page_size if config.cache == "paged" else 0
+            self._spec_step = compiled_step(
+                model, spec_kind, page_size=spec_ps, draft_len=self.draft_k)
+            self._spec_step_sampled = compiled_step(
+                model, spec_kind, page_size=spec_ps, draft_len=self.draft_k,
+                sampled=True)
+            # acceptance telemetry: proposed/accepted draft tokens and
+            # the tokens each verify tick emitted
+            self.spec_proposed = 0
+            self.spec_accepted = 0
+            self.spec_emitted = 0
+            self.spec_ticks = 0
         self.scheduler = Scheduler(config.policy, slots=batch_slots,
                                    max_len=max_len, kv=self.kv,
                                    weights=config.tenant_weights,
-                                   preempt=False,
+                                   preempt=config.preempt,
                                    victim=config.victim_policy)
         # split-K autotune: pick the fan-out per tick from (max(pos), live
         # slots) whatever the device
@@ -306,8 +420,13 @@ class ServeEngine:
                                                   page_size)
         self._step = compiled_step(self.model, "paged_serve",
                                    page_size=page_size)
+        self._step_sampled = compiled_step(self.model, "paged_serve",
+                                           page_size=page_size, sampled=True)
         self._prefill = compiled_step(self.model, "paged_prefill_chunk",
                                       page_size=page_size)
+        self._prefill_sampled = compiled_step(
+            self.model, "paged_prefill_chunk", page_size=page_size,
+            sampled=True)
 
     @staticmethod
     def _make_slot_reset(model, max_len):
@@ -368,6 +487,16 @@ class ServeEngine:
         reg.gauge("engine_queue_depth", "requests awaiting admission",
                   ("replica",)).labels(**lbl).set_function(
             lambda: len(self.scheduler.queue))
+        if self.draft_k:
+            # function-backed: the spec tick bumps plain attributes; the
+            # registry reads them at export time
+            for name, attr in (("engine_spec_proposed", "spec_proposed"),
+                               ("engine_spec_accepted", "spec_accepted"),
+                               ("engine_spec_emitted", "spec_emitted"),
+                               ("engine_spec_ticks", "spec_ticks")):
+                reg.gauge(name, f"speculative decode: {attr}",
+                          ("replica",)).labels(**lbl).set_function(
+                    lambda a=attr: getattr(self, a))
         self.scheduler.bind_metrics(reg, self.replica)
         if self.kv is not None:
             self.kv.bind_metrics(reg, self.replica)
@@ -386,10 +515,13 @@ class ServeEngine:
         tr = self.tm.trace
         if not tr.enabled:
             return
-        tr.counter(self.replica, "engine", {
-            "live_slots": sum(r is not None for r in self.active),
-            "queue_depth": len(self.scheduler.queue),
-            "step_cache_hits": step_cache_stats()["hits"]})
+        vals = {"live_slots": sum(r is not None for r in self.active),
+                "queue_depth": len(self.scheduler.queue)}
+        if self.draft_k:
+            vals["spec_proposed"] = self.spec_proposed
+            vals["spec_accepted"] = self.spec_accepted
+        vals["step_cache_hits"] = step_cache_stats()["hits"]
+        tr.counter(self.replica, "engine", vals)
 
     @property
     def queue(self) -> deque:
@@ -408,10 +540,6 @@ class ServeEngine:
                 f"(prompt {len(req.prompt)} + max_new {req.max_new_tokens} "
                 f"vs {self.kv.pool.capacity} pages of "
                 f"{self.kv.page_size})")
-        if not req.sampling.greedy:
-            raise NotImplementedError(
-                "sampled decoding (temperature > 0) is not ported yet; the "
-                "port serves greedy requests (see ROADMAP.md)")
         self._set_state(req, RequestState.QUEUED, tenant=req.tenant)
         req.t_submit = time.perf_counter()
         self._m_submitted.inc()
@@ -425,9 +553,22 @@ class ServeEngine:
         req.output.append(tok)
 
     def _clear_slot(self, s: int):
+        """Park slot ``s``: no occupant, pos -1, sampling state neutral
+        (finish and preemption both come through here)."""
         self.active[s] = None
         self.pos[s] = -1
         self.tokens[s, 0] = 0
+        self.samp_temp[s] = 0.0
+        self.samp_topk[s] = 0
+        self.samp_topp[s] = 1.0
+        self.samp_keys[s] = 0
+
+    def _set_sampling(self, s: int, req: Request):
+        sp = req.sampling
+        self.samp_temp[s] = sp.temperature
+        self.samp_topk[s] = sp.top_k
+        self.samp_topp[s] = sp.top_p
+        self.samp_keys[s] = sp.key_data(req.req_id)
 
     def _finish(self, s: int, reason: str):
         req = self.active[s]
@@ -445,11 +586,68 @@ class ServeEngine:
         self.scheduler.on_finish(req)
         self._finished.append(req)
 
+    # ----------------------------------------------------------- preempt
+    def _ensure_ckpt_fns(self):
+        """The dense checkpoint's copy pair, built on first preemption."""
+        if self._copy_out is None:
+            self._copy_out, self._copy_in = _ckpt_fns(self.model,
+                                                      self.max_len)
+
+    def _execute_preemption(self, pre):
+        """Executor half of preemption: capture the slot's device state
+        into the request's checkpoint and park the slot.  The scheduler
+        already did the host half (page detach, DRF credit, requeue);
+        this runs before any admission reuses the slot."""
+        s, req = pre.slot, pre.req
+        if self.kv is not None:
+            kv_snap = None  # zero-copy: the detached page chain IS the KV
+        else:
+            self._ensure_ckpt_fns()
+            kv_snap = self._copy_out(self.caches, s)
+        req._ckpt = Checkpoint(pos=int(self.pos[s]),
+                               last_token=int(self.tokens[s, 0]),
+                               pages=getattr(req, "_ckpt_pages", None),
+                               kv=kv_snap)
+        self._set_state(req, RequestState.PREEMPTED, pos=req._ckpt.pos,
+                        count=req.preempt_count + 1)
+        req.preempt_count += 1
+        self._clear_slot(s)
+
+    def _execute_resume(self, s: int, req: Request):
+        """Restore a checkpointed request into slot ``s`` at ``pos =
+        checkpoint``, no prefill re-run.  Paged: the scheduler remapped
+        the page-table row (attach_slot).  Dense: the host copy of the
+        stripe is written back whole, so the previous occupant leaves
+        nothing behind."""
+        ck = req._ckpt
+        if self.kv is None:
+            self._ensure_ckpt_fns()
+            self.caches = self._copy_in(self.caches, ck.kv, s)
+        self.pos[s] = ck.pos
+        self.tokens[s, 0] = ck.last_token
+        req._feed = deque()  # type: ignore
+        req._ckpt = None
+        req._ckpt_pages = None
+        req._preempted = False
+        req._handoff_kv = 0  # adopted chain now charged via _drf_charged
+        self._set_state(req, RequestState.DECODE, resume=True,
+                        pos=int(self.pos[s]))
+
+    def release(self, req: Request):
+        """The disaggregated handoff's checkpoint: not ported yet."""
+        raise NotImplementedError(
+            "release() (the disaggregated prefill/decode handoff) is not "
+            "ported yet (see ROADMAP.md)")
+
     def _execute_admission(self, adm):
-        """Apply one scheduler decision: chunked prefill, or token-feed
-        setup when chunking is off."""
+        """Apply one scheduler decision: checkpoint restore, chunked
+        prefill, or token-feed setup when chunking is off."""
         s, req = adm.slot, adm.req
         self.active[s] = req
+        self._set_sampling(s, req)
+        if adm.resume:
+            self._execute_resume(s, req)
+            return
         self._set_state(req, RequestState.PREFILL, slot=s)
         if self._needs_reset:
             self.caches = self._reset(self.caches, s)
@@ -469,18 +667,24 @@ class ServeEngine:
 
     def _admit_continuous(self):
         """Decide/execute rounds until the scheduler has nothing to admit
-        (a prefilled request can finish at once and free its slot)."""
+        (a prefilled request can finish at once and free its slot).
+        Preemptions execute first: a slot is checkpointed before its next
+        occupant prefills."""
         while True:
             plan = self.scheduler.decide(self.active)
             if not plan:
                 return
+            for pre in plan.preemptions:
+                self._execute_preemption(pre)
             for adm in plan.admissions:
                 self._execute_admission(adm)
 
     def _prefill_slot(self, s: int, req: Request, start: int = 0):
         """Run prompt tokens [start, prompt_len) through the stack in
-        (1, C) chunks, writing the slot's KV in place; the greedy token of
-        the last real prompt token seeds decode at pos = prompt_len.
+        (1, C) chunks, writing the slot's KV in place; the token drawn from
+        the last real prompt token's logits (greedy or sampled, per the
+        request) seeds decode at pos = prompt_len.  A sampled request's
+        earlier chunks take the greedy step (their tokens are not read).
 
         ``start`` (paged, a multiple of C and <= prompt_len - 1) is where
         the prefix cache left off; the paged step also takes the page
@@ -494,12 +698,20 @@ class ServeEngine:
         padded[:p - start] = prompt[start:]
         req._feed = deque()  # type: ignore
         extra = () if self.kv is None else (self._page_table(),)
+        sp = req.sampling
+        last_row = (p - start - 1) - (n_chunks - 1) * c
         nxt = None
         for ci in range(n_chunks):
-            nxt, self.caches = self._prefill(
-                self.params, self.caches, padded[None, ci * c:(ci + 1) * c],
-                s, start + ci * c, *extra)
-        tok = int(nxt[(p - start - 1) - (n_chunks - 1) * c])
+            args = (self.params, self.caches,
+                    padded[None, ci * c:(ci + 1) * c], s, start + ci * c,
+                    *extra)
+            if ci == n_chunks - 1 and not sp.greedy:
+                nxt, self.caches = self._prefill_sampled(
+                    *args, last_row, sp.temperature, sp.top_k, sp.top_p,
+                    sp.key_data(req.req_id))
+            else:
+                nxt, self.caches = self._prefill(*args)
+        tok = int(nxt if not sp.greedy else nxt[last_row])
         self.pos[s] = p
         self.tokens[s, 0] = tok
         self._emit(req, tok)
@@ -532,6 +744,7 @@ class ServeEngine:
         for adm in self.scheduler.decide(self.active).admissions:
             s, req = adm.slot, adm.req
             self.active[s] = req
+            self._set_sampling(s, req)
             self._set_state(req, RequestState.PREFILL, slot=s)
             req._feed = deque(req.prompt.tolist())  # type: ignore
             self.tokens[s, 0] = req._feed.popleft()
@@ -553,24 +766,43 @@ class ServeEngine:
         live = sum(r is not None for r in self.active)
         if not live:
             return emitted
+        if self.draft_k:
+            return self._decode_tick_spec(emitted, live)
         return self._decode_tick_plain(emitted, live)
 
-    def _decode_tick_plain(self, emitted: int, live: int) -> int:
-        """One single-token decode step for every slot."""
-        step, extra = self._step, ()
-        page_size = 0 if self.kv is None else self.kv.page_size
+    def _samp_arrays(self) -> tuple:
+        """The per-slot sampling arrays when a live slot samples (finished
+        slots reset their temperature to 0), else ()."""
+        if not self.samp_temp.max() > 0:
+            return ()
+        return (self.samp_temp, self.samp_topk, self.samp_topp,
+                self.samp_keys)
+
+    def _step_for_splits(self, splits: int, sampled: bool):
+        """The decode step at a split-K fan-out, for this engine's cache
+        layout, from the shared step cache."""
+        if splits <= 1:
+            return self._step_sampled if sampled else self._step
         if self.kv is not None:
-            extra = (self._page_table(),)
+            return compiled_step(self.model, "paged_serve", sampled=sampled,
+                                 page_size=self.kv.page_size,
+                                 decode_splits=splits)
+        return compiled_step(self.model, "serve", sampled=sampled,
+                             decode_splits=splits)
+
+    def _decode_tick_plain(self, emitted: int, live: int) -> int:
+        """One single-token decode step for every slot (also what a
+        speculative engine runs on a tick where no slot drafted)."""
+        samp = self._samp_arrays()
+        step = self._step_sampled if samp else self._step
+        extra = () if self.kv is None else (self._page_table(),)
         if self._autotune:
-            splits = pick_decode_splits(int(self.pos.max()), live,
-                                        max_len=self.max_len,
-                                        page_size=page_size)
-            if splits > 1:
-                step = compiled_step(
-                    self.model, "paged_serve" if page_size else "serve",
-                    page_size=page_size, decode_splits=splits)
+            step = self._step_for_splits(pick_decode_splits(
+                int(self.pos.max()), live, max_len=self.max_len,
+                page_size=0 if self.kv is None else self.kv.page_size),
+                bool(samp))
         nxt_dev, self.caches = step(self.params, self.caches, self.tokens,
-                                    self.pos, *extra)
+                                    self.pos, *extra, *samp)
         nxt = nxt_dev.cpu().numpy()
         for s, req in enumerate(self.active):
             if req is None:
@@ -589,6 +821,113 @@ class ServeEngine:
             self._maybe_stop(s)
         return emitted
 
+    # ------------------------------------------------------- speculative
+    def _draft_cap(self, s: int, req: Request) -> int:
+        """Deepest draft slot ``s`` may carry this tick: ``draft_k``; the
+        request's remaining budget minus one (the tick emits at least the
+        correction token); the ``max_len`` window (after accepting
+        everything, pos stays <= max_len - 1); and (paged) the slot's
+        mapped page span, so that an off-by-one can reject a draft but
+        never write an unheld page."""
+        cap = min(self.draft_k,
+                  req.max_new_tokens - len(req.output) - 1,
+                  self.max_len - 2 - int(self.pos[s]))
+        if self.kv is not None:
+            cap = min(cap, self.kv.slot_span(s) - 1 - int(self.pos[s]))
+        return max(cap, 0)
+
+    def _decode_tick_spec(self, emitted: int, live: int) -> int:
+        """One speculative tick: draft per slot (host), verify every draft
+        in one T-row step (device), accept the longest confirmed prefix
+        plus the correction token (host).
+
+        The emission loop replays the plain tick's order per token --
+        advance pos, emit, stop-check -- so eos/stop/length fire at the
+        token they would in sequential decode and accepted tokens past a
+        stop are dropped.  A tick where no slot drafted takes the plain
+        one-token step (bitwise a draft-less verify, at a T-th of the
+        work); ``spec_ticks`` counts only the verify dispatches."""
+        t_width = self.draft_k + 1
+        feed = np.zeros((self.slots, t_width), np.int32)
+        feed[:, 0] = self.tokens[:, 0]
+        draft_len = np.zeros(self.slots, np.int32)
+        for s, req in enumerate(self.active):
+            if req is None or getattr(req, "_feed", None):
+                continue  # parked / token-feeding slots carry no draft
+            cap = self._draft_cap(s, req)
+            if cap <= 0:
+                continue
+            # hand the drafter only its lookback window
+            lb = getattr(self.drafter, "lookback", 0)
+            out = req.output
+            if lb and len(out) >= lb:
+                ctx = np.asarray(out[-lb:], np.int32)
+            else:
+                head = (req.prompt[max(len(req.prompt) + len(out) - lb, 0):]
+                        if lb else req.prompt)
+                ctx = np.concatenate([np.asarray(head, np.int32),
+                                      np.asarray(out, np.int32)])
+            d = self.drafter.propose(ctx, cap)
+            if len(d):
+                feed[s, 1:1 + len(d)] = d
+                draft_len[s] = len(d)
+        if not draft_len.any():
+            return self._decode_tick_plain(emitted, live)
+        samp = self._samp_arrays()
+        step = self._spec_step_sampled if samp else self._spec_step
+        extra = () if self.kv is None else (self._page_table(),)
+        target_dev, self.caches = step(self.params, self.caches, feed,
+                                       self.pos, *extra, *samp)
+        target = target_dev.cpu().numpy()  # (B, T) verified tokens
+        self.spec_ticks += 1
+        for s, req in enumerate(self.active):
+            if req is None:
+                continue
+            fq = getattr(req, "_feed")
+            if fq:  # still consuming the prompt (token-feed path)
+                self.pos[s] += 1
+                self.tokens[s, 0] = fq.popleft()
+                continue
+            if req.state is RequestState.PREFILL:  # token-feed path done
+                self._set_state(req, RequestState.DECODE)
+            k_s = int(draft_len[s])
+            m = (speculative_accept(feed[s, 1:1 + k_s], target[s, :k_s])
+                 if k_s else 0)
+            self.spec_proposed += k_s
+            self.spec_accepted += m
+            for t in range(m + 1):
+                self.pos[s] += 1
+                tok = int(target[s, t])
+                self._emit(req, tok)
+                emitted += 1
+                self.spec_emitted += 1
+                self.tokens[s, 0] = tok
+                if self._maybe_stop(s):
+                    break  # accepted tokens past a stop are dropped
+        return emitted
+
+    def spec_stats(self) -> dict:
+        """Speculative-decode telemetry from the ``engine_spec_*`` gauges:
+        the draft acceptance rate and the tokens emitted per verify tick
+        (1.0 = plain decode)."""
+        if not self.draft_k:
+            return {"draft_k": 0}
+        v = self.tm.registry.value
+        lbl = {"replica": str(self.replica)}
+        proposed = int(v("engine_spec_proposed", **lbl))
+        accepted = int(v("engine_spec_accepted", **lbl))
+        emitted = int(v("engine_spec_emitted", **lbl))
+        ticks = int(v("engine_spec_ticks", **lbl))
+        return {
+            "draft_k": self.draft_k,
+            "drafter": self.config.drafter,
+            "proposed": proposed,
+            "accepted": accepted,
+            "acceptance_rate": accepted / max(proposed, 1),
+            "spec_ticks": ticks,
+            "tokens_per_tick": emitted / max(ticks, 1),
+        }
+
     def _step_wave(self) -> int:
         self._admit_wave()
         if not any(r is not None for r in self.active):
@@ -596,7 +935,16 @@ class ServeEngine:
         pos = int(self.pos.max())  # lockstep position (wave batching)
         logits, self.caches = self._decode_one(self.params, self.caches,
                                                self.tokens, pos)
-        nxt = logits.argmax(dim=-1).to("cpu").numpy().astype(np.int32)
+        samp = self._samp_arrays()
+        if samp:
+            # sampled wave mode: draw from the wave logits.  A slot's
+            # absolute position IS the wave position, so the fold is the
+            # continuous step's and a seed gives the same trajectory;
+            # greedy rows stay the argmax inside sample_tokens
+            nxt = sample_tokens(logits, self.pos, *samp)
+        else:
+            nxt = logits.argmax(dim=-1)
+        nxt = nxt.to("cpu").numpy().astype(np.int32)
         emitted = 0
         for s, req in enumerate(self.active):
             if req is None:

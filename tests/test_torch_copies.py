@@ -14,7 +14,7 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 COPIES = sorted(
     [f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob("*.py")]
     + ["core/hw.py", "core/resources.py", "core/drf.py",
-       "runtime/kv_pool.py", "runtime/scheduler.py",
+       "runtime/draft.py", "runtime/kv_pool.py", "runtime/scheduler.py",
        "runtime/telemetry.py"])
 
 

@@ -125,9 +125,9 @@ def test_engine_api_edges():
         eng.submit(Request(0, np.zeros(0, np.int32)))
     with pytest.raises(ValueError):
         eng.submit(Request(1, np.zeros(16, np.int32)))
-    with pytest.raises(NotImplementedError, match="temperature"):
-        eng.submit(Request(2, np.ones(3, np.int32),
-                           sampling=SamplingParams(temperature=0.7)))
+    sampled = eng.submit(Request(2, np.ones(3, np.int32), max_new_tokens=3,
+                                 sampling=SamplingParams(temperature=0.7)))
+    assert len(sampled.result().output) == 3  # sampled requests are served
     handle = eng.submit(Request(3, np.ones(3, np.int32), max_new_tokens=4))
     assert len(list(handle.tokens())) == 4
     assert handle.finish_reason == "length"
@@ -141,10 +141,15 @@ def test_engine_api_edges():
     ("kv_dtype", "int8"), ("draft_k", 2), ("preempt", True),
     ("role", "prefill"), ("mesh_shape", (1, 2))])
 def test_unported_serve_config_fields_raise(field, value):
-    """The fields of later slices raise NotImplementedError; ``kv_dtype``
-    is ported and on the (default) dense cache raises the reference's
-    ValueError."""
+    """The fields of later slices (``role``, ``mesh_shape``) raise
+    NotImplementedError; ``kv_dtype`` is ported and on the (default) dense
+    cache raises the reference's ValueError; ``draft_k`` and ``preempt``
+    are ported and construct an engine."""
     model, params = _port()
+    if field in ("draft_k", "preempt"):
+        eng = ServeEngine(model, params, ServeConfig(**{field: value}))
+        assert getattr(eng.config, field) == value
+        return
     error, match = ((ValueError, "cache='paged'") if field == "kv_dtype"
                     else (NotImplementedError, "ROADMAP"))
     with pytest.raises(error, match=match):

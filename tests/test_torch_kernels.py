@@ -81,7 +81,9 @@ def test_splitk_plain_version_equals_single_pass(ns):
 def test_plain_dispatch_splits_only_single_token(t, ns):
     """``decode_attention_plain`` (the CPU branch of the dispatch, and what
     the on-card checks compare the kernels with) takes split-K only at
-    T = 1; T > 1 runs the single pass, as the reference does."""
+    T = 1; T > 1 runs the single pass, as the reference does, one row at a
+    time (row t the one-token call at pos + t under the block's active
+    slots), so that a row does not depend on T."""
     _, (tq, tk, tv) = _inputs(2, t, "float32", seed=5)
     pos = torch.from_numpy(POS)
     got = ops.decode_attention_plain(tq, tk, tv, pos, window=24,
@@ -91,7 +93,9 @@ def test_plain_dispatch_splits_only_single_token(t, ns):
         want = ref.decode_attention_splitk_ref(qt, kt, vt, pos, window=24,
                                                num_splits=ns)
     else:
-        want = ref.decode_attention_ref(qt, kt, vt, pos, window=24)
+        want = torch.cat([ref.decode_attention_ref(
+            qt[:, :, i:i + 1].contiguous(), kt, vt, pos + i,
+            active=pos >= 0, window=24) for i in range(t)], dim=2)
     assert torch.equal(got, want.transpose(1, 2))
     assert torch.equal(ops.decode_attention(tq, tk, tv, pos, window=24,
                                             num_splits=ns), got)
