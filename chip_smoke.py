@@ -99,7 +99,33 @@ Run from the repository root.  Phases, each raising on failure:
    the token-fed path the engine runs; ``ServeEngine`` serves mamba2 in
    continuous mode (more requests than slots, a reused slot checked
    against a fresh engine) and in wave mode; the prefill and a decode tick
-   are timed and profiled.
+   are timed and profiled;
+3g. kernels at new groupings: #1, #2, #3 and #5 at mixtral's H=32, KV=8
+   (G = 4) with T = 1 and T = 4 (the chunked decode kernel's 16-row
+   instance) and at qwen3-moe's H=64, KV=4 (G = 16) with T = 1, at both
+   position sets and windows 0, 1024 and 4096, against their plain
+   versions (G = 16 at T = 4 must be refused); a slot alone against the
+   batch, bitwise; #4 (256-row chunks and the ragged 104-row one) and #6
+   at both groupings under windows 0, 1024 and 4096; then each timed as
+   in phase 3 with its bound and SDPA (rows ``<kernel>_g4``,
+   ``..._g4_verify``, ``..._g16``);
+7. gemma3-27b at full width, 14 of 62 layers (2 groups of 5 local + 1
+   global layers and the 2-layer remainder): phase 4's dense continuous
+   serving, logits, tick and wave trace; phase 4b's paged trace with a
+   prefix hit and the replay with the prefix cache off, logits and tick;
+   an int8 paged run (phase 4c's checks); speculative decode, dense and
+   paged, equal to the plain engine (phase 4d); one preemption on the
+   dense cache; every attention call counted by window (local layers at
+   1024, global at 0, in the plan's proportion); phase 5's prefill step
+   on 2 x 4096 (14 flash launches, logits against the plain path and the
+   chunked prefill);
+8. MoE: mixtral-8x7b (4 of 32 layers) through phases 4 and 4b (its
+   4200-token prompt past the 4096 window), speculative decode dense and
+   paged (the 16-row instance on the engine path) and a 1 x 4096 prefill
+   step; qwen3-moe-235b-a22b (2 of 94 layers): a 1 x 2048 prefill step,
+   phases 4 and 4b, and its verify block refused (G x T = 64 rows); each
+   prefill prints its MoE drop fraction.  Each model is built alone and
+   freed before the next.
 
 The last lines are the nvidia-smi line, a JSON ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -108,7 +134,9 @@ when CUDA is unavailable or anything fails.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -187,6 +215,13 @@ SSM_FEED_TOL = 1e-3
 
 def _log(msg):
     print(msg, flush=True)
+
+
+def _free_device():
+    """Collect what the caller dropped (engines sit in reference cycles and
+    hold their params) and return the cached blocks to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_device():
@@ -476,22 +511,22 @@ def _working_ctas(pos, num_splits, max_pages=MAX_PAGES, page_size=PAGE):
     return KV * work, KV * len(pos) * len(ranges)
 
 
-def _check_slot_alone(name, inputs, decode, splitk):
+def _check_slot_alone(name, inputs, decode, splitk, ts=(1, 4)):
     """Slot 3's output computed alone equals, bitwise, its output in the
-    batch of four, for the single-pass kernel (T = 1 and 4) and split-K
+    batch of four, for the single-pass kernel (T in ``ts``) and split-K
     (2 splits), at both position sets.  ``inputs(t, positions)`` gives the
     batch's arguments and slot 3's."""
     for positions in (POS, POS_EDGES):
         for label, t, run in (
-                (name, 1, decode), (name, 4, decode),
-                (f"{name}_splitk ns=2", 1,
-                 functools.partial(splitk, num_splits=2))):
+                [(name, t, decode) for t in ts]
+                + [(f"{name}_splitk ns=2", 1,
+                    functools.partial(splitk, num_splits=2))]):
             args, alone_args = inputs(t, positions)
             batch = run(*args)
             alone = run(*alone_args)
             same = torch.equal(alone[0], batch[3])
-            _log(f"[kernels] {label} pos={positions} T={t}: slot 3 alone "
-                 f"equals it in the batch bitwise: {same}")
+            _log(f"[kernels] {label} pos={positions} T={t} H={H} KV={KV}: "
+                 f"slot 3 alone equals it in the batch bitwise: {same}")
             if not same:
                 raise AssertionError(f"a slot's {name} output depends on "
                                      f"the rest of the batch")
@@ -886,11 +921,15 @@ def _time_ticks(ticks, label):
         _profile_tick(run, f"{label} splits={splits}")
 
 
-def make_model():
+def make_model(arch="internlm2-1.8b", num_layers=None):
+    """``arch`` at its full width, seeded random f32 weights, f32 cache;
+    ``num_layers`` cuts the depth."""
     from repro_torch.configs import get_config
     from repro_torch.models import LM, RuntimeKnobs
 
-    cfg = get_config("internlm2-1.8b")
+    cfg = get_config(arch)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     model = LM(cfg, RuntimeKnobs(cache_dtype=torch.float32), device="cuda")
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -901,7 +940,11 @@ def make_model():
     return model, params
 
 
-def phase_engine(model, params):
+def phase_engine(model, params, label="dense"):
+    """Phase 4 on ``model``: dense continuous serving with a 4200-token
+    prompt (split-K engages), decode logits against the plain path, a
+    timed and profiled tick, and a wave trace.  Returns the dense
+    kernels' launches in the continuous run."""
     from repro_torch.runtime.serve import Request, ServeConfig, ServeEngine
     from repro_torch.runtime.steps import compiled_step
 
@@ -925,8 +968,8 @@ def phase_engine(model, params):
     launches = {k.__name__: k.launches for k in kernels}
     toks = sum(len(r.output) for r in done)
     ttft = sorted(h.metrics()["ttft_s"] for h in handles)
-    _log(f"[engine] dense continuous: {len(done)}/{len(reqs)} requests, {toks} "
-         f"tokens in {wall:.3f}s = {toks / wall:.2f} tok/s; ttft p50 "
+    _log(f"[engine] {label} continuous: {len(done)}/{len(reqs)} requests, "
+         f"{toks} tokens in {wall:.3f}s = {toks / wall:.2f} tok/s; ttft p50 "
          f"{statistics.median(ttft) * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} "
          f"ms; launches {launches}")
     if len(done) != len(reqs) or not all(
@@ -951,7 +994,8 @@ def phase_engine(model, params):
         with _plain_attention():
             want, _ = step(params, eng.caches, toks_in, pos)
         err = float((got - want).abs().max())
-        _log(f"[engine] decode logits, kernels vs plain (splits={splits}): "
+        _log(f"[engine] {label} decode logits, kernels vs plain "
+             f"(splits={splits}): "
              f"max_abs_err {err:.3g} (tol {LOGIT_TOL}); |logits| max "
              f"{float(want.abs().max()):.3g}")
         if not (torch.isfinite(got).all() and err <= LOGIT_TOL
@@ -959,7 +1003,8 @@ def phase_engine(model, params):
             raise AssertionError("decode logits disagree")
     # S / 2 = 4096 is whole chunks, so split-K is the single pass
     same = torch.equal(logits[1], logits[2])
-    _log(f"[engine] decode logits, splits=2 equal splits=1 bitwise: {same}")
+    _log(f"[engine] {label} decode logits, splits=2 equal splits=1 "
+         f"bitwise: {same}")
     if not same:
         raise AssertionError("split-K decode logits differ from the single "
                              "pass")
@@ -969,7 +1014,7 @@ def phase_engine(model, params):
     _time_ticks({s: functools.partial(
         compiled_step(model, "serve", decode_splits=s), params, eng.caches,
         toks_in, pos) for s in (1, 2)},
-        f"dense decode tick at pos {pos.tolist()}")
+        f"{label} decode tick at pos {pos.tolist()}")
     del eng
 
     # wave mode: the lockstep baseline runs the single-pass kernel
@@ -987,7 +1032,7 @@ def phase_engine(model, params):
     wwall = time.perf_counter() - t0
     wl = {k.__name__: k.launches for k in kernels}
     wtoks = sum(len(r.output) for r in wdone)
-    _log(f"[engine] wave: {len(wdone)}/6 requests, {wtoks} tokens in "
+    _log(f"[engine] {label} wave: {len(wdone)}/6 requests, {wtoks} tokens in "
          f"{wwall:.3f}s; launches {wl}")
     if len(wdone) != 6 or wl["decode_attention_cuda"] <= 0:
         raise AssertionError("wave run failed or launched no kernel")
@@ -1074,11 +1119,62 @@ def _paged_trace(model, params, label, kv_dtype=""):
     return eng, prompt_b, paged, page_bytes
 
 
-def _paged_logits_and_tick(eng, params, prompt_b, label):
+def _check_chunk_by_call(label, what, run, caches, num_layers):
+    """The prefill chunk ``run`` through the kernels, then each layer's
+    paged prefill call held against its plain version on the same
+    arguments (the pools and scales as the chunk's own writes left them,
+    the layer's window), at the kernels' tolerance; the logits against the
+    plain route are printed, with the count of pool values the two routes
+    quantized differently (each route writes the K/V its own layers
+    computed, and a value near a rounding boundary rounds either way)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import tree_leaves
+
+    fn, calls = ops.paged_prefill_attention, []
+
+    def record(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    ops.paged_prefill_attention = record
+    try:
+        got = run()[0]
+    finally:
+        ops.paged_prefill_attention = fn
+    if len(calls) != num_layers or not torch.isfinite(got).all():
+        raise AssertionError(f"{label} {what}: {len(calls)} paged prefill "
+                             f"calls for {num_layers} layers, or logits not "
+                             f"finite")
+    worst = 0.0
+    for i, (args, kwargs, out) in enumerate(calls):
+        worst = max(worst, _check(
+            f"{label} {what}, layer {i} window={kwargs['window']}", out,
+            ops.paged_prefill_attention_plain(*args, **kwargs),
+            args[1].dtype))
+    del calls
+    pools = [t.clone() for t in tree_leaves(caches)]
+    with _plain_attention():
+        want = run()[0]
+    flips = sum(int((a != b).sum()) for a, b in zip(pools,
+                                                    tree_leaves(caches))
+                if a.element_size() == 1)
+    _log(f"[engine] {label} {what}: {num_layers} paged prefill calls each "
+         f"within tol of their plain versions (worst {worst:.3g}); logits "
+         f"against the plain route {float((got - want).abs().max()):.3g} "
+         f"(not held: the routes quantized {flips} pool values "
+         f"differently)")
+    del pools
+
+
+def _paged_logits_and_tick(eng, params, prompt_b, label,
+                           chunk_by_call=False):
     """One paged decode step (single pass and split-K 2) and one prefill
     chunk at 3840, kernels against the plain path, on the engine's pools
     through a permuted table of all pages; then a decode tick timed and
-    profiled, single pass against split-K 2."""
+    profiled, single pass against split-K 2.  ``chunk_by_call``: the
+    chunk is held layer by layer (``_check_chunk_by_call``), not by its
+    logits."""
     from repro_torch.runtime.steps import compiled_step
 
     model, cfg = eng.model, eng.model.cfg
@@ -1099,6 +1195,10 @@ def _paged_logits_and_tick(eng, params, prompt_b, label):
         model.prefill_chunk_step_paged, params, eng.caches, chunk, 1,
         S // 2 - CHUNK, table, page_size=PAGE)))
     for what, run in checks:
+        if chunk_by_call and what.startswith("prefill"):
+            _check_chunk_by_call(label, what, run, eng.caches,
+                                 cfg.num_layers)
+            continue
         got = run()[0]
         with _plain_attention():
             want = run()[0]
@@ -1116,17 +1216,25 @@ def _paged_logits_and_tick(eng, params, prompt_b, label):
         f"{label} decode tick at pos {pos.tolist()}")
 
 
-def phase_paged_engine(model, params):
+def phase_paged_engine(model, params, label="paged"):
     """The same model through ``cache="paged"`` (f32 pools): phase 4b's
     trace, then its logits checks and tick.  Returns the paged kernels'
     launches and the pool's bytes per page."""
-    eng, prompt_b, paged, page_bytes = _paged_trace(model, params, "paged")
-    _paged_logits_and_tick(eng, params, prompt_b, "paged")
+    eng, prompt_b, paged, page_bytes = _paged_trace(model, params, label)
+    _paged_logits_and_tick(eng, params, prompt_b, label)
     del eng
     return {n.removesuffix("_cuda"): c for n, c in paged.items()}, page_bytes
 
 
-def phase_quant_engine(model, params, f32_page_bytes):
+def _pools(caches):
+    """The first layer stack's pools of a plan's cache tree."""
+    while "k" not in caches:
+        caches = next(iter(caches.values()))
+    return caches
+
+
+def phase_quant_engine(model, params, f32_page_bytes, names=QUANT,
+                       label="paged", chunk_by_call=False):
     """Phase 4b's trace on int8 and then fp8 pools (``kv_dtype``): the same
     checks, pools of the quantized dtype with f32 scale leaves, logits
     through the kernels against the plain versions on the same quantized
@@ -1135,12 +1243,12 @@ def phase_quant_engine(model, params, f32_page_bytes):
     from repro_torch.models.attention import KV_QUANT_DTYPES
 
     launches = {}
-    for name in QUANT:
+    for name in names:
         eng, prompt_b, paged, page_bytes = _paged_trace(
-            model, params, f"paged {name}", kv_dtype=name)
-        pools = eng.caches["stack"]
+            model, params, f"{label} {name}", kv_dtype=name)
+        pools = _pools(eng.caches)
         dtypes = {k: v.dtype for k, v in pools.items()}
-        _log(f"[engine] paged {name}: pool leaves {dtypes}; pages per GiB "
+        _log(f"[engine] {label} {name}: pool leaves {dtypes}; pages per GiB "
              f"{2 ** 30 / page_bytes:.1f} against the f32 pool's "
              f"{2 ** 30 / f32_page_bytes:.1f} "
              f"({f32_page_bytes / page_bytes:.3f}x)")
@@ -1148,7 +1256,8 @@ def phase_quant_engine(model, params, f32_page_bytes):
                 "k_scale": torch.float32, "v_scale": torch.float32}
         if dtypes != want:
             raise AssertionError(f"{name} pools hold {dtypes}, not {want}")
-        _paged_logits_and_tick(eng, params, prompt_b, f"paged {name}")
+        _paged_logits_and_tick(eng, params, prompt_b, f"{label} {name}",
+                               chunk_by_call)
         del eng, pools
         launches.update({f"{n.removesuffix('_cuda')}_{name}": c
                          for n, c in paged.items()})
@@ -1309,9 +1418,42 @@ def _verify_logits(eng, params, label):
                              f"sequential decode")
 
 
-def _spec_pair(model, params, label, cache_kw):
+def _replay_drafter(prompts, streams, vocab):
+    """A drafter for models whose random weights never repeat their
+    context (the n-gram drafter then proposes nothing): for a slot whose
+    history is one of ``prompts`` followed by the first n tokens of its
+    plain greedy stream, it proposes the next k - 1 tokens of that stream
+    and one that is not, so every verify tick accepts drafts and rejects
+    one; once a history leaves the plain stream it proposes nothing.  A
+    pure function of the history, as the engine requires."""
+    from repro_torch.runtime.draft import Drafter
+
+    table = [(np.asarray(p, np.int32), list(s))
+             for p, s in zip(prompts, streams)]
+
+    class Replay(Drafter):
+        name = "replay"
+
+        def propose(self, context, k):
+            ctx = np.asarray(context, np.int32)
+            for prompt, stream in table:
+                n = len(ctx) - len(prompt)
+                if n >= 1 and np.array_equal(ctx[:len(prompt)], prompt) \
+                        and ctx[len(prompt):].tolist() == stream[:n]:
+                    nxt = stream[n:n + k]
+                    if len(nxt) == k:
+                        nxt[-1] = (nxt[-1] + 1) % vocab
+                    return np.asarray(nxt, np.int32)
+            return np.zeros(0, np.int32)
+
+    return Replay()
+
+
+def _spec_pair(model, params, label, cache_kw, replay=False):
     """The greedy trace on the plain engine and on the speculative one
-    (draft_k = 3): equal streams, verify launches of the layout's decode
+    (draft_k = 3; the n-gram drafter, or with ``replay`` the
+    ``_replay_drafter`` of the plain streams): equal streams, verify
+    launches of the layout's decode
     kernel only, each at T = 4 once per layer per verify tick; then the
     verify logits check, and a plain tick against a verify tick, timed and
     profiled.  Returns the verify launches."""
@@ -1327,11 +1469,16 @@ def _spec_pair(model, params, label, cache_kw):
     eng, plain, wall_p, toks_p = _run_engine(model, params,
                                              ServeConfig(**base), reqs)
     del eng
+    spec_kw = dict(draft_k=DRAFT_K)
+    if replay:
+        spec_kw["drafter"] = _replay_drafter(
+            [r[0] for r in reqs], [plain[i] for i in range(len(reqs))],
+            model.cfg.vocab_size)
     kernels = (decode_attention_cuda, paged_decode_attention_cuda)
     for kern in kernels:
         kern.verify_launches = 0
     eng, spec, wall_s, toks_s = _run_engine(
-        model, params, ServeConfig(draft_k=DRAFT_K, **base), reqs)
+        model, params, ServeConfig(**spec_kw, **base), reqs)
     verify = {k.__name__: k.verify_launches for k in kernels}
     st = eng.spec_stats()
     _log(f"[verify] {label}: plain engine {toks_p} tokens in {wall_p:.3f}s "
@@ -1367,7 +1514,7 @@ def _spec_pair(model, params, label, cache_kw):
              f"{', '.join(f'{x:.3f}' for x in ms)} ms (median of 10 each)")
         _profile_tick(run, f"{label} {name} tick")
     del eng
-    torch.cuda.empty_cache()
+    _free_device()
     return verify[want]
 
 
@@ -1442,13 +1589,14 @@ def _sampled_checks(model, params):
                              f"{same}")
 
 
-def _preemption_checks(model, params):
+def _preemption_checks(model, params, layouts=("dense", "paged")):
     """``preempt=True``, ``policy="priority"``: four low-priority requests
     of tenant "batch" fill the slots, then two high-priority ones of
     tenant "interactive" arrive and preempt; every stream equals the run
     without preemption, dense and paged (prefix cache off: no page may
     stay in use after the drain).  Prints the dense checkpoint's bytes
     and its copy-out and copy-in times."""
+    from repro_torch.models.transformer import tree_leaves
     from repro_torch.runtime.serve import Request, ServeConfig, ServeEngine
 
     rng = np.random.default_rng(7)
@@ -1472,9 +1620,9 @@ def _preemption_checks(model, params):
         return eng, {r.req_id: (list(r.output), r.preempt_count)
                      for r in done}
 
-    for label, kw in (("dense", {}),
-                      ("paged", dict(cache="paged", page_size=PAGE,
-                                     prefix_cache=False))):
+    layout_kw = {"dense": {}, "paged": dict(cache="paged", page_size=PAGE,
+                                            prefix_cache=False)}
+    for label, kw in ((name, layout_kw[name]) for name in layouts):
         cfg = dict(batch_slots=B, max_len=S, prefill_chunk=CHUNK,
                    policy="priority", **kw)
         _, want = serve(ServeConfig(**cfg))
@@ -1507,12 +1655,12 @@ def _preemption_checks(model, params):
                 outs.append((t1 - t0) * 1e3)
                 ins.append((time.perf_counter() - t1) * 1e3)
             nbytes = sum(x.numel() * x.element_size()
-                         for x in snap["stack"].values())
+                         for x in tree_leaves(snap))
             _log(f"[verify] dense checkpoint of one slot: {nbytes} bytes; "
                  f"copy-out {', '.join(f'{x:.1f}' for x in outs)} ms, "
                  f"copy-in {', '.join(f'{x:.1f}' for x in ins)} ms")
         del eng
-        torch.cuda.empty_cache()
+        _free_device()
 
 
 def phase_spec_engine(model, params):
@@ -1777,15 +1925,19 @@ def _check_logits(label, got, want, tol=LOGIT_TOL):
     return err
 
 
-def phase_forward_attention(model, params):
-    """internlm2-1.8b's batched whole-prompt prefill (2 x 4096) through
-    flash attention."""
+def phase_forward_attention(model, params, fb=FB, fs=FS):
+    """``model``'s batched whole-prompt prefill (fb x fs) through flash
+    attention: one launch per layer, last-row logits against the plain
+    path and (without MoE) against the dense engine's chunked prefill;
+    with MoE the drop fraction of the prefill is printed.  Timed and
+    profiled."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.runtime.steps import make_prefill_step
 
     cfg = model.cfg
+    name = cfg.name
     rng = np.random.default_rng(3)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(FB, FS)),
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(fb, fs)),
                            device="cuda")
     batch = {"tokens": toks}
     step = make_prefill_step(model)
@@ -1793,37 +1945,50 @@ def phase_forward_attention(model, params):
     first, caches = step(params, batch)
     torch.cuda.synchronize()
     launches = flash_attention_cuda.launches
-    _log(f"[forward] internlm2 prefill step {FB} x {FS}: flash_attention "
+    _log(f"[forward] {name} prefill step {fb} x {fs}: flash_attention "
          f"launches {launches}; first tokens {first.ravel().tolist()}; "
-         f"cache k {tuple(caches['stack']['k'].shape)}")
+         f"cache k {tuple(_pools(caches)['k'].shape)}")
     if launches != cfg.num_layers:
         raise AssertionError(f"flash attention launched {launches} times, "
                              f"not once per layer ({cfg.num_layers})")
-    if first.shape != (FB, 1) or not bool(((first >= 0) & (
+    if first.shape != (fb, 1) or not bool(((first >= 0) & (
             first < cfg.vocab_size)).all()):
         raise AssertionError("prefill tokens outside the vocabulary")
     del caches
     logits, _ = model.prefill(params, batch)
     with _plain_attention():
         want, _ = model.prefill(params, batch)
-    _check_logits("internlm2 prefill logits, kernel vs plain", logits, want)
-    # the dense engine's route: one slot's chunked prefill of prompt 0
-    from repro_torch.runtime.steps import compiled_step
+    _check_logits(f"{name} prefill logits, kernel vs plain", logits, want)
+    del want
+    if cfg.moe is not None:
+        # the engine's 256-token chunks dispatch at another capacity than
+        # the whole prompt's 512-token chunks, so the two routes may drop
+        # other choices: no chunked-prefill comparison for MoE
+        _, aux, _ = model.hidden(params, batch, mode="prefill")
+        _log(f"[forward] {name} prefill {fb} x {fs}: MoE drop fraction "
+             f"{float(aux['moe_drop_frac']) / cfg.num_layers:.6f} (mean "
+             f"over {cfg.num_layers} layers), lb loss "
+             f"{float(aux['moe_lb_loss']) / cfg.num_layers:.4f}")
+        del aux
+    else:
+        # the dense engine's route: one slot's chunked prefill of prompt 0
+        from repro_torch.runtime.steps import compiled_step
 
-    chunk_step = compiled_step(model, "prefill_chunk")
-    dense = model.init_cache(1, FS)
-    for off in range(0, FS, CHUNK):
-        _, dense = chunk_step(params, dense, toks[:1, off:off + CHUNK], 0,
-                              off)
-    last, _ = model.prefill_chunk_step(params, dense,
-                                       toks[:1, FS - CHUNK:], 0, FS - CHUNK)
-    _check_logits("internlm2 prefill vs the engine's chunked prefill "
-                  "(prompt 0, last row)", logits[:1], last[-1:])
-    del dense, want
+        chunk_step = compiled_step(model, "prefill_chunk")
+        dense = model.init_cache(1, fs)
+        for off in range(0, fs, CHUNK):
+            _, dense = chunk_step(params, dense, toks[:1, off:off + CHUNK],
+                                  0, off)
+        last, _ = model.prefill_chunk_step(params, dense,
+                                           toks[:1, fs - CHUNK:], 0,
+                                           fs - CHUNK)
+        _check_logits(f"{name} prefill vs the engine's chunked prefill "
+                      f"(prompt 0, last row)", logits[:1], last[-1:])
+        del dense
     times = _timed_prefill(functools.partial(step, params, batch),
-                           f"internlm2 prefill step {FB} x {FS}")
+                           f"{name} prefill step {fb} x {fs}")
     _profile_tick(functools.partial(step, params, batch),
-                  f"internlm2 prefill step {FB} x {FS}", ticks=1, top=10)
+                  f"{name} prefill step {fb} x {fs}", ticks=1, top=10)
     return launches, times
 
 
@@ -1970,6 +2135,384 @@ def phase_ssm(model, params):
     return launches, times
 
 
+# ------------------------------------------ 3g: kernels at new groupings
+# (H, KV) of the MoE archs' attention: mixtral 32/8 (G = 4: one token is
+# the chunked decode kernel's 8-row instance, the T = 4 verify block its
+# 16-row one, the many-row kernel 16 positions of 4 heads per tile) and
+# qwen3-moe 64/4 (G = 16: one token is the 16-row instance, the many-row
+# kernel 4 positions of 16 heads); the served windows 1024 (gemma3's local
+# layers) and 4096 (mixtral's)
+GROUPINGS = ((32, 8), (64, 4))
+WINDOWS_G = (0, 1024, 4096)
+
+
+@contextlib.contextmanager
+def _heads(h, kv):
+    """Run the kernel helpers of phases 3 and 3c at ``h`` query and ``kv``
+    KV heads (they read the module's H and KV)."""
+    global H, KV
+    old = H, KV
+    H, KV = h, kv
+    try:
+        yield
+    finally:
+        H, KV = old
+
+
+def _grouping_checks(g):
+    """The decode, split-K, paged prefill and flash kernels at H, KV
+    against their plain versions; a slot alone against the batch."""
+    from repro_torch.kernels.decode_attention import (
+        MAX_ROWS, decode_attention_cuda, decode_attention_splitk_cuda)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ops import (decode_attention_plain,
+                                         flash_attention_plain,
+                                         paged_decode_attention_plain,
+                                         paged_prefill_attention_plain)
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_splitk_cuda,
+        paged_prefill_attention_cuda)
+
+    f32 = torch.float32
+    ts = tuple(t for t in (1, VERIFY_T) if g * t <= MAX_ROWS)
+    errs = {}
+
+    def note(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    for positions in (POS, POS_EDGES):
+        for window in WINDOWS_G:
+            for t in ts:
+                q, k, v, pos = _inputs(t, f32, f32, positions=positions)
+                note(f"decode_attention_t{t}", _check(
+                    f"decode_attention H={H} KV={KV} T={t} "
+                    f"pos={positions} window={window}",
+                    decode_attention_cuda(q, k, v, pos, window=window),
+                    decode_attention_plain(q, k, v, pos, window=window),
+                    f32))
+                q, k, v, table, pos = _paged_inputs(t, f32, f32,
+                                                    positions=positions)
+                note(f"paged_decode_attention_t{t}", _check(
+                    f"paged_decode_attention H={H} KV={KV} T={t} "
+                    f"pos={positions} window={window}",
+                    paged_decode_attention_cuda(q, k, v, table, pos,
+                                                window=window),
+                    paged_decode_attention_plain(q, k, v, table, pos,
+                                                 window=window), f32))
+            q, k, v, pos = _inputs(1, f32, f32, positions=positions)
+            one = decode_attention_cuda(q, k, v, pos, window=window)
+            got = decode_attention_splitk_cuda(q, k, v, pos, window=window,
+                                               num_splits=2)
+            note("decode_attention_splitk", _check(
+                f"decode_attention_splitk H={H} KV={KV} ns=2 "
+                f"pos={positions} window={window}", got,
+                decode_attention_plain(q, k, v, pos, window=window,
+                                       num_splits=2), f32))
+            if not torch.equal(got, one):
+                raise AssertionError("dense split-K with whole-chunk splits "
+                                     "differs from the single pass")
+            q, k, v, table, pos = _paged_inputs(1, f32, f32,
+                                                positions=positions)
+            note("paged_decode_attention_splitk", _check(
+                f"paged_decode_attention_splitk H={H} KV={KV} ns=2 "
+                f"pos={positions} window={window}",
+                paged_decode_attention_splitk_cuda(q, k, v, table, pos,
+                                                   window=window,
+                                                   num_splits=2),
+                paged_decode_attention_plain(q, k, v, table, pos,
+                                             window=window, num_splits=2),
+                f32))
+    if g * VERIFY_T > MAX_ROWS:  # the verify block cannot take this G
+        q, k, v, pos = _inputs(VERIFY_T, f32, f32)
+        try:
+            decode_attention_cuda(q, k, v, pos)
+        except ValueError as e:
+            _log(f"[kernels] decode_attention H={H} KV={KV} T={VERIFY_T}: "
+                 f"refused as it must be ({e})")
+        else:
+            raise AssertionError(f"G*T = {g * VERIFY_T} rows were not "
+                                 f"refused")
+
+    def dense(t, positions):
+        q, k, v, pos = _inputs(t, f32, f32, positions=positions)
+        return (q, k, v, pos), (q[3:], k[3:], v[3:], pos[3:])
+
+    def paged(t, positions):
+        q, k, v, table, pos = _paged_inputs(t, f32, f32, positions=positions)
+        return (q, k, v, table, pos), (q[3:], k, v, table[3:], pos[3:])
+
+    _check_slot_alone("decode_attention", dense, decode_attention_cuda,
+                      decode_attention_splitk_cuda, ts)
+    _check_slot_alone("paged_decode_attention", paged,
+                      paged_decode_attention_cuda,
+                      paged_decode_attention_splitk_cuda, ts)
+    slot = B - 1
+    for c, q_offset, window in ((CHUNK, 0, 0), (CHUNK, S // 2 - CHUNK, 0),
+                                (CHUNK, S // 2 - CHUNK, 4096),
+                                (RAGGED, S // 2, 0), (RAGGED, S // 2, 4096),
+                                (RAGGED, S // 2, 1024)):
+        q, k, v, table, _ = _paged_inputs(1, f32, f32, chunk=c)
+        note("paged_prefill_attention", _check(
+            f"paged_prefill_attention H={H} KV={KV} C={c} "
+            f"q_offset={q_offset} window={window}",
+            paged_prefill_attention_cuda(q, k, v, table[slot], q_offset,
+                                         window=window),
+            paged_prefill_attention_plain(q, k, v, table, slot, q_offset,
+                                          window=window), f32))
+    for s, causal, window in ((FS, True, 0), (FS, True, 4096),
+                              (FS, True, 1024), (1000, True, 300)):
+        q, k, v = _flash_inputs(FB, s, f32)
+        note("flash_attention", _check(
+            f"flash_attention H={H} KV={KV} S={s} causal={causal} "
+            f"window={window}",
+            flash_attention_cuda(q, k, v, causal=causal, window=window),
+            flash_attention_plain(q, k, v, causal=causal, window=window),
+            f32))
+        del q, k, v
+    torch.cuda.synchronize()
+    return errs, ts
+
+
+def phase_grouping_kernels():
+    """Phase 3g: #1-#6 at mixtral's and qwen3-moe's head groupings under
+    windows 0, 1024 and 4096, against their plain versions, then timed as
+    in phase 3 (bound and one SDPA call).  The rows are keyed by the
+    grouping: ``<kernel>_g<G>`` (and ``_verify`` for the T = 4 block)."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_splitk_cuda)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ops import (decode_attention_plain,
+                                         flash_attention_plain,
+                                         paged_decode_attention_plain,
+                                         paged_prefill_attention_plain)
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_splitk_cuda,
+        paged_prefill_attention_cuda)
+
+    dense_src = "src/repro_torch/kernels/csrc/decode_attention.cu"
+    paged_src = "src/repro_torch/kernels/csrc/paged_attention.cu"
+    dec_line = "src/repro/kernels/decode_attention.py"
+    pag_line = "src/repro/kernels/paged_attention.py"
+    f32 = torch.float32
+    rows = []
+    for h, kv in GROUPINGS:
+        g = h // kv
+        with _heads(h, kv):
+            errs, ts = _grouping_checks(g)
+            for t in ts:
+                suffix = f"_g{g}" + ("_verify" if t > 1 else "")
+                q, k, v, pos = _inputs(t, f32, f32)
+                rows.append(_timed_row(
+                    f"decode_attention{suffix}",
+                    lambda: decode_attention_cuda(q, k, v, pos),
+                    lambda: decode_attention_plain(q, k, v, pos),
+                    _time_ms(_library_call(q, k, v, pos)),
+                    _bound_ms(q, k, pos), dense_src, f"{dec_line}:131",
+                    errs[f"decode_attention_t{t}"]))
+                q, k, v, table, pos = _paged_inputs(t, f32, f32)
+                rows.append(_timed_row(
+                    f"paged_decode_attention{suffix}",
+                    lambda: paged_decode_attention_cuda(q, k, v, table, pos),
+                    lambda: paged_decode_attention_plain(q, k, v, table,
+                                                         pos),
+                    _time_ms(_paged_library_call(q, k, v, table, pos)),
+                    _bound_ms(q, k, pos, paged=True), paged_src,
+                    f"{pag_line}:131", errs[f"paged_decode_attention_t{t}"]))
+            q, k, v, pos = _inputs(1, f32, f32)
+            rows.append(_timed_row(
+                f"decode_attention_splitk_g{g}",
+                lambda: decode_attention_splitk_cuda(q, k, v, pos,
+                                                     num_splits=2),
+                lambda: decode_attention_plain(q, k, v, pos, num_splits=2),
+                _time_ms(_library_call(q, k, v, pos)), _bound_ms(q, k, pos),
+                dense_src, f"{dec_line}:236",
+                errs["decode_attention_splitk"]))
+            q, k, v, table, pos = _paged_inputs(1, f32, f32)
+            rows.append(_timed_row(
+                f"paged_decode_attention_splitk_g{g}",
+                lambda: paged_decode_attention_splitk_cuda(
+                    q, k, v, table, pos, num_splits=2),
+                lambda: paged_decode_attention_plain(q, k, v, table, pos,
+                                                     num_splits=2),
+                _time_ms(_paged_library_call(q, k, v, table, pos)),
+                _bound_ms(q, k, pos, paged=True), paged_src,
+                f"{pag_line}:325", errs["paged_decode_attention_splitk"]))
+            q_offset, slot = S // 2 - CHUNK, B - 1
+            q, k, v, table, _ = _paged_inputs(1, f32, f32, chunk=CHUNK)
+            rows.append(_timed_row(
+                f"paged_prefill_attention_g{g}",
+                lambda: paged_prefill_attention_cuda(q, k, v, table[slot],
+                                                     q_offset),
+                lambda: paged_prefill_attention_plain(q, k, v, table, slot,
+                                                      q_offset),
+                _time_ms(_prefill_library_call(q, k, v, table[slot],
+                                               q_offset)),
+                _prefill_bound_ms(q, k, q_offset), paged_src,
+                f"{pag_line}:228", errs["paged_prefill_attention"]))
+            q, k, v = _flash_inputs(FB, FS, f32)
+            qt = q.transpose(1, 2)
+            kx = k.transpose(1, 2).repeat_interleave(g, dim=1)
+            vx = v.transpose(1, 2).repeat_interleave(g, dim=1)
+            rows.append(_timed_row(
+                f"flash_attention_g{g}", lambda: flash_attention_cuda(q, k, v),
+                lambda: flash_attention_plain(q, k, v),
+                _time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kx, vx, is_causal=True)),
+                _flash_bound_ms(q, k, True, 0),
+                "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention.py:83",
+                errs["flash_attention"]))
+            del q, k, v, qt, kx, vx
+            for row in rows[-(2 * len(ts) + 4):]:
+                row["grouping"] = f"H={h} KV={kv}"
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------- 7 and 8: the new archs
+@contextlib.contextmanager
+def _count_windows():
+    """Count the model's attention calls through ``ops`` by kernel and
+    window: {(name, window): calls}.  Each call on the card is one launch
+    of that kernel."""
+    from repro_torch.kernels import ops
+
+    names = ("decode_attention", "paged_decode_attention",
+             "paged_prefill_attention", "flash_attention")
+    fns = {n: getattr(ops, n) for n in names}
+    counts = {}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            key = (name, kwargs.get("window", 0))
+            counts[key] = counts.get(key, 0) + 1
+            return fns[name](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(ops, n, counting(n))
+    try:
+        yield counts
+    finally:
+        for n, fn in fns.items():
+            setattr(ops, n, fn)
+
+
+def _check_windows(label, counts, model):
+    """Every kernel the model called ran its local layers under the local
+    window and its global layers under none, in the plan's proportion."""
+    from repro_torch.models.transformer import _layers, build_plan
+
+    plan = build_plan(model.cfg)
+    per_tick = {}
+    for _, _, w in _layers(plan):
+        per_tick[w] = per_tick.get(w, 0) + 1
+    _log(f"[gemma3] {label}: calls by (kernel, window) {counts}; layers per "
+         f"window {per_tick}")
+    for name in {n for n, _ in counts}:
+        got = {w: c for (n, w), c in counts.items() if n == name}
+        if set(got) != set(per_tick) or any(
+                got[w] * per_tick[0] != got[0] * per_tick[w] for w in got):
+            raise AssertionError(f"{label}: {name} calls by window {got} "
+                                 f"are not the plan's {per_tick}")
+
+
+GEMMA_LAYERS = 14  # 2 groups of (5 local + 1 global) and the 2-layer rest
+
+
+def phase_gemma3():
+    """Phase 7: gemma3-27b at full width, 14 of 62 layers."""
+    model, params = make_model("gemma3-27b", GEMMA_LAYERS)
+    label = "gemma3"
+    with _count_windows() as counts:
+        dense = phase_engine(model, params, f"{label} dense")
+    _check_windows("dense continuous + wave", counts, model)
+    with _count_windows() as counts:
+        paged, f32_page_bytes = phase_paged_engine(model, params,
+                                                   f"{label} paged")
+    _check_windows("paged", counts, model)
+    # int8 at 14 layers of width 5376: the kernel and plain routes round
+    # more and more of their own K/V differently with depth, so the chunk
+    # is held call by call (see _check_chunk_by_call)
+    quant = phase_quant_engine(model, params, f32_page_bytes,
+                               names=("int8",), label=f"{label} paged",
+                               chunk_by_call=True)
+    launches = dict(dense, **paged, **quant)
+    # random gemma3 weights never repeat the prompts' patterns, so the
+    # n-gram drafter would propose nothing: the plain streams are replayed
+    launches["decode_attention_verify"] = _spec_pair(
+        model, params, f"{label} dense", {}, replay=True)
+    launches["paged_decode_attention_verify"] = _spec_pair(
+        model, params, f"{label} paged", dict(cache="paged", page_size=PAGE),
+        replay=True)
+    _preemption_checks(model, params, layouts=("dense",))
+    with _count_windows() as counts:
+        launches["flash_attention"], _ = phase_forward_attention(model,
+                                                                 params)
+    _check_windows("prefill step", counts, model)
+    del model, params
+    _free_device()
+    _log(f"[gemma3] launches: {launches}")
+    return launches
+
+
+MIXTRAL_LAYERS, QWEN_LAYERS = 4, 2
+
+
+def phase_moe():
+    """Phase 8: mixtral-8x7b (4 of 32 layers) and qwen3-moe-235b-a22b (2 of
+    94) at full width.  Returns the launches keyed as phase 3g's rows."""
+    from repro_torch.runtime.serve import ServeConfig, ServeEngine
+
+    launches = {}
+    model, params = make_model("mixtral-8x7b", MIXTRAL_LAYERS)
+    g = model.cfg.num_heads // model.cfg.num_kv_heads
+    dense = phase_engine(model, params, "mixtral dense")
+    paged, _ = phase_paged_engine(model, params, "mixtral paged")
+    launches.update({f"{n.removesuffix('_cuda')}_g{g}": c
+                     for n, c in dense.items()})
+    launches.update({f"{n}_g{g}": c for n, c in paged.items()})
+    launches[f"decode_attention_g{g}_verify"] = _spec_pair(
+        model, params, "mixtral dense", {}, replay=True)
+    launches[f"paged_decode_attention_g{g}_verify"] = _spec_pair(
+        model, params, "mixtral paged", dict(cache="paged", page_size=PAGE),
+        replay=True)
+    launches[f"flash_attention_g{g}"], _ = phase_forward_attention(
+        model, params, 1, FS)
+    del model, params
+    _free_device()
+
+    model, params = make_model("qwen3-moe-235b-a22b", QWEN_LAYERS)
+    g = model.cfg.num_heads // model.cfg.num_kv_heads
+    launches[f"flash_attention_g{g}"], _ = phase_forward_attention(
+        model, params, 1, 2048)
+    dense = phase_engine(model, params, "qwen3-moe dense")
+    paged, _ = phase_paged_engine(model, params, "qwen3-moe paged")
+    launches.update({f"{n.removesuffix('_cuda')}_g{g}": c
+                     for n, c in dense.items()})
+    launches.update({f"{n}_g{g}": c for n, c in paged.items()})
+    # G * T = 16 * 4 = 64 query rows per KV head: past the kernels' 16
+    try:
+        ServeEngine(model, params, ServeConfig(batch_slots=B, max_len=S,
+                                               draft_k=DRAFT_K))
+    except ValueError as e:
+        _log(f"[moe] qwen3-moe speculative engine refused: {e}")
+    else:
+        raise AssertionError("qwen3-moe's verify block was not refused")
+    caches = model.init_cache(B, 64)
+    toks = torch.zeros((B, VERIFY_T), dtype=torch.int64, device="cuda")
+    try:
+        model.decode_step_spec(params, caches, toks, np.zeros(B, np.int32))
+    except ValueError as e:
+        _log(f"[moe] qwen3-moe decode_step_spec at T={VERIFY_T} raises: {e}")
+    else:
+        raise AssertionError("qwen3-moe's verify block reached a kernel")
+    del model, params, caches
+    _free_device()
+    _log(f"[moe] launches: {launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1978,7 +2521,8 @@ def main():
     name, smi = phase_device()
     phase_build()
     rows = (phase_kernels() + phase_paged_kernels() + phase_quant_kernels()
-            + phase_forward_kernels() + phase_verify_kernels())
+            + phase_forward_kernels() + phase_verify_kernels()
+            + phase_grouping_kernels())
     model, params = make_model()
     launches = phase_engine(model, params)
     paged, f32_page_bytes = phase_paged_engine(model, params)
@@ -1987,11 +2531,20 @@ def main():
     launches.update(phase_spec_engine(model, params))
     launches["flash_attention"], _ = phase_forward_attention(model, params)
     del model, params
-    torch.cuda.empty_cache()
+    _free_device()
     model, params = make_ssm_model()
     launches["ssd_chunk"], _ = phase_ssm(model, params)
+    del model, params
+    _free_device()
+    gemma = phase_gemma3()
+    launches.update(phase_moe())
     for row in rows:
         row["launches"] = launches[row["name"]]
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']} was not launched on the "
+                                 f"main path")
+    if not all(gemma.values()):
+        raise AssertionError(f"gemma3: a kernel was not launched: {gemma}")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -13,10 +13,16 @@ dense per-slot stripes for the paged pool (``--page-size``,
 admission then reserves only the pages a request can touch and a shared
 prompt prefix is read from the pages that hold it.  ``--policy`` picks the
 admission policy and ``--tenants N`` spreads the requests round-robin
-over N tenants.  ``--arch mamba2-1.3b`` serves the SSM plan: its prompts
-are fed token by token and a slot's state is zeroed on admission (it
-takes no ``--cache paged``).  ``--kv-dtype int8|fp8`` (with ``--cache
-paged``) stores the pools quantized.  Weights come from the port's own
+over N tenants.  ``--arch gemma3-27b`` serves the grouped plan (local
+layers under their window, global ones without), ``--arch mixtral-8x7b``
+and ``--arch qwen3-moe-235b-a22b`` the MoE FFN; every cache layout and
+``--speculate`` apply to them as to the uniform archs (on the card
+qwen3-moe's 16 query heads per KV head leave no room for a verify block).
+``--arch mamba2-1.3b`` serves the SSM plan: its prompts are fed token by
+token and a slot's state is zeroed on admission (it takes no ``--cache
+paged``).  zamba2-2.7b (the hybrid plan) is not ported and raises.
+``--kv-dtype int8|fp8`` (with ``--cache paged``) stores the pools
+quantized.  Weights come from the port's own
 init (``torch.Generator`` seeded with ``--seed``), f32 params and f32
 cache as in the reference launcher.
 

@@ -317,7 +317,10 @@ def paged_prefill_chunk_update(k_pages, v_pages, k_new, v_new, slot, offset,
     the row (the reference's ``dynamic_slice`` would clamp its start; the
     engine's chunks always fit, so anything else is an error).  Entries
     past the slot's reservation are the null page 0, which several padded
-    rows then share."""
+    blocks then share: it takes the last of them on every device (on the
+    card an index write with repeated indices keeps any one of them, and
+    the padded rows that read the null page back feed an MoE FFN whose
+    capacity they share with the real rows)."""
     c, kv, d = k_new.shape[1], k_new.shape[2], k_new.shape[3]
     offset = int(offset)
     if c % page_size or offset % page_size:
@@ -329,10 +332,14 @@ def paged_prefill_chunk_update(k_pages, v_pages, k_new, v_new, slot, offset,
                          f"{page_idx.shape[1] * page_size} positions of the "
                          f"page table")
     pages = page_idx[int(slot), start:start + m].long()
+    # every null block writes the last null block's rows
+    blk = torch.arange(m, device=pages.device)
+    null = pages == 0
+    src = torch.where(null, torch.where(null, blk, -1).amax(), blk)
     for pool, new in ((k_pages, k_new), (v_pages, v_new)):
         pool, new = _raw(pool, new.reshape(m, page_size, kv, d).to(
             pool.dtype))
-        pool[pages] = new
+        pool[pages] = new[src]
     return k_pages, v_pages
 
 

@@ -25,6 +25,9 @@ from .transformer import (_cat_rows, _row, apply_blocks, apply_blocks_decode,
                           supports_chunked_prefill, supports_paged_cache,
                           supports_speculative)
 
+MOE_LB_COEF = 0.01
+MOE_Z_COEF = 1e-3
+
 
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``.  A CUDA device that is not there is
@@ -120,23 +123,32 @@ class LM:
 
     def loss(self, params, batch):
         """Next-token CE over batch {"tokens": (B,S)} (and "embeds"),
-        forward only:
-        (loss, {"ce_loss", "loss"}).  The MoE auxiliary losses are not
-        ported (MoE plans raise)."""
-        x, _, _ = self.hidden(params, batch, mode="train")
+        forward only, plus the MoE auxiliary losses: (loss, {"ce_loss",
+        "loss"} and, with MoE FFNs, "moe_lb_loss", "moe_z_loss",
+        "moe_drop_frac", each the mean over the MoE layers)."""
+        x, aux, _ = self.hidden(params, batch, mode="train")
         tokens = self._tokens(batch["tokens"])
         targets = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
         mask = torch.nn.functional.pad(
             torch.ones_like(tokens[:, 1:], dtype=torch.float32), (0, 1))
         ce = chunked_ce_loss(params["embed"], x, targets, mask,
                              chunk=self.knobs.ce_chunk)
-        return ce, {"ce_loss": ce, "loss": ce}
+        loss, metrics = ce, {"ce_loss": ce}
+        if aux:
+            n_moe = max(1, self.cfg.layer_kinds().count("moe"))
+            lb = aux["moe_lb_loss"] / n_moe
+            zl = aux["moe_z_loss"] / n_moe
+            loss = loss + MOE_LB_COEF * lb + MOE_Z_COEF * zl
+            metrics.update(moe_lb_loss=lb, moe_z_loss=zl,
+                           moe_drop_frac=aux["moe_drop_frac"] / n_moe)
+        metrics["loss"] = loss
+        return loss, metrics
 
     def prefill(self, params, batch):
         """The batched whole-prompt prefill: (last-position logits (B,V)
-        f32, caches).  Attention caches are (L,B,S,KV,D) in
-        ``knobs.cache_dtype``; SSM caches hold the final conv window and
-        state."""
+        f32, caches).  Attention caches are (..., B, S, KV, D) leaves of
+        the plan's tree in ``knobs.cache_dtype``; SSM caches hold the final
+        conv window and state."""
         x, _, caches = self.hidden(params, batch, mode="prefill")
         logits = unembed(params["embed"], x[:, -1:, :])[:, 0, :]
         return logits.float(), caches

@@ -1,19 +1,22 @@
-"""Transformer assembly, uniform plans.
+"""Transformer assembly: the uniform and grouped plans.
 
 The PyTorch counterpart of ``repro/models/transformer.py``.  Layer
-parameters and caches keep the reference's stacked leading layer axis
-(``{"stack": {...}}`` with (L, ...) leaves), so converted JAX pytrees load
-as they are; the reference's ``lax.scan`` over that axis becomes a Python
-loop over the layer index.  Caches are written in place.
+parameters and caches keep the reference's stacked layer axes, so
+converted JAX pytrees load as they are: a uniform plan is
+``{"stack": {...}}`` with (L, ...) leaves; a grouped plan (gemma3's
+local/global layers) is ``{"inner": (G, P-1, ...), "outer": (G, ...),
+"rem": (R, ...)}`` for the blocks and ``{"groups": {"inner", "outer"},
+"rem"}`` for the caches.  The reference's ``lax.scan`` over those axes
+becomes a Python loop over the layers in the order they run
+(``_layers``).  Caches are written in place.
 
-The uniform plans are ported: attention (dense, SWA and GQA archs) and
-SSM (mamba2).  The whole-sequence forward (``apply_blocks``, modes
-"prefill" and "train") runs attention through ``ops.flash_attention`` and
-SSM blocks through ``ssm_forward``; it is forward only, so the
-reference's remat of training is left out.  The grouped plans (gemma3
-local/global, zamba2 shared block) and MoE FFNs raise
-``NotImplementedError``; ROADMAP.md lists them under the port's
-"grouped / MoE / hybrid plans" item.
+Ported: attention plans (dense, SWA and GQA archs, gemma3's grouped
+local/global plan) with dense or MoE FFNs, and the uniform SSM plan
+(mamba2).  The whole-sequence forward (``apply_blocks``, modes "prefill"
+and "train") runs attention through ``ops.flash_attention`` and SSM blocks
+through ``ssm_forward``; it is forward only, so the reference's remat of
+training is left out.  The grouped plan with a shared outer block
+(zamba2) raises ``NotImplementedError``; ROADMAP.md lists it.
 """
 from __future__ import annotations
 
@@ -24,12 +27,15 @@ import torch
 
 from . import attention as attn
 from .layers import mlp, mlp_init, rmsnorm, rmsnorm_init
+from .moe import moe_ffn, moe_init
 from .ssm import ssm_decode_step, ssm_forward, ssm_init, ssm_init_cache
 from ..kernels import ops
 
+MOE_AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
 _UNPORTED = ("not ported yet: the port runs the uniform attention and SSM "
-             "plans with dense FFNs only (see ROADMAP.md, 'grouped / MoE / "
-             "hybrid plans')")
+             "plans and the grouped local/global plan, not the shared "
+             "attention block of the hybrid plan (see ROADMAP.md, 'grouped "
+             "/ MoE / hybrid plans')")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,10 +82,64 @@ def _ffn_kind(cfg) -> str:
 
 def _ported_plan(cfg) -> Plan:
     plan = build_plan(cfg)
-    if plan.kind != "uniform" or _ffn_kind(cfg) == "moe":
+    if plan.outer_shared:
         raise NotImplementedError(f"{cfg.name} (family={cfg.family!r}): "
                                   f"{_UNPORTED}")
     return plan
+
+
+def _layers(plan):
+    """The plan's layers in the order they run: (stack, index, window),
+    where ``stack`` names the stacked tree that holds the layer ("stack"
+    for a uniform plan; "inner", "outer" or "rem" for a grouped one) and
+    ``index`` is the layer's index into its leading axes.  Inner and
+    remainder layers take ``plan.inner_window``, an outer layer
+    ``plan.outer_window``."""
+    if plan.kind == "uniform":
+        return [("stack", (i,), plan.inner_window)
+                for i in range(plan.n_layers)]
+    out = []
+    for g in range(plan.n_groups):
+        out += [("inner", (g, i), plan.inner_window)
+                for i in range(plan.inner_per_group)]
+        out.append(("outer", (g,), plan.outer_window))
+    return out + [("rem", (i,), plan.inner_window)
+                  for i in range(plan.remainder)]
+
+
+def _plan_tree(plan, per_layer, groups_key=None):
+    """Stack ``per_layer`` (one tree per layer, in ``_layers`` order) into
+    the plan's tree: {"stack": (L, ...)}, or {"inner": (G, P-1, ...),
+    "outer": (G, ...), "rem": (R, ...)} with inner and outer under
+    ``groups_key`` when given (the caches' {"groups": ...})."""
+    if plan.kind == "uniform":
+        return {"stack": _stack_trees(per_layer)}
+    it = iter(per_layer)
+    inner, outer = [], []
+    for _ in range(plan.n_groups):
+        inner.append(_stack_trees([next(it)
+                                   for _ in range(plan.inner_per_group)]))
+        outer.append(next(it))
+    groups = {"inner": _stack_trees(inner), "outer": _stack_trees(outer)}
+    tree = {groups_key: groups} if groups_key else dict(groups)
+    if plan.remainder:
+        tree["rem"] = _stack_trees(list(it))
+    return tree
+
+
+def _layer_cache(caches, stack, index):
+    """Layer ``index`` of ``stack`` in a cache tree: views of its leaves,
+    so writes land in the caches."""
+    tree = caches["groups"][stack] if stack in ("inner", "outer") \
+        else caches[stack]
+    return _index_tree(tree, index)
+
+
+def tree_leaves(tree):
+    """The tensors of a nested dict, in insertion order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    return [tree]
 
 
 # ===================================================================== init
@@ -92,7 +152,9 @@ def _init_attn_block(gen, cfg, dtype, ffn, device):
             qkv_bias=cfg.qkv_bias, dtype=dtype, device=device),
         "ln2": rmsnorm_init(cfg.d_model, dtype, device),
     }
-    if ffn == "mlp":
+    if ffn == "moe":
+        p["moe"] = moe_init(gen, cfg.d_model, cfg.moe, dtype, device)
+    elif ffn == "mlp":
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype,
                             device)
     return p
@@ -121,17 +183,39 @@ def init_blocks(gen, cfg, dtype, device="cpu"):
     ffn = _ffn_kind(cfg)
     if plan.inner_kind == "attn":
         layers = [_init_attn_block(gen, cfg, dtype, ffn, device)
-                  for _ in range(plan.n_layers)]
+                  for _ in _layers(plan)]
     else:
         layers = [_init_ssm_block(gen, cfg, dtype, device)
-                  for _ in range(plan.n_layers)]
-    return {"stack": _stack_trees(layers)}
+                  for _ in _layers(plan)]
+    return _plan_tree(plan, layers)
+
+
+def _zero_aux(cfg, device):
+    if cfg.moe is not None:
+        return {k: torch.zeros((), dtype=torch.float32, device=device)
+                for k in MOE_AUX_KEYS}
+    return {}
+
+
+def _acc_aux(aux, new):
+    if not aux:
+        return aux
+    return {k: aux[k] + new.get(k, 0.0) for k in aux}
+
+
+def _ffn(p, h2, ffn, *, cfg, train):
+    """The FFN tail: (out, aux); aux holds the MoE losses of an MoE FFN."""
+    if ffn == "moe":
+        return moe_ffn(p["moe"], h2, cfg.moe, train=train)
+    if ffn == "mlp":
+        return mlp(p["mlp"], h2, cfg.gated_mlp), {}
+    return torch.zeros_like(h2), {}
 
 
 def _ffn_out(p, h2, ffn, *, cfg):
-    if ffn == "mlp":
-        return mlp(p["mlp"], h2, cfg.gated_mlp)
-    return torch.zeros_like(h2)
+    """The inference FFN tail of the cached block bodies (eval capacity,
+    aux dropped)."""
+    return _ffn(p, h2, ffn, cfg=cfg, train=False)[0]
 
 
 # ============================================================ block bodies
@@ -146,16 +230,18 @@ def _apply_attn_block(p, x, positions, *, cfg, window, knobs, collect_cache,
     """Whole-sequence attention block: x (B,S,dm) at ``positions``
     (B,S).  Attention runs through ``ops.flash_attention`` (the CUDA
     kernel on the card, its plain version on the CPU); ``collect_cache``
-    returns the block's K/V in ``knobs.cache_dtype``."""
+    returns the block's K/V in ``knobs.cache_dtype``.  An MoE FFN runs at
+    the training capacity unless ``collect_cache`` (as the reference's).
+    Returns (x, aux, cache)."""
     h = rmsnorm(p["ln1"], x)
     q, k, v = attn.qkv_project(p["attn"], h, positions, cfg.rope_theta)
     ctx = ops.flash_attention(q, k, v, causal=True, window=window)
     x = x + attn.attn_output(p["attn"], ctx)
     h2 = rmsnorm(p["ln2"], x)
-    x = x + _ffn_out(p, h2, ffn, cfg=cfg)
+    out, aux = _ffn(p, h2, ffn, cfg=cfg, train=not collect_cache)
     cache = ({"k": k.to(knobs.cache_dtype), "v": v.to(knobs.cache_dtype)}
              if collect_cache else None)
-    return x, cache
+    return x + out, aux, cache
 
 
 def _apply_ssm_block(p, x, *, cfg, collect_cache):
@@ -278,41 +364,51 @@ def _apply_attn_block_prefill_chunk(p, x, cache, slot, offset, *, cfg,
 # ========================================================== sequence apply
 def apply_blocks(blocks, x, positions, *, cfg, knobs, mode: str):
     """The whole-sequence forward.  mode: "train" (no caches) or "prefill"
-    (emit each layer's cache: attention K/V (L,B,S,KV,D), SSM conv and
-    state).  Returns (x, aux, caches or None); aux is empty (the MoE
-    losses are not ported)."""
+    (emit each layer's cache, in the plan's tree: attention K/V
+    (..., B, S, KV, D), SSM conv and state).  Returns (x, aux, caches or
+    None); aux sums the MoE losses over the layers (empty without MoE)."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown mode {mode!r}")
     plan = _ported_plan(cfg)
     ffn = _ffn_kind(cfg)
     collect = mode == "prefill"
-    stack = blocks["stack"]
+    aux = _zero_aux(cfg, x.device)
     caches = []
-    for i in range(plan.n_layers):
-        p = _index_tree(stack, i)
+    for stack, index, window in _layers(plan):
+        p = _index_tree(blocks[stack], index)
         if plan.inner_kind == "attn":
-            x, cache = _apply_attn_block(
-                p, x, positions, cfg=cfg, window=plan.inner_window,
-                knobs=knobs, collect_cache=collect, ffn=ffn)
+            x, a, cache = _apply_attn_block(
+                p, x, positions, cfg=cfg, window=window, knobs=knobs,
+                collect_cache=collect, ffn=ffn)
+            aux = _acc_aux(aux, a)
         else:
             x, cache = _apply_ssm_block(p, x, cfg=cfg,
                                         collect_cache=collect)
         caches.append(cache)
-    return x, {}, ({"stack": _stack_trees(caches)} if collect else None)
+    return x, aux, (_plan_tree(plan, caches, "groups") if collect else None)
 
 
 # ============================================================ decode apply
+def _kv_len(caches):
+    """S of a dense attention cache tree: axis -3 of its "k" leaves
+    (..., B, S, KV, D), whatever leading layer axes the plan stacks."""
+    tree = caches
+    while "k" not in tree:
+        tree = next(iter(tree.values()))
+    return tree["k"].shape[-3]
+
+
 def apply_blocks_decode(blocks, x, caches, pos, *, cfg, knobs, paged=None):
     """Decode every layer; ``pos`` scalar or (B,).  x (B,T,dm): T = 1 is
     the one-token tick, T > 1 a verify block (attention plans only), whose
     rows each go through the layers in the one-token tick's shape
-    (``_apply_attn_block_decode``).  Caches are updated in place.  Returns
-    (x (B,T,dm), caches); ``paged = (page_idx, page_size)`` takes the page
-    pools (one table serves every layer).  SSM layers advance one token
-    at a time and ignore ``pos``."""
+    (``_apply_attn_block_decode``).  Each layer attends under its plan
+    window.  Caches are updated in place.  Returns (x (B,T,dm), caches);
+    ``paged = (page_idx, page_size)`` takes the page pools (one table
+    serves every layer).  SSM layers advance one token at a time and
+    ignore ``pos``."""
     plan = _ported_plan(cfg)
     ffn = _ffn_kind(cfg)
-    stack, cstack = blocks["stack"], caches["stack"]
     if plan.inner_kind == "ssm":
         if paged is not None:
             raise NotImplementedError(
@@ -321,9 +417,10 @@ def apply_blocks_decode(blocks, x, caches, pos, *, cfg, knobs, paged=None):
             raise NotImplementedError(
                 f"multi-token decode unsupported for family={cfg.family!r} "
                 f"-- SSM state advances one token at a time")
-        for i in range(plan.n_layers):
-            x = _apply_ssm_block_decode(_index_tree(stack, i), x,
-                                        _index_tree(cstack, i), cfg=cfg)
+        for stack, index, _ in _layers(plan):
+            x = _apply_ssm_block_decode(_index_tree(blocks[stack], index), x,
+                                        _layer_cache(caches, stack, index),
+                                        cfg=cfg)
         return x, caches
     b, t = x.shape[0], x.shape[1]
     # where this step's K/V rows land: the same in every layer (from the
@@ -331,17 +428,16 @@ def apply_blocks_decode(blocks, x, caches, pos, *, cfg, knobs, paged=None):
     if paged is not None:
         index = attn.paged_write_index(pos, paged[0], paged[1], t)
     else:
-        index = attn.cache_write_index(pos, b, cstack["k"].shape[2], t,
-                                       x.device)
+        index = attn.cache_write_index(pos, b, _kv_len(caches), t, x.device)
     pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(b)
     pos = pos.to(torch.int32).contiguous()
     active = (pos >= 0).to(torch.int32)
     xs = [_row(x, i) for i in range(t)]
-    for i in range(plan.n_layers):
+    for stack, li, window in _layers(plan):
         xs = _apply_attn_block_decode(
-            _index_tree(stack, i), xs, _index_tree(cstack, i), pos, active,
-            index, cfg=cfg, window=plan.inner_window, knobs=knobs, ffn=ffn,
-            paged=paged)
+            _index_tree(blocks[stack], li), xs, _layer_cache(caches, stack, li),
+            pos, active, index, cfg=cfg, window=window, knobs=knobs,
+            ffn=ffn, paged=paged)
     return _cat_rows(xs), caches
 
 
@@ -374,33 +470,45 @@ def apply_blocks_prefill_chunk(blocks, x, caches, slot, offset, *, cfg,
             f"chunked prefill unsupported for family={cfg.family!r}")
     ffn = _ffn_kind(cfg)
     slot, offset = int(slot), int(offset)
-    stack, cstack = blocks["stack"], caches["stack"]
-    for i in range(plan.n_layers):
+    for stack, index, window in _layers(plan):
         x = _apply_attn_block_prefill_chunk(
-            _index_tree(stack, i), x, _index_tree(cstack, i), slot, offset,
-            cfg=cfg, window=plan.inner_window, knobs=knobs, ffn=ffn,
-            paged=paged)
+            _index_tree(blocks[stack], index), x,
+            _layer_cache(caches, stack, index), slot, offset, cfg=cfg,
+            window=window, knobs=knobs, ffn=ffn, paged=paged)
     return x, caches
 
 
 # ============================================================== cache init
+def _cache_tree(plan, leaves):
+    """The plan's cache tree of zero leaves: ``leaves(prefix)`` makes one
+    layer stack's leaves with the leading layer axes ``prefix``."""
+    if plan.kind == "uniform":
+        return {"stack": leaves((plan.n_layers,))}
+    tree = {"groups": {
+        "inner": leaves((plan.n_groups, plan.inner_per_group)),
+        "outer": leaves((plan.n_groups,))}}
+    if plan.remainder:
+        tree["rem"] = leaves((plan.remainder,))
+    return tree
+
+
 def init_cache(cfg, knobs, batch: int, max_len: int, device="cpu"):
-    """Dense caches: {"stack": {...}} with stacked (L, ...) leaves: "k" and
-    "v" (L, B, S, KV, D) for attention plans; "conv" (L, B, conv_width - 1,
+    """Dense caches in the plan's tree ({"stack": ...} or {"groups":
+    {"inner", "outer"}, "rem"}) with stacked layer axes: "k" and "v"
+    (..., B, S, KV, D) for attention plans; "conv" (L, B, conv_width - 1,
     conv_dim) in ``knobs.cache_dtype`` and "state" (L, B, NH, hp, ds) f32
     for SSM plans."""
     plan = _ported_plan(cfg)
     if plan.inner_kind == "ssm":
         leaf = ssm_init_cache(batch, cfg.d_model, cfg.ssm, knobs.cache_dtype,
                               device)
-        return {"stack": {k: torch.zeros((plan.n_layers,) + v.shape,
-                                         dtype=v.dtype, device=device)
-                          for k, v in leaf.items()}}
-    shape = (plan.n_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"stack": {
-        "k": torch.zeros(shape, dtype=knobs.cache_dtype, device=device),
-        "v": torch.zeros(shape, dtype=knobs.cache_dtype, device=device),
-    }}
+        return _cache_tree(plan, lambda pre: {
+            k: torch.zeros(pre + v.shape, dtype=v.dtype, device=device)
+            for k, v in leaf.items()})
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return _cache_tree(plan, lambda pre: {
+        name: torch.zeros(pre + shape, dtype=knobs.cache_dtype,
+                          device=device) for name in ("k", "v")})
 
 
 def cache_batch_axes(cfg, knobs, max_len: int):
@@ -448,27 +556,31 @@ def copy_cache_in(caches, snapshot, slot, axes):
 
 def init_cache_paged(cfg, knobs, num_pages: int, page_size: int,
                      device="cpu"):
-    """Paged KV pools: {"stack": {"k", "v"}} with (L, P, page_size, KV, D)
-    leaves, one global pool per layer shared by every slot.  One page table
+    """Paged KV pools in the plan's tree (``init_cache``'s), "k" and "v"
+    (..., P, page_size, KV, D) leaves, one global pool per layer shared by
+    every slot.  One page table
     addresses every layer: a (page, offset) coordinate is valid in each.
     Physical page 0 is the null page.  Attention plans only.
 
     ``knobs.kv_quant`` ("int8"/"fp8") stores the pools at that dtype and
     adds per-token, per-head f32 scale leaves "k_scale"/"v_scale"
-    (L, P, page_size, KV, 1), the reference's layout: the page axis stays
+    (..., P, page_size, KV, 1), the reference's layout: the page axis stays
     where the pools keep it, so a page's scales go wherever its values
     go."""
     plan = _ported_plan(cfg)
     if not supports_paged_cache(cfg):
         raise NotImplementedError(
             f"paged KV cache unsupported for family={cfg.family!r}")
-    shape = (plan.n_layers, num_pages, page_size, cfg.num_kv_heads,
-             cfg.head_dim)
+    shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
     dt = attn.kv_quant_dtype(knobs.kv_quant) or knobs.cache_dtype
-    pools = {"k": torch.zeros(shape, dtype=dt, device=device),
-             "v": torch.zeros(shape, dtype=dt, device=device)}
-    if knobs.kv_quant:
-        for name in ("k_scale", "v_scale"):
-            pools[name] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
-                                      device=device)
-    return {"stack": pools}
+
+    def pools(pre):
+        out = {name: torch.zeros(pre + shape, dtype=dt, device=device)
+               for name in ("k", "v")}
+        if knobs.kv_quant:
+            for name in ("k_scale", "v_scale"):
+                out[name] = torch.zeros(pre + shape[:-1] + (1,),
+                                        dtype=torch.float32, device=device)
+        return out
+
+    return _cache_tree(plan, pools)

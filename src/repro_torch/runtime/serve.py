@@ -81,6 +81,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.decode_attention import MAX_ROWS
+from repro_torch.models.transformer import tree_leaves
 from repro_torch.runtime.draft import get_drafter
 from repro_torch.runtime.kv_pool import KVCacheManager
 from repro_torch.runtime.sampling import (SamplingParams, matches_stop,
@@ -450,11 +451,8 @@ class ServeEngine:
     def kv_reserved_bytes(self) -> int:
         """Device bytes held by the KV cache (dense stripes, or the page
         pools and their scale pools)."""
-        def walk(tree):
-            if isinstance(tree, dict):
-                return sum(walk(v) for v in tree.values())
-            return tree.numel() * tree.element_size()
-        return walk(self.caches)
+        return sum(t.numel() * t.element_size()
+                   for t in tree_leaves(self.caches))
 
     def _page_table(self) -> torch.Tensor:
         """The page table on the model's device (one host-to-device copy;
@@ -737,7 +735,7 @@ class ServeEngine:
         token.  The admission order still follows the policy."""
         if any(r is not None for r in self.active) or not self.queue:
             return
-        for leaf in self.caches["stack"].values():
+        for leaf in tree_leaves(self.caches):
             leaf.zero_()  # KV stripes, or SSM conv windows and states
         self.pos[:] = 0
         self.tokens[:] = 0

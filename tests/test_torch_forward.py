@@ -279,13 +279,6 @@ def test_chunked_ce_loss_matches_jax(masked):
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "mixtral-8x7b"])
-def test_hybrid_and_moe_plans_still_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(get_config(arch, smoke=True), device="cpu").init(
-            torch.Generator().manual_seed(0))
-
-
 def test_ssm_plan_capabilities_follow_reference():
     """SSM plans: no chunked prefill, no paged pool, no speculation, no
     multi-token decode; the forward takes only "train" and "prefill"."""

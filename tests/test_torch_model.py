@@ -217,12 +217,6 @@ def test_layers_match_jax(gated):
                                jnp.asarray(x), gated)), atol=1e-5, rtol=1e-5)
 
 
-def test_unported_plans_raise():
-    cfg = get_config("gemma3-27b", smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(cfg, device="cpu").init_cache(1, 8)
-
-
 def test_cuda_device_without_card_fails():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CUDA model is legal here")
