@@ -6,8 +6,9 @@ Run from the repository root.  Phases, each raising on failure:
 
 1. device: the card's name and power limit; TF32 off for matmuls and cuDNN;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``,
-   one ``nvcc`` per source, all at once; print ptxas's registers, stack
-   and spills of every kernel instance, and fail on a spill;
+   one ``nvcc`` per library (each attention source once per head dim,
+   64, 80 and 128), all at once; print ptxas's registers, stack and spills
+   of every kernel instance, and fail on a spill;
 3. kernels: each of the five kernels against its plain PyTorch version on
    the card at the serving path's shapes (internlm2-1.8b attention: H=16,
    KV=8, D=128; 4 slots; 8192 positions each, as a dense cache or as 512
@@ -81,8 +82,9 @@ Run from the repository root.  Phases, each raising on failure:
    D=128; causal with window 0 and 1024, not causal at S=1024, one bf16
    case, and S=1000, no multiple of the tiles, causal and not causal with
    window 300) and the SSD chunk (mamba2-1.3b's B=2, NC=16, NH=64, Q=256,
-   hp=64, ds=128, G=1, the prefill's B=4, NC=8, a G=2 case, and Q=160
-   with ds=96, f32; the first shape in bf16) against their plain versions,
+   hp=64, ds=128, G=1, the prefill's B=4, NC=8, a G=2 case, Q=160 with
+   ds=96, and zamba2-2.7b's NH=80, ds=64, f32; the first shape in bf16)
+   against their plain versions,
    a batch row and a chunk alone against them in the batch, bitwise, then
    timed against the plain version, SDPA (flash attention only) and the
    bound (the SSD chunk's at its route's tensor-core rate, with the
@@ -125,7 +127,30 @@ Run from the repository root.  Phases, each raising on failure:
    step; qwen3-moe-235b-a22b (2 of 94 layers): a 1 x 2048 prefill step,
    phases 4 and 4b, and its verify block refused (G x T = 64 rows); each
    prefill prints its MoE drop fraction.  Each model is built alone and
-   freed before the next.
+   freed before the next;
+3h. kernels at head dims 80 (zamba2's shared block) and 64 (musicgen),
+   H = KV = 32: #1, #2 (2, 4 and 8 splits, bitwise the single pass), #3
+   and #5 at T = 1 and 4 at both position sets, windows 0 and 1024, f32
+   and bf16 caches and pools, int8 and fp8 pools; a slot alone against
+   the batch; #4 (256-row chunks at 0 and 3840, the ragged 104-row one)
+   on f32, bf16, int8 and fp8 pools and #6 (S=4096 causal, windows 0 and
+   1024; S=1000 with window 300; a bf16 case); head dim 96 and 16 rows at
+   head dim 80 refused by name; then each timed as in phase 3 (rows
+   ``<kernel>_d<D>``);
+9. zamba2-2.7b at full width and depth (54 mamba2 layers in 9 groups of
+   6, each followed by the shared attention block; 9.4 GB of f32
+   weights): the 2 x 4096 prefill step must launch #7 54 times and #6 9
+   times and match the plain path; a decode step from its caches in an
+   8192-position stripe at splits 1 and 2 (#1, #2 at head dim 80), bitwise
+   equal, against the plain path, then 8 greedy steps; a 128-token
+   prompt's prefill-then-decode against the token feed and the engine;
+   ``ServeEngine`` continuous (more requests than slots, a reused slot
+   against a fresh engine), wave and one preemption; a decode tick of 4
+   slots at pos [4300, 300, -1, 4200] timed and profiled, and the prefill
+   timed and profiled;
+10. musicgen-large at full width, 12 of 48 layers (head dim 64): phases 4
+   and 4b, an int8 paged run (phase 4c's checks, the prefill chunk held
+   call by call) and a 1 x 4096 prefill step.
 
 The last lines are the nvidia-smi line, a JSON ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -1589,22 +1614,23 @@ def _sampled_checks(model, params):
                              f"{same}")
 
 
-def _preemption_checks(model, params, layouts=("dense", "paged")):
+def _preemption_checks(model, params, layouts=("dense", "paged"),
+                       lens=((300, 257, 420, 199), (64, 90)), max_len=S):
     """``preempt=True``, ``policy="priority"``: four low-priority requests
-    of tenant "batch" fill the slots, then two high-priority ones of
-    tenant "interactive" arrive and preempt; every stream equals the run
-    without preemption, dense and paged (prefix cache off: no page may
-    stay in use after the drain).  Prints the dense checkpoint's bytes
-    and its copy-out and copy-in times."""
+    of tenant "batch" (prompt lengths ``lens[0]``) fill the slots, then
+    two high-priority ones of tenant "interactive" (``lens[1]``) arrive
+    and preempt; every stream equals the run without preemption, dense
+    and paged (prefix cache off: no page may stay in use after the
+    drain).  Prints the dense checkpoint's bytes and its copy-out and
+    copy-in times."""
     from repro_torch.models.transformer import tree_leaves
     from repro_torch.runtime.serve import Request, ServeConfig, ServeEngine
 
     rng = np.random.default_rng(7)
     vocab = model.cfg.vocab_size
-    low = [rng.integers(0, vocab, size=n).astype(np.int32)
-           for n in (300, 257, 420, 199)]
+    low = [rng.integers(0, vocab, size=n).astype(np.int32) for n in lens[0]]
     high = [rng.integers(0, vocab, size=n).astype(np.int32)
-            for n in (64, 90)]
+            for n in lens[1]]
 
     def serve(config):
         eng = ServeEngine(model, params, config)
@@ -1623,7 +1649,7 @@ def _preemption_checks(model, params, layouts=("dense", "paged")):
     layout_kw = {"dense": {}, "paged": dict(cache="paged", page_size=PAGE,
                                             prefix_cache=False)}
     for label, kw in ((name, layout_kw[name]) for name in layouts):
-        cfg = dict(batch_slots=B, max_len=S, prefill_chunk=CHUNK,
+        cfg = dict(batch_slots=B, max_len=max_len, prefill_chunk=CHUNK,
                    policy="priority", **kw)
         _, want = serve(ServeConfig(**cfg))
         eng, got = serve(ServeConfig(preempt=True, **cfg))
@@ -1681,6 +1707,8 @@ def phase_spec_engine(model, params):
 # -------------------------------------------------- whole-sequence kernels
 FS, FB = 4096, 2  # flash attention: internlm2 prefill of 2 x 4096
 SSD = dict(B=2, NC=16, NH=64, G=1, Q=256, HP=64, DS=128)  # mamba2, S=4096
+# zamba2-2.7b's mamba2 layers at its 2 x 4096 prefill: 80 heads, ds 64
+SSD_ZAMBA2 = dict(B=2, NC=16, NH=80, G=1, Q=256, HP=64, DS=64)
 # SSD chunk against its plain version, f32: the kernel multiplies on the
 # tensor cores, each f32 product as three TF32 products (3xTF32: the
 # dropped small.small term is <= 2^-22 of the product), summed 32 deep by
@@ -1860,6 +1888,10 @@ def phase_forward_kernels():
             f"ssd_chunk {shape}", ssd_chunk_cuda(*args),
             ssd_chunk_plain(*args)))
     _check_ssd_batch_invariance(_ssd_inputs(*SSD.values()))
+    zargs = _ssd_inputs(*SSD_ZAMBA2.values())
+    zamba2_err = _check_ssd(f"ssd_chunk {SSD_ZAMBA2} (zamba2)",
+                            ssd_chunk_cuda(*zargs), ssd_chunk_plain(*zargs))
+    _check_ssd_batch_invariance(zargs)
     bf16 = _ssd_inputs(*SSD.values(), dtype=torch.bfloat16)
     x, b, c, dt, cum = bf16
     y_abs = ssd_chunk_plain(x.abs().float(), b.abs().float(),
@@ -1894,6 +1926,15 @@ def phase_forward_kernels():
         lambda: ssd_chunk_plain(*args), None, bound,
         "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan.py:54", ssd_err))
+    row = _timed_row(
+        "ssd_chunk_zamba2", lambda: ssd_chunk_cuda(*zargs),
+        lambda: ssd_chunk_plain(*zargs), None,
+        _ssd_bound_ms(zargs[0], zargs[1]),
+        "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan.py:54", zamba2_err)
+    row["shape"] = str(SSD_ZAMBA2)
+    rows.append(row)
+    del zargs
     # the bf16 instance, timed for the record (not on the served path)
     bound, bound_by, rate = _ssd_bound_ms(bf16[0], bf16[1])
     _log(f"[kernels] ssd_chunk bf16: "
@@ -2147,16 +2188,17 @@ WINDOWS_G = (0, 1024, 4096)
 
 
 @contextlib.contextmanager
-def _heads(h, kv):
+def _heads(h, kv, d=None):
     """Run the kernel helpers of phases 3 and 3c at ``h`` query and ``kv``
-    KV heads (they read the module's H and KV)."""
-    global H, KV
-    old = H, KV
-    H, KV = h, kv
+    KV heads and head dim ``d`` (default: unchanged; they read the
+    module's H, KV and D)."""
+    global H, KV, D
+    old = H, KV, D
+    H, KV, D = h, kv, d or D
     try:
         yield
     finally:
-        H, KV = old
+        H, KV, D = old
 
 
 def _grouping_checks(g):
@@ -2369,6 +2411,359 @@ def phase_grouping_kernels():
     return rows
 
 
+# ------------------------------------------ 3h: kernels at head dims 80, 64
+# zamba2-2.7b's shared attention block (2560 / 32 = 80) and musicgen-large
+# (2048 / 32 = 64), both H = KV = 32 (G = 1): one token is the chunked
+# decode kernel's 2-row instance and the T = 4 verify block its 8-row one
+# (the only instances these head dims have); the many-row kernel holds 64
+# positions of one head per tile.  Each head dim is its own library.
+HEAD_DIM_CASES = (80, 64)
+WINDOWS_H = (0, 1024)
+H_HD = 32
+
+
+def _head_dim_checks(d):
+    """#1-#6 at head dim ``d`` (H = KV = 32) against their plain versions:
+    f32 at both position sets, windows 0 and 1024, T = 1 and 4; split-K at
+    2, 4 and 8 splits bitwise the single pass; a slot alone against the
+    batch and the rows of a T = 4 block against the T = 1 launches,
+    bitwise; #4 and #6 at the new tiles' edges; bf16 caches and pools, and
+    int8 and fp8 pools.  Returns the worst f32 error per kernel."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_splitk_cuda)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ops import (decode_attention_plain,
+                                         flash_attention_plain,
+                                         paged_decode_attention_plain,
+                                         paged_prefill_attention_plain)
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_splitk_cuda,
+        paged_prefill_attention_cuda)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {}
+
+    def note(name, err, kd=f32):
+        if kd == f32:
+            errs[name] = max(errs.get(name, 0.0), err)
+
+    for positions in (POS, POS_EDGES):
+        for window in WINDOWS_H:
+            for t in (1, VERIFY_T):
+                for kd in (f32, bf16):
+                    q, k, v, pos = _inputs(t, f32, kd, positions=positions)
+                    note("decode_attention", _check(
+                        f"decode_attention D={D} T={t} pos={positions} "
+                        f"window={window} cache={kd}",
+                        decode_attention_cuda(q, k, v, pos, window=window),
+                        decode_attention_plain(q, k, v, pos, window=window),
+                        kd), kd)
+                    q, k, v, table, pos = _paged_inputs(
+                        t, f32, kd, positions=positions)
+                    note("paged_decode_attention", _check(
+                        f"paged_decode_attention D={D} T={t} "
+                        f"pos={positions} window={window} pool={kd}",
+                        paged_decode_attention_cuda(q, k, v, table, pos,
+                                                    window=window),
+                        paged_decode_attention_plain(q, k, v, table, pos,
+                                                     window=window), kd),
+                        kd)
+            q, k, v, pos = _inputs(1, f32, f32, positions=positions)
+            one = decode_attention_cuda(q, k, v, pos, window=window)
+            for ns in (2, 4, 8):
+                got = decode_attention_splitk_cuda(q, k, v, pos,
+                                                   window=window,
+                                                   num_splits=ns)
+                note("decode_attention_splitk", _check(
+                    f"decode_attention_splitk D={D} ns={ns} "
+                    f"pos={positions} window={window}", got,
+                    decode_attention_plain(q, k, v, pos, window=window,
+                                           num_splits=ns), f32))
+                if not torch.equal(got, one):
+                    raise AssertionError(f"dense split-K at D={D}, {ns} "
+                                         f"splits, differs from the single "
+                                         f"pass")
+            q, k, v, table, pos = _paged_inputs(1, f32, f32,
+                                                positions=positions)
+            note("paged_decode_attention_splitk", _check(
+                f"paged_decode_attention_splitk D={D} ns=2 "
+                f"pos={positions} window={window}",
+                paged_decode_attention_splitk_cuda(q, k, v, table, pos,
+                                                   window=window,
+                                                   num_splits=2),
+                paged_decode_attention_plain(q, k, v, table, pos,
+                                             window=window, num_splits=2),
+                f32))
+        _log(f"[kernels] decode_attention_splitk D={D} pos={positions}: 2, "
+             f"4 and 8 splits equal the single pass bitwise")
+        # bf16 q (and output) on bf16 caches and pools
+        for t in (1, VERIFY_T):
+            q, k, v, pos = _inputs(t, bf16, bf16, positions=positions)
+            _check(f"decode_attention D={D} T={t} pos={positions} q=bf16 "
+                   f"cache=bf16", decode_attention_cuda(q, k, v, pos),
+                   decode_attention_plain(q, k, v, pos), bf16)
+            q, k, v, table, pos = _paged_inputs(t, bf16, bf16,
+                                                positions=positions)
+            _check(f"paged_decode_attention D={D} T={t} pos={positions} "
+                   f"q=bf16 pool=bf16",
+                   paged_decode_attention_cuda(q, k, v, table, pos),
+                   paged_decode_attention_plain(q, k, v, table, pos), bf16)
+        # the quantized pools' scale branch: T = 1 and 4, split-K 2
+        for name in QUANT:
+            for t, ns in ((1, 1), (VERIFY_T, 1), (1, 2)):
+                q, k, v, ks, vs, table, pos = _quant_paged_inputs(
+                    t, name, positions=positions)
+                sc = dict(k_scale=ks, v_scale=vs)
+                got = (paged_decode_attention_cuda(q, k, v, table, pos, **sc)
+                       if ns == 1 else paged_decode_attention_splitk_cuda(
+                           q, k, v, table, pos, num_splits=ns, **sc))
+                note(f"paged_decode_attention{'_splitk' * (ns > 1)}_{name}",
+                     _check(f"paged_decode_attention D={D} T={t} ns={ns} "
+                            f"pos={positions} pool={name}", got,
+                            paged_decode_attention_plain(
+                                q, k, v, table, pos, num_splits=ns, **sc),
+                            k.dtype))
+
+    def dense(t, positions):
+        q, k, v, pos = _inputs(t, f32, f32, positions=positions)
+        return (q, k, v, pos), (q[3:], k[3:], v[3:], pos[3:])
+
+    def paged(t, positions):
+        q, k, v, table, pos = _paged_inputs(t, f32, f32, positions=positions)
+        return (q, k, v, table, pos), (q[3:], k, v, table[3:], pos[3:])
+
+    _check_slot_alone("decode_attention", dense, decode_attention_cuda,
+                      decode_attention_splitk_cuda, (1, VERIFY_T))
+    _check_slot_alone("paged_decode_attention", paged,
+                      paged_decode_attention_cuda,
+                      paged_decode_attention_splitk_cuda, (1, VERIFY_T))
+    # the verify block's rows (the 8-row instance) bitwise the T = 1
+    # launches (the 2-row instance) at pos + t, across chunk boundaries
+    for positions in (POS_V, POS_V_EDGES):
+        for window in WINDOWS_H:
+            q, k, v, pos = _inputs(VERIFY_T, f32, f32, positions=positions)
+            _rows_alone(f"decode_attention D={D} pos={positions} "
+                        f"window={window}",
+                        lambda qq, p, a: decode_attention_cuda(
+                            qq, k, v, p, active=a, window=window), q, pos)
+            q, k, v, table, pos = _paged_inputs(VERIFY_T, f32, f32,
+                                                positions=positions)
+            _rows_alone(f"paged_decode_attention D={D} pos={positions} "
+                        f"window={window}",
+                        lambda qq, p, a: paged_decode_attention_cuda(
+                            qq, k, v, table, p, active=a, window=window),
+                        q, pos)
+        q, k, v, ks, vs, table, pos = _quant_paged_inputs(
+            VERIFY_T, "int8", positions=positions)
+        _rows_alone(f"paged_decode_attention D={D} int8 pos={positions}",
+                    lambda qq, p, a: paged_decode_attention_cuda(
+                        qq, k, v, table, p, active=a, k_scale=ks,
+                        v_scale=vs), q, pos)
+    slot = B - 1
+    for c, q_offset, window in ((CHUNK, 0, 0), (CHUNK, S // 2 - CHUNK, 0),
+                                (CHUNK, S // 2 - CHUNK, 1024),
+                                (RAGGED, S // 2, 0), (RAGGED, S // 2, 1024)):
+        for kd in (f32, bf16):
+            q, k, v, table, _ = _paged_inputs(1, f32, kd, chunk=c)
+            p_round = None
+            if kd == bf16:
+                p_round = 2.0 ** -8 * paged_prefill_attention_plain(
+                    q, k, v.abs(), table, slot, q_offset, window=window)
+            note("paged_prefill_attention", _check(
+                f"paged_prefill_attention D={D} C={c} q_offset={q_offset} "
+                f"window={window} pool={kd}",
+                paged_prefill_attention_cuda(q, k, v, table[slot], q_offset,
+                                             window=window),
+                paged_prefill_attention_plain(q, k, v, table, slot, q_offset,
+                                              window=window), kd, p_round),
+                kd)
+        for name in QUANT:
+            q, k, v, ks, vs, table, _ = _quant_paged_inputs(1, name, chunk=c)
+            sc = dict(k_scale=ks, v_scale=vs, window=window)
+            note(f"paged_prefill_attention_{name}", _check(
+                f"paged_prefill_attention D={D} C={c} q_offset={q_offset} "
+                f"window={window} pool={name}",
+                paged_prefill_attention_cuda(q, k, v, table[slot], q_offset,
+                                             **sc),
+                paged_prefill_attention_plain(q, k, v, table, slot, q_offset,
+                                              **sc), k.dtype))
+    for s, causal, window, dt in ((FS, True, 0, f32), (FS, True, 1024, f32),
+                                  (1000, True, 300, f32),
+                                  (1000, False, 300, f32),
+                                  (1000, True, 0, bf16)):
+        q, k, v = _flash_inputs(FB, s, dt)
+        p_round = None
+        if dt == bf16:
+            p_round = 2.0 ** -8 * flash_attention_plain(
+                q, k, v.abs(), causal=causal, window=window)
+        note("flash_attention", _check(
+            f"flash_attention D={D} S={s} causal={causal} window={window} "
+            f"{dt}", flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window),
+            flash_attention_plain(q, k, v, causal=causal, window=window), dt,
+            p_round), dt)
+        del q, k, v, p_round
+    torch.cuda.synchronize()
+    return errs
+
+
+def _check_head_dim_refusals():
+    """A head dim no library is built for, and more query rows than the
+    head dim's instances take, raise by name before any launch."""
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      max_rows)
+
+    for d, t, want in ((96, 1, "head_dim 96 not built"),
+                       (80, 2 * max_rows(80), "16 query rows")):
+        with _heads(H_HD, H_HD, d):
+            q, k, v, pos = _inputs(t, torch.float32, torch.float32)
+            before = decode_attention_cuda.launches
+            try:
+                decode_attention_cuda(q, k, v, pos)
+            except ValueError as e:
+                if want not in str(e) or \
+                        decode_attention_cuda.launches != before:
+                    raise
+                _log(f"[kernels] decode_attention D={d} T={t}: refused as it "
+                     f"must be ({e})")
+            else:
+                raise AssertionError(f"D={d} T={t} was not refused")
+            del q, k, v
+    torch.cuda.empty_cache()
+
+
+def phase_head_dim_kernels():
+    """Phase 3h: #1-#6 at head dims 80 and 64 (H = KV = 32) against their
+    plain versions, the refusals, then each timed as in phase 3 with its
+    bound and one SDPA call.  Rows ``<kernel>_d<D>``: at D = 80 the
+    kernels zamba2's path runs (#1, #2, #6), at D = 64 musicgen's (#1-#6,
+    and #3-#5 on int8 pools); the other kernels' times are printed."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_splitk_cuda)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ops import (decode_attention_plain,
+                                         flash_attention_plain,
+                                         paged_decode_attention_plain,
+                                         paged_prefill_attention_plain)
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_splitk_cuda,
+        paged_prefill_attention_cuda)
+    from repro_torch.models.attention import dequantize_kv
+
+    dense_src = "src/repro_torch/kernels/csrc/decode_attention.cu"
+    paged_src = "src/repro_torch/kernels/csrc/paged_attention.cu"
+    flash_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    dec_line = "src/repro/kernels/decode_attention.py"
+    pag_line = "src/repro/kernels/paged_attention.py"
+    on_path = {80: ("decode_attention", "decode_attention_splitk",
+                    "flash_attention")}
+    f32 = torch.float32
+    _check_head_dim_refusals()
+    rows = []
+    for d in HEAD_DIM_CASES:
+        with _heads(H_HD, H_HD, d):
+            errs = _head_dim_checks(d)
+            slot, q_offset = B - 1, S // 2 - CHUNK
+            timed = []
+            q, k, v, pos = _inputs(1, f32, f32)
+            lib_ms, bound = (_time_ms(_library_call(q, k, v, pos)),
+                             _bound_ms(q, k, pos))
+            timed += [
+                ("decode_attention", lambda: decode_attention_cuda(
+                    q, k, v, pos), lambda: decode_attention_plain(
+                        q, k, v, pos), lib_ms, bound, dense_src,
+                 f"{dec_line}:131"),
+                ("decode_attention_splitk",
+                 lambda: decode_attention_splitk_cuda(q, k, v, pos,
+                                                      num_splits=2),
+                 lambda: decode_attention_plain(q, k, v, pos, num_splits=2),
+                 lib_ms, bound, dense_src, f"{dec_line}:236")]
+            pq, pk, pv, table, ppos = _paged_inputs(1, f32, f32)
+            lib_ms, bound = (_time_ms(_paged_library_call(pq, pk, pv, table,
+                                                          ppos)),
+                             _bound_ms(pq, pk, ppos, paged=True))
+            timed += [
+                ("paged_decode_attention",
+                 lambda: paged_decode_attention_cuda(pq, pk, pv, table, ppos),
+                 lambda: paged_decode_attention_plain(pq, pk, pv, table,
+                                                      ppos),
+                 lib_ms, bound, paged_src, f"{pag_line}:131"),
+                ("paged_decode_attention_splitk",
+                 lambda: paged_decode_attention_splitk_cuda(
+                     pq, pk, pv, table, ppos, num_splits=2),
+                 lambda: paged_decode_attention_plain(pq, pk, pv, table,
+                                                      ppos, num_splits=2),
+                 lib_ms, bound, paged_src, f"{pag_line}:325")]
+            cq, ck, cv, ctable, _ = _paged_inputs(1, f32, f32, chunk=CHUNK)
+            timed.append((
+                "paged_prefill_attention",
+                lambda: paged_prefill_attention_cuda(cq, ck, cv,
+                                                     ctable[slot], q_offset),
+                lambda: paged_prefill_attention_plain(cq, ck, cv, ctable,
+                                                      slot, q_offset),
+                _time_ms(_prefill_library_call(cq, ck, cv, ctable[slot],
+                                               q_offset)),
+                _prefill_bound_ms(cq, ck, q_offset), paged_src,
+                f"{pag_line}:228"))
+            iq, ik, iv, iks, ivs, itable, ipos = _quant_paged_inputs(1,
+                                                                    "int8")
+            isc = dict(k_scale=iks, v_scale=ivs)
+            lib_ms = _time_ms(_paged_library_call(
+                iq, dequantize_kv(ik, iks), dequantize_kv(iv, ivs), itable,
+                ipos))
+            bound = _bound_ms(iq, ik, ipos, paged=True)
+            timed += [
+                ("paged_decode_attention_int8",
+                 lambda: paged_decode_attention_cuda(iq, ik, iv, itable,
+                                                     ipos, **isc),
+                 lambda: paged_decode_attention_plain(iq, ik, iv, itable,
+                                                      ipos, **isc),
+                 lib_ms, bound, paged_src, f"{pag_line}:131"),
+                ("paged_decode_attention_splitk_int8",
+                 lambda: paged_decode_attention_splitk_cuda(
+                     iq, ik, iv, itable, ipos, num_splits=2, **isc),
+                 lambda: paged_decode_attention_plain(
+                     iq, ik, iv, itable, ipos, num_splits=2, **isc),
+                 lib_ms, bound, paged_src, f"{pag_line}:325")]
+            jq, jk, jv, jks, jvs, jtable, _ = _quant_paged_inputs(
+                1, "int8", chunk=CHUNK)
+            jsc = dict(k_scale=jks, v_scale=jvs)
+            timed.append((
+                "paged_prefill_attention_int8",
+                lambda: paged_prefill_attention_cuda(
+                    jq, jk, jv, jtable[slot], q_offset, **jsc),
+                lambda: paged_prefill_attention_plain(
+                    jq, jk, jv, jtable, slot, q_offset, **jsc),
+                _time_ms(_prefill_library_call(
+                    jq, dequantize_kv(jk, jks), dequantize_kv(jv, jvs),
+                    jtable[slot], q_offset)),
+                _prefill_bound_ms(jq, jk, q_offset), paged_src,
+                f"{pag_line}:228"))
+            fq, fk, fv = _flash_inputs(FB, FS, f32)
+            qt = fq.transpose(1, 2)
+            kt, vt = fk.transpose(1, 2), fv.transpose(1, 2)
+            timed.append((
+                "flash_attention", lambda: flash_attention_cuda(fq, fk, fv),
+                lambda: flash_attention_plain(fq, fk, fv),
+                _time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True)),
+                _flash_bound_ms(fq, fk, True, 0), flash_src,
+                "src/repro/kernels/flash_attention.py:83"))
+            for name, run, plain, lib_ms, bound, src, replaces in timed:
+                row = _timed_row(f"{name}_d{d}", run, plain, lib_ms, bound,
+                                 src, replaces, errs[name])
+                row["shape"] = f"H=KV={H_HD}, D={d}"
+                if name in on_path.get(d, (name,)):
+                    rows.append(row)
+                else:
+                    _log(f"[kernels] {name}_d{d}: checked and timed; not on "
+                         f"a path this script drives")
+            del (q, k, v, pq, pk, pv, cq, ck, cv, iq, ik, iv, jq, jk, jv,
+                 fq, fk, fv, qt, kt, vt, timed)
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------------------- 7 and 8: the new archs
 @contextlib.contextmanager
 def _count_windows():
@@ -2405,8 +2800,8 @@ def _check_windows(label, counts, model):
 
     plan = build_plan(model.cfg)
     per_tick = {}
-    for _, _, w in _layers(plan):
-        per_tick[w] = per_tick.get(w, 0) + 1
+    for layer in _layers(plan, model.cfg):
+        per_tick[layer.window] = per_tick.get(layer.window, 0) + 1
     _log(f"[gemma3] {label}: calls by (kernel, window) {counts}; layers per "
          f"window {per_tick}")
     for name in {n for n, _ in counts}:
@@ -2513,16 +2908,295 @@ def phase_moe():
     return launches
 
 
+# ------------------------------------------------------ 9: zamba2-2.7b
+ZB, ZS = 2, 4096  # zamba2's prefill step: 2 prompts x 4096 tokens
+
+
+def _place(dst, src):
+    """Copy a cache tree ``src`` into ``dst`` of the same tree, in place:
+    leaves of one shape whole, K/V stripes (..., B, S, KV, D) of a shorter
+    ``src`` into the first positions of ``dst``'s."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _place(dst[k], src[k])
+        return dst
+    if dst.shape == src.shape:
+        dst.copy_(src)
+    else:
+        dst.narrow(-3, 0, src.shape[-3]).copy_(src)
+    return dst
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _zamba2_decode(model, params, caches, first):
+    """Decode from the prefill's caches placed in an ``init_cache(ZB, S)``
+    stripe at position ZS: one step with splits 1 (#1 at D = 80) and 2
+    (#2), bitwise equal (ZS is whole chunks), the logits against the
+    plain path; then 8 greedy steps at splits 2."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_splitk_cuda)
+    from repro_torch.runtime.steps import compiled_step
+
+    dec = _place(model.init_cache(ZB, S), caches)
+    pos = np.full(ZB, ZS, np.int32)
+    logits = {}
+    for splits, kern in ((1, decode_attention_cuda),
+                         (2, decode_attention_splitk_cuda)):
+        step = compiled_step(model, "decode_one", decode_splits=splits)
+        before = kern.launches
+        logits[splits], _ = step(params, _clone(dec), first, pos)
+        n = kern.launches - before
+        _log(f"[zamba2] decode step at pos {ZS}, splits={splits}: "
+             f"{kern.__name__} launched {n} times")
+        if n != model.cfg.num_layers // model.cfg.shared_attn_period:
+            raise AssertionError("the shared block's decode did not launch "
+                                 "its kernel once per group")
+    same = torch.equal(logits[1], logits[2])
+    _log(f"[zamba2] decode logits, splits=2 equal splits=1 bitwise: {same}")
+    if not same:
+        raise AssertionError("zamba2's split-K decode differs from the "
+                             "single pass")
+    with _plain_attention():
+        want, _ = compiled_step(model, "decode_one", decode_splits=1)(
+            params, _clone(dec), first, pos)
+    _check_logits(f"zamba2 decode logits at pos {ZS}, kernels vs plain",
+                  logits[1], want)
+    serve = compiled_step(model, "serve", decode_splits=2)
+    nxt, out = first, [first]
+    for i in range(8):
+        nxt, dec = serve(params, dec, nxt, pos + i)
+        out.append(nxt)
+    stream = torch.cat(out, 1)
+    if not bool(((stream >= 0) & (stream < model.cfg.vocab_size)).all()):
+        raise AssertionError("decode tokens outside the vocabulary")
+    _log(f"[zamba2] 8 decode steps after the prefill (splits=2): "
+         f"{stream.tolist()}")
+    del dec
+
+
+def _zamba2_token_feed(model, params, prompt, n_new=8):
+    """One 128-token prompt: prefill then decode against the token feed the
+    engine runs (decode steps from a zeroed slot), and the engine's tokens
+    against prefill-then-decode."""
+    from repro_torch.runtime.serve import Request, ServeConfig, ServeEngine
+
+    n = prompt.shape[1]
+    lp, pc = model.prefill(params, {"tokens": prompt})
+    pc = _place(model.init_cache(1, 256), pc)
+    fed = model.init_cache(1, 256)
+    for t in range(n):
+        lf, fed = model.decode_step(params, fed, prompt[:, t:t + 1], t)
+    errs = [_check_logits(f"zamba2 {n}-token prompt: prefill vs token feed",
+                          lp, lf, SSM_FEED_TOL)]
+    pref = [int(lp.argmax())]
+    for i in range(n_new - 1):
+        tok = torch.tensor([[pref[-1]]], device="cuda")
+        lp, pc = model.decode_step(params, pc, tok, n + i)
+        lf, fed = model.decode_step(params, fed, tok, n + i)
+        errs.append(float((lp - lf).abs().max()))
+        pref.append(int(lp.argmax()))
+    _log(f"[zamba2] prefill-then-decode vs token-fed logits over {n_new} "
+         f"steps: max_abs_err {max(errs):.3g} (tol {SSM_FEED_TOL})")
+    if max(errs) > SSM_FEED_TOL:
+        raise AssertionError("prefill-then-decode and token-fed logits "
+                             "disagree")
+    eng = ServeEngine(model, params, ServeConfig(batch_slots=B, max_len=256))
+    h = eng.submit(Request(0, prompt[0].cpu().numpy().astype(np.int32),
+                           max_new_tokens=n_new))
+    eng.run()
+    _log(f"[zamba2] engine (token-fed) tokens {h.req.output}; prefill-then-"
+         f"decode {pref}")
+    if h.req.output != pref:
+        raise AssertionError("the engine's tokens differ from "
+                             "prefill-then-decode")
+
+
+def _zamba2_engines(model, params):
+    """Continuous serving of more requests than slots (prompts <= 128
+    tokens), a reused slot against a fresh engine, wave mode with the
+    same streams, and one preemption."""
+    from repro_torch.runtime.serve import Request, ServeConfig, ServeEngine
+
+    rng = np.random.default_rng(8)
+    vocab = model.cfg.vocab_size
+    reqs = [(i, rng.integers(0, vocab, size=n).astype(np.int32))
+            for i, n in enumerate((20, 7, 128, 12, 45, 9))]
+    config = dict(batch_slots=B, max_len=256)
+    eng = ServeEngine(model, params, ServeConfig(**config))
+    handles = [eng.submit(Request(i, p, max_new_tokens=16)) for i, p in reqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = sum(len(r.output) for r in done)
+    _log(f"[zamba2] engine continuous: {len(done)}/6 requests, {toks} "
+         f"tokens in {wall:.3f}s = {toks / wall:.2f} tok/s (prompts fed "
+         f"token by token, a tick each)")
+    if len(done) != 6 or any(len(r.output) != 16 for r in done) or any(
+            not 0 <= t < vocab for r in done for t in r.output):
+        raise AssertionError("zamba2 continuous run did not finish")
+    solo = ServeEngine(model, params, ServeConfig(**config))
+    hs = solo.submit(Request(5, reqs[5][1], max_new_tokens=16))
+    solo.run()
+    _log(f"[zamba2] reused slot vs fresh engine: {handles[5].req.output} vs "
+         f"{hs.req.output}")
+    if hs.req.output != handles[5].req.output:
+        raise AssertionError("a reused slot's tokens differ from a fresh "
+                             "engine's")
+    del solo
+    wave = ServeEngine(model, params, ServeConfig(mode="wave", **config))
+    for i, p in reqs:
+        wave.submit(Request(i, p, max_new_tokens=16))
+    wdone = {r.req_id: list(r.output) for r in wave.run()}
+    same = wdone == {r.req_id: list(r.output) for r in done}
+    _log(f"[zamba2] engine wave: {len(wdone)}/6 requests; streams equal to "
+         f"continuous: {same}")
+    if len(wdone) != 6:
+        raise AssertionError("zamba2 wave run did not finish")
+    del eng, wave
+    _free_device()
+    _preemption_checks(model, params, layouts=("dense",),
+                       lens=((40, 33, 57, 29), (9, 14)), max_len=256)
+
+
+def _zamba2_tick(model, params):
+    """A decode tick of 4 slots at pos [4300, 300, -1, 4200] in an
+    8192-position cache (the shared block's K/V for 9 groups: 6.0 GB),
+    single pass against split-K 2, timed over rounds and profiled."""
+    from repro_torch.runtime.steps import compiled_step
+
+    caches = model.init_cache(B, S)
+    toks_in = torch.tensor([[5], [6], [7], [8]], device="cuda")
+    pos = np.array([4300, 300, -1, 4200], np.int32)
+    ticks = {s: functools.partial(
+        compiled_step(model, "serve", decode_splits=s), params, caches,
+        toks_in, pos) for s in (1, 2)}
+    ms = _time_ms(ticks[1], iters=10, warmup=2, queued=False)
+    _log(f"[zamba2] decode tick: {ms:.3f} ms for 3 live slots = "
+         f"{3e3 / ms:.1f} tok/s")
+    _time_ticks(ticks, f"zamba2 decode tick at pos {pos.tolist()}")
+    del caches, ticks
+
+
+def phase_zamba2():
+    """Phase 9: zamba2-2.7b at full width and depth.  Returns the launches
+    of the phase, keyed as the rows of phases 3h and 3c."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_splitk_cuda)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda
+    from repro_torch.runtime.steps import make_prefill_step
+
+    model, params = make_model("zamba2-2.7b")
+    cfg = model.cfg
+    groups = cfg.num_layers // cfg.shared_attn_period
+    kernels = (flash_attention_cuda, ssd_chunk_cuda, decode_attention_cuda,
+               decode_attention_splitk_cuda)
+    for kern in kernels:
+        kern.launches = 0
+    rng = np.random.default_rng(6)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(ZB, ZS)),
+                           device="cuda")
+    batch = {"tokens": toks}
+    step = make_prefill_step(model)
+    first, caches = step(params, batch)
+    torch.cuda.synchronize()
+    n_flash, n_ssd = flash_attention_cuda.launches, ssd_chunk_cuda.launches
+    outer = caches["groups"]["outer"]
+    _log(f"[zamba2] prefill step {ZB} x {ZS}: ssd_chunk launches {n_ssd}, "
+         f"flash_attention launches {n_flash}; shared-block K/V "
+         f"{tuple(outer['k'].shape)}; state "
+         f"{tuple(caches['groups']['inner']['state'].shape)}")
+    if (n_ssd, n_flash) != (cfg.num_layers, groups):
+        raise AssertionError(f"zamba2's prefill launched #7 {n_ssd} and #6 "
+                             f"{n_flash} times, not {cfg.num_layers} and "
+                             f"{groups}")
+    if not bool(((first >= 0) & (first < cfg.vocab_size)).all()):
+        raise AssertionError("prefill tokens outside the vocabulary")
+    logits, _ = model.prefill(params, batch)
+    with _plain_attention():
+        want, _ = model.prefill(params, batch)
+    _check_logits("zamba2 prefill logits, kernels vs plain", logits, want)
+    del logits, want
+    _zamba2_decode(model, params, caches, first)
+    del caches
+    _zamba2_token_feed(model, params, toks[:1, :128])
+    _zamba2_engines(model, params)
+    # the path's launches: the prefill, the decode, the token feed and the
+    # engines (not the timing below)
+    launches = {"flash_attention_d80": flash_attention_cuda.launches,
+                "ssd_chunk_zamba2": ssd_chunk_cuda.launches,
+                "decode_attention_d80": decode_attention_cuda.launches,
+                "decode_attention_splitk_d80":
+                    decode_attention_splitk_cuda.launches}
+    _zamba2_tick(model, params)
+    times = _timed_prefill(functools.partial(step, params, batch),
+                           f"zamba2 prefill step {ZB} x {ZS}")
+    _profile_tick(functools.partial(step, params, batch),
+                  f"zamba2 prefill step {ZB} x {ZS}", ticks=1, top=10)
+    del model, params, step, batch
+    _free_device()
+    _log(f"[zamba2] launches: {launches}; prefill {times}")
+    return launches
+
+
+# ---------------------------------------------------- 10: musicgen-large
+MUSICGEN_LAYERS = 12  # of 48
+
+
+def phase_musicgen():
+    """Phase 10: musicgen-large at full width, 12 of 48 layers: phases 4
+    and 4b, an int8 paged run and a 1 x 4096 prefill step.  Returns the
+    launches keyed as phase 3h's D = 64 rows."""
+    model, params = make_model("musicgen-large", MUSICGEN_LAYERS)
+    label = "musicgen"
+    launches = dict(phase_engine(model, params, f"{label} dense"))
+    paged, f32_page_bytes = phase_paged_engine(model, params,
+                                               f"{label} paged")
+    launches.update(paged)
+    launches.update(phase_quant_engine(model, params, f32_page_bytes,
+                                       names=("int8",),
+                                       label=f"{label} paged",
+                                       chunk_by_call=True))
+    launches["flash_attention"], _ = phase_forward_attention(model, params,
+                                                             1, FS)
+    del model, params
+    _free_device()
+    launches = {f"{n}_d64": c for n, c in launches.items()}
+    _log(f"[musicgen] launches: {launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    t_start = time.perf_counter()
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        _log(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     name, smi = phase_device()
-    phase_build()
-    rows = (phase_kernels() + phase_paged_kernels() + phase_quant_kernels()
-            + phase_forward_kernels() + phase_verify_kernels()
-            + phase_grouping_kernels())
+    timed("2 build", phase_build)
+    rows = []
+    for label, phase in (("3", phase_kernels), ("3p", phase_paged_kernels),
+                         ("3q", phase_quant_kernels),
+                         ("3c", phase_forward_kernels),
+                         ("4d kernels", phase_verify_kernels),
+                         ("3g", phase_grouping_kernels),
+                         ("3h", phase_head_dim_kernels)):
+        rows += timed(label, phase)
+    t0 = time.perf_counter()
     model, params = make_model()
     launches = phase_engine(model, params)
     paged, f32_page_bytes = phase_paged_engine(model, params)
@@ -2532,12 +3206,18 @@ def main():
     launches["flash_attention"], _ = phase_forward_attention(model, params)
     del model, params
     _free_device()
+    _log(f"[time] 4-5 internlm2: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     model, params = make_ssm_model()
     launches["ssd_chunk"], _ = phase_ssm(model, params)
     del model, params
     _free_device()
-    gemma = phase_gemma3()
-    launches.update(phase_moe())
+    _log(f"[time] 6 mamba2: {time.perf_counter() - t0:.1f} s")
+    gemma = timed("7 gemma3", phase_gemma3)
+    launches.update(timed("8 moe", phase_moe))
+    launches.update(timed("9 zamba2", phase_zamba2))
+    launches.update(timed("10 musicgen", phase_musicgen))
+    _log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     for row in rows:
         row["launches"] = launches[row["name"]]
         if not row["launches"]:

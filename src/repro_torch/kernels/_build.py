@@ -1,13 +1,16 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` becomes ``build/kernels/<name>-<hash>.so`` under
+Each library ``<name>`` becomes ``build/kernels/<name>-<hash>.so`` under
 the repository root (a directory ``.gitignore`` lists), compiled for
-``sm_90a`` on first use.  The hash covers the source, every shared header
-in ``csrc/`` (``*.cuh``) and the flags, so an edited source or header
-rebuilds.  ``build_all`` starts one ``nvcc`` per source, all at once, and
-keeps each build's output, with ptxas's registers, stack and spills of
-every kernel (``-Xptxas -v``), in ``build_logs``.  Nothing here runs at
-import time.
+``sm_90a`` on first use.  The attention sources (``csrc/{decode,paged,
+flash}_attention.cu``) build once per head dim, as the libraries
+``<source>_d<D>`` compiled with ``-DHEAD_DIM=<D>`` (``lib_name``);
+``csrc/ssd_scan.cu`` builds once.  The hash covers the source, every
+shared header in ``csrc/`` (``*.cuh``) and the flags, so an edited source
+or header rebuilds.  ``build_all`` starts one ``nvcc`` per library, all at
+once, and keeps each build's output, with ptxas's registers, stack and
+spills of every kernel (``-Xptxas -v``), in ``build_logs``.  Nothing here
+runs at import time.
 """
 from __future__ import annotations
 
@@ -25,6 +28,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("decode_attention", "paged_attention", "flash_attention",
            "ssd_scan")
+HEAD_DIMS = (64, 80, 128)  # the attention libraries' head dims
+_PER_HEAD_DIM = SOURCES[:3]
+LIBS = tuple(f"{src}_d{d}" for src in _PER_HEAD_DIM
+             for d in HEAD_DIMS) + ("ssd_scan",)
 
 _LOADED: dict = {}
 build_seconds: dict = {}  # name -> wall seconds of the last nvcc run
@@ -42,17 +49,34 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+def lib_name(source: str, head_dim: int) -> str:
+    """The library of attention ``source`` built for ``head_dim``."""
+    return f"{source}_d{head_dim}"
+
+
+def _source(name: str):
+    """(source file, extra nvcc flags) of library ``name``."""
+    src, _, d = name.rpartition("_d")
+    if src in _PER_HEAD_DIM and d.isdigit():
+        return CSRC / f"{src}.cu", (f"-DHEAD_DIM={d}",)
+    return CSRC / f"{name}.cu", ()
+
+
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + _source(name)[1]
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256()
-    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    for path in [_source(name)[0], *sorted(CSRC.glob("*.cuh"))]:
         h.update(path.name.encode() + b"\0" + path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=SOURCES) -> dict:
-    """Compile every named source that has no up-to-date library, one
-    ``nvcc`` process per source, all started together.  Returns
+def build_all(names=LIBS) -> dict:
+    """Compile every named library that has no up-to-date build, one
+    ``nvcc`` process per library, all started together.  Returns
     ``{name: library path}``; raises with nvcc's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, out = {}, {}
@@ -62,7 +86,8 @@ def build_all(names=SOURCES) -> dict:
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
+               str(_source(name)[0])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, time.perf_counter())
@@ -81,7 +106,7 @@ def build_all(names=SOURCES) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of ``csrc/<name>.cu``, building it if needed."""
+    """The ctypes handle of library ``name``, building it if needed."""
     lib = _LOADED.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build_all((name,))[name]))

@@ -3,8 +3,9 @@
 // element conversions, the loaded-value type of a K/V storage type, 16-byte
 // chunks of a key row as f32, 16-, 8- and 4-byte cp.async, the key-row
 // addressing of the many-row kernel (dense strides or a page-table lookup),
-// 4-element row loads and stores, and the tensor-core products of the
-// many-row kernel and the SSD chunk (mma.sync TF32 with the 3xTF32 split).
+// 4- and 2-element row loads, 4-element stores, and the tensor-core
+// products of the many-row kernel and the SSD chunk (mma.sync TF32 with
+// the 3xTF32 split).
 // The chunked decode kernel of the dense and the paged decode is in
 // chunked_decode.cuh; the many-row kernel of the
 // full-sequence flash attention and the paged chunked prefill is in
@@ -203,6 +204,27 @@ __device__ __forceinline__ void load4(const __nv_fp8_e4m3* v, float* f) {
   const ushort2 raw = *reinterpret_cast<const ushort2*>(v);
   const float2 a = fp8x2_to_float2(raw.x), b = fp8x2_to_float2(raw.y);
   f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+}
+
+// Two consecutive elements of a row as f32 (the many-row kernel's last 16
+// columns at head dim 80).
+__device__ __forceinline__ void load2(const float* v, float* f) {
+  const float2 x = *reinterpret_cast<const float2*>(v);
+  f[0] = x.x; f[1] = x.y;
+}
+__device__ __forceinline__ void load2(const __nv_bfloat16* v, float* f) {
+  const float2 x =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(v));
+  f[0] = x.x; f[1] = x.y;
+}
+__device__ __forceinline__ void load2(const int8_t* v, float* f) {
+  const char2 c = *reinterpret_cast<const char2*>(v);
+  f[0] = c.x; f[1] = c.y;
+}
+__device__ __forceinline__ void load2(const __nv_fp8_e4m3* v, float* f) {
+  const float2 x =
+      fp8x2_to_float2(*reinterpret_cast<const unsigned short*>(v));
+  f[0] = x.x; f[1] = x.y;
 }
 
 // ---- tensor-core products (the many-row kernel and the SSD chunk) -------

@@ -71,6 +71,15 @@
 //     CTA-wide one per tile.  f32 on the CUDA cores: at G * T = 2 rows per
 //     KV head a tensor-core tile would be 7/8 empty, and the flops do not
 //     bound this kernel.
+//   * Head dims D in {64, 80, 128}, a template parameter (one library per
+//     head dim; 64 and 80 only up to 8 rows, the archs that have them have
+//     G = 1).  A tile is TK rows of D elements in shared memory and the
+//     kernel reads only a row's D elements from device memory.  Threads
+//     d < D own the merges' columns and lanes 4 l < D the PV columns; the
+//     others do no column work.  At D = 80 a row is 20 (f32), 10 (bf16) or
+//     5 (1-byte) 16-byte chunks, no multiple of a key's LPK lanes: lane
+//     `part` dots chunks part, part + LPK, ... (the last pass guarded), and
+//     the tile copy's last pass is guarded too.
 //   * Rows that do not depend on T.  The verify block of speculative
 //     decode runs T rows per slot, and row t must be bitwise the T = 1
 //     launch at pos + t.  A key's tile, warp and lanes follow from its
@@ -95,7 +104,7 @@
 
 namespace {
 
-constexpr int CD_THREADS = 128;  // 4 warps; thread d owns column d in merges
+constexpr int CD_THREADS = 128;  // 4 warps; thread d < D owns column d
 constexpr int CD_WARPS = CD_THREADS / 32;
 constexpr int CD_STAGES = 3;     // ring depth
 constexpr int CD_TABLE = 256;    // most page-table entries a chunk spans
@@ -146,7 +155,7 @@ __device__ __forceinline__ int2 chunk_keys(const DecodeParams& p,
                    min((cell + 1) * p.chunk, s0 + p.split));
 }
 
-// Keys per tile: 8 KiB of K (and of V) per ring stage.
+// Keys per tile: 8 KiB of K (and of V) per ring stage at D = 128.
 template <typename TKV>
 __host__ __device__ constexpr int cd_tile_keys() {
   return 64 / (int)sizeof(TKV);
@@ -155,48 +164,52 @@ __host__ __device__ constexpr int cd_tile_keys() {
 // Shared memory: the ring, whose space the warps' merge and the last
 // CTA's list of chunks reuse, then q's rows as f32, the chunk's table
 // (paged) and the ring's scales (quantized pools), [stage][K | V][TK] f32.
-template <typename TKV, int MAXR>
+template <typename TKV, int MAXR, int D>
 __host__ __device__ constexpr int cd_front_bytes() {
-  const int ring =
-      CD_STAGES * 2 * cd_tile_keys<TKV>() * CD_THREADS * (int)sizeof(TKV);
-  const int merge = CD_WARPS * MAXR * (CD_THREADS + 2) * 4;
+  const int ring = CD_STAGES * 2 * cd_tile_keys<TKV>() * D * (int)sizeof(TKV);
+  const int merge = CD_WARPS * MAXR * (D + 2) * 4;
   return ring > merge ? ring : merge;
 }
-template <typename TKV, int MAXR, bool PAGED>
+template <typename TKV, int MAXR, int D, bool PAGED>
 constexpr int cd_smem_bytes() {
-  return cd_front_bytes<TKV, MAXR>() + MAXR * CD_THREADS * 4 +
+  return cd_front_bytes<TKV, MAXR, D>() + MAXR * D * 4 +
          (PAGED ? CD_TABLE * 4 : 0) +
          (KVValue<TKV>::quant ? CD_STAGES * 2 * cd_tile_keys<TKV>() * 4 : 0);
 }
 
 // One CTA per (KV head j, slot b, chunk z); query row r = g * T + t of the
 // CTA is query head j * G + g at position pos[b] + t.
-template <typename TQ, typename TKV, int MAXR, bool PAGED>
+template <typename TQ, typename TKV, int MAXR, int D, bool PAGED>
 __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
     chunked_decode_kernel(DecodeParams p) {
-  constexpr int D = CD_THREADS;
   constexpr int TK = cd_tile_keys<TKV>();
   constexpr int VEC = 16 / sizeof(TKV);        // elements per 16 bytes
   constexpr int VPR = D / VEC;                 // 16-byte chunks per row
   constexpr int KPW = TK / CD_WARPS;           // keys per warp per tile
   constexpr int LPK = 32 / KPW;                // lanes per key's score dot
-  constexpr int CPL = VPR / LPK;               // chunks each lane dots
-  constexpr int NCP = TK * VPR / CD_THREADS;   // cp.async per thread/tensor
+  constexpr int CPL = (VPR + LPK - 1) / LPK;   // chunks each lane dots
+  // a power-of-two CPL * LPK == VPR (D = 64, 128): each lane a block of
+  // the row, rotated; otherwise (D = 80) chunks part + LPK * cc
+  constexpr bool BLOCKED = CPL * LPK == VPR && (CPL & (CPL - 1)) == 0;
+  constexpr int NCP = (TK * VPR + CD_THREADS - 1) / CD_THREADS;  // cp.async
+  constexpr bool COPY_WHOLE = NCP * CD_THREADS == TK * VPR;  // per thread
+  constexpr bool ALL_COLS = D == CD_THREADS;  // every thread owns a column
   constexpr bool QUANT = KVValue<TKV>::quant;
   using TV = typename KVValue<TKV>::type;      // a loaded K/V value's type
-  static_assert(KPW * CD_WARPS == TK && LPK * KPW == 32 &&
-                    CPL * LPK == VPR && NCP * CD_THREADS == TK * VPR &&
-                    (CPL & (CPL - 1)) == 0 && 2 * TK <= CD_THREADS,
+  static_assert(D % 16 == 0 && D <= CD_THREADS && KPW * CD_WARPS == TK &&
+                    LPK * KPW == 32 && 2 * TK <= CD_THREADS,
                 "tile shape");
   extern __shared__ __align__(16) unsigned char smem[];
   TKV* ring = reinterpret_cast<TKV*>(smem);  // [stage][K | V][TK][D]
-  float* qs = reinterpret_cast<float*>(smem + cd_front_bytes<TKV, MAXR>());
+  float* qs =
+      reinterpret_cast<float*>(smem + cd_front_bytes<TKV, MAXR, D>());
   int* tbl = reinterpret_cast<int*>(qs + MAXR * D);  // paged: [CD_TABLE]
   float* scs = reinterpret_cast<float*>(tbl + (PAGED ? CD_TABLE : 0));
   __shared__ int last_s;
 
   const int j = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool col = ALL_COLS || tid < D;  // thread tid owns column tid
   const int G = p.H / p.KV, T = p.T, R = G * T;
   const int ps = p.page_size;
 
@@ -219,7 +232,8 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
 #pragma unroll
   for (int r = 0; r < MAXR; ++r) {
     const int g = r / T, t = r - g * T;
-    qv[r] = r < R ? to_f(q[t * p.q_st + (j * G + g) * p.q_sh + tid]) : 0.f;
+    qv[r] = r < R && col ? to_f(q[t * p.q_st + (j * G + g) * p.q_sh + tid])
+                         : 0.f;
   }
 
   // keys the slot may see, [lo_b, hi_b) (row 0 has the lowest window
@@ -244,7 +258,7 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
     return out + (((long long)b * T + t) * p.H + j * G + g) * D + tid;
   };
   if (lo >= hi) {
-    if (n_work == 0 && z == 0)  // a slot that sees no key writes zeros
+    if (n_work == 0 && z == 0 && col)  // a slot that sees no key: zeros
       for (int r = 0; r < R; ++r) *out_at(r) = from_f<TQ>(0.f);
     return;
   }
@@ -256,7 +270,7 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
   }
 #pragma unroll
   for (int r = 0; r < MAXR; ++r)
-    if (r < R) qs[r * D + tid] = qv[r];
+    if (r < R && col) qs[r * D + tid] = qv[r];
   __syncthreads();
 
   // key rows of this (slot, KV head): (page, token) of key kpos, dense:
@@ -283,6 +297,7 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
 #pragma unroll
     for (int i = 0; i < NCP; ++i) {
       const int idx = tid + i * CD_THREADS;
+      if (!COPY_WHOLE && idx >= TK * VPR) break;  // the last pass's rest
       const int kk = idx / VPR, c = idx - kk * VPR;
       const int kpos = k0 + kk;
       const bool in = kpos >= lo && kpos < hi;
@@ -325,9 +340,14 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
   const float scale = 1.0f / sqrtf((float)D);
   const int kq = lane / LPK, part = lane - kq * LPK;
   const int key = warp * KPW + kq;  // this lane's key of a tile (scores)
-  // chunk order of the score dot: lane l of a quarter-warp starts CPL * l
-  // / 8 (or l) chunks in, so the quarter-warp reads 8 bank groups
+  // chunk order of the score dot (BLOCKED): lane l of a quarter-warp
+  // starts CPL * l / 8 (or l) chunks in, so the quarter-warp reads 8 bank
+  // groups
   const int rot = CPL >= 8 ? (lane & 7) : ((lane & 7) * CPL) >> 3;
+  // PV's output columns, 4 per lane; lanes past D read the last 4 columns
+  // and keep their sums to themselves
+  const bool pv_cols = ALL_COLS || 4 * lane < D;
+  const int pv_col = ALL_COLS ? 4 * lane : min(4 * lane, D - 4);
   for (int t = 0; t < ntile; ++t) {
     // tile t has landed for every thread, and every warp is done with
     // tile t - 1, whose stage the next copies refill
@@ -346,7 +366,9 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
     for (int r = 0; r < MAXR; ++r) s[r] = 0.f;
 #pragma unroll
     for (int cc = 0; cc < CPL; ++cc) {
-      const int ch = part * CPL + ((cc + rot) & (CPL - 1));
+      const int ch = BLOCKED ? part * CPL + ((cc + rot) & (CPL - 1))
+                             : part + LPK * cc;
+      if (!BLOCKED && ch >= VPR) break;  // the last pass's rest
       float kf[VEC];
       Chunk<TKV>::get(
           *reinterpret_cast<const uint4*>(Ks + key * D + ch * VEC), kf);
@@ -408,7 +430,7 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
 #pragma unroll
     for (int kk = 0; kk < KPW; ++kk) {
       float vf[4];
-      load4(Vs + (warp * KPW + kk) * D + lane * 4, vf);
+      load4(Vs + (warp * KPW + kk) * D + pv_col, vf);
       if (QUANT) {
         const float vsc = Vsc[warp * KPW + kk];
 #pragma unroll
@@ -432,8 +454,9 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
 #pragma unroll
   for (int r = 0; r < MAXR; ++r) {
     if (r >= R) break;
-    *reinterpret_cast<float4*>(wacc + (warp * MAXR + r) * D + lane * 4) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    if (pv_cols)
+      *reinterpret_cast<float4*>(wacc + (warp * MAXR + r) * D + pv_col) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
     if (lane == 0) {
       wml[(warp * MAXR + r) * 2] = m[r];
       wml[(warp * MAXR + r) * 2 + 1] = l[r];
@@ -441,7 +464,7 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
   }
   __syncthreads();
   const long long base = ((long long)b * p.KV + j) * p.n_chunks;
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < R && col; ++r) {
     float ms = NEG_INF;
 #pragma unroll
     for (int w = 0; w < CD_WARPS; ++w)
@@ -502,7 +525,7 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
     mls[2 * idx + 1] = __ldcg(p.ml_part + 2 * row + 1);
   }
   __syncthreads();
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < R && col; ++r) {
     float ms = NEG_INF;
     for (int i = 0; i < n_work; ++i) ms = fmaxf(ms, mls[2 * (i * R + r)]);
     float num = 0.f, den = 0.f;
@@ -516,50 +539,55 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
   }
 }
 
-template <typename TQ, typename TKV, int MAXR, bool PAGED>
+template <typename TQ, typename TKV, int MAXR, int D, bool PAGED>
 cudaError_t launch_chunked_decode_rows(const DecodeParams& p,
                                        cudaStream_t st) {
-  constexpr int smem = cd_smem_bytes<TKV, MAXR, PAGED>();
+  constexpr int smem = cd_smem_bytes<TKV, MAXR, D, PAGED>();
   // the last CTA lists the working chunks and their (m, l) in the front
   if ((long long)p.n_chunks * (1 + 2 * MAXR) * 4 >
-      cd_front_bytes<TKV, MAXR>())
+      cd_front_bytes<TKV, MAXR, D>())
     return cudaErrorInvalidValue;
   // above 48 KB dynamic shared memory must be allowed explicitly, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      chunked_decode_kernel<TQ, TKV, MAXR, PAGED>,
+      chunked_decode_kernel<TQ, TKV, MAXR, D, PAGED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(p.KV, p.B, p.n_chunks);
-  chunked_decode_kernel<TQ, TKV, MAXR, PAGED>
+  chunked_decode_kernel<TQ, TKV, MAXR, D, PAGED>
       <<<grid, CD_THREADS, smem, st>>>(p);
   return cudaGetLastError();
 }
 
-// The instance for G * T query rows: 2 (decode), 8 or MAX_ROWS.
-template <typename TQ, typename TKV, bool PAGED>
+// The instance for G * T query rows: 2 (decode), 8, or (D = 128 only)
+// MAX_ROWS.
+template <typename TQ, typename TKV, int D, bool PAGED>
 cudaError_t launch_chunked_decode_typed(const DecodeParams& p,
                                         cudaStream_t st) {
   const int rows = p.H / p.KV * p.T;
-  if (rows <= 2) return launch_chunked_decode_rows<TQ, TKV, 2, PAGED>(p, st);
-  if (rows <= 8) return launch_chunked_decode_rows<TQ, TKV, 8, PAGED>(p, st);
-  if (rows <= MAX_ROWS)
-    return launch_chunked_decode_rows<TQ, TKV, MAX_ROWS, PAGED>(p, st);
+  if (rows <= 2)
+    return launch_chunked_decode_rows<TQ, TKV, 2, D, PAGED>(p, st);
+  if (rows <= 8)
+    return launch_chunked_decode_rows<TQ, TKV, 8, D, PAGED>(p, st);
+  if constexpr (D == CD_THREADS) {
+    if (rows <= MAX_ROWS)
+      return launch_chunked_decode_rows<TQ, TKV, MAX_ROWS, D, PAGED>(p, st);
+  }
   return cudaErrorInvalidValue;
 }
 
-template <typename TQ, bool PAGED>
+template <typename TQ, int D, bool PAGED>
 cudaError_t launch_chunked_decode_kv(const DecodeParams& p, int kv_dtype,
                                      cudaStream_t st) {
   switch (kv_dtype) {
-    case 0: return launch_chunked_decode_typed<TQ, float, PAGED>(p, st);
+    case 0: return launch_chunked_decode_typed<TQ, float, D, PAGED>(p, st);
     case 1:
-      return launch_chunked_decode_typed<TQ, __nv_bfloat16, PAGED>(p, st);
+      return launch_chunked_decode_typed<TQ, __nv_bfloat16, D, PAGED>(p, st);
   }
   if constexpr (PAGED) {
     switch (kv_dtype) {
-      case 2: return launch_chunked_decode_typed<TQ, int8_t, true>(p, st);
+      case 2: return launch_chunked_decode_typed<TQ, int8_t, D, true>(p, st);
       case 3:
-        return launch_chunked_decode_typed<TQ, __nv_fp8_e4m3, true>(p, st);
+        return launch_chunked_decode_typed<TQ, __nv_fp8_e4m3, D, true>(p, st);
     }
   }
   return cudaErrorInvalidValue;
@@ -568,12 +596,12 @@ cudaError_t launch_chunked_decode_kv(const DecodeParams& p, int kv_dtype,
 // dtype codes: 0 = float32, 1 = bfloat16; the paged pools also 2 = int8
 // and 3 = float8_e4m3fn, the quantized pools, which need both scale pools
 // (and only they take scales).  Each of decode_attention.cu (dense) and
-// paged_attention.cu (paged) instantiates its own mode.
-template <bool PAGED>
-cudaError_t launch_chunked_decode(const DecodeParams& p, int D, int q_dtype,
+// paged_attention.cu (paged) instantiates its own mode at its library's
+// head dim D; a launch at another head dim `d` is refused.
+template <bool PAGED, int D>
+cudaError_t launch_chunked_decode(const DecodeParams& p, int d, int q_dtype,
                                   int kv_dtype, cudaStream_t st) {
-  // head_dim 128, the served arch's: one thread per output column
-  if (D != CD_THREADS || p.page_size < 1 || p.chunk % p.page_size ||
+  if (d != D || p.page_size < 1 || p.chunk % p.page_size ||
       p.split % p.page_size || p.n_chunks < 1 ||
       (PAGED && p.chunk / p.page_size > CD_TABLE))
     return cudaErrorInvalidValue;
@@ -581,9 +609,9 @@ cudaError_t launch_chunked_decode(const DecodeParams& p, int D, int q_dtype,
   if ((p.ks != nullptr) != quant || (p.vs != nullptr) != quant)
     return cudaErrorInvalidValue;
   if (q_dtype == 0)
-    return launch_chunked_decode_kv<float, PAGED>(p, kv_dtype, st);
+    return launch_chunked_decode_kv<float, D, PAGED>(p, kv_dtype, st);
   if (q_dtype == 1)
-    return launch_chunked_decode_kv<__nv_bfloat16, PAGED>(p, kv_dtype, st);
+    return launch_chunked_decode_kv<__nv_bfloat16, D, PAGED>(p, kv_dtype, st);
   return cudaErrorInvalidValue;
 }
 

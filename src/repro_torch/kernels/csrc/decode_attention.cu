@@ -11,6 +11,9 @@
 //                                _splitk_partial_kernel +
 //                                _splitk_combine_kernel)
 //
+// Built once per head dim D (-DHEAD_DIM=64, 80 or 128, the library
+// decode_attention_d<D>); the entry points refuse any other D.
+//
 // Layout: q (B, T, H, D), caches (B, S, KV, D) -- the MODEL layout, read in
 // place through strides, so no cache is transposed or copied (a layer's
 // slice of the engine's stacked (L, B, S, KV, D) cache is passed as it
@@ -69,8 +72,8 @@ extern "C" int decode_attention_fwd(
   const DecodeParams p = dense_params(
       q, k, v, out, pos, active, B, T, H, KV, S, window, 1, chunk, chunks,
       q_strides, k_strides, v_strides, o_part, ml_part, tickets);
-  return (int)launch_chunked_decode<false>(p, D, q_dtype, kv_dtype,
-                                           (cudaStream_t)stream);
+  return (int)launch_chunked_decode<false, HEAD_DIM>(
+      p, D, q_dtype, kv_dtype, (cudaStream_t)stream);
 }
 
 // Split-K (T = 1, S % num_splits == 0): split i owns keys [i * S / ns,
@@ -90,6 +93,6 @@ extern "C" int decode_attention_splitk_fwd(
       q, k, v, out, pos, active, B, 1, H, KV, S, window, num_splits, chunk,
       chunks_per_split, q_strides, k_strides, v_strides, o_part, ml_part,
       tickets);
-  return (int)launch_chunked_decode<false>(p, D, q_dtype, kv_dtype,
-                                           (cudaStream_t)stream);
+  return (int)launch_chunked_decode<false, HEAD_DIM>(
+      p, D, q_dtype, kv_dtype, (cudaStream_t)stream);
 }

@@ -8,6 +8,9 @@
 //   flash_attention_tpu (src/repro/kernels/flash_attention.py:83,
 //                        _flash_kernel)
 //
+// Built once per head dim D (-DHEAD_DIM=64, 80 or 128, the library
+// flash_attention_d<D>); the entry point refuses any other D.
+//
 // Layout: q (B, Sq, H, D), k/v (B, Sk, KV, D) -- the MODEL layout, read in
 // place through strides, so nothing is transposed or copied (the TPU
 // wrapper swaps to (B, H, S, D)).  Query row i attends key j when j <= i
@@ -47,6 +50,6 @@ extern "C" int flash_attention_fwd(
   p.v_sb = v_strides[0]; p.v_ss = v_strides[1]; p.v_sh = v_strides[2];
   p.num_splits = num_splits;
   p.o_part = o_part; p.m_part = m_part; p.l_part = l_part;
-  return (int)launch_many_row<false>(p, B, D, q_dtype, kv_dtype,
-                                    (cudaStream_t)stream);
+  return (int)launch_many_row<false, HEAD_DIM>(
+      p, B, D, q_dtype, kv_dtype, (cudaStream_t)stream);
 }

@@ -89,6 +89,14 @@
 //     with the scale applied to the score and folded into p; that changes
 //     the rounding against the dequantize-first reference and is left to a
 //     later redesign.)
+//   * Head dims D in {64, 80, 128} (one library per head dim).  QK takes d
+//     in blocks of 32 (each lane 4 consecutive d of two 16-d halves) and,
+//     at D = 80, a last block of 16 (lane tq reads d 64 + 4 tq ..); PV's
+//     output n-tiles cover 32 columns per 4 tiles and, at D = 80, 16
+//     columns in 2 tiles (n index x: columns 64 + 2 x, 64 + 2 x + 1, read
+//     2 at a time).  The tile copy's last pass is guarded where a tile's
+//     16-byte chunks do not split evenly over the threads (D = 80 bf16 and
+//     1-byte pools).
 //   * Registers and occupancy: 128 threads and 99 KB of shared memory per
 //     CTA with f32 K/V (68 KB with bf16, 52 KB with int8/fp8), two CTAs per
 //     SM for every instance (__launch_bounds__(128, 2): up to 255 registers
@@ -153,9 +161,13 @@ __global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
   constexpr int LD = D + VEC;  // K/V row stride (elements, 16-byte pad)
   constexpr int NS = MR_TK / 8;   // score n-tiles (8 keys each)
   constexpr int NO = D / 8;       // output n-tiles (8 columns each)
+  constexpr int D32 = D / 32 * 32;  // columns in whole 32-blocks
   constexpr int CPR = D / VEC;    // 16-byte chunks per K/V row
-  constexpr int NCH = MR_TK * CPR / MR_THREADS;  // chunks per thread
-  static_assert(NCH * MR_THREADS == MR_TK * CPR, "tile splits evenly");
+  // chunks per thread, the last pass guarded unless they split evenly
+  constexpr int NCH = (MR_TK * CPR + MR_THREADS - 1) / MR_THREADS;
+  constexpr bool COPY_WHOLE = NCH * MR_THREADS == MR_TK * CPR;
+  static_assert(D % 16 == 0 && (D - D32 == 0 || D - D32 == 16),
+                "head dim: 32-blocks and at most one 16-block");
   static_assert(!QUANT || PAGED, "quantized pools are paged");
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);                // [64][LQ]
@@ -224,6 +236,7 @@ __global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
 #pragma unroll
     for (int i = 0; i < NCH; ++i) {
       const int idx = tid + i * MR_THREADS;
+      if (!COPY_WHOLE && idx >= MR_TK * CPR) break;  // the last pass's rest
       const int kk = idx / CPR, c = idx - kk * CPR;
       const int kpos = k0 + kk;
       const bool in = kpos >= lo && kpos < hi;
@@ -277,44 +290,45 @@ __global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
 
     // S = q K^T over D.  The sum over d may take d in any order, so each
     // lane reads 4 consecutive d of q and K at once: d0 = 32 kq + 8 tq +
-    // 4 hh + {0..3} feed two k-steps, whose k index tq is d0 + 2 u and
-    // k index tq + 4 is d0 + 2 u + 1 (u = 0, 1).
+    // 4 hh + {0..3} (16-d block bb = 2 kq + hh of a 32-block; a last
+    // 16-block at D = 80: d0 = 64 + 4 tq) feed two k-steps, whose k index
+    // tq is d0 + 2 u and k index tq + 4 is d0 + 2 u + 1 (u = 0, 1).
     float s[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-    for (int kq = 0; kq < D / 32; ++kq)
+    for (int bb = 0; bb < D / 16; ++bb) {
+      const int d0 = 16 * bb < D32
+                         ? 32 * (bb / 2) + 8 * tq + 4 * (bb % 2)
+                         : D32 + 4 * tq;
+      float qa[4], qb[4];
+      load4(qw + d0, qa);           // row g
+      load4(qw + 8 * LQ + d0, qb);  // row g + 8
+      Frag<4, SQ> a[2];
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int d0 = 32 * kq + 8 * tq + 4 * hh;
-        float qa[4], qb[4];
-        load4(qw + d0, qa);           // row g
-        load4(qw + 8 * LQ + d0, qb);  // row g + 8
-        Frag<4, SQ> a[2];
+      for (int u = 0; u < 2; ++u) {
+        a[u].set(0, qa[2 * u]);
+        a[u].set(1, qb[2 * u]);
+        a[u].set(2, qa[2 * u + 1]);
+        a[u].set(3, qb[2 * u + 1]);
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        float kf[4];
+        load4(Ks + (n * 8 + g) * LD + d0, kf);
+        if (QUANT) {  // dequantized before the product, as the TPU does
+#pragma unroll
+          for (int i = 0; i < 4; ++i) kf[i] *= ksc[n];
+        }
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
-          a[u].set(0, qa[2 * u]);
-          a[u].set(1, qb[2 * u]);
-          a[u].set(2, qa[2 * u + 1]);
-          a[u].set(3, qb[2 * u + 1]);
-        }
-#pragma unroll
-        for (int n = 0; n < NS; ++n) {
-          float kf[4];
-          load4(Ks + (n * 8 + g) * LD + d0, kf);
-          if (QUANT) {  // dequantized before the product, as the TPU does
-#pragma unroll
-            for (int i = 0; i < 4; ++i) kf[i] *= ksc[n];
-          }
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            Frag<2, SKV> bk;
-            bk.set(0, kf[2 * u]);
-            bk.set(1, kf[2 * u + 1]);
-            mma_split<SQ, SKV>(s[n], a[u], bk);
-          }
+          Frag<2, SKV> bk;
+          bk.set(0, kf[2 * u]);
+          bk.set(1, kf[2 * u + 1]);
+          mma_split<SQ, SKV>(s[n], a[u], bk);
         }
       }
+    }
 
     // online softmax of rows g (h = 0) and g + 8 (h = 1): element e of
     // n-tile n is key k0 + 8 n + 2 tq + (e & 1); p overwrites s.  A
@@ -369,7 +383,8 @@ __global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
     // O += P V: k-step n covers keys 8 n .. 8 n + 7, with the A operand's
     // k index tq holding key 2 tq and k index tq + 4 key 2 tq + 1.  Output
     // n-tile c = 4 j + i, column index x is column 32 j + 4 x + i of V and
-    // O, so a lane reads 4 consecutive columns of a V row at once.  The
+    // O, so a lane reads 4 consecutive columns of a V row at once (the last
+    // 16 columns at D = 80: n-tile 8 + i, column 64 + 2 x + i).  The
     // mma's f32 accumulation truncates, so the tile's product is summed in
     // fresh registers and added to O in f32: the truncation then scales
     // with one tile's sum, not with all the keys' (a smaller max error).
@@ -403,6 +418,23 @@ __global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
           bv.set(0, va[i]);
           bv.set(1, vb[i]);
           mma_split<SKV, SKV>(pv[4 * j + i], a, bv);
+        }
+      }
+      if constexpr (D > D32) {  // the last 16 columns, 2 n-tiles
+        const TKV* vt = Vs + (n * 8 + 2 * tq) * LD + D32 + 2 * g;
+        float va[2], vb[2];
+        load2(vt, va);       // key 2 tq
+        load2(vt + LD, vb);  // key 2 tq + 1
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (QUANT) {
+            va[i] *= vsc[n][0];
+            vb[i] *= vsc[n][1];
+          }
+          Frag<2, SKV> bv;
+          bv.set(0, va[i]);
+          bv.set(1, vb[i]);
+          mma_split<SKV, SKV>(pv[D32 / 8 + i], a, bv);
         }
       }
     }
@@ -439,6 +471,15 @@ __global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
         else
           store4(static_cast<TQ*>(p.out) + row * D + col, y);
       }
+    if constexpr (D > D32) {  // columns D32 + 4 tq + 2 e + i: o[8 + i][2h+e]
+      const int c8 = D32 / 8;
+      const float y[4] = {o[c8][2 * h] * inv, o[c8 + 1][2 * h] * inv,
+                          o[c8][2 * h + 1] * inv, o[c8 + 1][2 * h + 1] * inv};
+      if (ns > 1)
+        store4(p.o_part + prow * D + D32 + 4 * tq, y);
+      else
+        store4(static_cast<TQ*>(p.out) + row * D + D32 + 4 * tq, y);
+    }
     if (ns > 1 && tq == 0) {
       p.m_part[prow] = m[h];
       p.l_part[prow] = lr;
@@ -467,69 +508,69 @@ __global__ void __launch_bounds__(D)
       from_f<TQ>(num / fmaxf(denom, 1e-30f));
 }
 
-template <typename TQ, typename TKV, bool PAGED, bool CAUSAL>
+template <typename TQ, typename TKV, int D, bool PAGED, bool CAUSAL>
 cudaError_t launch_many_row_causal(const PrefillParams& p, int B,
                                    cudaStream_t st) {
-  constexpr int smem = many_row_smem_bytes<TKV, 128>();
+  constexpr int smem = many_row_smem_bytes<TKV, D>();
   // above 48 KB dynamic shared memory must be allowed explicitly, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      many_row_kernel<TQ, TKV, 128, PAGED, CAUSAL>,
+      many_row_kernel<TQ, TKV, D, PAGED, CAUSAL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   if (p.num_splits < 1) return cudaErrorInvalidValue;
   const int qt = MR_ROWS / (p.H / p.KV);
   const dim3 grid(p.KV, (p.Sq + qt - 1) / qt, B * p.num_splits);
-  many_row_kernel<TQ, TKV, 128, PAGED, CAUSAL>
+  many_row_kernel<TQ, TKV, D, PAGED, CAUSAL>
       <<<grid, MR_THREADS, smem, st>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.num_splits == 1) return err;
-  many_row_combine_kernel<TQ, 128>
-      <<<(unsigned)(B * p.Sq * p.H), 128, 0, st>>>(p);
+  many_row_combine_kernel<TQ, D>
+      <<<(unsigned)(B * p.Sq * p.H), D, 0, st>>>(p);
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV, bool PAGED>
-cudaError_t launch_many_row_typed(const PrefillParams& p, int B, int D,
+template <typename TQ, typename TKV, int D, bool PAGED>
+cudaError_t launch_many_row_typed(const PrefillParams& p, int B,
                                   cudaStream_t st) {
-  if (D != 128) return cudaErrorInvalidValue;
   if (p.causal)
-    return launch_many_row_causal<TQ, TKV, PAGED, true>(p, B, st);
+    return launch_many_row_causal<TQ, TKV, D, PAGED, true>(p, B, st);
   if constexpr (PAGED) {
     return cudaErrorInvalidValue;  // the paged prefill is always causal
   } else {
-    return launch_many_row_causal<TQ, TKV, PAGED, false>(p, B, st);
+    return launch_many_row_causal<TQ, TKV, D, PAGED, false>(p, B, st);
   }
 }
 
-template <typename TQ, bool PAGED>
-cudaError_t launch_many_row_kv(const PrefillParams& p, int B, int D,
-                               int kv_dtype, cudaStream_t st) {
+template <typename TQ, int D, bool PAGED>
+cudaError_t launch_many_row_kv(const PrefillParams& p, int B, int kv_dtype,
+                               cudaStream_t st) {
   if (kv_dtype == 0)
-    return launch_many_row_typed<TQ, float, PAGED>(p, B, D, st);
+    return launch_many_row_typed<TQ, float, D, PAGED>(p, B, st);
   if (kv_dtype == 1)
-    return launch_many_row_typed<TQ, __nv_bfloat16, PAGED>(p, B, D, st);
+    return launch_many_row_typed<TQ, __nv_bfloat16, D, PAGED>(p, B, st);
   if constexpr (PAGED) {
     if (kv_dtype == 2)
-      return launch_many_row_typed<TQ, int8_t, PAGED>(p, B, D, st);
+      return launch_many_row_typed<TQ, int8_t, D, PAGED>(p, B, st);
     if (kv_dtype == 3)
-      return launch_many_row_typed<TQ, __nv_fp8_e4m3, PAGED>(p, B, D, st);
+      return launch_many_row_typed<TQ, __nv_fp8_e4m3, D, PAGED>(p, B, st);
   }
   return cudaErrorInvalidValue;
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16; the paged pools also 2 = int8
 // and 3 = float8_e4m3fn, the quantized pools, which need both scale pools
-// (and only they take scales)
-template <bool PAGED>
-cudaError_t launch_many_row(const PrefillParams& p, int B, int D, int q_dtype,
+// (and only they take scales).  Each library instantiates its head dim D;
+// a launch at another head dim `d` is refused.
+template <bool PAGED, int D>
+cudaError_t launch_many_row(const PrefillParams& p, int B, int d, int q_dtype,
                             int kv_dtype, cudaStream_t st) {
   const bool quant = kv_dtype == 2 || kv_dtype == 3;
-  if ((p.ks != nullptr) != quant || (p.vs != nullptr) != quant)
+  if (d != D || (p.ks != nullptr) != quant || (p.vs != nullptr) != quant)
     return cudaErrorInvalidValue;
   if (q_dtype == 0)
-    return launch_many_row_kv<float, PAGED>(p, B, D, kv_dtype, st);
+    return launch_many_row_kv<float, D, PAGED>(p, B, kv_dtype, st);
   if (q_dtype == 1)
-    return launch_many_row_kv<__nv_bfloat16, PAGED>(p, B, D, kv_dtype, st);
+    return launch_many_row_kv<__nv_bfloat16, D, PAGED>(p, B, kv_dtype, st);
   return cudaErrorInvalidValue;
 }
 

@@ -12,6 +12,9 @@
 //   paged_prefill_attention_tpu       (src/repro/kernels/paged_attention.py,
 //                                      _paged_prefill_kernel)
 //
+// Built once per head dim D (-DHEAD_DIM=64, 80 or 128, the library
+// paged_attention_d<D>); the entry points refuse any other D.
+//
 // Layout: the pools stay in the MODEL layout (P, page_size, KV, D) and are
 // read in place through strides (the TPU wrapper's swap to
 // (P, KV, page_size, D) would copy the whole pool per layer per tick).
@@ -93,8 +96,8 @@ extern "C" int paged_decode_attention_fwd(
   p.ks_s0 = ks_strides[0]; p.ks_ss = ks_strides[1]; p.ks_sh = ks_strides[2];
   p.vs_s0 = vs_strides[0]; p.vs_ss = vs_strides[1]; p.vs_sh = vs_strides[2];
   p.o_part = o_part; p.ml_part = ml_part; p.tickets = tickets;
-  return (int)launch_chunked_decode<true>(p, D, q_dtype, kv_dtype,
-                                          (cudaStream_t)stream);
+  return (int)launch_chunked_decode<true, HEAD_DIM>(
+      p, D, q_dtype, kv_dtype, (cudaStream_t)stream);
 }
 
 // Fused paged prefill of one slot's chunk: q (1, C, H, D) with strides
@@ -124,6 +127,6 @@ extern "C" int paged_prefill_attention_fwd(
   p.vs_sb = vs_strides[0]; p.vs_ss = vs_strides[1]; p.vs_sh = vs_strides[2];
   p.num_splits = num_splits;
   p.o_part = o_part; p.m_part = m_part; p.l_part = l_part;
-  return (int)launch_many_row<true>(p, 1, D, q_dtype, kv_dtype,
-                                   (cudaStream_t)stream);
+  return (int)launch_many_row<true, HEAD_DIM>(
+      p, 1, D, q_dtype, kv_dtype, (cudaStream_t)stream);
 }

@@ -8,7 +8,9 @@ the chunk grid of ``decode_chunks``: split-K's splits are chunks clipped at
 ``S / num_splits``, merged in the same launch.
 
 Model layout in and out: q (B, T, H, D), caches (B, S, KV, D), result
-(B, T, H, D) in q's dtype.  The caches are passed by pointer and strides;
+(B, T, H, D) in q's dtype, D one of ``HEAD_DIMS`` (each head dim is its
+own library; ``max_rows`` gives the query rows per KV head the kernel
+takes there).  The caches are passed by pointer and strides;
 nothing is transposed or copied.  Each wrapper checks what the kernel
 takes and raises on anything else, allocates its output and scratch with
 ``torch.empty``, launches on the current stream and raises if the launch
@@ -28,9 +30,11 @@ import torch
 
 from . import _build
 
-MAX_ROWS = 16  # G * T query rows one CTA serves (csrc MAX_ROWS)
+MAX_ROWS = 16  # G * T query rows one CTA serves at most (csrc MAX_ROWS)
 CHUNK_KEYS = 256  # keys per chunk of the chunked decode, before whole pages
-HEAD_DIMS = (128,)
+HEAD_DIMS = _build.HEAD_DIMS  # 64, 80, 128: one library each
+# head dims 64 and 80 (archs with G = 1) are built up to the 8-row instance
+_ROWS = {64: 8, 80: 8, 128: MAX_ROWS}
 # dtype codes of the C entry points; int8 and float8_e4m3fn are the
 # quantized paged pools, which only the paged kernels take (with scales)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -45,8 +49,27 @@ _ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
          _P, _P, _P, _P, _P, _P, _I, _I, _P]
 
 
-def _lib():
-    lib = _build.load("decode_attention")
+def max_rows(head_dim: int) -> int:
+    """G * T query rows per KV head the decode kernels take at
+    ``head_dim``: 16 at 128, 8 at 64 and 80; a head dim not built
+    raises."""
+    if head_dim not in _ROWS:
+        raise ValueError(f"head_dim {head_dim} not built (kernel takes "
+                         f"{HEAD_DIMS})")
+    return _ROWS[head_dim]
+
+
+def check_rows(g, t, head_dim):
+    """Raise unless ``g * t`` query rows per KV head fit the decode kernels
+    at ``head_dim``."""
+    limit = max_rows(head_dim)
+    if g * t > limit:
+        raise ValueError(f"G*T = {g * t} query rows per KV head exceeds "
+                         f"{limit} at head_dim {head_dim}")
+
+
+def _lib(head_dim):
+    lib = _build.load(_build.lib_name("decode_attention", head_dim))
     if lib.decode_attention_fwd.argtypes is None:
         for fn in (lib.decode_attention_fwd, lib.decode_attention_splitk_fwd):
             fn.argtypes = _ARGS
@@ -126,9 +149,7 @@ def _check(q, k_cache, v_cache, pos, active):
     if kb != b or kd != d or kv == 0 or h % kv:
         raise ValueError(f"q {tuple(q.shape)} does not fit caches "
                          f"{tuple(k_cache.shape)}")
-    if (h // kv) * t > MAX_ROWS:
-        raise ValueError(f"G*T = {(h // kv) * t} query rows per KV head "
-                         f"exceeds {MAX_ROWS}")
+    check_rows(h // kv, t, d)
     _check_device(q, k_cache, v_cache, "cache")
     return _pos_active(pos, active, b, q.device)
 
@@ -220,12 +241,13 @@ def _launch(fn, name, q, k_cache, v_cache, pos, active, num_splits, head):
 def decode_attention_cuda(q, k_cache, v_cache, pos, *, active=None,
                           window=0):
     """Single-pass ragged decode (replaces ``decode_attention_tpu``).
-    q (B, T, H, D) with G*T <= 16; caches (B, S, KV, D); ``pos`` scalar or
+    q (B, T, H, D) with G*T <= ``max_rows(D)``; caches (B, S, KV, D);
+    ``pos`` scalar or
     (B,); ``active`` (B,) 0/1, default ``pos >= 0``."""
     pos, active = _check(q, k_cache, v_cache, pos, active)
     b, t, h, d = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
-    out = _launch(_lib().decode_attention_fwd, "decode_attention_fwd", q,
+    out = _launch(_lib(d).decode_attention_fwd, "decode_attention_fwd", q,
                   k_cache, v_cache, pos, active, 1,
                   (b, t, h, kv, s, d, int(window)))
     decode_attention_cuda.launches += 1
@@ -249,7 +271,7 @@ def decode_attention_splitk_cuda(q, k_cache, v_cache, pos, *, active=None,
     pos, active = _check(q, k_cache, v_cache, pos, active)
     b, _, h, d = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
-    out = _launch(_lib().decode_attention_splitk_fwd,
+    out = _launch(_lib(d).decode_attention_splitk_fwd,
                   "decode_attention_splitk_fwd", q, k_cache, v_cache, pos,
                   active, num_splits,
                   (b, h, kv, s, d, int(window), int(num_splits)))

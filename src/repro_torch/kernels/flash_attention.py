@@ -36,8 +36,8 @@ _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P,
          _P, _P, _I, _I, _P]
 
 
-def _lib():
-    lib = _build.load("flash_attention")
+def _lib(head_dim):
+    lib = _build.load(_build.lib_name("flash_attention", head_dim))
     if lib.flash_attention_fwd.argtypes is None:
         lib.flash_attention_fwd.argtypes = _ARGS
         lib.flash_attention_fwd.restype = _I
@@ -84,8 +84,9 @@ def launch_many_row(fn, out, kv, keys, args, tail):
 def flash_attention_cuda(q, k, v, *, causal=True, window=0):
     """Full-sequence attention (replaces ``flash_attention_tpu``): q
     (B, Sq, H, D), k/v (B, Sk, KV, D) with Sq <= Sk (every query row then
-    sees at least one key), H / KV dividing 64.  Row i attends key j when
-    ``j <= i`` (``causal``) and ``i - j < window`` (``window > 0``)."""
+    sees at least one key), H / KV dividing 64, D one of ``HEAD_DIMS``.
+    Row i attends key j when ``j <= i`` (``causal``) and ``i - j <
+    window`` (``window > 0``)."""
     _check_shapes(q, k, v, "input", "(B,S,KV,D)")
     b, sq, h, d = q.shape
     kb, sk, kv, kd = k.shape
@@ -103,7 +104,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0):
     _check_device(q, k, v, "input")
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     launch_many_row(
-        _lib().flash_attention_fwd, out, kv, sk,
+        _lib(d).flash_attention_fwd, out, kv, sk,
         (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
          h, kv, d, int(bool(causal)), int(window), _strides(q), _strides(k),
          _strides(v)),

@@ -29,9 +29,9 @@ import ctypes
 import torch
 
 from . import _build
-from .decode_attention import (_DTYPE_CODE, MAX_ROWS, QUANT_DTYPES,
-                               _check_device, _check_shapes, _pos_active,
-                               _strides, launch_chunked_decode)
+from .decode_attention import (_DTYPE_CODE, QUANT_DTYPES, _check_device,
+                               _check_shapes, _pos_active, _strides,
+                               check_rows, launch_chunked_decode)
 from .flash_attention import ROWS as PREFILL_ROWS
 from .flash_attention import launch_many_row
 _P = ctypes.c_void_p
@@ -44,8 +44,8 @@ _PREFILL_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                  _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P]
 
 
-def _lib():
-    lib = _build.load("paged_attention")
+def _lib(head_dim):
+    lib = _build.load(_build.lib_name("paged_attention", head_dim))
     if lib.paged_decode_attention_fwd.argtypes is None:
         for fn, args in (("paged_decode_attention_fwd", _DECODE_ARGS),
                          ("paged_prefill_attention_fwd", _PREFILL_ARGS)):
@@ -98,13 +98,11 @@ def _check_decode(q, k_pages, v_pages, page_idx, pos, active, k_scale,
     page_size, kv, scales = _check_pools(q, k_pages, v_pages, k_scale,
                                          v_scale)
     _check_table(page_idx, q, 2, "page_idx")
-    b, t, h, _ = q.shape
+    b, t, h, d = q.shape
     if page_idx.shape[0] != b:
         raise ValueError(f"page_idx has {page_idx.shape[0]} rows for "
                          f"{b} slots")
-    if (h // kv) * t > MAX_ROWS:
-        raise ValueError(f"G*T = {(h // kv) * t} query rows per KV head "
-                         f"exceeds {MAX_ROWS}")
+    check_rows(h // kv, t, d)
     _check_device(q, k_pages, v_pages, "pool")
     pos, active = _pos_active(pos, active, b, q.device)
     return pos, active, page_size, kv, scales
@@ -120,7 +118,7 @@ def _launch_decode(name, q, k_pages, v_pages, page_idx, pos, active, window,
     max_pages = page_idx.shape[1]
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     launch_chunked_decode(
-        _lib().paged_decode_attention_fwd, name, q, k_pages, max_pages,
+        _lib(d).paged_decode_attention_fwd, name, q, k_pages, max_pages,
         page_size, num_splits,
         (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
          out.data_ptr(), pos.data_ptr(), active.data_ptr(),
@@ -134,7 +132,8 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_idx, pos, *,
                                 active=None, window=0, k_scale=None,
                                 v_scale=None):
     """Single-pass paged decode (replaces ``paged_decode_attention_tpu``).
-    q (B, T, H, D) with G*T <= 16; pools (P, page_size, KV, D); page_idx
+    q (B, T, H, D) with G*T <= ``max_rows(D)``; pools (P, page_size, KV,
+    D), D one of ``HEAD_DIMS``; page_idx
     (B, max_pages) int32; ``pos`` scalar or (B,); ``active`` (B,) 0/1,
     default ``pos >= 0``; ``k_scale``/``v_scale`` (P, page_size, KV, 1) f32
     with int8/fp8 pools."""
@@ -196,7 +195,7 @@ def paged_prefill_attention_cuda(q, k_pages, v_pages, page_row, q_offset, *,
     strides = ((ctypes.c_longlong * 2)(q.stride(1), q.stride(2)),
                _strides(k_pages), _strides(v_pages))
     launch_many_row(
-        _lib().paged_prefill_attention_fwd, out, kv, q_offset + c,
+        _lib(d).paged_prefill_attention_fwd, out, kv, q_offset + c,
         (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
          out.data_ptr(), page_row.data_ptr(), c, h, kv, page_size, d,
          q_offset, int(window), *strides, *scales),

@@ -18,9 +18,11 @@ layers under their window, global ones without), ``--arch mixtral-8x7b``
 and ``--arch qwen3-moe-235b-a22b`` the MoE FFN; every cache layout and
 ``--speculate`` apply to them as to the uniform archs (on the card
 qwen3-moe's 16 query heads per KV head leave no room for a verify block).
-``--arch mamba2-1.3b`` serves the SSM plan: its prompts are fed token by
-token and a slot's state is zeroed on admission (it takes no ``--cache
-paged``).  zamba2-2.7b (the hybrid plan) is not ported and raises.
+``--arch mamba2-1.3b`` serves the SSM plan and ``--arch zamba2-2.7b``
+the hybrid plan (mamba2 layers and a shared attention block): their
+prompts are fed token by token and a slot's state (and zamba2's K/V
+stripes) is zeroed on admission; they take no ``--cache paged`` and no
+``--speculate``.
 ``--kv-dtype int8|fp8`` (with ``--cache paged``) stores the pools
 quantized.  Weights come from the port's own
 init (``torch.Generator`` seeded with ``--seed``), f32 params and f32

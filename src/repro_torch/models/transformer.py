@@ -1,4 +1,4 @@
-"""Transformer assembly: the uniform and grouped plans.
+"""Transformer assembly: the uniform, grouped and hybrid plans.
 
 The PyTorch counterpart of ``repro/models/transformer.py``.  Layer
 parameters and caches keep the reference's stacked layer axes, so
@@ -6,22 +6,25 @@ converted JAX pytrees load as they are: a uniform plan is
 ``{"stack": {...}}`` with (L, ...) leaves; a grouped plan (gemma3's
 local/global layers) is ``{"inner": (G, P-1, ...), "outer": (G, ...),
 "rem": (R, ...)}`` for the blocks and ``{"groups": {"inner", "outer"},
-"rem"}`` for the caches.  The reference's ``lax.scan`` over those axes
-becomes a Python loop over the layers in the order they run
-(``_layers``).  Caches are written in place.
+"rem"}`` for the caches.  The hybrid plan (zamba2) is a grouped plan of
+mamba2 inner layers, (G, P, ...), whose outer block is *shared*: one
+unstacked attention block with an MLP FFN in the blocks, and one K/V
+cache per group, (G, ...), in the caches.  The reference's ``lax.scan``
+over those axes becomes a Python loop over the layers in the order they
+run (``_layers``), each with its kind and its own parameter and cache
+index.  Caches are written in place.
 
 Ported: attention plans (dense, SWA and GQA archs, gemma3's grouped
-local/global plan) with dense or MoE FFNs, and the uniform SSM plan
-(mamba2).  The whole-sequence forward (``apply_blocks``, modes "prefill"
-and "train") runs attention through ``ops.flash_attention`` and SSM blocks
-through ``ssm_forward``; it is forward only, so the reference's remat of
-training is left out.  The grouped plan with a shared outer block
-(zamba2) raises ``NotImplementedError``; ROADMAP.md lists it.
+local/global plan) with dense or MoE FFNs, the uniform SSM plan (mamba2)
+and the hybrid plan (zamba2).  The whole-sequence forward
+(``apply_blocks``, modes "prefill" and "train") runs attention through
+``ops.flash_attention`` and SSM blocks through ``ssm_forward``; it is
+forward only, so the reference's remat of training is left out.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -32,10 +35,6 @@ from .ssm import ssm_decode_step, ssm_forward, ssm_init, ssm_init_cache
 from ..kernels import ops
 
 MOE_AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
-_UNPORTED = ("not ported yet: the port runs the uniform attention and SSM "
-             "plans and the grouped local/global plan, not the shared "
-             "attention block of the hybrid plan (see ROADMAP.md, 'grouped "
-             "/ MoE / hybrid plans')")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,38 +79,52 @@ def _ffn_kind(cfg) -> str:
     return "moe" if cfg.moe is not None else ("mlp" if cfg.d_ff else "none")
 
 
-def _ported_plan(cfg) -> Plan:
-    plan = build_plan(cfg)
-    if plan.outer_shared:
-        raise NotImplementedError(f"{cfg.name} (family={cfg.family!r}): "
-                                  f"{_UNPORTED}")
-    return plan
+class Layer(NamedTuple):
+    """One layer of a plan, in run order.  ``stack`` names the tree that
+    holds it ("stack" for a uniform plan; "inner", "outer" or "rem" for a
+    grouped one); ``index`` is its index into the parameters' leading axes
+    and ``cache_index`` into the caches' (they differ for the hybrid
+    plan's shared block: parameters ``()``, cache ``(g,)``).  ``kind`` is
+    "attn" or "ssm"; an attention layer runs under ``window`` with the
+    ``ffn`` tail ("mlp" for the shared block, as the reference's)."""
+
+    stack: str
+    index: tuple
+    cache_index: tuple
+    kind: str
+    window: int
+    ffn: str
 
 
-def _layers(plan):
-    """The plan's layers in the order they run: (stack, index, window),
-    where ``stack`` names the stacked tree that holds the layer ("stack"
-    for a uniform plan; "inner", "outer" or "rem" for a grouped one) and
-    ``index`` is the layer's index into its leading axes.  Inner and
-    remainder layers take ``plan.inner_window``, an outer layer
-    ``plan.outer_window``."""
+def _layers(plan, cfg):
+    """The plan's layers in the order they run (``Layer``s).  Inner and
+    remainder layers take ``plan.inner_kind`` and ``plan.inner_window``,
+    an outer layer is attention under ``plan.outer_window``."""
+    ffn = _ffn_kind(cfg)
+
+    def inner(stack, idx):
+        return Layer(stack, idx, idx, plan.inner_kind, plan.inner_window,
+                     ffn)
+
     if plan.kind == "uniform":
-        return [("stack", (i,), plan.inner_window)
-                for i in range(plan.n_layers)]
+        return [inner("stack", (i,)) for i in range(plan.n_layers)]
     out = []
     for g in range(plan.n_groups):
-        out += [("inner", (g, i), plan.inner_window)
-                for i in range(plan.inner_per_group)]
-        out.append(("outer", (g,), plan.outer_window))
-    return out + [("rem", (i,), plan.inner_window)
-                  for i in range(plan.remainder)]
+        out += [inner("inner", (g, i)) for i in range(plan.inner_per_group)]
+        out.append(Layer("outer", () if plan.outer_shared else (g,), (g,),
+                         "attn", plan.outer_window,
+                         "mlp" if plan.outer_shared else ffn))
+    return out + [inner("rem", (i,)) for i in range(plan.remainder)]
 
 
 def _plan_tree(plan, per_layer, groups_key=None):
     """Stack ``per_layer`` (one tree per layer, in ``_layers`` order) into
     the plan's tree: {"stack": (L, ...)}, or {"inner": (G, P-1, ...),
     "outer": (G, ...), "rem": (R, ...)} with inner and outer under
-    ``groups_key`` when given (the caches' {"groups": ...})."""
+    ``groups_key`` when given (the caches' {"groups": ...}).  The hybrid
+    plan's shared block appears once per group in ``per_layer``; its
+    parameters (no ``groups_key``) are that one unstacked tree, its
+    caches stack per group."""
     if plan.kind == "uniform":
         return {"stack": _stack_trees(per_layer)}
     it = iter(per_layer)
@@ -120,7 +133,9 @@ def _plan_tree(plan, per_layer, groups_key=None):
         inner.append(_stack_trees([next(it)
                                    for _ in range(plan.inner_per_group)]))
         outer.append(next(it))
-    groups = {"inner": _stack_trees(inner), "outer": _stack_trees(outer)}
+    shared = plan.outer_shared and groups_key is None
+    groups = {"inner": _stack_trees(inner),
+              "outer": outer[0] if shared else _stack_trees(outer)}
     tree = {groups_key: groups} if groups_key else dict(groups)
     if plan.remainder:
         tree["rem"] = _stack_trees(list(it))
@@ -179,14 +194,20 @@ def _index_tree(tree, i):
 
 
 def init_blocks(gen, cfg, dtype, device="cpu"):
-    plan = _ported_plan(cfg)
-    ffn = _ffn_kind(cfg)
-    if plan.inner_kind == "attn":
-        layers = [_init_attn_block(gen, cfg, dtype, ffn, device)
-                  for _ in _layers(plan)]
-    else:
-        layers = [_init_ssm_block(gen, cfg, dtype, device)
-                  for _ in _layers(plan)]
+    plan = build_plan(cfg)
+    shared = None
+    layers = []
+    for layer in _layers(plan, cfg):
+        if layer.kind == "ssm":
+            layers.append(_init_ssm_block(gen, cfg, dtype, device))
+        elif plan.outer_shared and layer.stack == "outer":
+            # one set of weights, drawn once, for every group
+            if shared is None:
+                shared = _init_attn_block(gen, cfg, dtype, layer.ffn, device)
+            layers.append(shared)
+        else:
+            layers.append(_init_attn_block(gen, cfg, dtype, layer.ffn,
+                                           device))
     return _plan_tree(plan, layers)
 
 
@@ -369,17 +390,16 @@ def apply_blocks(blocks, x, positions, *, cfg, knobs, mode: str):
     None); aux sums the MoE losses over the layers (empty without MoE)."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown mode {mode!r}")
-    plan = _ported_plan(cfg)
-    ffn = _ffn_kind(cfg)
+    plan = build_plan(cfg)
     collect = mode == "prefill"
     aux = _zero_aux(cfg, x.device)
     caches = []
-    for stack, index, window in _layers(plan):
-        p = _index_tree(blocks[stack], index)
-        if plan.inner_kind == "attn":
+    for layer in _layers(plan, cfg):
+        p = _index_tree(blocks[layer.stack], layer.index)
+        if layer.kind == "attn":
             x, a, cache = _apply_attn_block(
-                p, x, positions, cfg=cfg, window=window, knobs=knobs,
-                collect_cache=collect, ffn=ffn)
+                p, x, positions, cfg=cfg, window=layer.window, knobs=knobs,
+                collect_cache=collect, ffn=layer.ffn)
             aux = _acc_aux(aux, a)
         else:
             x, cache = _apply_ssm_block(p, x, cfg=cfg,
@@ -390,12 +410,18 @@ def apply_blocks(blocks, x, positions, *, cfg, knobs, mode: str):
 
 # ============================================================ decode apply
 def _kv_len(caches):
-    """S of a dense attention cache tree: axis -3 of its "k" leaves
-    (..., B, S, KV, D), whatever leading layer axes the plan stacks."""
-    tree = caches
-    while "k" not in tree:
-        tree = next(iter(tree.values()))
-    return tree["k"].shape[-3]
+    """S of a dense cache tree's attention caches: axis -3 of the first
+    "k" leaf (..., B, S, KV, D), whatever leading layer axes the plan
+    stacks and wherever the tree keeps it (the hybrid plan's SSM leaves
+    come first); None for a tree without one."""
+    if "k" in caches:
+        return caches["k"].shape[-3]
+    for sub in caches.values():
+        if isinstance(sub, dict):
+            s = _kv_len(sub)
+            if s is not None:
+                return s
+    return None
 
 
 def apply_blocks_decode(blocks, x, caches, pos, *, cfg, knobs, paged=None):
@@ -406,9 +432,10 @@ def apply_blocks_decode(blocks, x, caches, pos, *, cfg, knobs, paged=None):
     window.  Caches are updated in place.  Returns (x (B,T,dm), caches);
     ``paged = (page_idx, page_size)`` takes the page pools (one table
     serves every layer).  SSM layers advance one token at a time and
-    ignore ``pos``."""
-    plan = _ported_plan(cfg)
-    ffn = _ffn_kind(cfg)
+    ignore ``pos``; the hybrid plan's shared attention blocks take it, at
+    T = 1."""
+    plan = build_plan(cfg)
+    layers = _layers(plan, cfg)
     if plan.inner_kind == "ssm":
         if paged is not None:
             raise NotImplementedError(
@@ -417,27 +444,29 @@ def apply_blocks_decode(blocks, x, caches, pos, *, cfg, knobs, paged=None):
             raise NotImplementedError(
                 f"multi-token decode unsupported for family={cfg.family!r} "
                 f"-- SSM state advances one token at a time")
-        for stack, index, _ in _layers(plan):
-            x = _apply_ssm_block_decode(_index_tree(blocks[stack], index), x,
-                                        _layer_cache(caches, stack, index),
-                                        cfg=cfg)
-        return x, caches
     b, t = x.shape[0], x.shape[1]
-    # where this step's K/V rows land: the same in every layer (from the
-    # positions as given, so that host positions decide a drop on the host)
-    if paged is not None:
-        index = attn.paged_write_index(pos, paged[0], paged[1], t)
-    else:
-        index = attn.cache_write_index(pos, b, _kv_len(caches), t, x.device)
-    pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(b)
-    pos = pos.to(torch.int32).contiguous()
-    active = (pos >= 0).to(torch.int32)
+    if any(layer.kind == "attn" for layer in layers):
+        # where this step's K/V rows land: the same in every attention
+        # layer (from the positions as given, so that host positions
+        # decide a drop on the host)
+        if paged is not None:
+            index = attn.paged_write_index(pos, paged[0], paged[1], t)
+        else:
+            index = attn.cache_write_index(pos, b, _kv_len(caches), t,
+                                           x.device)
+        pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(b)
+        pos = pos.to(torch.int32).contiguous()
+        active = (pos >= 0).to(torch.int32)
     xs = [_row(x, i) for i in range(t)]
-    for stack, li, window in _layers(plan):
+    for layer in layers:
+        p = _index_tree(blocks[layer.stack], layer.index)
+        cache = _layer_cache(caches, layer.stack, layer.cache_index)
+        if layer.kind == "ssm":  # T = 1 (checked above)
+            xs = [_apply_ssm_block_decode(p, xs[0], cache, cfg=cfg)]
+            continue
         xs = _apply_attn_block_decode(
-            _index_tree(blocks[stack], li), xs, _layer_cache(caches, stack, li),
-            pos, active, index, cfg=cfg, window=window, knobs=knobs,
-            ffn=ffn, paged=paged)
+            p, xs, cache, pos, active, index, cfg=cfg, window=layer.window,
+            knobs=knobs, ffn=layer.ffn, paged=paged)
     return _cat_rows(xs), caches
 
 
@@ -464,51 +493,57 @@ def apply_blocks_prefill_chunk(blocks, x, caches, slot, offset, *, cfg,
     """Run one slot's chunk x (1,C,dm) through all layers, writing K/V at
     (slot, offset) in place (``paged``: into the pages the slot's table
     row maps).  Returns (hidden (1,C,dm), caches).  Attention plans only."""
-    plan = _ported_plan(cfg)
+    plan = build_plan(cfg)
     if plan.inner_kind != "attn":
         raise NotImplementedError(
             f"chunked prefill unsupported for family={cfg.family!r}")
-    ffn = _ffn_kind(cfg)
     slot, offset = int(slot), int(offset)
-    for stack, index, window in _layers(plan):
+    for layer in _layers(plan, cfg):
         x = _apply_attn_block_prefill_chunk(
-            _index_tree(blocks[stack], index), x,
-            _layer_cache(caches, stack, index), slot, offset, cfg=cfg,
-            window=window, knobs=knobs, ffn=ffn, paged=paged)
+            _index_tree(blocks[layer.stack], layer.index), x,
+            _layer_cache(caches, layer.stack, layer.cache_index), slot,
+            offset, cfg=cfg, window=layer.window, knobs=knobs,
+            ffn=layer.ffn, paged=paged)
     return x, caches
 
 
 # ============================================================== cache init
 def _cache_tree(plan, leaves):
-    """The plan's cache tree of zero leaves: ``leaves(prefix)`` makes one
-    layer stack's leaves with the leading layer axes ``prefix``."""
+    """The plan's cache tree of zero leaves: ``leaves(prefix, kind)`` makes
+    one layer stack's leaves with the leading layer axes ``prefix`` for
+    layers of ``kind`` ("attn" or "ssm"; outer layers are attention)."""
     if plan.kind == "uniform":
-        return {"stack": leaves((plan.n_layers,))}
+        return {"stack": leaves((plan.n_layers,), plan.inner_kind)}
     tree = {"groups": {
-        "inner": leaves((plan.n_groups, plan.inner_per_group)),
-        "outer": leaves((plan.n_groups,))}}
+        "inner": leaves((plan.n_groups, plan.inner_per_group),
+                        plan.inner_kind),
+        "outer": leaves((plan.n_groups,), "attn")}}
     if plan.remainder:
-        tree["rem"] = leaves((plan.remainder,))
+        tree["rem"] = leaves((plan.remainder,), plan.inner_kind)
     return tree
 
 
 def init_cache(cfg, knobs, batch: int, max_len: int, device="cpu"):
     """Dense caches in the plan's tree ({"stack": ...} or {"groups":
     {"inner", "outer"}, "rem"}) with stacked layer axes: "k" and "v"
-    (..., B, S, KV, D) for attention plans; "conv" (L, B, conv_width - 1,
-    conv_dim) in ``knobs.cache_dtype`` and "state" (L, B, NH, hp, ds) f32
-    for SSM plans."""
-    plan = _ported_plan(cfg)
-    if plan.inner_kind == "ssm":
-        leaf = ssm_init_cache(batch, cfg.d_model, cfg.ssm, knobs.cache_dtype,
-                              device)
-        return _cache_tree(plan, lambda pre: {
-            k: torch.zeros(pre + v.shape, dtype=v.dtype, device=device)
-            for k, v in leaf.items()})
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return _cache_tree(plan, lambda pre: {
-        name: torch.zeros(pre + shape, dtype=knobs.cache_dtype,
-                          device=device) for name in ("k", "v")})
+    (..., B, S, KV, D) for attention layers; "conv" (..., B, conv_width -
+    1, conv_dim) in ``knobs.cache_dtype`` and "state" (..., B, NH, hp, ds)
+    f32 for SSM layers (the hybrid plan: SSM leaves inside the groups and
+    the remainder, one K/V cache per group for the shared block)."""
+    plan = build_plan(cfg)
+    kv_shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+
+    def leaves(pre, kind):
+        if kind == "ssm":
+            shapes = ssm_init_cache(batch, cfg.d_model, cfg.ssm,
+                                    knobs.cache_dtype, "meta")
+            return {k: torch.zeros(pre + v.shape, dtype=v.dtype,
+                                   device=device)
+                    for k, v in shapes.items()}
+        return {name: torch.zeros(pre + kv_shape, dtype=knobs.cache_dtype,
+                                  device=device) for name in ("k", "v")}
+
+    return _cache_tree(plan, leaves)
 
 
 def cache_batch_axes(cfg, knobs, max_len: int):
@@ -567,14 +602,14 @@ def init_cache_paged(cfg, knobs, num_pages: int, page_size: int,
     (..., P, page_size, KV, 1), the reference's layout: the page axis stays
     where the pools keep it, so a page's scales go wherever its values
     go."""
-    plan = _ported_plan(cfg)
     if not supports_paged_cache(cfg):
         raise NotImplementedError(
             f"paged KV cache unsupported for family={cfg.family!r}")
+    plan = build_plan(cfg)
     shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
     dt = attn.kv_quant_dtype(knobs.kv_quant) or knobs.cache_dtype
 
-    def pools(pre):
+    def pools(pre, _kind):
         out = {name: torch.zeros(pre + shape, dtype=dt, device=device)
                for name in ("k", "v")}
         if knobs.kv_quant:

@@ -6,13 +6,14 @@ remainder stack; greedy engine streams equal to the JAX engine's (dense
 continuous, wave, paged with a prefix hit, int8 paged) on prompts long
 enough for the local window to bind; speculative and preempted streams
 bitwise the port's plain ones; ``paged_cache_from_jax`` on grouped and
-quantized pools; the hybrid plan's refusal; and, on a fake card, the
+quantized pools; and, on a fake card, the
 decode wrappers at the new groupings (G = 4 at T = 4 reaches the kernel
 with 16 rows per KV head, G = 16 at T = 4 raises).
 
 The engine helpers here serve the MoE archs too (``test_torch_moe.py``).
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -126,7 +127,7 @@ def test_grouped_trees_are_the_references(over):
         assert tree["groups"]["inner"]["k"].shape[:2] == (
             plan.n_groups, plan.inner_per_group)
     # the layers run group by group, each under its plan window
-    windows = [w for _, _, w in ttransformer._layers(plan)]
+    windows = [layer.window for layer in ttransformer._layers(plan, tm.cfg)]
     assert windows == [w for _ in range(plan.n_groups)
                        for w in [plan.inner_window] * plan.inner_per_group
                        + [0]] + [plan.inner_window] * plan.remainder
@@ -351,18 +352,6 @@ def test_launcher_serves_the_grouped_and_moe_archs(capsys):
     assert capsys.readouterr().out.count("served 3 requests") == 4
 
 
-# ------------------------------------------------------------ the hybrid plan
-@pytest.mark.parametrize("entry", ["init", "init_cache", "init_cache_paged"])
-def test_hybrid_plan_still_raises(entry):
-    """zamba2's shared attention block is the plan the port leaves out."""
-    tm = LM(get_config("zamba2-2.7b", smoke=True), device="cpu")
-    call = {"init": lambda: tm.init(torch.Generator().manual_seed(0)),
-            "init_cache": lambda: tm.init_cache(1, 8),
-            "init_cache_paged": lambda: tm.init_cache_paged(4, 8)}[entry]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
-
-
 # ------------------------------------------------- the groupings, fake card
 def _fake_dense_card(monkeypatch):
     from test_torch_kernels import _fake_card
@@ -425,3 +414,104 @@ def test_sixteen_query_heads_per_kv_head_refuse_a_4_row_block(paged,
     with pytest.raises(ValueError, match="64 query rows"):
         run(torch.zeros((2, 4, 16 * kv, d)))
     assert len(lib.calls) == 1
+
+
+# ------------------------------------------------- the head dims, fake card
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("kind", ["decode", "splitk", "prefill", "flash"])
+def test_paged_and_flash_wrappers_reach_the_library_of_each_head_dim(
+        kind, d, monkeypatch):
+    """The paged decode, split-K and prefill and the flash attention at
+    head dims 64, 80 and 128: one launch each, through the library built
+    for that head dim, with D among the entry point's arguments."""
+    from repro_torch.kernels import flash_attention as tflash
+
+    lib = _fake_paged_card(monkeypatch)
+    monkeypatch.setattr(tflash, "_lib", lib.load)
+    monkeypatch.setattr(tflash, "_check_device", lambda *a: None)
+    kv = 2
+    pool = torch.zeros((9, 8, kv, d))
+    table = torch.arange(1, 9, dtype=torch.int32).reshape(2, 4)
+    if kind == "flash":
+        q = torch.zeros((2, 16, kv, d))
+        out = tflash.flash_attention_cuda(q, q.clone(), q.clone())
+        d_at = 9  # q, k, v, out, B, Sq, Sk, H, KV, D
+    elif kind == "prefill":
+        q = torch.zeros((1, 8, kv, d))
+        out = tpaged.paged_prefill_attention_cuda(q, pool, pool.clone(),
+                                                  table[1], 8)
+        d_at = 9  # q, k, v, out, page_row, C, H, KV, page_size, D
+    else:
+        q = torch.zeros((2, 1, kv, d))
+        fn = tpaged.paged_decode_attention_cuda if kind == "decode" else \
+            functools.partial(tpaged.paged_decode_attention_splitk_cuda,
+                              num_splits=2)
+        out = fn(q, pool, pool.clone(), table, [3, 20])
+        d_at = 14  # 7 pointers, pt_stride, B, T, H, KV, max_pages, ps, D
+    (_, args), = lib.calls
+    assert lib.head_dims == [d] and args[d_at] == d
+    assert out.shape == q.shape
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill", "flash"])
+def test_paged_and_flash_wrappers_refuse_head_dim_96(kind, monkeypatch):
+    from repro_torch.kernels import flash_attention as tflash
+
+    lib = _fake_paged_card(monkeypatch)
+    monkeypatch.setattr(tflash, "_lib", lib.load)
+    monkeypatch.setattr(tflash, "_check_device", lambda *a: None)
+    pool = torch.zeros((9, 8, 2, 96))
+    table = torch.arange(1, 9, dtype=torch.int32).reshape(2, 4)
+    call = {"decode": lambda: tpaged.paged_decode_attention_cuda(
+                torch.zeros((2, 1, 2, 96)), pool, pool.clone(), table,
+                [3, 20]),
+            "prefill": lambda: tpaged.paged_prefill_attention_cuda(
+                torch.zeros((1, 8, 2, 96)), pool, pool.clone(), table[1], 8),
+            "flash": lambda: tflash.flash_attention_cuda(
+                *(torch.zeros((2, 16, 2, 96)) for _ in range(3)))}[kind]
+    with pytest.raises(ValueError, match="head_dim 96 not built"):
+        call()
+    assert not lib.calls and not lib.head_dims
+
+
+def test_paged_decode_refuses_16_rows_at_head_dim_80(monkeypatch):
+    """zamba2's and musicgen's G = 1 at T = 16: past the 8-row instance,
+    the largest built at head dims 80 and 64; T = 8 launches."""
+    lib = _fake_paged_card(monkeypatch)
+    pool = torch.zeros((9, 8, 2, 80))
+    table = torch.arange(1, 9, dtype=torch.int32).reshape(2, 4)
+    tpaged.paged_decode_attention_cuda(torch.zeros((2, 8, 2, 80)), pool,
+                                       pool.clone(), table, [3, 20])
+    with pytest.raises(ValueError, match="16 query rows per KV head "
+                                         "exceeds 8 at head_dim 80"):
+        tpaged.paged_decode_attention_cuda(torch.zeros((2, 16, 2, 80)),
+                                           pool, pool.clone(), table,
+                                           [3, 20])
+    assert len(lib.calls) == 1
+
+
+@pytest.mark.parametrize("arch,d,draft_k,ok", [
+    ("musicgen-large", 64, 7, True), ("musicgen-large", 64, 8, False),
+    ("musicgen-large", 80, 7, True), ("musicgen-large", 80, 8, False),
+    ("internlm2-1.8b", 128, 7, True), ("internlm2-1.8b", 128, 8, False)])
+def test_engine_checks_the_verify_rows_per_head_dim(arch, d, draft_k, ok):
+    """On the card the engine refuses a verify block past the decode
+    kernels' rows at the model's head dim: G = 1 takes draft_k up to 7
+    at head dims 64 and 80 (8 rows), internlm2's G = 2 up to 7 at 128 (16
+    rows); on the CPU every draft_k passes."""
+    import types
+
+    from repro_torch.runtime import serve as tserve
+
+    cfg = dataclasses.replace(get_config(arch), head_dim=d)
+    for device, refused in (("cuda", not ok), ("cpu", False)):
+        model = types.SimpleNamespace(cfg=cfg, device=torch.device(device),
+                                      supports_speculative=lambda: True)
+        config = ServeConfig(max_len=64, draft_k=draft_k)
+        if refused:
+            with pytest.raises(ValueError, match=f"MAX_ROWS = "
+                                                 f"{tdecode.max_rows(d)} at "
+                                                 f"head_dim {d}"):
+                tserve._check_speculative(config, model)
+        else:
+            tserve._check_speculative(config, model)

@@ -133,12 +133,19 @@ def test_splitk_wrapper_refuses_multi_token():
 # ------------------------------------------------- the launch, on a fake card
 class _FakeLib:
     """Stands in for the built library: records each entry point's
-    arguments and returns the error code it is given."""
+    arguments and returns the error code it is given; ``head_dims`` lists
+    the head dim of each library the wrappers asked for."""
 
     def __init__(self, err):
-        self.err, self.calls = err, []
+        self.err, self.calls, self.head_dims = err, [], []
         for name in ("decode_attention_fwd", "decode_attention_splitk_fwd"):
             setattr(self, name, self._entry(name))
+
+    def load(self, head_dim):
+        """The wrappers' ``_lib(head_dim)``: the library of that head dim
+        (recorded)."""
+        self.head_dims.append(head_dim)
+        return self
 
     def _entry(self, name):
         def call(*args):
@@ -152,7 +159,7 @@ def _fake_card(monkeypatch, err):
     check and the stream are stubbed, the library is ``_FakeLib``, and the
     chunk scratch each launch allocates is recorded."""
     lib = _FakeLib(err)
-    monkeypatch.setattr(tdecode, "_lib", lambda: lib)
+    monkeypatch.setattr(tdecode, "_lib", lib.load)
     monkeypatch.setattr(tdecode, "_check_device", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 0}))
@@ -246,3 +253,61 @@ def test_dense_wrapper_raises_on_a_refused_launch(ns, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed: cudaError 1"):
         wrapper(q, k, v, [3, 9], **kw)
     assert wrapper.launches == before and len(lib.calls) == 1
+
+
+# --------------------------------------------------------------- head dims
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("ns", [1, 2])
+def test_dense_wrappers_reach_the_library_of_each_head_dim(ns, d,
+                                                           monkeypatch):
+    """Head dims 64 (musicgen), 80 (zamba2's shared block) and 128 load
+    their own library and hand it D, with scratch of D + 2 floats per
+    chunk row."""
+    q = torch.zeros((2, 1, 2, d))
+    k = torch.zeros((2, 520, 2, d))
+    lib, scratch = _fake_card(monkeypatch, 0)
+    if ns == 1:
+        decode_attention_cuda(q, k, k.clone(), [3, 519])
+    else:
+        decode_attention_splitk_cuda(q, k, k.clone(), [3, 519],
+                                     num_splits=ns)
+    (_, args), = lib.calls
+    assert lib.head_dims == [d]
+    # fwd: B, T, H, KV, S, D at 6-11; split-K: B, H, KV, S, D at 6-10
+    assert args[11 if ns == 1 else 10] == d
+    (buf,) = scratch
+    rows = 2 * 2 * len(tdecode.decode_chunks(520, 1, ns)[2])  # G * T = 1
+    assert buf.numel() == rows * (d + 2)
+
+
+@pytest.mark.parametrize("d,t,ok", [(80, 8, True), (80, 9, False),
+                                    (64, 8, True), (64, 16, False),
+                                    (128, 16, True), (128, 17, False)])
+def test_dense_rows_per_head_dim(d, t, ok, monkeypatch):
+    """The 8-row instance is the largest at head dims 64 and 80, the
+    16-row one at 128: more query rows per KV head raise, naming the head
+    dim and its limit, before any launch."""
+    assert tdecode.max_rows(d) == (16 if d == 128 else 8)
+    q = torch.zeros((2, t, 2, d))
+    k = torch.zeros((2, 64, 2, d))
+    lib, _ = _fake_card(monkeypatch, 0)
+    if ok:
+        decode_attention_cuda(q, k, k.clone(), [3, 9])
+        assert len(lib.calls) == 1
+    else:
+        with pytest.raises(ValueError, match=f"exceeds {tdecode.max_rows(d)}"
+                                             f" at head_dim {d}"):
+            decode_attention_cuda(q, k, k.clone(), [3, 9])
+        assert not lib.calls
+
+
+@pytest.mark.parametrize("d", [96, 112, 256])
+def test_dense_wrappers_refuse_a_head_dim_not_built(d, monkeypatch):
+    q = torch.zeros((2, 1, 2, d))
+    k = torch.zeros((2, 64, 2, d))
+    lib, _ = _fake_card(monkeypatch, 0)
+    with pytest.raises(ValueError, match=f"head_dim {d} not built"):
+        decode_attention_cuda(q, k, k.clone(), [3, 9])
+    with pytest.raises(ValueError, match=f"head_dim {d} not built"):
+        tdecode.max_rows(d)
+    assert not lib.calls and not lib.head_dims

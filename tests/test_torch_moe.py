@@ -287,3 +287,75 @@ def test_prefill_chunk_null_page_takes_the_last_padded_block(name):
         jnp.asarray(pools), jnp.asarray(pools), jnp.asarray(new),
         jnp.asarray(new), 0, 4, jnp.asarray(table), ps)
     np.testing.assert_array_equal(got.numpy(), np.asarray(jk))
+
+
+# ------------------------------------------------- a capacity that binds
+# 8 experts, top-2, at the reference's eval capacity factor lowered to 1.0:
+# a dispatch chunk of c tokens keeps max(2, int(c * 2 * 1.0 / 8)) = c / 4
+# choices per expert, the average load, so any imbalance drops choices
+BINDING = dict(num_experts=8, experts_per_token=2, d_ff=32,
+               dispatch_chunk=16, eval_capacity_factor=1.0)
+
+
+def _binding_pair():
+    """(JAX model, JAX params, port model, port params): mixtral's smoke
+    config with the binding MoE."""
+    from conftest import tiny_lm
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM, RuntimeKnobs
+
+    jm, jp = tiny_lm(MIXTRAL, moe=JMoEConfig(**BINDING))
+    cfg = dataclasses.replace(get_config(MIXTRAL, smoke=True), num_layers=2,
+                              vocab_size=64, moe=MoEConfig(**BINDING))
+    tm = LM(cfg, RuntimeKnobs(cache_dtype=torch.float32), device="cpu")
+    return jm, jp, tm, convert.params_from_jax(jax.tree.map(np.asarray, jp))
+
+
+def test_binding_capacity_prefill_matches_jax():
+    """Whole-prompt prefill of 3 dispatch chunks under a capacity that
+    drops a share of the choices: the last-position logits, every cache
+    leaf and the drop fraction equal the reference's within ATOL."""
+    from repro_torch import convert
+
+    jm, jp, tm, tp = _binding_pair()
+    toks = np.random.default_rng(4).integers(0, 64, size=(2, 48)).astype(
+        np.int32)
+    jl, jc = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(toks)})
+    tl, tc = tm.prefill(tp, {"tokens": toks})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL,
+                               rtol=ATOL)
+    for got, want in zip(jax.tree.leaves(convert.cache_to_numpy(tc)),
+                         jax.tree.leaves(jc)):
+        np.testing.assert_allclose(got, np.asarray(want), atol=ATOL,
+                                   rtol=ATOL)
+    _, jaux, _ = jax.jit(lambda p, b: jm.hidden(p, b, "prefill"))(
+        jp, {"tokens": jnp.asarray(toks)})
+    _, taux, _ = tm.hidden(tp, {"tokens": toks}, "prefill")
+    drop = float(taux["moe_drop_frac"])
+    assert drop > 0.05  # the capacity binds
+    assert drop == pytest.approx(float(jaux["moe_drop_frac"]), abs=1e-6)
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_binding_capacity_engine_matches_jax_engine(layout):
+    """Greedy streams, dense and paged, equal to the JAX engine's where the
+    capacity binds: prompts of 13, 29, 37, 22 and 5 tokens are no whole
+    number of the engine's 8-token prefill chunks (each one dispatch chunk
+    of capacity 2), so the padded rows of a last chunk share its capacity
+    with the real ones, as in the reference."""
+    from repro.runtime.serve import Request as JRequest
+    from repro.runtime.serve import ServeConfig as JServeConfig
+    from repro.runtime.serve import ServeEngine as JServeEngine
+    from repro_torch.runtime.serve import Request, ServeConfig, ServeEngine
+    from test_torch_grouped import ENGINE, LAYOUTS, serve
+
+    jm, jp, tm, tp = _binding_pair()
+    rng = np.random.default_rng(13)
+    trace = [(i, rng.integers(0, 64, size=n).astype(np.int32))
+             for i, n in enumerate((13, 29, 37, 22, 5))]
+    config = dict(ENGINE, **LAYOUTS[layout])
+    want = serve(JServeEngine(jm, jp, JServeConfig(**config)), JRequest,
+                 trace)
+    assert serve(ServeEngine(tm, tp, ServeConfig(**config)), Request,
+                 trace) == want

@@ -249,8 +249,10 @@ def test_prefill_wrapper_refuses_bad_inputs(case, match):
 
 # ------------------------------------------------------------------- build
 def test_build_target_tracks_shared_header(tmp_path, monkeypatch):
-    """An edited shared header changes every source's library name, so a
-    stale library is never loaded; no nvcc is needed to see it."""
+    """An edited shared header changes every library's name, so a stale
+    library is never loaded; a source edit changes the libraries of that
+    source (every head dim) only; each head dim is its own library; no
+    nvcc is needed to see it."""
     import shutil
 
     from repro_torch.kernels import _build
@@ -262,16 +264,20 @@ def test_build_target_tracks_shared_header(tmp_path, monkeypatch):
     assert sorted(p.name for p in csrc.glob("*.cuh")) == [
         "attention_common.cuh", "chunked_decode.cuh",
         "many_row_attention.cuh"]
-    before = {name: _build._target(name) for name in _build.SOURCES}
+    libs = _build.LIBS
+    assert len(libs) == 3 * len(_build.HEAD_DIMS) + 1
+    before = {name: _build._target(name) for name in libs}
     assert all(t.parent == tmp_path / "build" for t in before.values())
-    assert before == {name: _build._target(name) for name in _build.SOURCES}
+    assert len(set(before.values())) == len(libs)
+    assert before == {name: _build._target(name) for name in libs}
     header = csrc / "attention_common.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
-    after = {name: _build._target(name) for name in _build.SOURCES}
-    assert all(after[n] != before[n] for n in _build.SOURCES)
-    # a source edit changes only that source's library
+    after = {name: _build._target(name) for name in libs}
+    assert all(after[n] != before[n] for n in libs)
+    # a source edit changes only that source's libraries
     src = csrc / "paged_attention.cu"
     src.write_text(src.read_text() + "\n// edited\n")
-    again = {name: _build._target(name) for name in _build.SOURCES}
-    assert again["decode_attention"] == after["decode_attention"]
-    assert again["paged_attention"] != after["paged_attention"]
+    again = {name: _build._target(name) for name in libs}
+    for name in libs:
+        assert (again[name] != after[name]) == \
+            name.startswith("paged_attention_d")

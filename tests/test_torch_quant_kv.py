@@ -480,13 +480,20 @@ def test_quant_pool_off_the_cpu_never_reaches_a_plain_version(kind,
 
 class _FakeLib:
     """Stands in for the built library: records each entry point's
-    arguments and returns the error code it is given."""
+    arguments and returns the error code it is given; ``head_dims`` lists
+    the head dim of each library the wrappers asked for."""
 
     def __init__(self, err):
-        self.err, self.calls = err, []
+        self.err, self.calls, self.head_dims = err, [], []
         for name in ("paged_decode_attention_fwd",
-                     "paged_prefill_attention_fwd"):
+                     "paged_prefill_attention_fwd", "flash_attention_fwd"):
             setattr(self, name, self._entry(name))
+
+    def load(self, head_dim):
+        """The wrappers' ``_lib(head_dim)``: the library of that head dim
+        (recorded)."""
+        self.head_dims.append(head_dim)
+        return self
 
     def _entry(self, name):
         def call(*args):
@@ -500,7 +507,7 @@ def _fake_card(monkeypatch, err):
     """Run the wrappers on CPU tensors up to the launch: the device check,
     the stream and the SM count are stubbed, the library is ``_FakeLib``."""
     lib = _FakeLib(err)
-    monkeypatch.setattr(tpaged, "_lib", lambda: lib)
+    monkeypatch.setattr(tpaged, "_lib", lib.load)
     monkeypatch.setattr(tpaged, "_check_device", lambda *a: None)
     monkeypatch.setattr(tflash, "_sm_count", lambda device: 132)
     monkeypatch.setattr(torch.cuda, "current_stream",
