@@ -106,8 +106,9 @@ Run from the repository root.  Phases, each raising on failure:
    (G = 4) with T = 1 and T = 4 (the chunked decode kernel's 16-row
    instance) and at qwen3-moe's H=64, KV=4 (G = 16) with T = 1, at both
    position sets and windows 0, 1024 and 4096, against their plain
-   versions (G = 16 at T = 4 must be refused); a slot alone against the
-   batch, bitwise; #4 (256-row chunks and the ragged 104-row one) and #6
+   versions (G = 16 at T = 4, past the 16-row instance, once in row
+   tiles: phase 3r holds it in full); a slot alone against the batch,
+   bitwise; #4 (256-row chunks and the ragged 104-row one) and #6
    at both groupings under windows 0, 1024 and 4096; then each timed as
    in phase 3 with its bound and SDPA (rows ``<kernel>_g4``,
    ``..._g4_verify``, ``..._g16``);
@@ -125,18 +126,33 @@ Run from the repository root.  Phases, each raising on failure:
    4200-token prompt past the 4096 window), speculative decode dense and
    paged (the 16-row instance on the engine path) and a 1 x 4096 prefill
    step; qwen3-moe-235b-a22b (2 of 94 layers): a 1 x 2048 prefill step,
-   phases 4 and 4b, and its verify block refused (G x T = 64 rows); each
-   prefill prints its MoE drop fraction.  Each model is built alone and
-   freed before the next;
+   phases 4 and 4b, and speculative decode dense and paged (G x T = 64
+   rows a KV head in the verify block: the row tiles) equal to the plain
+   engine; each prefill prints its MoE drop fraction.  Each model is built
+   alone and freed before the next;
 3h. kernels at head dims 80 (zamba2's shared block) and 64 (musicgen),
    H = KV = 32: #1, #2 (2, 4 and 8 splits, bitwise the single pass), #3
    and #5 at T = 1 and 4 at both position sets, windows 0 and 1024, f32
    and bf16 caches and pools, int8 and fp8 pools; a slot alone against
    the batch; #4 (256-row chunks at 0 and 3840, the ragged 104-row one)
    on f32, bf16, int8 and fp8 pools and #6 (S=4096 causal, windows 0 and
-   1024; S=1000 with window 300; a bf16 case); head dim 96 and 16 rows at
-   head dim 80 refused by name; then each timed as in phase 3 (rows
-   ``<kernel>_d<D>``);
+   1024; S=1000 with window 300; a bf16 case); head dim 96 refused by
+   name, 16 rows at head dim 80 (row tiles) against the plain version;
+   then each timed as in phase 3 (rows ``<kernel>_d<D>``);
+3r. row tiles and groupings that do not divide 64: #1, #2 (2, 4 and 8
+   splits, bitwise the single pass), #3, #5 and #3q/#5q (int8, fp8) at
+   granite's H=48, KV=1 (T = 1 and 4: 48 and 192 rows a KV head),
+   qwen2.5's H=40, KV=8 (T = 1, 4, 8), qwen3-moe's H=64, KV=4 at T = 4 (64
+   rows) and H = KV = 32 at head dims 80 (T = 16) and 64 (T = 9, 16), both
+   position sets, windows 0 and 1024, f32 and bf16, against the plain
+   versions; a slot alone against the batch and each row of a T-row block
+   against the T = 1 launch, bitwise; #4 (256-row chunks at 0 and 3840,
+   the ragged 104-row one; f32, bf16, int8, fp8) and #6 (S=4096 causal,
+   windows 0 and 1024; S=1000 with window 300; a bf16 case) at G = 5 and
+   G = 48; then each timed as in phase 3
+   (rows ``<kernel>_g48``, ``_g48_verify``, ``_g5``, ``_g5_verify``,
+   ``_g16_verify``, ``_int8_g48``, ``decode_attention_d64_t9``; the
+   shapes no model phase runs are timed and printed);
 9. zamba2-2.7b at full width and depth (54 mamba2 layers in 9 groups of
    6, each followed by the shared attention block; 9.4 GB of f32
    weights): the 2 x 4096 prefill step must launch #7 54 times and #6 9
@@ -150,7 +166,17 @@ Run from the repository root.  Phases, each raising on failure:
    timed and profiled;
 10. musicgen-large at full width, 12 of 48 layers (head dim 64): phases 4
    and 4b, an int8 paged run (phase 4c's checks, the prefill chunk held
-   call by call) and a 1 x 4096 prefill step.
+   call by call), a 1 x 4096 prefill step, and speculative decode at
+   draft_k = 8 (T = 9: two row tiles) on the dense cache, equal to the
+   plain engine;
+11. granite-20b at full width, 16 of 52 layers (48 query heads on one KV
+   head, 25.5 GB of f32 weights), and
+12. qwen2.5-32b at full width, 12 of 64 layers (G = 5, 29.6 GB): each
+   built alone and freed; phase 4's dense serving, logits and tick, the
+   wave trace; phase 4b's paged trace with the prefix hit and the replay;
+   an int8 paged run; speculative decode (draft_k = 3, replayed streams)
+   dense and paged, bitwise the plain engine; one preemption on the dense
+   cache; phase 5's 2 x 4096 prefill step through #6.
 
 The last lines are the nvidia-smi line, a JSON ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -1412,14 +1438,15 @@ def _run_engine(model, params, config, requests):
     return eng, streams, wall, sum(len(o) for o in streams.values())
 
 
-def _verify_logits(eng, params, label):
-    """The verify block's logits against T sequential one-token steps,
-    bitwise, on the engine's caches, at pos [253, 1000, -1, 4200] (slot 0's
-    block straddles the chunk boundary at 256)."""
+def _verify_logits(eng, params, label, t=VERIFY_T):
+    """The verify block's logits (``t`` rows a slot) against ``t``
+    sequential one-token steps, bitwise, on the engine's caches, at pos
+    [253, 1000, -1, 4200] (slot 0's block straddles the chunk boundary at
+    256)."""
     model = eng.model
     pos = np.array([253, 1000, -1, 4200], np.int32)
     g = torch.Generator(device="cuda").manual_seed(4)
-    toks = torch.randint(0, model.cfg.vocab_size, (B, VERIFY_T),
+    toks = torch.randint(0, model.cfg.vocab_size, (B, t),
                          generator=g, device="cuda")
     extra = {}
     if eng.kv is not None:
@@ -1430,13 +1457,13 @@ def _verify_logits(eng, params, label):
         dec, spec = model.decode_step_paged, model.decode_step_spec_paged
     else:
         dec, spec = model.decode_step, model.decode_step_spec
-    seq = torch.stack([dec(params, eng.caches, toks[:, t:t + 1], pos + t,
-                           **extra)[0] for t in range(VERIFY_T)], dim=1)
+    seq = torch.stack([dec(params, eng.caches, toks[:, i:i + 1], pos + i,
+                           **extra)[0] for i in range(t)], dim=1)
     got = spec(params, eng.caches, toks, pos, **extra)[0]
     live = torch.as_tensor(pos >= 0, device="cuda")
     same = torch.equal(got[live], seq[live])
-    _log(f"[verify] {label}: decode_step_spec logits (T={VERIFY_T}) equal "
-         f"{VERIFY_T} sequential decode steps bitwise: {same}; finite "
+    _log(f"[verify] {label}: decode_step_spec logits (T={t}) equal "
+         f"{t} sequential decode steps bitwise: {same}; finite "
          f"{bool(torch.isfinite(got).all())}")
     if not same or not torch.isfinite(got).all():
         raise AssertionError(f"{label}: verify logits differ from "
@@ -1474,14 +1501,15 @@ def _replay_drafter(prompts, streams, vocab):
     return Replay()
 
 
-def _spec_pair(model, params, label, cache_kw, replay=False):
+def _spec_pair(model, params, label, cache_kw, replay=False,
+               draft_k=DRAFT_K):
     """The greedy trace on the plain engine and on the speculative one
-    (draft_k = 3; the n-gram drafter, or with ``replay`` the
+    (``draft_k``, 3 by default; the n-gram drafter, or with ``replay`` the
     ``_replay_drafter`` of the plain streams): equal streams, verify
-    launches of the layout's decode
-    kernel only, each at T = 4 once per layer per verify tick; then the
-    verify logits check, and a plain tick against a verify tick, timed and
-    profiled.  Returns the verify launches."""
+    launches of the layout's decode kernel only, each at T = draft_k + 1
+    once per layer per verify tick; then the verify logits check, and a
+    plain tick against a verify tick, timed and profiled.  Returns the
+    verify launches."""
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.paged_attention import \
         paged_decode_attention_cuda
@@ -1494,7 +1522,7 @@ def _spec_pair(model, params, label, cache_kw, replay=False):
     eng, plain, wall_p, toks_p = _run_engine(model, params,
                                              ServeConfig(**base), reqs)
     del eng
-    spec_kw = dict(draft_k=DRAFT_K)
+    spec_kw = dict(draft_k=draft_k)
     if replay:
         spec_kw["drafter"] = _replay_drafter(
             [r[0] for r in reqs], [plain[i] for i in range(len(reqs))],
@@ -1507,7 +1535,7 @@ def _spec_pair(model, params, label, cache_kw, replay=False):
     verify = {k.__name__: k.verify_launches for k in kernels}
     st = eng.spec_stats()
     _log(f"[verify] {label}: plain engine {toks_p} tokens in {wall_p:.3f}s "
-         f"= {toks_p / wall_p:.2f} tok/s; speculative (draft_k={DRAFT_K}) "
+         f"= {toks_p / wall_p:.2f} tok/s; speculative (draft_k={draft_k}) "
          f"{toks_s} tokens in {wall_s:.3f}s = {toks_s / wall_s:.2f} tok/s; "
          f"acceptance {st['acceptance_rate']:.3f} ({st['accepted']}/"
          f"{st['proposed']}), {st['tokens_per_tick']:.3f} tokens per verify "
@@ -1522,11 +1550,12 @@ def _spec_pair(model, params, label, cache_kw, replay=False):
             st["spec_ticks"] * model.cfg.num_layers or any(
                 n != want and c for n, c in verify.items()):
         raise AssertionError(f"{label}: the verify ticks did not run the "
-                             f"{want} kernel at T={VERIFY_T}: {verify}")
-    _verify_logits(eng, params, label)
+                             f"{want} kernel at T={draft_k + 1}: {verify}")
+    _verify_logits(eng, params, label, draft_k + 1)
     # a plain tick and a verify tick at pos [4300, 300, -1, 4200]
     pos = np.array([4300, 300, -1, 4200], np.int32)
-    feed = np.tile(np.array([[5], [6], [7], [8]], np.int32), (1, VERIFY_T))
+    feed = np.tile(np.array([[5], [6], [7], [8]], np.int32),
+                   (1, draft_k + 1))
     extra = () if eng.kv is None else (eng._page_table(),)
     ticks = {"plain": functools.partial(eng._step, params, eng.caches,
                                         feed[:, :1], pos, *extra),
@@ -2216,6 +2245,8 @@ def _grouping_checks(g):
         paged_prefill_attention_cuda)
 
     f32 = torch.float32
+    # the blocks one instance holds; past it (G = 16 at T = 4) the rows go
+    # in row tiles, held here once and in full by phase 3r
     ts = tuple(t for t in (1, VERIFY_T) if g * t <= MAX_ROWS)
     errs = {}
 
@@ -2264,16 +2295,12 @@ def _grouping_checks(g):
                 paged_decode_attention_plain(q, k, v, table, pos,
                                              window=window, num_splits=2),
                 f32))
-    if g * VERIFY_T > MAX_ROWS:  # the verify block cannot take this G
+    if g * VERIFY_T > MAX_ROWS:  # the verify block in row tiles
         q, k, v, pos = _inputs(VERIFY_T, f32, f32)
-        try:
-            decode_attention_cuda(q, k, v, pos)
-        except ValueError as e:
-            _log(f"[kernels] decode_attention H={H} KV={KV} T={VERIFY_T}: "
-                 f"refused as it must be ({e})")
-        else:
-            raise AssertionError(f"G*T = {g * VERIFY_T} rows were not "
-                                 f"refused")
+        _check(f"decode_attention H={H} KV={KV} T={VERIFY_T} "
+               f"({g * VERIFY_T} rows, row tiles)",
+               decode_attention_cuda(q, k, v, pos),
+               decode_attention_plain(q, k, v, pos), f32)
 
     def dense(t, positions):
         q, k, v, pos = _inputs(t, f32, f32, positions=positions)
@@ -2608,27 +2635,35 @@ def _head_dim_checks(d):
 
 
 def _check_head_dim_refusals():
-    """A head dim no library is built for, and more query rows than the
-    head dim's instances take, raise by name before any launch."""
+    """A head dim no library is built for raises by name before any
+    launch; more query rows than the head dim's largest instance (16 at
+    head dim 80) launch in row tiles and hold to the plain version."""
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       max_rows)
+    from repro_torch.kernels.ops import decode_attention_plain
 
-    for d, t, want in ((96, 1, "head_dim 96 not built"),
-                       (80, 2 * max_rows(80), "16 query rows")):
-        with _heads(H_HD, H_HD, d):
-            q, k, v, pos = _inputs(t, torch.float32, torch.float32)
-            before = decode_attention_cuda.launches
-            try:
-                decode_attention_cuda(q, k, v, pos)
-            except ValueError as e:
-                if want not in str(e) or \
-                        decode_attention_cuda.launches != before:
-                    raise
-                _log(f"[kernels] decode_attention D={d} T={t}: refused as it "
-                     f"must be ({e})")
-            else:
-                raise AssertionError(f"D={d} T={t} was not refused")
-            del q, k, v
+    f32 = torch.float32
+    with _heads(H_HD, H_HD, 96):
+        q, k, v, pos = _inputs(1, f32, f32)
+        before = decode_attention_cuda.launches
+        try:
+            decode_attention_cuda(q, k, v, pos)
+        except ValueError as e:
+            if "head_dim 96 not built" not in str(e) or \
+                    decode_attention_cuda.launches != before:
+                raise
+            _log(f"[kernels] decode_attention D=96: refused as it must be "
+                 f"({e})")
+        else:
+            raise AssertionError("D=96 was not refused")
+        del q, k, v
+    with _heads(H_HD, H_HD, 80):
+        t = 2 * max_rows(80)
+        q, k, v, pos = _inputs(t, f32, f32)
+        _check(f"decode_attention D=80 T={t} (row tiles)",
+               decode_attention_cuda(q, k, v, pos),
+               decode_attention_plain(q, k, v, pos), f32)
+        del q, k, v
     torch.cuda.empty_cache()
 
 
@@ -2764,6 +2799,405 @@ def phase_head_dim_kernels():
     return rows
 
 
+# --------------------------------------- 3r: row tiles, any grouping <= 64
+# musicgen's verify block in phase 10: 9 rows a slot at G = 1, D = 64
+MUSICGEN_DRAFT_K = 8
+# granite-20b (H = 48, KV = 1: 48 query rows a KV head at one token, 192
+# in a verify block), qwen2.5-32b (H = 40, KV = 8: G = 5), qwen3-moe's
+# verify block (H = 64, KV = 4, T = 4: 64 rows) and G = 1 blocks past the
+# 8-row instance at head dims 64 and 80: the chunked decode kernel's row
+# tiles.  The many-row kernel (#4, #6) at G = 5 and 48, which do not
+# divide its 64 rows.  (label, H, KV, D, the T of the decode checks)
+ROW_CASES = (("g48", 48, 1, 128, (1, VERIFY_T)),
+             ("g5", 40, 8, 128, (1, VERIFY_T, 8)),
+             ("g16", 64, 4, 128, (VERIFY_T,)),
+             ("d80", 32, 32, 80, (16,)),
+             ("d64", 32, 32, 64, (MUSICGEN_DRAFT_K + 1, 16)))
+WINDOWS_R = (0, 1024)
+# the rows of phase 3r that a model phase launches: phases 11 and 12
+# (granite, qwen2.5), 8 (qwen3-moe's verify block) and 10 (musicgen)
+ROW_ON_PATH = {f"{name}_{g}" for g in ("g48", "g5") for name in (
+    "decode_attention", "decode_attention_splitk", "paged_decode_attention",
+    "paged_decode_attention_splitk", "paged_decode_attention_int8",
+    "paged_decode_attention_splitk_int8", "paged_prefill_attention",
+    "paged_prefill_attention_int8", "flash_attention")} | {
+    f"{name}_{g}_verify" for g in ("g48", "g5", "g16")
+    for name in ("decode_attention", "paged_decode_attention")} | {
+    "decode_attention_d64_t9"}
+
+
+def _row_decode_checks(ts):
+    """#1, #2, #3, #5 and #3q/#5q at the module's H, KV and D for each T in
+    ``ts``, against their plain versions: f32 and bf16 caches and pools at
+    both position sets, windows 0 and 1024; bf16 q; int8 and fp8 pools;
+    split-K (T = 1) at 2, 4 and 8 splits bitwise the single pass; a slot
+    alone against the batch and each row of a T > 1 block against the
+    T = 1 launch at pos + t, bitwise.  Returns the worst error per (kernel,
+    T), f32 caches and pools and the quantized ones."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_splitk_cuda)
+    from repro_torch.kernels.ops import (decode_attention_plain,
+                                         paged_decode_attention_plain)
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_splitk_cuda)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {}
+
+    def note(key, err):
+        errs[key] = max(errs.get(key, 0.0), err)
+
+    tag = f"H={H} KV={KV} D={D}"
+    for positions in (POS, POS_EDGES):
+        for window in WINDOWS_R:
+            for t in ts:
+                for kd in (f32, bf16):
+                    q, k, v, pos = _inputs(t, f32, kd, positions=positions)
+                    err = _check(
+                        f"decode_attention {tag} T={t} pos={positions} "
+                        f"window={window} cache={kd}",
+                        decode_attention_cuda(q, k, v, pos, window=window),
+                        decode_attention_plain(q, k, v, pos, window=window),
+                        kd)
+                    if kd == f32:
+                        note(("decode_attention", t), err)
+                    q, k, v, table, pos = _paged_inputs(
+                        t, f32, kd, positions=positions)
+                    err = _check(
+                        f"paged_decode_attention {tag} T={t} "
+                        f"pos={positions} window={window} pool={kd}",
+                        paged_decode_attention_cuda(q, k, v, table, pos,
+                                                    window=window),
+                        paged_decode_attention_plain(q, k, v, table, pos,
+                                                     window=window), kd)
+                    if kd == f32:
+                        note(("paged_decode_attention", t), err)
+            if 1 not in ts:
+                continue
+            q, k, v, pos = _inputs(1, f32, f32, positions=positions)
+            one = decode_attention_cuda(q, k, v, pos, window=window)
+            for ns in (2, 4, 8):
+                got = decode_attention_splitk_cuda(q, k, v, pos,
+                                                   window=window,
+                                                   num_splits=ns)
+                note(("decode_attention_splitk", 1), _check(
+                    f"decode_attention_splitk {tag} ns={ns} "
+                    f"pos={positions} window={window}", got,
+                    decode_attention_plain(q, k, v, pos, window=window,
+                                           num_splits=ns), f32))
+                if not torch.equal(got, one):
+                    raise AssertionError(f"dense split-K at {tag}, {ns} "
+                                         f"splits, differs from the single "
+                                         f"pass")
+            q, k, v, table, pos = _paged_inputs(1, f32, f32,
+                                                positions=positions)
+            note(("paged_decode_attention_splitk", 1), _check(
+                f"paged_decode_attention_splitk {tag} ns=2 "
+                f"pos={positions} window={window}",
+                paged_decode_attention_splitk_cuda(q, k, v, table, pos,
+                                                   window=window,
+                                                   num_splits=2),
+                paged_decode_attention_plain(q, k, v, table, pos,
+                                             window=window, num_splits=2),
+                f32))
+        if 1 in ts:
+            _log(f"[rows] decode_attention_splitk {tag} pos={positions}: 2, "
+                 f"4 and 8 splits equal the single pass bitwise")
+        for t in ts:  # bf16 q (and output) on bf16 caches and pools
+            q, k, v, pos = _inputs(t, bf16, bf16, positions=positions)
+            _check(f"decode_attention {tag} T={t} pos={positions} q=bf16 "
+                   f"cache=bf16", decode_attention_cuda(q, k, v, pos),
+                   decode_attention_plain(q, k, v, pos), bf16)
+            q, k, v, table, pos = _paged_inputs(t, bf16, bf16,
+                                                positions=positions)
+            _check(f"paged_decode_attention {tag} T={t} pos={positions} "
+                   f"q=bf16 pool=bf16",
+                   paged_decode_attention_cuda(q, k, v, table, pos),
+                   paged_decode_attention_plain(q, k, v, table, pos), bf16)
+        for name in QUANT:  # the scale branch
+            for t, ns in [(t, 1) for t in ts] + [(1, 2)] * (1 in ts):
+                q, k, v, ks, vs, table, pos = _quant_paged_inputs(
+                    t, name, positions=positions)
+                sc = dict(k_scale=ks, v_scale=vs)
+                got = (paged_decode_attention_cuda(q, k, v, table, pos, **sc)
+                       if ns == 1 else paged_decode_attention_splitk_cuda(
+                           q, k, v, table, pos, num_splits=ns, **sc))
+                split = "_splitk" * (ns > 1)
+                note((f"paged_decode_attention{split}_{name}", t), _check(
+                    f"paged_decode_attention{split} {tag} T={t} "
+                    f"pos={positions} pool={name}", got,
+                    paged_decode_attention_plain(q, k, v, table, pos,
+                                                 num_splits=ns, **sc),
+                    k.dtype))
+
+    def dense(t, positions):
+        q, k, v, pos = _inputs(t, f32, f32, positions=positions)
+        return (q, k, v, pos), (q[3:], k[3:], v[3:], pos[3:])
+
+    def paged(t, positions):
+        q, k, v, table, pos = _paged_inputs(t, f32, f32, positions=positions)
+        return (q, k, v, table, pos), (q[3:], k, v, table[3:], pos[3:])
+
+    _check_slot_alone("decode_attention", dense, decode_attention_cuda,
+                      decode_attention_splitk_cuda, ts)
+    _check_slot_alone("paged_decode_attention", paged,
+                      paged_decode_attention_cuda,
+                      paged_decode_attention_splitk_cuda, ts)
+    # each row of a T-row block (row tiles) bitwise the T = 1 launch at
+    # pos + t, across the chunk boundaries at 256, 1024 and 4096
+    for t in (t for t in ts if t > 1):
+        for positions in ([-1, 1000, 4200, S - t], [253, 1021, 4093, S - t]):
+            for window in WINDOWS_R:
+                q, k, v, pos = _inputs(t, f32, f32, positions=positions)
+                _rows_alone(f"decode_attention {tag} pos={positions} "
+                            f"window={window}",
+                            lambda qq, p, a: decode_attention_cuda(
+                                qq, k, v, p, active=a, window=window),
+                            q, pos)
+                q, k, v, table, pos = _paged_inputs(t, f32, f32,
+                                                    positions=positions)
+                _rows_alone(f"paged_decode_attention {tag} pos={positions} "
+                            f"window={window}",
+                            lambda qq, p, a: paged_decode_attention_cuda(
+                                qq, k, v, table, p, active=a,
+                                window=window), q, pos)
+            q, k, v, ks, vs, table, pos = _quant_paged_inputs(
+                t, "int8", positions=positions)
+            _rows_alone(f"paged_decode_attention {tag} int8 "
+                        f"pos={positions}",
+                        lambda qq, p, a: paged_decode_attention_cuda(
+                            qq, k, v, table, p, active=a, k_scale=ks,
+                            v_scale=vs), q, pos)
+    torch.cuda.synchronize()
+    return errs
+
+
+def _row_many_row_checks():
+    """#4 (256-row chunks at 0 and 3840, the ragged 104-row one at 4096;
+    f32, bf16, int8 and fp8 pools) and #6 (S = 4096 causal, windows 0 and
+    1024; S = 1000 with window 300, causal and not; a bf16 case) at the
+    module's H and KV, whose G does not divide 64: a CTA holds floor(64 /
+    G) positions of all G heads and its other rows must stay inert.
+    Returns the worst f32 (and quantized) error per kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ops import (flash_attention_plain,
+                                         paged_prefill_attention_plain)
+    from repro_torch.kernels.paged_attention import \
+        paged_prefill_attention_cuda
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {}
+
+    def note(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    tag = f"H={H} KV={KV} G={H // KV} ({64 // (H // KV)} positions a tile)"
+    slot = B - 1
+    for c, q_offset, window in ((CHUNK, 0, 0), (CHUNK, S // 2 - CHUNK, 0),
+                                (CHUNK, S // 2 - CHUNK, 1024),
+                                (RAGGED, S // 2, 0), (RAGGED, S // 2, 1024)):
+        for kd in (f32, bf16):
+            q, k, v, table, _ = _paged_inputs(1, f32, kd, chunk=c)
+            p_round = None
+            if kd == bf16:
+                p_round = 2.0 ** -8 * paged_prefill_attention_plain(
+                    q, k, v.abs(), table, slot, q_offset, window=window)
+            err = _check(
+                f"paged_prefill_attention {tag} C={c} q_offset={q_offset} "
+                f"window={window} pool={kd}",
+                paged_prefill_attention_cuda(q, k, v, table[slot], q_offset,
+                                             window=window),
+                paged_prefill_attention_plain(q, k, v, table, slot, q_offset,
+                                              window=window), kd, p_round)
+            if kd == f32:
+                note("paged_prefill_attention", err)
+        for name in QUANT:
+            q, k, v, ks, vs, table, _ = _quant_paged_inputs(1, name, chunk=c)
+            sc = dict(k_scale=ks, v_scale=vs, window=window)
+            note(f"paged_prefill_attention_{name}", _check(
+                f"paged_prefill_attention {tag} C={c} q_offset={q_offset} "
+                f"window={window} pool={name}",
+                paged_prefill_attention_cuda(q, k, v, table[slot], q_offset,
+                                             **sc),
+                paged_prefill_attention_plain(q, k, v, table, slot, q_offset,
+                                              **sc), k.dtype))
+    for s, causal, window, dt in ((FS, True, 0, f32), (FS, True, 1024, f32),
+                                  (1000, True, 300, f32),
+                                  (1000, False, 300, f32),
+                                  (1000, True, 0, bf16)):
+        q, k, v = _flash_inputs(FB, s, dt)
+        p_round = None
+        if dt == bf16:
+            p_round = 2.0 ** -8 * flash_attention_plain(
+                q, k, v.abs(), causal=causal, window=window)
+        err = _check(
+            f"flash_attention {tag} S={s} causal={causal} window={window} "
+            f"{dt}", flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window),
+            flash_attention_plain(q, k, v, causal=causal, window=window), dt,
+            p_round)
+        if dt == f32:
+            note("flash_attention", err)
+        del q, k, v, p_round
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_row_kernels():
+    """Phase 3r: the row tiles and the groupings of granite (G = 48) and
+    qwen2.5 (G = 5), qwen3-moe's verify block and the G = 1 blocks past the
+    8-row instance at head dims 80 and 64, against the plain versions;
+    then each kernel on a model phase's
+    path timed as in phase 3 (rows ``<kernel>_g48``, ``_g48_verify``,
+    ``_g5``, ``_g5_verify``, ``_g16_verify``, ``_int8_g48``, ...,
+    ``decode_attention_d64_t9``); the rest timed and printed."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_splitk_cuda)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ops import (decode_attention_plain,
+                                         flash_attention_plain,
+                                         paged_decode_attention_plain,
+                                         paged_prefill_attention_plain)
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_splitk_cuda,
+        paged_prefill_attention_cuda)
+    from repro_torch.models.attention import dequantize_kv
+
+    dense_src = "src/repro_torch/kernels/csrc/decode_attention.cu"
+    paged_src = "src/repro_torch/kernels/csrc/paged_attention.cu"
+    dec_line = "src/repro/kernels/decode_attention.py"
+    pag_line = "src/repro/kernels/paged_attention.py"
+    f32 = torch.float32
+    rows = []
+    for label, h, kv, d, ts in ROW_CASES:
+        with _heads(h, kv, d):
+            errs = _row_decode_checks(ts)
+            if label in ("g48", "g5"):
+                errs.update(_row_many_row_checks())
+            timed = []
+            for t in ts:
+                suffix = {1: "", VERIFY_T: "_verify"}.get(t, f"_t{t}")
+                q, k, v, pos = _inputs(t, f32, f32)
+                timed.append((
+                    f"decode_attention_{label}{suffix}",
+                    lambda q=q, k=k, v=v, pos=pos: decode_attention_cuda(
+                        q, k, v, pos),
+                    lambda q=q, k=k, v=v, pos=pos: decode_attention_plain(
+                        q, k, v, pos),
+                    _time_ms(_library_call(q, k, v, pos)),
+                    _bound_ms(q, k, pos), dense_src, f"{dec_line}:131",
+                    errs[("decode_attention", t)]))
+                pq, pk, pv, table, ppos = _paged_inputs(t, f32, f32)
+                timed.append((
+                    f"paged_decode_attention_{label}{suffix}",
+                    lambda a=(pq, pk, pv, table, ppos):
+                        paged_decode_attention_cuda(*a),
+                    lambda a=(pq, pk, pv, table, ppos):
+                        paged_decode_attention_plain(*a),
+                    _time_ms(_paged_library_call(pq, pk, pv, table, ppos)),
+                    _bound_ms(pq, pk, ppos, paged=True), paged_src,
+                    f"{pag_line}:131", errs[("paged_decode_attention", t)]))
+            if 1 in ts:
+                q, k, v, pos = _inputs(1, f32, f32)
+                timed.append((
+                    f"decode_attention_splitk_{label}",
+                    lambda: decode_attention_splitk_cuda(q, k, v, pos,
+                                                         num_splits=2),
+                    lambda: decode_attention_plain(q, k, v, pos,
+                                                   num_splits=2),
+                    _time_ms(_library_call(q, k, v, pos)),
+                    _bound_ms(q, k, pos), dense_src, f"{dec_line}:236",
+                    errs[("decode_attention_splitk", 1)]))
+                pq, pk, pv, table, ppos = _paged_inputs(1, f32, f32)
+                timed.append((
+                    f"paged_decode_attention_splitk_{label}",
+                    lambda: paged_decode_attention_splitk_cuda(
+                        pq, pk, pv, table, ppos, num_splits=2),
+                    lambda: paged_decode_attention_plain(
+                        pq, pk, pv, table, ppos, num_splits=2),
+                    _time_ms(_paged_library_call(pq, pk, pv, table, ppos)),
+                    _bound_ms(pq, pk, ppos, paged=True), paged_src,
+                    f"{pag_line}:325",
+                    errs[("paged_decode_attention_splitk", 1)]))
+                iq, ik, iv, iks, ivs, itable, ipos = _quant_paged_inputs(
+                    1, "int8")
+                isc = dict(k_scale=iks, v_scale=ivs)
+                lib_ms = _time_ms(_paged_library_call(
+                    iq, dequantize_kv(ik, iks), dequantize_kv(iv, ivs),
+                    itable, ipos))
+                bound = _bound_ms(iq, ik, ipos, paged=True)
+                timed += [
+                    (f"paged_decode_attention_int8_{label}",
+                     lambda: paged_decode_attention_cuda(
+                         iq, ik, iv, itable, ipos, **isc),
+                     lambda: paged_decode_attention_plain(
+                         iq, ik, iv, itable, ipos, **isc),
+                     lib_ms, bound, paged_src, f"{pag_line}:131",
+                     errs[("paged_decode_attention_int8", 1)]),
+                    (f"paged_decode_attention_splitk_int8_{label}",
+                     lambda: paged_decode_attention_splitk_cuda(
+                         iq, ik, iv, itable, ipos, num_splits=2, **isc),
+                     lambda: paged_decode_attention_plain(
+                         iq, ik, iv, itable, ipos, num_splits=2, **isc),
+                     lib_ms, bound, paged_src, f"{pag_line}:325",
+                     errs[("paged_decode_attention_splitk_int8", 1)])]
+            if "paged_prefill_attention" in errs:
+                slot, q_offset = B - 1, S // 2 - CHUNK
+                cq, ck, cv, ctable, _ = _paged_inputs(1, f32, f32,
+                                                      chunk=CHUNK)
+                timed.append((
+                    f"paged_prefill_attention_{label}",
+                    lambda: paged_prefill_attention_cuda(
+                        cq, ck, cv, ctable[slot], q_offset),
+                    lambda: paged_prefill_attention_plain(
+                        cq, ck, cv, ctable, slot, q_offset),
+                    _time_ms(_prefill_library_call(cq, ck, cv, ctable[slot],
+                                                   q_offset)),
+                    _prefill_bound_ms(cq, ck, q_offset), paged_src,
+                    f"{pag_line}:228", errs["paged_prefill_attention"]))
+                jq, jk, jv, jks, jvs, jtable, _ = _quant_paged_inputs(
+                    1, "int8", chunk=CHUNK)
+                jsc = dict(k_scale=jks, v_scale=jvs)
+                timed.append((
+                    f"paged_prefill_attention_int8_{label}",
+                    lambda: paged_prefill_attention_cuda(
+                        jq, jk, jv, jtable[slot], q_offset, **jsc),
+                    lambda: paged_prefill_attention_plain(
+                        jq, jk, jv, jtable, slot, q_offset, **jsc),
+                    _time_ms(_prefill_library_call(
+                        jq, dequantize_kv(jk, jks), dequantize_kv(jv, jvs),
+                        jtable[slot], q_offset)),
+                    _prefill_bound_ms(jq, jk, q_offset), paged_src,
+                    f"{pag_line}:228", errs["paged_prefill_attention_int8"]))
+                fq, fk, fv = _flash_inputs(FB, FS, f32)
+                qt = fq.transpose(1, 2)
+                kx = fk.transpose(1, 2).repeat_interleave(h // kv, dim=1)
+                vx = fv.transpose(1, 2).repeat_interleave(h // kv, dim=1)
+                timed.append((
+                    f"flash_attention_{label}",
+                    lambda: flash_attention_cuda(fq, fk, fv),
+                    lambda: flash_attention_plain(fq, fk, fv),
+                    _time_ms(lambda: F.scaled_dot_product_attention(
+                        qt, kx, vx, is_causal=True)),
+                    _flash_bound_ms(fq, fk, True, 0),
+                    "src/repro_torch/kernels/csrc/flash_attention.cu",
+                    "src/repro/kernels/flash_attention.py:83",
+                    errs["flash_attention"]))
+            for name, run, plain, lib_ms, bound, src, replaces, err in timed:
+                row = _timed_row(name, run, plain, lib_ms, bound, src,
+                                 replaces, err)
+                row["shape"] = f"H={h} KV={kv} D={d}"
+                if name in ROW_ON_PATH:
+                    rows.append(row)
+                else:
+                    _log(f"[kernels] {name}: checked and timed; not on a "
+                         f"path this script drives")
+            del timed
+        _free_device()
+    return rows
+
+
 # ------------------------------------------------- 7 and 8: the new archs
 @contextlib.contextmanager
 def _count_windows():
@@ -2856,9 +3290,8 @@ MIXTRAL_LAYERS, QWEN_LAYERS = 4, 2
 
 def phase_moe():
     """Phase 8: mixtral-8x7b (4 of 32 layers) and qwen3-moe-235b-a22b (2 of
-    94) at full width.  Returns the launches keyed as phase 3g's rows."""
-    from repro_torch.runtime.serve import ServeConfig, ServeEngine
-
+    94) at full width.  Returns the launches keyed as phase 3g's rows (and
+    3r's, for qwen3-moe's verify block)."""
     launches = {}
     model, params = make_model("mixtral-8x7b", MIXTRAL_LAYERS)
     g = model.cfg.num_heads // model.cfg.num_kv_heads
@@ -2886,23 +3319,13 @@ def phase_moe():
     launches.update({f"{n.removesuffix('_cuda')}_g{g}": c
                      for n, c in dense.items()})
     launches.update({f"{n}_g{g}": c for n, c in paged.items()})
-    # G * T = 16 * 4 = 64 query rows per KV head: past the kernels' 16
-    try:
-        ServeEngine(model, params, ServeConfig(batch_slots=B, max_len=S,
-                                               draft_k=DRAFT_K))
-    except ValueError as e:
-        _log(f"[moe] qwen3-moe speculative engine refused: {e}")
-    else:
-        raise AssertionError("qwen3-moe's verify block was not refused")
-    caches = model.init_cache(B, 64)
-    toks = torch.zeros((B, VERIFY_T), dtype=torch.int64, device="cuda")
-    try:
-        model.decode_step_spec(params, caches, toks, np.zeros(B, np.int32))
-    except ValueError as e:
-        _log(f"[moe] qwen3-moe decode_step_spec at T={VERIFY_T} raises: {e}")
-    else:
-        raise AssertionError("qwen3-moe's verify block reached a kernel")
-    del model, params, caches
+    # G * T = 16 * 4 = 64 query rows per KV head: the row tiles (phase 3r)
+    launches[f"decode_attention_g{g}_verify"] = _spec_pair(
+        model, params, "qwen3-moe dense", {}, replay=True)
+    launches[f"paged_decode_attention_g{g}_verify"] = _spec_pair(
+        model, params, "qwen3-moe paged", dict(cache="paged", page_size=PAGE),
+        replay=True)
+    del model, params
     _free_device()
     _log(f"[moe] launches: {launches}")
     return launches
@@ -3152,10 +3575,14 @@ MUSICGEN_LAYERS = 12  # of 48
 
 def phase_musicgen():
     """Phase 10: musicgen-large at full width, 12 of 48 layers: phases 4
-    and 4b, an int8 paged run and a 1 x 4096 prefill step.  Returns the
-    launches keyed as phase 3h's D = 64 rows."""
+    and 4b, an int8 paged run, a 1 x 4096 prefill step, and speculative
+    decode at draft_k = 8 on the dense cache (T = 9 rows a slot at G = 1:
+    two row tiles of the 8-row instance).  Returns the launches keyed as
+    phase 3h's D = 64 rows (and 3r's ``decode_attention_d64_t9``)."""
     model, params = make_model("musicgen-large", MUSICGEN_LAYERS)
     label = "musicgen"
+    verify = _spec_pair(model, params, f"{label} dense", {}, replay=True,
+                        draft_k=MUSICGEN_DRAFT_K)
     launches = dict(phase_engine(model, params, f"{label} dense"))
     paged, f32_page_bytes = phase_paged_engine(model, params,
                                                f"{label} paged")
@@ -3169,7 +3596,51 @@ def phase_musicgen():
     del model, params
     _free_device()
     launches = {f"{n}_d64": c for n, c in launches.items()}
+    launches[f"decode_attention_d64_t{MUSICGEN_DRAFT_K + 1}"] = verify
     _log(f"[musicgen] launches: {launches}")
+    return launches
+
+
+# --------------------------------------- 11 and 12: granite, qwen2.5
+# Depth cut so that one card holds the f32 weights: granite-20b 1.516 GB a
+# layer (25.5 GB at 16 layers with the tied embedding), qwen2.5-32b 1.950
+# GB a layer (29.6 GB at 12 with its untied embedding and unembedding).
+GRANITE_LAYERS = 16  # of 52
+QWEN25_LAYERS = 12  # of 64
+
+
+def _phase_grouped(arch, num_layers, label):
+    """Phases 11 and 12: ``arch`` at full width and ``num_layers``: phase
+    4's dense serving (split-K engages), logits, tick and wave trace; phase
+    4b's paged trace with the prefix hit and the replay; an int8 paged run;
+    the speculative pair (draft_k = 3, replayed streams), dense and paged,
+    bitwise the plain engine; one preemption on the dense cache; the 2 x
+    4096 prefill step through #6.  Returns the launches keyed as phase
+    3r's rows (``<kernel>_g<G>``, ``<kernel>_g<G>_verify``)."""
+    model, params = make_model(arch, num_layers)
+    g = model.cfg.num_heads // model.cfg.num_kv_heads
+    launches = dict(phase_engine(model, params, f"{label} dense"))
+    paged, f32_page_bytes = phase_paged_engine(model, params,
+                                               f"{label} paged")
+    launches.update(paged)
+    launches.update(phase_quant_engine(model, params, f32_page_bytes,
+                                       names=("int8",),
+                                       label=f"{label} paged",
+                                       chunk_by_call=True))
+    # random weights never repeat the prompts' patterns: replay the plain
+    # streams so that verify ticks accept drafts
+    verify = {"decode_attention": _spec_pair(
+        model, params, f"{label} dense", {}, replay=True),
+        "paged_decode_attention": _spec_pair(
+            model, params, f"{label} paged",
+            dict(cache="paged", page_size=PAGE), replay=True)}
+    _preemption_checks(model, params, layouts=("dense",))
+    launches["flash_attention"], _ = phase_forward_attention(model, params)
+    del model, params
+    _free_device()
+    launches = {f"{n}_g{g}": c for n, c in launches.items()}
+    launches.update({f"{n}_g{g}_verify": c for n, c in verify.items()})
+    _log(f"[{label}] launches: {launches}")
     return launches
 
 
@@ -3194,7 +3665,8 @@ def main():
                          ("3c", phase_forward_kernels),
                          ("4d kernels", phase_verify_kernels),
                          ("3g", phase_grouping_kernels),
-                         ("3h", phase_head_dim_kernels)):
+                         ("3h", phase_head_dim_kernels),
+                         ("3r", phase_row_kernels)):
         rows += timed(label, phase)
     t0 = time.perf_counter()
     model, params = make_model()
@@ -3217,6 +3689,10 @@ def main():
     launches.update(timed("8 moe", phase_moe))
     launches.update(timed("9 zamba2", phase_zamba2))
     launches.update(timed("10 musicgen", phase_musicgen))
+    launches.update(timed("11 granite", _phase_grouped, "granite-20b",
+                          GRANITE_LAYERS, "granite"))
+    launches.update(timed("12 qwen2.5", _phase_grouped, "qwen2.5-32b",
+                          QWEN25_LAYERS, "qwen2.5"))
     _log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     for row in rows:
         row["launches"] = launches[row["name"]]

@@ -25,7 +25,8 @@
 // S / ns) of the S positions (paged: whole pages, max_pages % ns == 0, as
 // the reference partitions the page table) and combines the splits' (acc,
 // m, l) with exp(m_i - m*); ns = 1 is the single-pass decode, which also
-// takes T > 1 (the verify block, G * T <= MAX_ROWS).
+// takes T > 1 (the verify block).  Any G * T: the rows of a KV head past
+// the largest instance are spread over row tiles (below).
 //
 // What bounds it on an H100: device-memory bytes.  A tick reads the live
 // K/V prefix once, 2 * D * bytes per live key and KV head (1 KiB in f32),
@@ -71,10 +72,26 @@
 //     CTA-wide one per tile.  f32 on the CUDA cores: at G * T = 2 rows per
 //     KV head a tensor-core tile would be 7/8 empty, and the flops do not
 //     bound this kernel.
+//   * Row tiles.  A CTA serves up to MAXR query rows of its KV head (2, 8,
+//     or at D = 128 16: the instances).  Where G * T rows are more than
+//     the largest instance (granite's G = 48; a verify block of G = 5 or
+//     16 at T = 4; G = 1 at T = 16 at D = 64/80), they are cut into
+//     n_tiles row tiles of `row_tile` rows (the last one shorter), and the
+//     tile index joins the KV head in the grid: blockIdx.x = j * n_tiles +
+//     i.  Tiling is a template flag (TILED): the tiled 8-row instance is
+//     built beside the untiled instances, which compile as they did
+//     without tiles, so one tile costs nothing.  Each tile reads its
+//     chunk's K/V again; the tiles of one (KV head, slot, chunk) are
+//     neighbours in the grid, so the second read comes from L2.  Tickets are kept per (slot, KV head, tile), the scratch
+//     keeps its (B, KV, chunks, G * T) rows (a tile writes its rows at
+//     their row index), and the slot's last CTA of each tile merges that
+//     tile's rows.  A row's sums never see row_tile or n_tiles, so a row
+//     is bitwise the same in any tile of any instance.
 //   * Head dims D in {64, 80, 128}, a template parameter (one library per
-//     head dim; 64 and 80 only up to 8 rows, the archs that have them have
-//     G = 1).  A tile is TK rows of D elements in shared memory and the
-//     kernel reads only a row's D elements from device memory.  Threads
+//     head dim; 64 and 80 built up to the 8-row instance, the archs that
+//     have them have G = 1, and row-tiled past it).  A tile is TK rows
+//     of D elements in shared memory and the kernel reads only a row's D
+//     elements from device memory.  Threads
 //     d < D own the merges' columns and lanes 4 l < D the PV columns; the
 //     others do no column work.  At D = 80 a row is 20 (f32), 10 (bf16) or
 //     5 (1-byte) 16-byte chunks, no multiple of a key's LPK lanes: lane
@@ -93,11 +110,11 @@
 //     warps in shared memory, in warp order.  A slot whose visible keys lie
 //     in one chunk writes its output there; otherwise each chunk writes its
 //     (acc, m, l) to f32 scratch, and the slot's last CTA to finish (a
-//     ticket counter per (slot, KV head), which that CTA resets) merges
-//     every chunk's partial in chunk order.  Nothing depends on the order in
-//     which CTAs finish or on the other slots, so a slot's output is bitwise
-//     the same alone and in any batch, and split-K whose splits are whole
-//     chunks is bitwise the single pass.
+//     ticket counter per (slot, KV head, row tile), which that CTA resets)
+//     merges every chunk's partial in chunk order.  Nothing depends on the
+//     order in which CTAs finish or on the other slots, so a slot's output
+//     is bitwise the same alone and in any batch, and split-K whose splits
+//     are whole chunks is bitwise the single pass.
 #pragma once
 
 #include "attention_common.cuh"
@@ -134,6 +151,8 @@ struct DecodeParams {
   int split;             // S / num_splits, a multiple of page_size
   int chunks_per_split;  // chunk slots of one split (the last may be empty)
   int n_chunks;          // num_splits * chunks_per_split: the grid's z
+  int row_tile;          // query rows per row tile: the instance's MAXR
+  int n_tiles;           // row tiles per KV head, ceil(G * T / row_tile)
   long long q_sb, q_st, q_sh;
   long long k_s0, k_ss, k_sh;  // (page | slot, token, kv head) strides
   long long v_s0, v_ss, v_sh;
@@ -141,7 +160,7 @@ struct DecodeParams {
   long long vs_s0, vs_ss, vs_sh;
   float* o_part;   // (B, KV, n_chunks, G * T, D) chunk accumulators
   float* ml_part;  // (B, KV, n_chunks, G * T, 2) chunk (m, l)
-  int* tickets;    // (B, KV) counters, 0 between launches
+  int* tickets;    // (B, KV, n_tiles) counters, 0 between launches
 };
 
 // Keys [x, y) of chunk z: chunk slot c of split i is the part of key cell
@@ -177,9 +196,10 @@ constexpr int cd_smem_bytes() {
          (KVValue<TKV>::quant ? CD_STAGES * 2 * cd_tile_keys<TKV>() * 4 : 0);
 }
 
-// One CTA per (KV head j, slot b, chunk z); query row r = g * T + t of the
-// CTA is query head j * G + g at position pos[b] + t.
-template <typename TQ, typename TKV, int MAXR, int D, bool PAGED>
+// One CTA per (KV head j and row tile i, slot b, chunk z); its row rr is
+// query row r = i * row_tile + rr of KV head j, which is query head j * G
+// + g at position pos[b] + t for r = g * T + t.
+template <typename TQ, typename TKV, int MAXR, int D, bool PAGED, bool TILED>
 __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
     chunked_decode_kernel(DecodeParams p) {
   constexpr int TK = cd_tile_keys<TKV>();
@@ -207,10 +227,15 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
   float* scs = reinterpret_cast<float*>(tbl + (PAGED ? CD_TABLE : 0));
   __shared__ int last_s;
 
-  const int j = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
+  const int j = TILED ? blockIdx.x / p.n_tiles : blockIdx.x;
+  const int tile = TILED ? blockIdx.x - j * p.n_tiles : 0;
+  const int b = blockIdx.y, z = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool col = ALL_COLS || tid < D;  // thread tid owns column tid
   const int G = p.H / p.KV, T = p.T, R = G * T;
+  // this tile's rows [r0, r0 + RT) of the KV head's R
+  const int r0 = TILED ? tile * p.row_tile : 0;
+  const int RT = TILED ? min(p.row_tile, R - r0) : R;
   const int ps = p.page_size;
 
   // the chunk's page-table entries (paged) and the q rows, issued before
@@ -231,9 +256,9 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
   float qv[MAXR];
 #pragma unroll
   for (int r = 0; r < MAXR; ++r) {
-    const int g = r / T, t = r - g * T;
-    qv[r] = r < R && col ? to_f(q[t * p.q_st + (j * G + g) * p.q_sh + tid])
-                         : 0.f;
+    const int g = (r0 + r) / T, t = r0 + r - g * T;
+    qv[r] = r < RT && col ? to_f(q[t * p.q_st + (j * G + g) * p.q_sh + tid])
+                          : 0.f;
   }
 
   // keys the slot may see, [lo_b, hi_b) (row 0 has the lowest window
@@ -253,13 +278,13 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
     n_work += __popc(__ballot_sync(0xffffffffu, w));
   }
   TQ* out = static_cast<TQ*>(p.out);
-  auto out_at = [&](int r) {  // this thread's column of output row r
-    const int g = r / T, t = r - g * T;
+  auto out_at = [&](int r) {  // this thread's column of the tile's row r
+    const int g = (r0 + r) / T, t = r0 + r - g * T;
     return out + (((long long)b * T + t) * p.H + j * G + g) * D + tid;
   };
   if (lo >= hi) {
     if (n_work == 0 && z == 0 && col)  // a slot that sees no key: zeros
-      for (int r = 0; r < R; ++r) *out_at(r) = from_f<TQ>(0.f);
+      for (int r = 0; r < RT; ++r) *out_at(r) = from_f<TQ>(0.f);
     return;
   }
 
@@ -270,7 +295,7 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
   }
 #pragma unroll
   for (int r = 0; r < MAXR; ++r)
-    if (r < R && col) qs[r * D + tid] = qv[r];
+    if (r < RT && col) qs[r * D + tid] = qv[r];
   __syncthreads();
 
   // key rows of this (slot, KV head): (page, token) of key kpos, dense:
@@ -378,7 +403,7 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
       }
 #pragma unroll
       for (int r = 0; r < MAXR; ++r) {
-        if (r >= R) break;
+        if (r >= RT) break;
         const float* qr = qs + r * D + ch * VEC;
 #pragma unroll
         for (int e = 0; e < VEC; e += 4) {
@@ -399,12 +424,12 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
 #pragma unroll
     for (int r = 0; r < MAXR; ++r) {
       pr[r] = 0.f;
-      if (r >= R) break;
+      if (r >= RT) break;
       float sr = s[r];
 #pragma unroll
       for (int o = 1; o < LPK; o <<= 1)
         sr += __shfl_xor_sync(0xffffffffu, sr, o);
-      const int qpos = pos + r % T;
+      const int qpos = pos + (r0 + r) % T;
       const bool ok = kpos < hi && kpos <= qpos &&
                       (p.window == 0 || qpos - kpos < p.window);
       const float sv = ok ? sr * scale : NEG_INF;
@@ -438,7 +463,7 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
       }
 #pragma unroll
       for (int r = 0; r < MAXR; ++r) {
-        if (r >= R) break;
+        if (r >= RT) break;
         const float pk = __shfl_sync(0xffffffffu, pr[r], kk * LPK);
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(pk, vf[c], acc[r][c]);
@@ -453,7 +478,7 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
   float* wml = wacc + CD_WARPS * MAXR * D;        // [warp][MAXR][m, l]
 #pragma unroll
   for (int r = 0; r < MAXR; ++r) {
-    if (r >= R) break;
+    if (r >= RT) break;
     if (pv_cols)
       *reinterpret_cast<float4*>(wacc + (warp * MAXR + r) * D + pv_col) =
           make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
@@ -463,8 +488,9 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
     }
   }
   __syncthreads();
+  // scratch rows of (b, j): chunk z's row r0 + r at (base + z) * R + r0 + r
   const long long base = ((long long)b * p.KV + j) * p.n_chunks;
-  for (int r = 0; r < R && col; ++r) {
+  for (int r = 0; r < RT && col; ++r) {
     float ms = NEG_INF;
 #pragma unroll
     for (int w = 0; w < CD_WARPS; ++w)
@@ -480,7 +506,7 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
       *out_at(r) = from_f<TQ>(a / fmaxf(ls, 1e-30f));
       continue;
     }
-    const long long row = (base + z) * R + r;
+    const long long row = (base + z) * R + r0 + r;
     p.o_part[row * D + tid] = a;
     if (tid == 0) {
       p.ml_part[2 * row] = ms;
@@ -489,13 +515,15 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
   }
   if (n_work == 1) return;
 
-  // the slot's last CTA to finish merges every working chunk, in order
+  // the slot's last CTA of this tile to finish merges the tile's rows of
+  // every working chunk, in order
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    int* ticket = p.tickets + b * p.KV + j;
+    int* ticket = p.tickets + (TILED ? ((long long)b * p.KV + j) * p.n_tiles
+                                       + tile : b * p.KV + j);
     const bool last = atomicAdd(ticket, 1) == n_work - 1;
-    if (last) *ticket = 0;  // every other CTA of (b, j) has counted
+    if (last) *ticket = 0;  // every other CTA of (b, j, tile) has counted
     last_s = last;
   }
   __syncthreads();
@@ -518,28 +546,28 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < n_work * R; idx += CD_THREADS) {
-    const int i = idx / R, r = idx - i * R;
-    const long long row = (base + zl[i]) * R + r;
+  for (int idx = tid; idx < n_work * RT; idx += CD_THREADS) {
+    const int i = idx / RT, r = idx - i * RT;
+    const long long row = (base + zl[i]) * R + r0 + r;
     mls[2 * idx] = __ldcg(p.ml_part + 2 * row);
     mls[2 * idx + 1] = __ldcg(p.ml_part + 2 * row + 1);
   }
   __syncthreads();
-  for (int r = 0; r < R && col; ++r) {
+  for (int r = 0; r < RT && col; ++r) {
     float ms = NEG_INF;
-    for (int i = 0; i < n_work; ++i) ms = fmaxf(ms, mls[2 * (i * R + r)]);
+    for (int i = 0; i < n_work; ++i) ms = fmaxf(ms, mls[2 * (i * RT + r)]);
     float num = 0.f, den = 0.f;
 #pragma unroll 16
     for (int i = 0; i < n_work; ++i) {
-      const float e = expf(mls[2 * (i * R + r)] - ms);
-      den += mls[2 * (i * R + r) + 1] * e;
-      num += __ldcg(p.o_part + ((base + zl[i]) * R + r) * D + tid) * e;
+      const float e = expf(mls[2 * (i * RT + r)] - ms);
+      den += mls[2 * (i * RT + r) + 1] * e;
+      num += __ldcg(p.o_part + ((base + zl[i]) * R + r0 + r) * D + tid) * e;
     }
     *out_at(r) = from_f<TQ>(num / fmaxf(den, 1e-30f));
   }
 }
 
-template <typename TQ, typename TKV, int MAXR, int D, bool PAGED>
+template <typename TQ, typename TKV, int MAXR, int D, bool PAGED, bool TILED>
 cudaError_t launch_chunked_decode_rows(const DecodeParams& p,
                                        cudaStream_t st) {
   constexpr int smem = cd_smem_bytes<TKV, MAXR, D, PAGED>();
@@ -549,28 +577,36 @@ cudaError_t launch_chunked_decode_rows(const DecodeParams& p,
     return cudaErrorInvalidValue;
   // above 48 KB dynamic shared memory must be allowed explicitly, once
   static const cudaError_t attr = cudaFuncSetAttribute(
-      chunked_decode_kernel<TQ, TKV, MAXR, D, PAGED>,
+      chunked_decode_kernel<TQ, TKV, MAXR, D, PAGED, TILED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(p.KV, p.B, p.n_chunks);
-  chunked_decode_kernel<TQ, TKV, MAXR, D, PAGED>
+  const dim3 grid(p.KV * p.n_tiles, p.B, p.n_chunks);
+  chunked_decode_kernel<TQ, TKV, MAXR, D, PAGED, TILED>
       <<<grid, CD_THREADS, smem, st>>>(p);
   return cudaGetLastError();
 }
 
-// The instance for G * T query rows: 2 (decode), 8, or (D = 128 only)
-// MAX_ROWS.
+// The instance of the wrapper's row-tile plan (decode_attention.row_tiles):
+// row_tile = 2, 8 or (D = 128 only) MAX_ROWS rows per CTA, in n_tiles =
+// ceil(G * T / row_tile) tiles per KV head; more than one tile takes the
+// TILED 8-row instance (any other tiled plan is refused).
 template <typename TQ, typename TKV, int D, bool PAGED>
 cudaError_t launch_chunked_decode_typed(const DecodeParams& p,
                                         cudaStream_t st) {
   const int rows = p.H / p.KV * p.T;
-  if (rows <= 2)
-    return launch_chunked_decode_rows<TQ, TKV, 2, D, PAGED>(p, st);
-  if (rows <= 8)
-    return launch_chunked_decode_rows<TQ, TKV, 8, D, PAGED>(p, st);
+  if (p.row_tile < 1 || p.n_tiles != (rows + p.row_tile - 1) / p.row_tile)
+    return cudaErrorInvalidValue;
+  const bool tiled = p.n_tiles > 1;
+  if (p.row_tile == 2 && !tiled)
+    return launch_chunked_decode_rows<TQ, TKV, 2, D, PAGED, false>(p, st);
+  if (p.row_tile == 8)
+    return tiled
+        ? launch_chunked_decode_rows<TQ, TKV, 8, D, PAGED, true>(p, st)
+        : launch_chunked_decode_rows<TQ, TKV, 8, D, PAGED, false>(p, st);
   if constexpr (D == CD_THREADS) {
-    if (rows <= MAX_ROWS)
-      return launch_chunked_decode_rows<TQ, TKV, MAX_ROWS, D, PAGED>(p, st);
+    if (p.row_tile == MAX_ROWS && !tiled)
+      return launch_chunked_decode_rows<TQ, TKV, MAX_ROWS, D, PAGED, false>(
+          p, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -30,7 +30,7 @@
 
 // Strides are in elements: q_strides = (batch, token, head), k/v strides =
 // (batch, seq, kv head); the last dimension must be contiguous.  `out` is a
-// contiguous (B, Sq, H, D) tensor of q's dtype.  (H / KV) must divide 64.
+// contiguous (B, Sq, H, D) tensor of q's dtype.  H / KV is at most 64.
 // num_splits > 1 splits each CTA's key range; o_part (ns, B, Sq, H, D),
 // m_part and l_part (ns, B, Sq, H) are then f32 scratch allocated by the
 // caller (unused, may be null, when num_splits == 1).  Returns the

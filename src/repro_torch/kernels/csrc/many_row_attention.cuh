@@ -67,11 +67,16 @@
 //   * q (64 rows, f32) lives in shared memory and its fragments are
 //     reloaded and split per k-step, so the 3xTF32 halves pin no
 //     registers across the loop.
-//   * One CTA per (KV head, 64 / G query positions, batch) serves all G
-//     heads of those positions, so each K/V tile feeds 64 rows.  The key
-//     loop starts at the window's first tile and, causal, ends at the
-//     tile's last position (the TPU's skip of masked blocks); causal query
-//     tiles run last-first, heaviest first.
+//   * One CTA per (KV head, QT = floor(64 / G) query positions, batch)
+//     serves all G heads of those positions, so each K/V tile feeds QT * G
+//     rows: 64 where G divides 64, 60 at G = 5 (QT = 12), 48 at granite's
+//     G = 48 (QT = 1).  The 64 - QT * G rows left over load q as 0, take
+//     no key in the mask (t >= nt) and store nothing; their (m, l, acc)
+//     stay finite (m = -1e30, l = 0) and no shuffle crosses rows, so they
+//     touch no row that writes.  G > 64 is refused.  The key loop starts
+//     at the window's first tile and, causal, ends at the tile's last
+//     position (the TPU's skip of masked blocks); causal query tiles run
+//     last-first, heaviest first.
 //   * Filling the card: a launch with fewer CTAs than SMs (the paged
 //     prefill of one 256-row chunk is 8 KV heads x 8 query tiles = 64)
 //     splits each CTA's key range over num_splits CTAs (the wrapper picks
@@ -566,6 +571,9 @@ cudaError_t launch_many_row(const PrefillParams& p, int B, int d, int q_dtype,
                             int kv_dtype, cudaStream_t st) {
   const bool quant = kv_dtype == 2 || kv_dtype == 3;
   if (d != D || (p.ks != nullptr) != quant || (p.vs != nullptr) != quant)
+    return cudaErrorInvalidValue;
+  // QT = floor(MR_ROWS / G) query positions per CTA: at least one
+  if (p.KV < 1 || p.H % p.KV || p.H / p.KV > MR_ROWS)
     return cudaErrorInvalidValue;
   if (q_dtype == 0)
     return launch_many_row_kv<float, D, PAGED>(p, B, kv_dtype, st);

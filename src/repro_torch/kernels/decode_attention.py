@@ -9,12 +9,14 @@ the chunk grid of ``decode_chunks``: split-K's splits are chunks clipped at
 
 Model layout in and out: q (B, T, H, D), caches (B, S, KV, D), result
 (B, T, H, D) in q's dtype, D one of ``HEAD_DIMS`` (each head dim is its
-own library; ``max_rows`` gives the query rows per KV head the kernel
-takes there).  The caches are passed by pointer and strides;
-nothing is transposed or copied.  Each wrapper checks what the kernel
-takes and raises on anything else, allocates its output and scratch with
-``torch.empty``, launches on the current stream and raises if the launch
-returns a CUDA error.  ``<wrapper>.launches`` counts its kernel launches;
+own library).  Any G * T query rows per KV head: ``row_tiles`` picks the
+kernel's instance (``max_rows`` names the largest a head dim has) and,
+past it, spreads the rows over row tiles, one CTA each.  The caches are
+passed by pointer and strides; nothing is transposed or copied.  Each
+wrapper checks what the kernel takes and raises on anything else,
+allocates its output and scratch with ``torch.empty``, launches on the
+current stream and raises if the launch returns a CUDA error.
+``<wrapper>.launches`` counts its kernel launches;
 ``decode_attention_cuda.verify_launches`` counts those of them with T > 1
 (the speculative verify block).
 
@@ -30,11 +32,15 @@ import torch
 
 from . import _build
 
-MAX_ROWS = 16  # G * T query rows one CTA serves at most (csrc MAX_ROWS)
+MAX_ROWS = 16  # the largest instance: G * T rows of one CTA (csrc MAX_ROWS)
 CHUNK_KEYS = 256  # keys per chunk of the chunked decode, before whole pages
 HEAD_DIMS = _build.HEAD_DIMS  # 64, 80, 128: one library each
 # head dims 64 and 80 (archs with G = 1) are built up to the 8-row instance
 _ROWS = {64: 8, 80: 8, 128: MAX_ROWS}
+# rows of a row tile where G * T passes the largest instance: the 8-row
+# instance's (at head dim 128 its tiles ran 1.5-1.6x faster than the
+# 16-row instance's, PERF.md)
+TILE_ROWS = 8
 # dtype codes of the C entry points; int8 and float8_e4m3fn are the
 # quantized paged pools, which only the paged kernels take (with scales)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -44,28 +50,33 @@ QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# both entry points: 6 pointers, 9 ints, strides, scratch, tickets, codes
-_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-         _P, _P, _P, _P, _P, _P, _I, _I, _P]
+# both entry points: 6 pointers, 11 ints, strides, scratch, tickets, codes
+_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+         _I, _P, _P, _P, _P, _P, _P, _I, _I, _P]
 
 
 def max_rows(head_dim: int) -> int:
-    """G * T query rows per KV head the decode kernels take at
-    ``head_dim``: 16 at 128, 8 at 64 and 80; a head dim not built
-    raises."""
+    """Query rows of the largest decode instance built at ``head_dim``:
+    16 at 128, 8 at 64 and 80 (more rows go in row tiles); a head dim not
+    built raises."""
     if head_dim not in _ROWS:
         raise ValueError(f"head_dim {head_dim} not built (kernel takes "
                          f"{HEAD_DIMS})")
     return _ROWS[head_dim]
 
 
-def check_rows(g, t, head_dim):
-    """Raise unless ``g * t`` query rows per KV head fit the decode kernels
-    at ``head_dim``."""
-    limit = max_rows(head_dim)
-    if g * t > limit:
-        raise ValueError(f"G*T = {g * t} query rows per KV head exceeds "
-                         f"{limit} at head_dim {head_dim}")
+def row_tiles(g: int, t: int, head_dim: int):
+    """The chunked decode kernel's row plan for ``g * t`` query rows per
+    KV head at ``head_dim``: ``(instance rows, row tiles)``.  Rows that fit
+    an instance take the smallest that holds them (2, 8, or 16 at head dim
+    128) in one tile; more take ``ceil(g * t / TILE_ROWS)`` tiles of the
+    ``TILE_ROWS`` instance, tile i holding rows [i * TILE_ROWS, (i + 1) *
+    TILE_ROWS).  A head dim not built raises."""
+    rows, largest = g * t, max_rows(head_dim)
+    for inst in (2, 8, largest):
+        if rows <= inst:
+            return inst, 1
+    return TILE_ROWS, -(-rows // TILE_ROWS)
 
 
 def _lib(head_dim):
@@ -149,7 +160,6 @@ def _check(q, k_cache, v_cache, pos, active):
     if kb != b or kd != d or kv == 0 or h % kv:
         raise ValueError(f"q {tuple(q.shape)} does not fit caches "
                          f"{tuple(k_cache.shape)}")
-    check_rows(h // kv, t, d)
     _check_device(q, k_cache, v_cache, "cache")
     return _pos_active(pos, active, b, q.device)
 
@@ -205,21 +215,24 @@ def chunk_scratch(rows, d, device):
 def launch_chunked_decode(fn, name, q, k, max_pages, page_size, num_splits,
                           head, mid):
     """Launch ``fn``, a C entry point of the chunked decode kernel, once
-    over ``decode_chunks(max_pages, page_size, num_splits)``'s grid:
-    ``fn(*head, chunk, chunks_per_split, *mid, o_part, ml_part, tickets,
-    q's dtype code, k's dtype code, stream)``, with f32 scratch for each
-    chunk's (acc, m, l) and the stream's tickets.  ``k`` is a cache
-    (B, S, KV, D) or a pool (P, page_size, KV, D).  Raises if the launch
-    returns a CUDA error."""
+    over ``decode_chunks(max_pages, page_size, num_splits)``'s grid, the
+    rows of a KV head in ``row_tiles``' plan: ``fn(*head, chunk,
+    chunks_per_split, instance rows, row tiles, *mid, o_part, ml_part,
+    tickets, q's dtype code, k's dtype code, stream)``, with f32 scratch
+    for each chunk's (acc, m, l) and the stream's tickets, one per (slot,
+    KV head, row tile).  ``k`` is a cache (B, S, KV, D) or a pool (P,
+    page_size, KV, D).  Raises if the launch returns a CUDA error."""
     b, t, h, d = q.shape
     kv = k.shape[2]
     chunk, cps, _ = decode_chunks(max_pages, page_size, num_splits)
+    inst, tiles = row_tiles(h // kv, t, d)
     rows = b * kv * num_splits * cps * (h // kv) * t  # o_part (rows, D)
     scratch = chunk_scratch(rows, d, q.device)
     base = scratch.data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(*head, chunk, cps, *mid, base, base + 4 * rows * d,
-             _tickets(q.device, stream, b * kv).data_ptr(),
+    err = fn(*head, chunk, cps, inst, tiles, *mid, base,
+             base + 4 * rows * d,
+             _tickets(q.device, stream, b * kv * tiles).data_ptr(),
              _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], stream)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
@@ -241,9 +254,9 @@ def _launch(fn, name, q, k_cache, v_cache, pos, active, num_splits, head):
 def decode_attention_cuda(q, k_cache, v_cache, pos, *, active=None,
                           window=0):
     """Single-pass ragged decode (replaces ``decode_attention_tpu``).
-    q (B, T, H, D) with G*T <= ``max_rows(D)``; caches (B, S, KV, D);
-    ``pos`` scalar or
-    (B,); ``active`` (B,) 0/1, default ``pos >= 0``."""
+    q (B, T, H, D), any G*T rows per KV head (``row_tiles``); caches (B,
+    S, KV, D); ``pos`` scalar or (B,); ``active`` (B,) 0/1, default
+    ``pos >= 0``."""
     pos, active = _check(q, k_cache, v_cache, pos, active)
     b, t, h, d = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]

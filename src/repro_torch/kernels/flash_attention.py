@@ -44,6 +44,15 @@ def _lib(head_dim):
     return lib
 
 
+def check_grouping(g: int):
+    """Raise unless ``g`` query heads per KV head fit one CTA's ``ROWS``
+    query rows: a CTA holds floor(ROWS / g) positions of all g heads (g =
+    5: 12 positions, 60 rows; g = 48: one position, 48 rows)."""
+    if g > ROWS:
+        raise ValueError(f"G = {g} query heads per KV head exceeds the "
+                         f"{ROWS} query rows of a CTA")
+
+
 def num_splits(ctas: int, keys: int, sms: int) -> int:
     """Key-range splits for a many-row launch of ``ctas`` CTAs whose longest
     key range is ``keys``, on a card of ``sms`` SMs: 1 when the launch fills
@@ -84,7 +93,7 @@ def launch_many_row(fn, out, kv, keys, args, tail):
 def flash_attention_cuda(q, k, v, *, causal=True, window=0):
     """Full-sequence attention (replaces ``flash_attention_tpu``): q
     (B, Sq, H, D), k/v (B, Sk, KV, D) with Sq <= Sk (every query row then
-    sees at least one key), H / KV dividing 64, D one of ``HEAD_DIMS``.
+    sees at least one key), H / KV at most 64, D one of ``HEAD_DIMS``.
     Row i attends key j when ``j <= i`` (``causal``) and ``i - j <
     window`` (``window > 0``)."""
     _check_shapes(q, k, v, "input", "(B,S,KV,D)")
@@ -93,9 +102,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0):
     if kb != b or kd != d or kv == 0 or h % kv:
         raise ValueError(f"q {tuple(q.shape)} does not fit k/v "
                          f"{tuple(k.shape)}")
-    if ROWS % (h // kv):
-        raise ValueError(f"G = {h // kv} query heads per KV head must "
-                         f"divide {ROWS}")
+    check_grouping(h // kv)
     if sq > sk:
         raise ValueError(f"Sq = {sq} > Sk = {sk}: a query row past the last "
                          f"key would see no key")

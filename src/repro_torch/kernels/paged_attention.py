@@ -31,15 +31,15 @@ import torch
 from . import _build
 from .decode_attention import (_DTYPE_CODE, QUANT_DTYPES, _check_device,
                                _check_shapes, _pos_active, _strides,
-                               check_rows, launch_chunked_decode)
-from .flash_attention import ROWS as PREFILL_ROWS
-from .flash_attention import launch_many_row
+                               launch_chunked_decode)
+from .flash_attention import check_grouping, launch_many_row
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
-                _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                _I, _P]
+                _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                _P, _I, _I, _P]
 _PREFILL_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                  _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P]
 
@@ -102,7 +102,6 @@ def _check_decode(q, k_pages, v_pages, page_idx, pos, active, k_scale,
     if page_idx.shape[0] != b:
         raise ValueError(f"page_idx has {page_idx.shape[0]} rows for "
                          f"{b} slots")
-    check_rows(h // kv, t, d)
     _check_device(q, k_pages, v_pages, "pool")
     pos, active = _pos_active(pos, active, b, q.device)
     return pos, active, page_size, kv, scales
@@ -132,8 +131,8 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_idx, pos, *,
                                 active=None, window=0, k_scale=None,
                                 v_scale=None):
     """Single-pass paged decode (replaces ``paged_decode_attention_tpu``).
-    q (B, T, H, D) with G*T <= ``max_rows(D)``; pools (P, page_size, KV,
-    D), D one of ``HEAD_DIMS``; page_idx
+    q (B, T, H, D), any G*T rows per KV head (``row_tiles``); pools (P,
+    page_size, KV, D), D one of ``HEAD_DIMS``; page_idx
     (B, max_pages) int32; ``pos`` scalar or (B,); ``active`` (B,) 0/1,
     default ``pos >= 0``; ``k_scale``/``v_scale`` (P, page_size, KV, 1) f32
     with int8/fp8 pools."""
@@ -173,7 +172,7 @@ def paged_prefill_attention_cuda(q, k_pages, v_pages, page_row, q_offset, *,
     slot's chunk q (1, C, H, D) at absolute ``q_offset`` against its own
     page chain ``page_row`` (max_pages,) int32, causal, with the chunk's
     K/V already written to the pool.  ``q_offset + C`` must fit the row's
-    ``max_pages * page_size`` positions; H / KV must divide 64;
+    ``max_pages * page_size`` positions; H / KV at most 64;
     ``k_scale``/``v_scale`` as for ``paged_decode_attention_cuda``."""
     page_size, kv, scales = _check_pools(q, k_pages, v_pages, k_scale,
                                          v_scale)
@@ -183,9 +182,7 @@ def paged_prefill_attention_cuda(q, k_pages, v_pages, page_row, q_offset, *,
     if q.shape[0] != 1:
         raise ValueError(f"fused paged prefill is one slot per call, got q "
                          f"{tuple(q.shape)}")
-    if PREFILL_ROWS % (h // kv):
-        raise ValueError(f"G = {h // kv} query heads per KV head must "
-                         f"divide {PREFILL_ROWS}")
+    check_grouping(h // kv)
     if q_offset < 0 or q_offset + c > page_row.shape[0] * page_size:
         raise ValueError(f"chunk [{q_offset}, {q_offset + c}) outside the "
                          f"{page_row.shape[0] * page_size} positions of the "

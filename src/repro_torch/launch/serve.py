@@ -16,8 +16,13 @@ admission policy and ``--tenants N`` spreads the requests round-robin
 over N tenants.  ``--arch gemma3-27b`` serves the grouped plan (local
 layers under their window, global ones without), ``--arch mixtral-8x7b``
 and ``--arch qwen3-moe-235b-a22b`` the MoE FFN; every cache layout and
-``--speculate`` apply to them as to the uniform archs (on the card
-qwen3-moe's 16 query heads per KV head leave no room for a verify block).
+``--speculate`` apply to them as to the uniform archs, and to granite-20b
+(48 query heads on one KV head) and qwen2.5-32b (5 per KV head) on the
+CPU.  On the card the launcher serves neither of these two: at full
+depth their f32 weights (80 and 131 GB) do not fit one card, and their
+``--smoke`` configs have head dim 16, which no kernel is built for.
+``chip_smoke.py`` serves both at full width and a cut depth through
+``ServeEngine`` (its phases 11 and 12).
 ``--arch mamba2-1.3b`` serves the SSM plan and ``--arch zamba2-2.7b``
 the hybrid plan (mamba2 layers and a shared attention block): their
 prompts are fed token by token and a slot's state (and zamba2's K/V

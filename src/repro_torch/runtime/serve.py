@@ -54,9 +54,9 @@ kernel at T rows, dense or paged), and the engine emits the longest
 confirmed prefix plus the correction token.  The verify block's rows are
 bitwise one-token ticks (``transformer._apply_attn_block_decode``), so
 the streams equal the plain engine's.  Rejected drafts roll back by
-position.  On the card G * (draft_k + 1) query rows per KV head must fit
-the decode kernels' limit at the model's head dim
-(``decode_attention.max_rows``); the engine checks this at construction.
+position.  The kernel takes any G * (draft_k + 1) query rows per KV head
+(past its largest instance in row tiles, ``decode_attention.row_tiles``),
+so the engine checks only what the reference checks of ``draft_k``.
 
 Preemption (``preempt=True``, continuous mode): the scheduler may evict a
 running request when a swap strictly improves weighted-DRF fairness; the
@@ -80,7 +80,6 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.decode_attention import max_rows
 from repro_torch.models.transformer import tree_leaves
 from repro_torch.runtime.draft import get_drafter
 from repro_torch.runtime.kv_pool import KVCacheManager
@@ -257,9 +256,7 @@ def _check_ported(config: ServeConfig) -> None:
 
 
 def _check_speculative(config: ServeConfig, model) -> None:
-    """The reference's checks of ``draft_k``, and on the card the decode
-    kernels' limit at the model's head dim: G * (draft_k + 1) query rows
-    per KV head."""
+    """The reference's checks of ``draft_k``."""
     if config.draft_k < 0:
         raise ValueError(f"draft_k must be >= 0: {config.draft_k}")
     if not config.draft_k:
@@ -275,17 +272,6 @@ def _check_speculative(config: ServeConfig, model) -> None:
     if config.draft_k + 1 >= config.max_len:
         raise ValueError(f"draft_k {config.draft_k} too deep for "
                          f"max_len {config.max_len}")
-    if model.device.type != "cuda":
-        return
-    rows = model.cfg.num_heads // model.cfg.num_kv_heads \
-        * (config.draft_k + 1)
-    limit = max_rows(model.cfg.head_dim)
-    if rows > limit:
-        raise ValueError(
-            f"draft_k {config.draft_k}: the verify block has G * "
-            f"(draft_k + 1) = {rows} query rows per KV head, past the "
-            f"decode kernels' MAX_ROWS = {limit} at head_dim "
-            f"{model.cfg.head_dim}")
 
 
 class ServeEngine:

@@ -396,7 +396,9 @@ def test_four_query_heads_per_kv_head_reach_the_kernel_with_16_rows(
 def test_sixteen_query_heads_per_kv_head_refuse_a_4_row_block(paged,
                                                             monkeypatch):
     """qwen3-moe's grouping, G = 16: one token (16 rows) reaches the
-    kernel; the 4-row verify block (64 rows) raises before any launch."""
+    kernel in one tile of the 16-row instance; the 4-row verify block (64
+    rows) is refused no longer: it launches once in row tiles of
+    ``TILE_ROWS`` rows, with tickets for every (slot, KV head, tile)."""
     kv, d = 2, 128
     if paged:
         lib = _fake_paged_card(monkeypatch)
@@ -409,11 +411,16 @@ def test_sixteen_query_heads_per_kv_head_refuse_a_4_row_block(paged,
         cache = torch.zeros((2, 64, kv, d))
         run = lambda q: tdecode.decode_attention_cuda(  # noqa: E731
             q, cache, cache.clone(), [3, 9])
+    tiles_at = 20 if paged else 16  # (instance rows, tiles) end here
     run(torch.zeros((2, 1, 16 * kv, d)))
     assert len(lib.calls) == 1
-    with pytest.raises(ValueError, match="64 query rows"):
-        run(torch.zeros((2, 4, 16 * kv, d)))
-    assert len(lib.calls) == 1
+    assert lib.calls[0][1][tiles_at - 1:tiles_at + 1] == (16, 1)
+    out = run(torch.zeros((2, 4, 16 * kv, d)))
+    assert len(lib.calls) == 2 and out.shape == (2, 4, 16 * kv, d)
+    rt = tdecode.TILE_ROWS
+    assert lib.calls[1][1][tiles_at - 1:tiles_at + 1] == (rt, 64 // rt)
+    tickets = tdecode._TICKETS[(torch.device("cpu"), 0)]
+    assert tickets.numel() >= 2 * kv * 64 // rt and not tickets.any()
 
 
 # ------------------------------------------------- the head dims, fake card
@@ -476,18 +483,20 @@ def test_paged_and_flash_wrappers_refuse_head_dim_96(kind, monkeypatch):
 
 def test_paged_decode_refuses_16_rows_at_head_dim_80(monkeypatch):
     """zamba2's and musicgen's G = 1 at T = 16: past the 8-row instance,
-    the largest built at head dims 80 and 64; T = 8 launches."""
+    the largest built at head dims 80 and 64, the 16 rows are no longer
+    refused but go in two row tiles of it; T = 8 is one tile."""
     lib = _fake_paged_card(monkeypatch)
     pool = torch.zeros((9, 8, 2, 80))
     table = torch.arange(1, 9, dtype=torch.int32).reshape(2, 4)
     tpaged.paged_decode_attention_cuda(torch.zeros((2, 8, 2, 80)), pool,
                                        pool.clone(), table, [3, 20])
-    with pytest.raises(ValueError, match="16 query rows per KV head "
-                                         "exceeds 8 at head_dim 80"):
-        tpaged.paged_decode_attention_cuda(torch.zeros((2, 16, 2, 80)),
-                                           pool, pool.clone(), table,
-                                           [3, 20])
-    assert len(lib.calls) == 1
+    out = tpaged.paged_decode_attention_cuda(torch.zeros((2, 16, 2, 80)),
+                                             pool, pool.clone(), table,
+                                             [3, 20])
+    assert out.shape == (2, 16, 2, 80) and len(lib.calls) == 2
+    # 7 pointers, pt_stride, B, T, H, KV, max_pages, ps, D, window, ns,
+    # chunk, chunks per split, then instance rows and row tiles
+    assert [args[19:21] for _, args in lib.calls] == [(8, 1), (8, 2)]
 
 
 @pytest.mark.parametrize("arch,d,draft_k,ok", [
@@ -495,23 +504,23 @@ def test_paged_decode_refuses_16_rows_at_head_dim_80(monkeypatch):
     ("musicgen-large", 80, 7, True), ("musicgen-large", 80, 8, False),
     ("internlm2-1.8b", 128, 7, True), ("internlm2-1.8b", 128, 8, False)])
 def test_engine_checks_the_verify_rows_per_head_dim(arch, d, draft_k, ok):
-    """On the card the engine refuses a verify block past the decode
-    kernels' rows at the model's head dim: G = 1 takes draft_k up to 7
-    at head dims 64 and 80 (8 rows), internlm2's G = 2 up to 7 at 128 (16
-    rows); on the CPU every draft_k passes."""
+    """The engine checks a verify block's rows as the reference does: not
+    at all, on the card as on the CPU.  Past the largest instance at the
+    model's head dim (``ok`` False: 9 rows at 64 and 80, 18 at 128) the
+    block goes in row tiles, so every draft_k the reference takes passes;
+    one too deep for max_len is refused on both devices."""
     import types
 
     from repro_torch.runtime import serve as tserve
 
     cfg = dataclasses.replace(get_config(arch), head_dim=d)
-    for device, refused in (("cuda", not ok), ("cpu", False)):
+    g = cfg.num_heads // cfg.num_kv_heads
+    assert (g * (draft_k + 1) <= tdecode.max_rows(d)) == ok
+    for device in ("cuda", "cpu"):
         model = types.SimpleNamespace(cfg=cfg, device=torch.device(device),
                                       supports_speculative=lambda: True)
-        config = ServeConfig(max_len=64, draft_k=draft_k)
-        if refused:
-            with pytest.raises(ValueError, match=f"MAX_ROWS = "
-                                                 f"{tdecode.max_rows(d)} at "
-                                                 f"head_dim {d}"):
-                tserve._check_speculative(config, model)
-        else:
-            tserve._check_speculative(config, model)
+        tserve._check_speculative(ServeConfig(max_len=64, draft_k=draft_k),
+                                  model)
+        with pytest.raises(ValueError, match="too deep"):
+            tserve._check_speculative(
+                ServeConfig(max_len=draft_k + 1, draft_k=draft_k), model)

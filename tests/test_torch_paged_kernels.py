@@ -196,7 +196,7 @@ def test_prefill_wrapper_refuses_cpu_tensors():
     ("kv_mismatch", "shapes differ"),
     ("table_int64", "int32"),
     ("table_rows", "rows for"),
-    ("rows", "G\\*T"),
+    ("rows", "does not fit"),
     ("dtype", "float32/bfloat16")])
 def test_decode_wrapper_refuses_bad_inputs(case, match):
     q, k, v, table = _card_shaped()
@@ -211,7 +211,9 @@ def test_decode_wrapper_refuses_bad_inputs(case, match):
     elif case == "table_rows":
         table = table[:2]
     elif case == "rows":
-        q = torch.zeros((B, 9, KV * 2, 128))  # G*T = 18 > 16
+        # any G*T rows per KV head go in row tiles (18 > 16 included), but
+        # H must be whole groups of KV heads
+        q = torch.zeros((B, 9, KV * 2 + 1, 128))
     elif case == "dtype":
         k, v = k.half(), v.half()
     with pytest.raises(ValueError, match=match):
@@ -230,7 +232,7 @@ def test_splitk_wrapper_refuses_multi_token_and_ragged_splits():
 @pytest.mark.parametrize("case,match", [
     ("two_slots", "one slot per call"),
     ("past_row", "outside"),
-    ("unaligned_g", "must divide"),
+    ("unaligned_g", "exceeds the 64 query rows"),
     ("table_2d", "1-D")])
 def test_prefill_wrapper_refuses_bad_inputs(case, match):
     q, k, v, table = _card_shaped(c=32)
@@ -240,7 +242,8 @@ def test_prefill_wrapper_refuses_bad_inputs(case, match):
     elif case == "past_row":
         offset = 48  # 48 + 32 > 4 pages * 16
     elif case == "unaligned_g":
-        q = torch.zeros((1, 32, KV * 3, 128))  # G = 3 does not divide 64
+        # G = 3 or 48, which do not divide 64, are taken; G > 64 is not
+        q = torch.zeros((1, 32, KV * 65, 128))
     elif case == "table_2d":
         row = table
     with pytest.raises(ValueError, match=match):

@@ -301,18 +301,20 @@ def test_spec_decode_rejected_for_ssm_plans_and_bad_configs():
 
 
 def test_verify_block_rows_checked_against_the_kernels_on_the_card():
-    """On the card G * (draft_k + 1) query rows per KV head must fit the
-    decode kernels' MAX_ROWS: internlm2 (G = 2) takes draft_k up to 7, and
-    draft_k = 8 raises at construction, not at a launch."""
+    """The decode kernels take any G * (draft_k + 1) query rows per KV head
+    (past the 16-row instance in row tiles), so on the card as on the CPU
+    internlm2 (G = 2) takes draft_k = 7 (16 rows) and draft_k = 8 (18 rows,
+    three tiles), and only the reference's own limit, max_len, refuses."""
     cfg = get_config("internlm2-1.8b")
-    card = types.SimpleNamespace(cfg=cfg, device=torch.device("cuda"),
-                                 supports_speculative=lambda: True)
-    tserve._check_speculative(ServeConfig(max_len=64, draft_k=7), card)
-    with pytest.raises(ValueError, match="MAX_ROWS"):
-        tserve._check_speculative(ServeConfig(max_len=64, draft_k=8), card)
-    cpu = types.SimpleNamespace(cfg=cfg, device=torch.device("cpu"),
-                                supports_speculative=lambda: True)
-    tserve._check_speculative(ServeConfig(max_len=64, draft_k=8), cpu)
+    for device in ("cuda", "cpu"):
+        model = types.SimpleNamespace(cfg=cfg, device=torch.device(device),
+                                      supports_speculative=lambda: True)
+        for draft_k in (7, 8):
+            tserve._check_speculative(ServeConfig(max_len=64,
+                                                  draft_k=draft_k), model)
+        with pytest.raises(ValueError, match="too deep"):
+            tserve._check_speculative(ServeConfig(max_len=9, draft_k=8),
+                                      model)
 
 
 # --------------------------------------------------- engine level (greedy)
