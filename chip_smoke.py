@@ -176,7 +176,37 @@ Run from the repository root.  Phases, each raising on failure:
    wave trace; phase 4b's paged trace with the prefix hit and the replay;
    an int8 paged run; speculative decode (draft_k = 3, replayed streams)
    dense and paged, bitwise the plain engine; one preemption on the dense
-   cache; phase 5's 2 x 4096 prefill step through #6.
+   cache; phase 5's 2 x 4096 prefill step through #6;
+13. llava-next-mistral-7b at full width and depth (32 layers, 32/8 heads
+   of 128, 28.97 GB of f32 weights), built alone and freed: the 1 x 4096
+   prefill from embeddings (``params["embed"]["table"][tokens]``, 32 flash
+   attention launches) equal to the token route's logits bitwise and to
+   the plain path within LOGIT_TOL, timed and profiled; phase 4's dense
+   serving, logits, tick and wave trace; phase 4b's paged trace with the
+   prefix hit and the replay;
+14. the serving cluster, on phase 4's internlm2-1.8b (run inside its
+   block, before phase 6): replicas of 4 slots, 2048 positions, 256-token
+   chunks; prompts of 200-900 tokens, 24-48 new tokens, greedy and seeded
+   sampled (temperature 0.8, top-p 0.9).  (a) ``ClusterRouter`` over 3
+   paged f32 replicas, spread and pack: a fault-free run, then the same
+   requests under ``CHAOS`` (replica 1 killed mid-decode and rejoined,
+   replica 2's heartbeats dropped past the miss threshold, replica 0
+   stalled and straggling inside its step, which the watchdog flags);
+   streams equal the fault-free run's token for token,
+   every pool drains, ``memory_allocated`` after the rejoin within one pool
+   of its value before the kill, every ticket counter back at 0.  (b)
+   ``DisaggRouter`` prefill=1, decode=2 on f32 and then int8 pools: streams
+   bitwise one unified engine's with the same slots, then with the prefill
+   replica killed mid-handoff and rejoined; pools drain; each page transfer
+   timed with CUDA events (pages, bytes read + written, ms, rate against
+   3.35 TB/s).  (c) the dense pair: host snapshots, streams bitwise the
+   unified engine's, each snapshot's bytes and copy times.  (d) the
+   queue-depth ``Autoscaler`` on a ``DisaggRouter`` under ``BURSTS``
+   (burst, idle, burst): decode scales up, then down with a retiring
+   replica releasing its requests; streams bitwise the unified engine's;
+   the replica-state trace printed.  (e) the launcher as a subprocess,
+   ``--replicas 2 --cache paged --fault-schedule 6:kill:1,14:rejoin:1`` on
+   the full config: exit 0, every request finished, a recovery.
 
 The last lines are the nvidia-smi line, a JSON ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -189,6 +219,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -3644,6 +3675,564 @@ def _phase_grouped(arch, num_layers, label):
     return launches
 
 
+# ------------------------------------------- 13: llava-next-mistral-7b
+LLAVA_LAYERS = None  # full depth: 32 layers, 28.97 GB of f32 weights
+
+
+def _embeddings_prefill(model, params, fs=FS):
+    """llava's whole-prompt prefill (1 x ``fs``) on the embeddings route,
+    ``batch["embeds"] = params["embed"]["table"][tokens]``: one flash
+    attention launch per layer; the logits equal the token route's (the
+    same weights in a model that embeds the token ids itself, as the
+    engines do) bitwise, since the lookup is exact; against the plain path
+    within LOGIT_TOL; timed and profiled.  Returns the launches."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    cfg = model.cfg
+    rng = np.random.default_rng(13)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, fs)),
+                           device="cuda")
+    batch = {"tokens": toks, "embeds": params["embed"]["table"][toks]}
+    flash_attention_cuda.launches = 0
+    got, caches = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = flash_attention_cuda.launches
+    del caches
+    by_tokens = type(model)(dataclasses.replace(cfg, input_mode="tokens"),
+                            model.knobs, model.device)
+    want, caches = by_tokens.prefill(params, {"tokens": toks})
+    del caches
+    same = torch.equal(got, want)
+    _log(f"[llava] prefill 1 x {fs} from embeddings: flash_attention "
+         f"launches {launches}; logits equal the token route's bitwise: "
+         f"{same}")
+    if launches != cfg.num_layers or not same:
+        raise AssertionError("llava's embeddings prefill: a launch per "
+                             "layer and the token route's logits expected")
+    with _plain_attention():
+        plain, _ = model.prefill(params, batch)
+    _check_logits(f"{cfg.name} prefill logits, kernel vs plain", got, plain)
+    del plain
+    run = functools.partial(model.prefill, params, batch)
+    _timed_prefill(run, f"{cfg.name} prefill 1 x {fs} (embeddings)")
+    _profile_tick(run, f"{cfg.name} prefill 1 x {fs}", ticks=1, top=8)
+    return launches
+
+
+def phase_llava():
+    """Phase 13: llava-next-mistral-7b's backbone at full width and depth,
+    alone on the card: the embeddings prefill, then phase 4's dense
+    serving (logits, tick, wave trace) and phase 4b's paged trace with the
+    prefix hit.  Returns the launches keyed as phase 3g's G = 4 rows."""
+    model, params = make_model("llava-next-mistral-7b", LLAVA_LAYERS)
+    g = model.cfg.num_heads // model.cfg.num_kv_heads
+    launches = {"flash_attention": _embeddings_prefill(model, params)}
+    launches.update(phase_engine(model, params, "llava dense"))
+    paged, _ = phase_paged_engine(model, params, "llava paged")
+    launches.update(paged)
+    del model, params
+    _free_device()
+    launches = {f"{n}_g{g}": c for n, c in launches.items()}
+    _log(f"[llava] launches: {launches}")
+    return launches
+
+
+# ------------------------------------------------- 14: the serving cluster
+# internlm2-1.8b at full width and depth, phase 4's model: replicas of 4
+# slots, 2048 positions, 256-token prefill chunks; 16-token pages
+CLUSTER = dict(batch_slots=4, max_len=2048, prefill_chunk=256)
+# the prefix cache off, so that every pool drains to zero held pages
+CLUSTER_PAGED = dict(CLUSTER, cache="paged", page_size=PAGE,
+                     prefix_cache=False)
+CLUSTER_REQUESTS = 12
+# (a): replica 1 killed mid-decode and rejoined, replica 2's heartbeats
+# dropped past the miss threshold (2) and rejoined, replica 0 stalled.
+# The injector's stall sleeps before the router's watchdog starts its
+# clock (``ReplicaHandle.step``, a fault of the reference that the copy
+# keeps), so replica 0 also straggles inside its engine's step at those
+# ticks, where the watchdog times it
+CHAOS = "6:kill:1,14:rejoin:1,18:hbdrop:2:0:3,26:rejoin:2,30:stall:0:0.6:2"
+STRAGGLE_TICKS = (30, 31)
+MISS_THRESHOLD = 2
+# (d): arrivals per router tick, a burst, an idle stretch and a burst
+BURSTS = {1: 6, 2: 6, 3: 4, 100: 3, 101: 3}
+
+
+def _cluster_requests(vocab, n=CLUSTER_REQUESTS, seed=14):
+    """Prompts of 200-900 tokens, 24-48 new tokens each; odd requests
+    seeded-sampled (temperature 0.8, top-p 0.9), even ones greedy."""
+    from repro_torch.runtime.serve import Request, SamplingParams
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        prompt = rng.integers(0, vocab, size=int(rng.integers(200, 901)))
+        sp = (SamplingParams(temperature=0.8, top_p=0.9, seed=7) if i % 2
+              else SamplingParams())
+        out.append(Request(i, prompt.astype(np.int32),
+                           max_new_tokens=int(rng.integers(24, 49)),
+                           sampling=sp,
+                           tenant="gold" if i % 3 == 0 else "free"))
+    return out
+
+
+def _fresh(reqs):
+    return [dataclasses.replace(r, prompt=np.asarray(r.prompt).copy(),
+                                output=[]) for r in reqs]
+
+
+def _streams(done):
+    return {r.req_id: list(r.output) for r in done}
+
+
+class _Launches:
+    """The engine kernels' launches over the runs inside ``with``, added
+    to ``totals`` (the rows of phases 3 and 3p; ``suffix`` "_int8": phase
+    3q's)."""
+
+    def __init__(self, totals, suffix=""):
+        self.totals = totals
+        self.suffix = suffix
+
+    def __enter__(self):
+        for kern in _all_kernels():
+            kern.launches = 0
+
+    def __exit__(self, *exc):
+        for kern in _all_kernels():
+            name = kern.__name__.removesuffix("_cuda") + self.suffix
+            self.totals[name] = self.totals.get(name, 0) + kern.launches
+
+
+def _first_difference(model, params, reqs, got, want, label):
+    """Raise on the first request whose stream differs from ``want``,
+    printing the position and the top-2 margin of the logits there (the
+    whole-sequence prefill of the prompt and the agreed tokens)."""
+    for r in reqs:
+        a, b = got.get(r.req_id), want[r.req_id]
+        if a == b:
+            continue
+        k = next((i for i, (x, y) in enumerate(zip(a or [], b)) if x != y),
+                 min(len(a or []), len(b)))
+        toks = np.concatenate([r.prompt, np.asarray(b[:k], np.int32)])
+        logits, _ = model.prefill(params, {"tokens": torch.as_tensor(
+            toks[None], device=model.device)})
+        top = torch.topk(logits[0], 2).values
+        _log(f"[cluster] {label}: request {r.req_id} differs first at "
+             f"output position {k} ({(a or [])[k:k + 1]} against "
+             f"{b[k:k + 1]}); top-2 logit margin there "
+             f"{float(top[0] - top[1]):.3g}")
+        raise AssertionError(f"{label}: streams differ from the twin run")
+
+
+def _balanced(router, label):
+    for rh in router.replicas:
+        if rh.engine is not None and rh.engine.kv is not None:
+            pool = rh.engine.kv.pool
+            if pool.in_use or np.any(np.asarray(pool.ref[1:])):
+                raise AssertionError(f"{label}: replica {rh.rid} holds "
+                                     f"{pool.in_use} pages after the run")
+
+
+def _tickets_zero(label):
+    from repro_torch.kernels import decode_attention
+
+    held = {str(k): int(t.count_nonzero())
+            for k, t in decode_attention._TICKETS.items()}
+    if any(held.values()):
+        raise AssertionError(f"{label}: ticket counters left in use {held}")
+
+
+def _run_router(router, reqs, label, vocab, on_tick=None):
+    """``reqs`` through ``router`` to the end; every request must finish
+    at its length with tokens in ``range(vocab)``, none failed."""
+    t0 = time.perf_counter()
+    for r in _fresh(reqs):
+        router.submit(r)
+    ticks = 0
+    while sum(router._pending_counts()):
+        router.step()
+        ticks += 1
+        if on_tick is not None:
+            on_tick(router)
+        if ticks > 2000:
+            raise AssertionError(f"{label}: the router stalled")
+    done = router.run(max_ticks=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = router.stats()
+    toks = sum(len(r.output) for r in done)
+    replicas = {k: (v["state"], v["placements"], v["flags"])
+                for k, v in st["replicas"].items()}
+    _log(f"[cluster] {label}: {len(done)}/{len(reqs)} requests, {toks} "
+         f"tokens in {ticks} router ticks, {wall:.3f}s; lost "
+         f"{st['replicas_lost']} recoveries {st['recoveries']} failed "
+         f"{st['failed']} brownout {st['brownout_ticks']}; replicas "
+         f"(state, placements, flags) {replicas}")
+    want = {r.req_id: r.max_new_tokens for r in reqs}
+    if {r.req_id: len(r.output) for r in done} != want or st["failed"]:
+        raise AssertionError(f"{label}: a request did not finish")
+    if any(not 0 <= t < vocab for r in done for t in r.output):
+        raise AssertionError(f"{label}: token outside the vocabulary")
+    return _streams(done), st
+
+
+def _cluster_chaos(model, params, totals):
+    """(a) ``ClusterRouter`` over 3 paged f32 replicas, spread and pack:
+    a fault-free run, then the same requests under ``CHAOS``; every stream
+    equals the first fault-free run's, every pool drains, and the card's
+    memory after replica 1's rejoin is within one pool of its value before
+    the kill."""
+    from repro_torch.runtime.cluster import ClusterRouter
+    from repro_torch.runtime.fault import ReplicaFaultInjector
+    from repro_torch.runtime.serve import ServeConfig, ServeEngine
+
+    config = ServeConfig(**CLUSTER_PAGED)
+    reqs = _cluster_requests(model.cfg.vocab_size)
+    routers = []
+
+    class Straggler(ServeEngine):
+        def step(self):
+            if (self.replica == 0
+                    and routers[-1].tick_count in STRAGGLE_TICKS):
+                time.sleep(0.6)
+            return super().step()
+
+    want = None
+    for policy in ("spread", "pack"):
+        router = ClusterRouter(lambda rid: ServeEngine(model, params, config),
+                               3, policy=policy)
+        with _Launches(totals):
+            got, _ = _run_router(router, reqs, f"{policy} fault-free",
+                                 model.cfg.vocab_size)
+        if want is None:
+            want = got
+        _first_difference(model, params, reqs, got, want,
+                          f"{policy} fault-free")
+        _balanced(router, f"{policy} fault-free")
+        pool_bytes = router.replicas[1].engine.kv_reserved_bytes()
+        del router
+        _free_device()
+        mem = {}
+
+        def watch(router):
+            t = router.tick_count
+            if t == 5:  # the tick before the kill
+                mem["before"] = torch.cuda.memory_allocated()
+            rh = router.replicas[1]
+            if "after" not in mem and t > 6 and rh.engine is not None:
+                mem["after"] = torch.cuda.memory_allocated()
+
+        router = ClusterRouter(
+            lambda rid: Straggler(model, params, config), 3, policy=policy,
+            miss_threshold=MISS_THRESHOLD,
+            injector=ReplicaFaultInjector.parse(CHAOS))
+        routers.append(router)
+        with _Launches(totals):
+            got, st = _run_router(router, reqs, f"{policy} chaos {CHAOS}",
+                                  model.cfg.vocab_size, on_tick=watch)
+        grow = mem["after"] - mem["before"]
+        _log(f"[cluster] {policy} chaos: memory_allocated before the kill "
+             f"{mem['before']} B, after the rejoin {mem['after']} B "
+             f"({grow:+d} B; a pool is {pool_bytes} B)")
+        flags = [f[0] for f in router.replicas[0].watchdog.flagged]
+        _log(f"[cluster] {policy} chaos: replica 0's watchdog flagged "
+             f"ticks {flags} (the straggle at {STRAGGLE_TICKS})")
+        if (st["replicas_lost"] != 2 or st["recoveries"] < 2
+                or not set(flags) & set(STRAGGLE_TICKS)
+                or abs(grow) >= pool_bytes):
+            raise AssertionError(f"{policy} chaos: two replicas lost, "
+                                 f"replays, the straggle flagged and the "
+                                 f"fenced pool freed expected: {st}, grow "
+                                 f"{grow}")
+        routers.clear()
+        _first_difference(model, params, reqs, got, want, f"{policy} chaos")
+        _log(f"[cluster] {policy} chaos: streams equal the fault-free "
+             f"run's, token for token")
+        _balanced(router, f"{policy} chaos")
+        del router
+        _free_device()
+    _tickets_zero("(a)")
+    return want
+
+
+def _timed_copies(model, log):
+    """Wrap ``model.copy_cache_pages_across`` to time each call with CUDA
+    events and append (pages, bytes read + written, ms) to ``log``."""
+    from repro_torch.models.transformer import tree_leaves
+
+    copy = model.copy_cache_pages_across
+
+    def timed(src, dst, src_idx, dst_idx):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = copy(src, dst, src_idx, dst_idx)
+        end.record()
+        end.synchronize()
+        n = int(src_idx.numel())
+        moved = 2 * n * sum(t[..., 0, :, :, :].numel() * t.element_size()
+                            for t in tree_leaves(dst))
+        log.append((n, moved, start.elapsed_time(end)))
+        return out
+
+    model.copy_cache_pages_across = timed
+
+
+def _unified(model, params, config, reqs, totals, label, suffix=""):
+    from repro_torch.runtime.serve import ServeEngine
+
+    eng = ServeEngine(model, params, config)
+    with _Launches(totals, suffix):
+        for r in _fresh(reqs):
+            eng.submit(r)
+        done = eng.run()
+    _log(f"[cluster] {label} unified engine: {len(done)} requests")
+    del eng
+    return _streams(done)
+
+
+def _disagg_paged(model, params, totals, smi):
+    """(b) ``DisaggRouter`` prefill=1, decode=2 on f32 pools, then int8:
+    streams bitwise one unified engine's with the same slots; the
+    prefill replica killed mid-handoff once and rejoined, streams still
+    equal; both pools drain; each page transfer timed."""
+    from repro_torch.runtime.disagg import DisaggRouter
+    from repro_torch.runtime.serve import ServeConfig, ServeEngine
+
+    roles = ["prefill", "decode", "decode"]
+    reqs = _cluster_requests(model.cfg.vocab_size, seed=15)
+    for kv_dtype in ("", "int8"):
+        name = kv_dtype or "f32"
+        suffix = f"_{kv_dtype}" if kv_dtype else ""
+        config = ServeConfig(**CLUSTER_PAGED, kv_dtype=kv_dtype)
+        want = _unified(model, params, config, reqs, totals, name, suffix)
+        # the kill mid-handoff once, on the f32 pools
+        for kill in (False, True) if not kv_dtype else (False,):
+            # the replicas' model (the pools' knobs set, so no engine
+            # rebuilds it), its page transfers timed
+            copies = []
+            xmodel = type(model)(model.cfg, model.knobs.with_(
+                kv_quant=kv_dtype), model.device)
+            _timed_copies(xmodel, copies)
+            router = DisaggRouter(lambda rid: ServeEngine(
+                xmodel, params, dataclasses.replace(config, role=roles[rid])),
+                3, roles=roles, miss_threshold=1)
+            state = {"killed": None}
+
+            def kill_mid_handoff(router):
+                if (kill and state["killed"] is None
+                        and any(h.src == 0 and h.n_pages
+                                for h in router.handoffs)):
+                    state["killed"] = router.tick_count
+                    router.replicas[0].killed = True
+                elif (state["killed"] is not None
+                      and router.replicas[0].engine is None
+                      and router.tick_count >= state["killed"] + 3):
+                    router.rejoin(0)
+
+            label = f"disagg {name}{' kill mid-handoff' if kill else ''}"
+            with _Launches(totals, suffix):
+                got, st = _run_router(router, reqs, label,
+                                      model.cfg.vocab_size,
+                                      on_tick=kill_mid_handoff)
+            _log(f"[cluster] {label}: handoffs {st['handoffs_done']}, "
+                 f"backpressure {st['handoff_backpressure']}")
+            if kill and (state["killed"] is None or st["recoveries"] < 1):
+                raise AssertionError(f"{label}: no kill mid-handoff")
+            _first_difference(model, params, reqs, got, want, label)
+            _log(f"[cluster] {label}: streams equal the unified engine's "
+                 f"bitwise")
+            _balanced(router, label)
+            if copies:
+                pages = sum(c[0] for c in copies)
+                moved = sum(c[1] for c in copies)
+                ms = sum(c[2] for c in copies)
+                rate = moved / (ms * 1e-3)
+                each = ", ".join(f"{n}p/{t:.3f}ms" for n, _, t in copies)
+                _log(f"[cluster] {label}: {len(copies)} page transfers, "
+                     f"{pages} pages, {moved} B read + written, "
+                     f"{ms:.3f} ms in all ({rate / 1e12:.3f} TB/s, "
+                     f"{rate / HBM_BYTES_PER_S:.3f} of 3.35 TB/s; each "
+                     f"transfer {each}); {smi}")
+            del router, xmodel
+            _free_device()
+    _tickets_zero("(b)")
+
+
+def _disagg_dense(model, params, totals):
+    """(c) The dense pair (prefill=1, decode=1): host snapshots, streams
+    bitwise one unified engine's; each snapshot's bytes and copy ms."""
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.runtime.disagg import DisaggRouter
+    from repro_torch.runtime.serve import ServeConfig, ServeEngine
+
+    roles = ["prefill", "decode"]
+    config = ServeConfig(**CLUSTER)
+    reqs = _cluster_requests(model.cfg.vocab_size, n=6, seed=16)
+    want = _unified(model, params, config, reqs, totals, "dense")
+    copies = []
+    model_copy = type(model)(model.cfg, model.knobs, model.device)
+    for attr in ("copy_cache_out", "copy_cache_in"):
+        fn = getattr(model_copy, attr)
+
+        def timed(*a, _fn=fn, _attr=attr, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            snap = out if _attr == "copy_cache_out" else a[1]
+            copies.append((_attr, sum(t.numel() * t.element_size()
+                                      for t in tree_leaves(snap)),
+                           (time.perf_counter() - t0) * 1e3))
+            return out
+
+        setattr(model_copy, attr, timed)
+    router = DisaggRouter(lambda rid: ServeEngine(
+        model_copy, params, dataclasses.replace(config, role=roles[rid])),
+        2, roles=roles)
+    with _Launches(totals):
+        got, st = _run_router(router, reqs, "disagg dense",
+                              model.cfg.vocab_size)
+    _first_difference(model, params, reqs, got, want, "disagg dense")
+    outs = [c for c in copies if c[0] == "copy_cache_out"]
+    ins = [c for c in copies if c[0] == "copy_cache_in"]
+    _log(f"[cluster] disagg dense: streams equal the unified engine's "
+         f"bitwise; {st['handoffs_done']} handoffs; snapshots "
+         f"{outs[0][1] if outs else 0} B each; to the host "
+         f"{', '.join(f'{c[2]:.1f}' for c in outs)} ms; back "
+         f"{', '.join(f'{c[2]:.1f}' for c in ins)} ms (host clock, "
+         f"synchronized)")
+    if len(outs) != len(reqs) or len(ins) != len(reqs):
+        raise AssertionError("disagg dense: a snapshot per request expected")
+    del router, model_copy
+    _free_device()
+
+
+def _autoscaled(model, params, totals):
+    """(d) ``Autoscaler`` (queue-depth) on a ``DisaggRouter`` (prefill 1
+    of up to 2, decode 1 of up to 4) under ``BURSTS``: decode scales up
+    and then down, a retiring decode replica drains through ``release()``
+    (its running requests handed off to a sibling), every stream equals
+    the unified engine's, every pool ends balanced.  The queue-depth
+    policy shrinks a role only at two replicas' worth of free slots and
+    retires the idlest replica, which may hold nothing: if no retiree
+    held a request by the second burst, the adapter's own scale-down
+    (``begin_scale_down``) is called once at a tick where every decode
+    replica holds one, and the log says so."""
+    from repro_torch.runtime.autoscale import Autoscaler
+    from repro_torch.runtime.disagg import DisaggRouter
+    from repro_torch.runtime.serve import ServeConfig, ServeEngine
+
+    roles = ["prefill", "prefill"] + ["decode"] * 4
+    config = ServeConfig(**CLUSTER_PAGED)
+    n = sum(BURSTS.values())
+    reqs = _cluster_requests(model.cfg.vocab_size, n=n, seed=17)
+    want = _unified(model, params, config, reqs, totals, "autoscale")
+    releases = []
+
+    class Counted(ServeEngine):
+        def release(self, req):
+            releases.append((router.tick_count, self.role, req.req_id))
+            return super().release(req)
+
+    router = DisaggRouter(lambda rid: Counted(
+        model, params, dataclasses.replace(config, role=roles[rid])),
+        len(roles), roles=roles, start_down=(1, 3, 4, 5))
+    router.autoscaler = Autoscaler(router, "queue-depth", cooldown=4,
+                                   sustain=2, max_replicas={"prefill": 2,
+                                                            "decode": 4})
+    queue, trace, explicit = _fresh(reqs), [], None
+    second = min(t for t in BURSTS if t > 1 and t - 1 not in BURSTS)
+    t0 = time.perf_counter()
+    with _Launches(totals):
+        while queue or sum(router._pending_counts()) or \
+                router.tick_count < max(BURSTS):
+            for _ in range(BURSTS.get(router.tick_count + 1, 0)):
+                router.submit(queue.pop(0))
+            router.step()
+            states = "".join(router.replica_state(r)[0]
+                             for r in range(len(roles)))
+            if not trace or trace[-1][1] != states:
+                trace.append((router.tick_count, states))
+            busy = [len(router.placed[r]) for r in range(len(roles))
+                    if roles[r] == "decode"
+                    and router.replica_state(r) == "up"]
+            if (explicit is None and router.tick_count > second
+                    and not any(r[1] == "decode" for r in releases)
+                    and len(busy) > 1 and min(busy) > 0):
+                explicit = (router.tick_count,
+                            router.begin_scale_down("decode"))
+            if router.tick_count > 3000:
+                raise AssertionError("(d): the router stalled")
+        done = router.run(max_ticks=1)
+    wall = time.perf_counter() - t0
+    sc = router.autoscaler
+    migrated = [r for r in releases if r[1] == "decode"]
+    _log(f"[cluster] autoscale: {len(done)}/{n} requests in "
+         f"{router.tick_count} ticks, {wall:.3f}s; events "
+         f"{[(e.tick, e.role, e.action, e.replica) for e in sc.events]}; "
+         f"replica states (p p d d d d; u=up d=down r=draining) by tick "
+         f"{trace}; releases by a retiring decode replica (tick, role, "
+         f"request) {migrated}; explicit scale-down (tick, replica) "
+         f"{explicit}; handoffs {router.stats()['handoffs_done']}")
+    ups = [e for e in sc.events if e.action == "up" and e.role == "decode"]
+    downs = [e for e in sc.events
+             if e.action == "down" and e.role == "decode"]
+    if not (ups and downs and ups[0].tick < downs[-1].tick and migrated):
+        raise AssertionError("(d): decode must scale up, then down, and a "
+                             "retiring replica release its requests")
+    _first_difference(model, params, reqs, _streams(done), want,
+                      "autoscale")
+    _log("[cluster] autoscale: streams equal the unified engine's bitwise")
+    _balanced(router, "autoscale")
+    del router
+    _free_device()
+
+
+def _cluster_launcher():
+    """(e) The launcher's chaos path as a subprocess on the card (the full
+    config): exit 0, every request finished, at least one recovery."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "internlm2-1.8b", "--replicas", "2", "--cache", "paged",
+           "--fault-schedule", "6:kill:1,14:rejoin:1"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env={**os.environ,
+                                           "PYTHONPATH": str(ROOT / "src")})
+    lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
+    _log(f"[cluster] launcher ({' '.join(cmd[2:])}): exit {res.returncode} "
+         f"in {time.perf_counter() - t0:.1f}s; {lines}")
+    cl = next((ln for ln in lines if ln.startswith("cluster:")), "")
+    fields = dict(f.split("=", 1) for f in cl.split()[1:] if "=" in f)
+    done, _, total = fields.get("finished", "0/1").partition("/")
+    if (res.returncode or done != total
+            or int(fields.get("recoveries", 0)) < 1):
+        _log(res.stderr[-3000:])
+        raise AssertionError("the cluster launcher failed, lost a request "
+                             "or recovered none")
+
+
+def phase_cluster(model, params, smi):
+    """Phase 14: the serving cluster on phase 4's model (internlm2-1.8b,
+    24 layers, full width).  Returns the engine kernels' launches, keyed as
+    phase 3's rows."""
+    totals = {}
+    for label, part in (("14a router", _cluster_chaos),
+                        ("14b disagg paged", lambda m, p, t: _disagg_paged(
+                            m, p, t, smi)),
+                        ("14c disagg dense", _disagg_dense),
+                        ("14d autoscale", _autoscaled)):
+        t0 = time.perf_counter()
+        part(model, params, totals)
+        _log(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _cluster_launcher()
+    _log(f"[time] 14e launcher: {time.perf_counter() - t0:.1f} s")
+    _log(f"[cluster] launches: {totals}")
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3657,7 +4246,7 @@ def main():
         _log(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
         return out
 
-    name, smi = phase_device()
+    device_name, smi = phase_device()
     timed("2 build", phase_build)
     rows = []
     for label, phase in (("3", phase_kernels), ("3p", phase_paged_kernels),
@@ -3676,9 +4265,10 @@ def main():
     launches.update(phase_quant_engine(model, params, f32_page_bytes))
     launches.update(phase_spec_engine(model, params))
     launches["flash_attention"], _ = phase_forward_attention(model, params)
+    _log(f"[time] 4-5 internlm2: {time.perf_counter() - t0:.1f} s")
+    cluster = timed("14 cluster", phase_cluster, model, params, smi)
     del model, params
     _free_device()
-    _log(f"[time] 4-5 internlm2: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     model, params = make_ssm_model()
     launches["ssd_chunk"], _ = phase_ssm(model, params)
@@ -3693,6 +4283,11 @@ def main():
                           GRANITE_LAYERS, "granite"))
     launches.update(timed("12 qwen2.5", _phase_grouped, "qwen2.5-32b",
                           QWEN25_LAYERS, "qwen2.5"))
+    # llava (G = 4) and the cluster (internlm2) run kernels whose rows an
+    # earlier phase launched too: their launches add to those rows'
+    for row_name, count in (*timed("13 llava", phase_llava).items(),
+                            *cluster.items()):
+        launches[row_name] = launches.get(row_name, 0) + count
     _log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     for row in rows:
         row["launches"] = launches[row["name"]]
@@ -3704,7 +4299,7 @@ def main():
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))
     return 0
 

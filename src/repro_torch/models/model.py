@@ -3,7 +3,8 @@
 The PyTorch counterpart of ``repro/models/model.py``: the whole-sequence
 forward (``hidden``, ``prefill``, and ``loss`` forward only), decode, the
 speculative verify block and chunked prefill over dense caches and paged
-pools, and the dense checkpoint copies of preemption.  ``LM`` holds the arch
+pools, the dense checkpoint copies of preemption and the page copies of
+copy-on-write and the disaggregated handoff.  ``LM`` holds the arch
 config, the runtime knobs and the device; its methods are functions of
 explicit params and caches.  Caches are updated in place (the reference
 donates its buffers instead).
@@ -20,7 +21,8 @@ from .layers import (chunked_ce_loss, embed, embedding_init, rmsnorm,
                      rmsnorm_init, unembed)
 from .transformer import (_cat_rows, _row, apply_blocks, apply_blocks_decode,
                           apply_blocks_prefill_chunk, cache_batch_axes,
-                          copy_cache_in, copy_cache_out, init_blocks,
+                          copy_cache_in, copy_cache_out, copy_cache_pages,
+                          copy_cache_pages_across, init_blocks,
                           init_cache, init_cache_paged,
                           supports_chunked_prefill, supports_paged_cache,
                           supports_speculative)
@@ -262,6 +264,20 @@ class LM:
         """Restore a ``copy_cache_out`` snapshot into slot ``slot``, in
         place."""
         return copy_cache_in(caches, snapshot, slot, axes)
+
+    def copy_cache_pages(self, caches, src, dst):
+        """Device half of copy-on-write: duplicate physical page ``src``
+        -> ``dst`` in every layer's pool, in place."""
+        return copy_cache_pages(caches, src, dst)
+
+    def copy_cache_pages_across(self, src_caches, dst_caches, src_idx,
+                                dst_idx):
+        """Cross-engine page transfer (the disaggregated handoff): gather
+        the ``src_idx`` pages of one engine's pools and write them at
+        ``dst_idx`` in another's, in place (the reference donates the
+        destination instead)."""
+        return copy_cache_pages_across(src_caches, dst_caches, src_idx,
+                                       dst_idx)
 
     def init_cache(self, batch: int, max_len: int):
         return init_cache(self.cfg, self.knobs, batch, max_len, self.device)

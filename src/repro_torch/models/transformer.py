@@ -589,6 +589,33 @@ def copy_cache_in(caches, snapshot, slot, axes):
     return caches
 
 
+def copy_cache_pages(caches, src, dst):
+    """Copy physical page ``src`` -> ``dst`` in every paged leaf, in place
+    (the device half of copy-on-write).  The page axis of every paged leaf,
+    the scale pools of a quantized pool included, sits at ndim - 4."""
+    for leaf in tree_leaves(caches):
+        ax = leaf.ndim - 4
+        leaf.select(ax, int(dst)).copy_(leaf.select(ax, int(src)))
+    return caches
+
+
+def copy_cache_pages_across(src_caches, dst_caches, src_idx, dst_idx):
+    """Gather pages ``src_idx`` from one engine's paged pools and write
+    them at ``dst_idx`` in another's, in place: the device half of a
+    cross-engine page-chain transfer (the disaggregated handoff).  Both
+    trees share the plan and page size (pool sizes may differ); every leaf
+    moves along its page axis at ndim - 4, so a quantized pool's scales
+    travel with their pages.  ``src_idx``/``dst_idx`` are equal-length
+    int64 tensors on the pools' device; ``dst_idx`` holds distinct pages
+    (padding both with 0 would copy the null page onto the null page,
+    which no reader depends on)."""
+    for s_leaf, d_leaf in zip(tree_leaves(src_caches),
+                              tree_leaves(dst_caches)):
+        ax = s_leaf.ndim - 4
+        d_leaf.index_copy_(ax, dst_idx, s_leaf.index_select(ax, src_idx))
+    return dst_caches
+
+
 def init_cache_paged(cfg, knobs, num_pages: int, page_size: int,
                      device="cpu"):
     """Paged KV pools in the plan's tree (``init_cache``'s), "k" and "v"

@@ -64,9 +64,17 @@ engine checkpoints the slot (paged: the detached page chain, zero-copy;
 dense: a host copy of the slot's cache stripe) and later resumes the
 request in any free slot at its position without re-running prefill.
 
-Not in this slice (the fields exist and raise ``NotImplementedError``
-when set): ``role`` other than "unified", ``mesh_shape``; and
-``release()`` (the disaggregated handoff).
+Disaggregated roles (``role="prefill"|"decode"``, continuous mode,
+chunked-prefill plans): a prefill engine completes each prompt inside
+admission, emits the first token and never decodes; a decode engine
+accepts only handed-off (checkpointed) requests.  ``release()`` checkpoints
+a running request out of its slot for the handoff (paged: the detached
+page chain, zero-copy; dense: a host copy of the stripe), and
+``offer()``/``free_slots()``/``can_accept()``/``live_requests()`` are what
+the routers of ``runtime/cluster.py`` and ``runtime/disagg.py`` read.
+
+Not in this slice (the field exists and raises ``NotImplementedError``
+when set): ``mesh_shape``.
 """
 from __future__ import annotations
 
@@ -246,13 +254,26 @@ class ServeConfig:
 
 
 def _check_ported(config: ServeConfig) -> None:
-    unported = {"role != 'unified'": config.role != "unified",
-                "mesh_shape": config.mesh_shape is not None}
-    asked = [name for name, on in unported.items() if on]
-    if asked:
+    if config.mesh_shape is not None:
         raise NotImplementedError(
-            f"ServeConfig {', '.join(asked)}: not ported yet (the port "
-            f"serves one unsharded engine; see ROADMAP.md)")
+            "ServeConfig mesh_shape: not ported yet (the port serves "
+            "unsharded engines; see ROADMAP.md)")
+
+
+def _check_role(config: ServeConfig, model) -> None:
+    """The reference's checks of ``role``."""
+    if config.role not in ("unified", "prefill", "decode"):
+        raise ValueError(f"unknown role {config.role!r} "
+                         f"(expected unified/prefill/decode)")
+    if config.role != "unified":
+        if config.mode != "continuous":
+            raise ValueError("disaggregated roles require "
+                             "mode='continuous'")
+        if not model.supports_chunked_prefill():
+            raise ValueError(
+                f"disaggregated roles need chunked prefill, unsupported "
+                f"for family={model.cfg.family!r} (token-feed prefill "
+                f"cannot hand off mid-prompt)")
 
 
 def _check_speculative(config: ServeConfig, model) -> None:
@@ -285,6 +306,7 @@ class ServeEngine:
         if config.on_stall not in ("raise", "warn"):
             raise ValueError(f"unknown on_stall {config.on_stall!r}")
         _check_ported(config)
+        _check_role(config, model)
         if config.preempt and config.mode != "continuous":
             raise ValueError("preempt=True requires mode='continuous' "
                              "(wave slots drain in lockstep)")
@@ -309,6 +331,7 @@ class ServeEngine:
         self.slots = config.batch_slots
         self.max_len = config.max_len
         self.mode = config.mode
+        self.role = config.role
         batch_slots, max_len = config.batch_slots, config.max_len
         self.active: list[Optional[Request]] = [None] * batch_slots
         self.pos = np.full(batch_slots, -1, dtype=np.int32)
@@ -518,6 +541,10 @@ class ServeEngine:
         return self.scheduler.queue
 
     def submit(self, req: Request) -> RequestHandle:
+        if self.role == "decode" and not getattr(req, "_preempted", False):
+            raise ValueError(
+                "decode-role engines only accept handed-off (checkpointed) "
+                "requests; route fresh requests to a prefill replica")
         if not 0 < len(req.prompt) < self.max_len:
             raise ValueError(
                 f"prompt length {len(req.prompt)} outside [1, "
@@ -622,11 +649,35 @@ class ServeEngine:
         self._set_state(req, RequestState.DECODE, resume=True,
                         pos=int(self.pos[s]))
 
-    def release(self, req: Request):
-        """The disaggregated handoff's checkpoint: not ported yet."""
-        raise NotImplementedError(
-            "release() (the disaggregated prefill/decode handoff) is not "
-            "ported yet (see ROADMAP.md)")
+    def release(self, req: Request) -> Checkpoint:
+        """Checkpoint a running request out of its slot so that its K/V can
+        move to another engine (the disaggregated handoff, and a retiring
+        replica's drain).  The capture is preemption's (paged: the slot's
+        page chain detached, zero-copy; dense: a host copy of the stripe),
+        but the request leaves this engine: its trace span here ends
+        (reason "handoff"), the scheduler is credited the full DRF charge
+        (slot and chain), and the caller submits the request to the
+        destination engine, which resumes it at ``pos = checkpoint``
+        without re-running prefill."""
+        s = next(i for i, r in enumerate(self.active) if r is req)
+        if self.kv is not None:
+            req._ckpt_pages = self.kv.detach_slot(s)
+            kv_snap = None
+        else:
+            self._ensure_ckpt_fns()
+            kv_snap = self._copy_out(self.caches, s)
+        req._ckpt = Checkpoint(pos=int(self.pos[s]),
+                               last_token=int(self.tokens[s, 0]),
+                               pages=getattr(req, "_ckpt_pages", None),
+                               kv=kv_snap)
+        req.state = RequestState.PREEMPTED
+        self.tm.req_end(self.replica, req.req_id, reason="handoff",
+                        pos=req._ckpt.pos)
+        req.preempt_count += 1
+        req._preempted = True
+        self._clear_slot(s)
+        self.scheduler.on_finish(req)  # full DRF credit: the chain leaves
+        return req._ckpt
 
     def _execute_admission(self, adm):
         """Apply one scheduler decision: checkpoint restore, chunked
@@ -752,6 +803,11 @@ class ServeEngine:
         self._admit_emitted = 0
         self._admit_continuous()
         emitted = self._admit_emitted  # first tokens from chunked prefill
+        if self.role == "prefill":
+            # a prefill engine never decodes: chunked prefill completed the
+            # prompt inside admission and emitted the first token, and the
+            # router takes the slot out as a handoff this same tick
+            return emitted
         live = sum(r is not None for r in self.active)
         if not live:
             return emitted
@@ -951,6 +1007,56 @@ class ServeEngine:
             self.tokens[s, 0] = tok
             self._maybe_stop(s)
         return emitted
+
+    # --------------------------------------------------------- cluster hooks
+    def free_slots(self) -> int:
+        """Slots a router may target now: parked slots minus the queue the
+        engine already owes admissions to."""
+        return max(0, sum(r is None for r in self.active)
+                   - len(self.scheduler.queue))
+
+    def offer(self) -> dict:
+        """Resource offer for a cluster router: free decode slots, free KV
+        pages (``None`` for the dense cache, where slots are the only
+        currency), the page size and the backlog a placement would queue
+        behind.  A pool split over more than one host also advertises
+        ``free_pages_by_host``."""
+        out = {
+            "free_slots": self.free_slots(),
+            "free_pages": (None if self.kv is None
+                           else self.kv.pool.available),
+            "page_size": None if self.kv is None else self.kv.page_size,
+            "queue_depth": len(self.scheduler.queue),
+        }
+        if self.kv is not None and self.kv.num_hosts > 1:
+            out["free_pages_by_host"] = self.kv.free_by_host()
+        return out
+
+    def live_requests(self) -> list:
+        """Every unfinished request this engine holds: running slots plus
+        the admission queue (preempted requests waiting to resume
+        included).  A router recovering a lost replica replays this set."""
+        return ([r for r in self.active if r is not None]
+                + [r for r in self.queue])
+
+    def can_accept(self, req: Request) -> bool:
+        """Could a router place ``req`` here without queuing it behind
+        backpressure?  Host-side sizing only (a free slot and, paged, a
+        page fit); the engine's scheduler absorbs any overshoot of several
+        placements in one tick as ordinary backpressure."""
+        if self.free_slots() < 1:
+            return False
+        if self.kv is not None:
+            return (self.kv.fits_ever(len(req.prompt), req.max_new_tokens)
+                    and self.kv.fits_now(req.prompt, req.max_new_tokens))
+        return 0 < len(req.prompt) < self.max_len
+
+    def kv_stats(self) -> dict:
+        stats = {"cache": self.config.cache,
+                 "kv_reserved_bytes": self.kv_reserved_bytes()}
+        if self.kv is not None:
+            stats.update(self.kv.stats())
+        return stats
 
     def run(self, max_ticks: int = 10_000,
             on_stall: Optional[str] = None) -> list[Request]:

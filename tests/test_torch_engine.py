@@ -141,12 +141,12 @@ def test_engine_api_edges():
     ("kv_dtype", "int8"), ("draft_k", 2), ("preempt", True),
     ("role", "prefill"), ("mesh_shape", (1, 2))])
 def test_unported_serve_config_fields_raise(field, value):
-    """The fields of later slices (``role``, ``mesh_shape``) raise
+    """The field of a later slice (``mesh_shape``) raises
     NotImplementedError; ``kv_dtype`` is ported and on the (default) dense
-    cache raises the reference's ValueError; ``draft_k`` and ``preempt``
-    are ported and construct an engine."""
+    cache raises the reference's ValueError; ``draft_k``, ``preempt`` and
+    ``role`` are ported and construct an engine."""
     model, params = _port()
-    if field in ("draft_k", "preempt"):
+    if field in ("draft_k", "preempt", "role"):
         eng = ServeEngine(model, params, ServeConfig(**{field: value}))
         assert getattr(eng.config, field) == value
         return

@@ -207,12 +207,33 @@ def test_copy_cache_out_in_match_jax_bitwise():
 
 
 def test_release_is_not_ported():
+    """``release()`` is ported now (the disaggregated handoff): it
+    checkpoints a running request out of its slot as the JAX engine's
+    does (dense: a host copy of the stripe; the same position and feed
+    token, the slot parked, the request marked preempted)."""
+    from repro.runtime.serve import Request as JRequest
+    from repro.runtime.serve import ServeConfig as JServeConfig
+    from repro.runtime.serve import ServeEngine as JServeEngine
+
+    jm, jp, _, _ = _pair()
     eng = _engine(batch_slots=1, max_len=32)
-    req = Request(0, np.arange(1, 4, dtype=np.int32), max_new_tokens=4)
-    eng.submit(req)
-    eng.step()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.release(req)
+    jeng = JServeEngine(jm, jp, JServeConfig(batch_slots=1, max_len=32))
+    got, snaps = [], []
+    for e, cls in ((eng, Request), (jeng, JRequest)):
+        req = cls(0, np.arange(1, 4, dtype=np.int32), max_new_tokens=4)
+        e.submit(req)
+        e.step()
+        ck = e.release(req)
+        assert ck.pages is None and req._preempted
+        assert req.state.value == "preempted" and e.active[0] is None
+        got.append((ck.pos, ck.last_token, list(req.output)))
+        snaps.append(ck.kv)
+    assert got[0] == got[1]
+    for k in ("k", "v"):
+        assert snaps[0]["stack"][k].device.type == "cpu"  # a host copy
+        np.testing.assert_allclose(snaps[0]["stack"][k].numpy(),
+                                   np.asarray(snaps[1]["stack"][k]),
+                                   atol=1e-5, rtol=1e-5)
 
 
 # ------------------------------------------------ scheduler host logic
