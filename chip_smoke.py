@@ -112,16 +112,17 @@ Run from the repository root.  Phases, each raising on failure:
    at both groupings under windows 0, 1024 and 4096; then each timed as
    in phase 3 with its bound and SDPA (rows ``<kernel>_g4``,
    ``..._g4_verify``, ``..._g16``);
-7. gemma3-27b at full width, 14 of 62 layers (2 groups of 5 local + 1
-   global layers and the 2-layer remainder): phase 4's dense continuous
+7. gemma3-27b at full width, 8 of 62 layers (one group of 5 local + 1
+   global layers and the 2-layer remainder; 14 layers until the training
+   phase came, cut for the run's time): phase 4's dense continuous
    serving, logits, tick and wave trace; phase 4b's paged trace with a
    prefix hit and the replay with the prefix cache off, logits and tick;
    an int8 paged run (phase 4c's checks); speculative decode, dense and
    paged, equal to the plain engine (phase 4d); one preemption on the
    dense cache; every attention call counted by window (local layers at
    1024, global at 0, in the plan's proportion); phase 5's prefill step
-   on 2 x 4096 (14 flash launches, logits against the plain path and the
-   chunked prefill);
+   on 2 x 4096 (one flash launch a layer, logits against the plain path
+   and the chunked prefill);
 8. MoE: mixtral-8x7b (4 of 32 layers) through phases 4 and 4b (its
    4200-token prompt past the 4096 window), speculative decode dense and
    paged (the 16-row instance on the engine path) and a 1 x 4096 prefill
@@ -169,18 +170,21 @@ Run from the repository root.  Phases, each raising on failure:
    call by call), a 1 x 4096 prefill step, and speculative decode at
    draft_k = 8 (T = 9: two row tiles) on the dense cache, equal to the
    plain engine;
-11. granite-20b at full width, 16 of 52 layers (48 query heads on one KV
-   head, 25.5 GB of f32 weights), and
-12. qwen2.5-32b at full width, 12 of 64 layers (G = 5, 29.6 GB): each
+11. granite-20b at full width, 8 of 52 layers (48 query heads on one KV
+   head), and
+12. qwen2.5-32b at full width, 6 of 64 layers (G = 5; 16 and 12 layers,
+   25.5 and 29.6 GB, until the training phase came, cut for the run's
+   time): each
    built alone and freed; phase 4's dense serving, logits and tick, the
    wave trace; phase 4b's paged trace with the prefix hit and the replay;
    an int8 paged run; speculative decode (draft_k = 3, replayed streams)
    dense and paged, bitwise the plain engine; one preemption on the dense
    cache; phase 5's 2 x 4096 prefill step through #6;
-13. llava-next-mistral-7b at full width and depth (32 layers, 32/8 heads
-   of 128, 28.97 GB of f32 weights), built alone and freed: the 1 x 4096
-   prefill from embeddings (``params["embed"]["table"][tokens]``, 32 flash
-   attention launches) equal to the token route's logits bitwise and to
+13. llava-next-mistral-7b at full width, 16 of 32 layers (32/8 heads of
+   128; full depth, 28.97 GB of f32 weights, until the training phase
+   came, cut for the run's time), built alone and freed: the 1 x 4096
+   prefill from embeddings (``params["embed"]["table"][tokens]``, one flash
+   attention launch a layer) equal to the token route's logits bitwise and to
    the plain path within LOGIT_TOL, timed and profiled; phase 4's dense
    serving, logits, tick and wave trace; phase 4b's paged trace with the
    prefix hit and the replay;
@@ -206,7 +210,27 @@ Run from the repository root.  Phases, each raising on failure:
    replica releasing its requests; streams bitwise the unified engine's;
    the replica-state trace printed.  (e) the launcher as a subprocess,
    ``--replicas 2 --cache paged --fault-schedule 6:kill:1,14:rejoin:1`` on
-   the full config: exit 0, every request finished, a recovery.
+   the full config: exit 0, every request finished, a recovery;
+15. training, which reaches no kernel (the reference trains on its XLA
+   route): (a) internlm2-1.8b at full width, 2 of 24 layers, B = 2, S =
+   256, the training launcher's knobs: the loss and every leaf's gradient
+   on the card against the CPU route from the same params, one AdamW
+   step's master, mu and nu on the card against the CPU's from the same
+   gradients, ``grad_accum`` 2 against 1 on the card; (b) at full width and depth (24 layers,
+   1,699,579,904 parameters), B = 4, S = 2048, ``TRAIN_STEPS`` steps of
+   the ``Trainer`` on ``MarkovSynthetic``: loss and grad_norm finite,
+   grad_norm > 0, every param leaf changed, no kernel launched; per step
+   the host-clock time (synchronized), tokens/s, model FLOP/s (6 N
+   tokens) and the peak memory split into params, optimizer state, grads
+   and the rest; a step with the stacked layer leaves indexed per layer
+   against the default ``unbind``; one step profiled; (c) the model of
+   ``examples/train_lm.py`` (94,715,520 parameters): ``run_with_failures``
+   with a failure at step 12 and checkpoints every 5 steps resumes from
+   step 10 and ends at 20, its history within ``RESUME_RTOL`` of an
+   uninterrupted run's (bitwise or not, printed), the checkpoint's bytes
+   and the save and restore seconds; (d) the training launcher as a
+   subprocess, ``--smoke --steps 30``: exit 0, the loss falls; (e) #6's
+   and #7's wrappers refuse an input that requires grad.
 
 The last lines are the nvidia-smi line, a JSON ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -3277,11 +3301,13 @@ def _check_windows(label, counts, model):
                                  f"are not the plan's {per_tick}")
 
 
-GEMMA_LAYERS = 14  # 2 groups of (5 local + 1 global) and the 2-layer rest
+# 1 group of (5 local + 1 global) and the 2-layer rest (14 until phase 15
+# came, cut for the run's time)
+GEMMA_LAYERS = 8
 
 
 def phase_gemma3():
-    """Phase 7: gemma3-27b at full width, 14 of 62 layers."""
+    """Phase 7: gemma3-27b at full width, ``GEMMA_LAYERS`` of 62 layers."""
     model, params = make_model("gemma3-27b", GEMMA_LAYERS)
     label = "gemma3"
     with _count_windows() as counts:
@@ -3291,7 +3317,7 @@ def phase_gemma3():
         paged, f32_page_bytes = phase_paged_engine(model, params,
                                                    f"{label} paged")
     _check_windows("paged", counts, model)
-    # int8 at 14 layers of width 5376: the kernel and plain routes round
+    # int8 at many layers of width 5376: the kernel and plain routes round
     # more and more of their own K/V differently with depth, so the chunk
     # is held call by call (see _check_chunk_by_call)
     quant = phase_quant_engine(model, params, f32_page_bytes,
@@ -3636,8 +3662,9 @@ def phase_musicgen():
 # Depth cut so that one card holds the f32 weights: granite-20b 1.516 GB a
 # layer (25.5 GB at 16 layers with the tied embedding), qwen2.5-32b 1.950
 # GB a layer (29.6 GB at 12 with its untied embedding and unembedding).
-GRANITE_LAYERS = 16  # of 52
-QWEN25_LAYERS = 12  # of 64
+# Cut further (16 and 12 before phase 15 came) for the run's time.
+GRANITE_LAYERS = 8  # of 52
+QWEN25_LAYERS = 6  # of 64
 
 
 def _phase_grouped(arch, num_layers, label):
@@ -3676,7 +3703,9 @@ def _phase_grouped(arch, num_layers, label):
 
 
 # ------------------------------------------- 13: llava-next-mistral-7b
-LLAVA_LAYERS = None  # full depth: 32 layers, 28.97 GB of f32 weights
+# 16 of 32 layers (full depth, 28.97 GB of f32 weights, until phase 15
+# came: cut for the run's time)
+LLAVA_LAYERS = 16
 
 
 def _embeddings_prefill(model, params, fs=FS):
@@ -3720,8 +3749,8 @@ def _embeddings_prefill(model, params, fs=FS):
 
 
 def phase_llava():
-    """Phase 13: llava-next-mistral-7b's backbone at full width and depth,
-    alone on the card: the embeddings prefill, then phase 4's dense
+    """Phase 13: llava-next-mistral-7b's backbone at full width,
+    ``LLAVA_LAYERS`` of 32 layers, alone on the card: the embeddings prefill, then phase 4's dense
     serving (logits, tick, wave trace) and phase 4b's paged trace with the
     prefix hit.  Returns the launches keyed as phase 3g's G = 4 rows."""
     model, params = make_model("llava-next-mistral-7b", LLAVA_LAYERS)
@@ -4233,6 +4262,435 @@ def phase_cluster(model, params, smi):
     return totals
 
 
+# ------------------------------------------------------------ 15: training
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_CUT = dict(layers=2, batch=2, seq=256)  # (a): 315,369,472 parameters
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 6  # (b): full width and depth
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+# (a) card against CPU, f32 both ways (TF32 off): cuBLAS and the CPU's
+# GEMMs sum 2048- to 8192-long products in other orders, through 2 layers,
+# the remat's recompute and a 92544-row unembedding: per leaf,
+# max|g_card - g_cpu| <= CARD_GRAD_RTOL * max|g_cpu| + CARD_GRAD_ATOL.
+CARD_GRAD_RTOL, CARD_GRAD_ATOL = 1e-3, 1e-9
+CARD_LOSS_RTOL = 1e-5
+# one AdamW step on the card against the CPU from the same gradients: the
+# f32 elementwise ops round alike, but the bias corrections' pow and the
+# global norm's sums may differ by an ulp (measured: mu and nu bitwise,
+# the master within 7% of this bound)
+ADAMW_RTOL = 1e-6
+# (c) the examples/train_lm.py model (dim 640, 12 layers, 8/4 heads, vocab
+# 32768: 94,715,520 parameters), seq 256, batch 8, grad_accum 2, as there
+RESTART = dict(num_layers=12, d_model=640, num_heads=8, num_kv_heads=4,
+               head_dim=80, d_ff=2560, vocab_size=32768)
+RESTART_STEPS, RESTART_FAIL_AT = 20, 12
+# the resumed run's metrics against the uninterrupted run's: the same ops
+# on the same data from a bitwise-restored state (the embedding's backward
+# sums in a fixed order), so a bitwise run is expected; the bound covers a
+# library kernel that sums with atomics, ~1e-7 a step over 10 steps
+RESUME_RTOL = 1e-5
+
+
+def _train_knobs(seq):
+    """The training launcher's knobs at sequence length ``seq``."""
+    from repro_torch.models import RuntimeKnobs
+
+    return RuntimeKnobs(cache_dtype=torch.float32, q_chunk=min(128, seq),
+                        ce_chunk=min(256, seq))
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat(tree[k], prefix + (k,)))
+        return out
+    return {"/".join(prefix): tree}
+
+
+def _tree_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in _flat(tree).values())
+
+
+def _loss_and_grads(model, params, batch):
+    """(loss, grads tree) of ``model.loss`` on a copy of ``params`` that
+    requires grad (zeros for a leaf the loss does not read)."""
+    from repro_torch.optim.adamw import tree_map
+
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = model.loss(live, batch)
+    loss.backward()
+    return loss.detach(), tree_map(
+        lambda p: torch.zeros_like(p) if p.grad is None else p.grad, live)
+
+
+def _held(label, got, want, rtol, atol):
+    """Per leaf, max|got - want| <= rtol * max|want| + atol; logs the worst
+    leaf's share of its bound."""
+    worst, where = 0.0, ""
+    got = _flat(got)
+    for key, w in _flat(want).items():
+        g = got[key].to(w.device)
+        bound = rtol * float(w.abs().max()) + atol
+        err = float((g - w).abs().max())
+        ratio = err / bound if bound else float(err > 0) * float("inf")
+        if ratio > worst:
+            worst, where = ratio, key
+    _log(f"[train] {label}: worst leaf {where} at {worst:.3f} of its bound "
+         f"({rtol:g} x max + {atol:g})")
+    if worst > 1:
+        raise AssertionError(f"{label}: {where} off by {worst:.2f}x its "
+                             f"bound")
+
+
+def _kernel_launches():
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda
+
+    return [fn.launches for fn in (*_all_kernels(), flash_attention_cuda,
+                                   ssd_chunk_cuda)]
+
+
+def _train_card_vs_cpu():
+    """(a) internlm2-1.8b at full width, 2 of 24 layers: the loss and every
+    leaf's gradient on the card against the CPU route from the same
+    params; one AdamW step from the card's gradients on the card and on
+    the CPU; grad_accum 2 against 1 on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import MarkovSynthetic
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.runtime.steps import make_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_CUT["layers"])
+    knobs = _train_knobs(TRAIN_CUT["seq"])
+    cpu = LM(cfg, knobs, device="cpu")
+    card = LM(cfg, knobs, device="cuda")
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_card = tree_map(lambda t: t.to("cuda"), p_cpu)
+    batch = {k: torch.as_tensor(v) for k, v in MarkovSynthetic(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_CUT["seq"],
+        global_batch=TRAIN_CUT["batch"], seed=0).batch(0).items()}
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = _loss_and_grads(cpu, p_cpu, batch)
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    l_card, g_card = _loss_and_grads(card, p_card, batch)
+    torch.cuda.synchronize()
+    _log(f"[train] (a) {cfg.name} {cfg.num_layers} layers, "
+         f"{cfg.param_count():,} parameters, B={TRAIN_CUT['batch']} "
+         f"S={TRAIN_CUT['seq']}: loss card {float(l_card):.7f} cpu "
+         f"{float(l_cpu):.7f}; forward + backward {t_cpu:.1f} s on the CPU, "
+         f"{time.perf_counter() - t0:.2f} s on the card (first call)")
+    if abs(float(l_card) - float(l_cpu)) > CARD_LOSS_RTOL * abs(float(l_cpu)):
+        raise AssertionError("(a) the card's loss differs from the CPU's")
+    _held("(a) grads card vs cpu", g_card, g_cpu, CARD_GRAD_RTOL,
+          CARD_GRAD_ATOL)
+    # one AdamW step from the card's gradients, on the card and on the CPU:
+    # the same elementwise f32 ops (IEEE division and square root) on the
+    # same inputs, so bitwise is expected
+    opt = AdamWConfig(**TRAIN_OPT)
+    s_cpu, s_card = adamw_init(p_cpu), adamw_init(p_card)
+    _, s_cpu, m_cpu = adamw_update(tree_map(lambda g: g.cpu(), g_card),
+                                   s_cpu, opt)
+    _, s_card, m_card = adamw_update(g_card, s_card, opt)
+    same = all(torch.equal(_flat(s_card[part])[k].cpu(), v)
+               for part in ("master", "mu", "nu")
+               for k, v in _flat(s_cpu[part]).items())
+    _log(f"[train] (a) AdamW step from the card's gradients, card against "
+         f"CPU: master, mu and nu {'bitwise equal' if same else 'differ'}; "
+         f"grad_norm {float(m_card['grad_norm']):.7f} / "
+         f"{float(m_cpu['grad_norm']):.7f}")
+    for part in ("master", "mu", "nu"):
+        _held(f"(a) AdamW {part}", s_card[part], s_cpu[part], ADAMW_RTOL,
+              0.0)
+    del s_cpu, s_card, g_cpu, g_card
+    # grad_accum 2 (microbatches of one row) against 1 on the card
+    out = {}
+    for accum in (1, 2):
+        state = {"params": tree_map(lambda t: t.clone(), p_card),
+                 "opt": adamw_init(p_card)}
+        state, met = make_train_step(card, opt, accum)(state, batch)
+        out[accum] = (state["opt"]["mu"], met)
+    (mu1, met1), (mu2, met2) = out[1], out[2]
+    _log(f"[train] (a) grad_accum 1 / 2 on the card: loss "
+         f"{float(met1['loss']):.7f} / {float(met2['loss']):.7f}, grad_norm "
+         f"{float(met1['grad_norm']):.6f} / {float(met2['grad_norm']):.6f}")
+    if abs(float(met2["loss"]) - float(met1["loss"])) \
+            > CARD_LOSS_RTOL * float(met1["loss"]):
+        raise AssertionError("(a) grad_accum 2 changed the loss")
+    mu_atol = (1 - 0.9) * min(1.0, 1.0 / float(met1["grad_norm"])) \
+        * CARD_GRAD_ATOL
+    _held("(a) mu, grad_accum 2 vs 1", mu2, mu1, CARD_GRAD_RTOL, mu_atol)
+    del cpu, card, p_cpu, p_card, out, mu1, mu2
+    _free_device()
+
+
+def _gb(n):
+    return f"{n / 1e9:.2f} GB"
+
+
+def _train_full(smi):
+    """(b) internlm2-1.8b at full width and depth: ``TRAIN_STEPS`` steps of
+    the ``Trainer`` on ``MarkovSynthetic``, timed and checked; then a step
+    with the stacked layer leaves indexed per layer against the default
+    ``unbind``, and one step profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import MarkovSynthetic
+    from repro_torch.models import LM
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import TrainConfig, Trainer
+
+    cfg = get_config(TRAIN_ARCH)
+    model = LM(cfg, _train_knobs(TRAIN_S), device="cuda")
+    data = MarkovSynthetic(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                           global_batch=TRAIN_B, seed=0, noise=0.1)
+    trainer = Trainer(model, data, TrainConfig(
+        steps=TRAIN_STEPS, log_every=1, checkpoint_every=0,
+        opt=AdamWConfig(**TRAIN_OPT)))
+    t0 = time.perf_counter()
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _flat(state["params"]).values())
+    p_bytes, o_bytes = _tree_bytes(state["params"]), _tree_bytes(state["opt"])
+    _log(f"[train] (b) {cfg.name}: {cfg.num_layers} layers, {n_params:,} "
+         f"parameters (param_count {cfg.param_count():,}), B={TRAIN_B} "
+         f"S={TRAIN_S}, q_chunk {model.knobs.q_chunk}, ce_chunk "
+         f"{model.knobs.ce_chunk}, remat {model.knobs.remat}; init "
+         f"{time.perf_counter() - t0:.1f} s; params {_gb(p_bytes)}, "
+         f"optimizer state {_gb(o_bytes)}, grads {_gb(p_bytes)} "
+         f"(f32, held through the update); {smi}")
+    before = {k: float(v.double().sum())
+              for k, v in _flat(state["params"]).items()}
+    tokens = TRAIN_B * TRAIN_S
+    flop = 6 * n_params * tokens
+    clock = [0.0]
+    times, peaks = [], []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append(now - clock[0])
+        clock[0] = now
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    launched = _kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    clock[0] = time.perf_counter()
+    hist = trainer.run(on_step=on_step)["history"]
+    for h, sec, peak in zip(hist, times, peaks):
+        _log(f"[train] (b) step {h['step']}: loss {h['loss']:.5f} grad_norm "
+             f"{h['grad_norm']:.5f} lr {h['lr']:.3g}; {sec:.3f} s host clock "
+             f"(synchronized), {tokens / sec:,.0f} tokens/s, model "
+             f"{flop / sec / 1e12:.1f} TFLOP/s (6 N tokens: the remat's "
+             f"recomputed forward and the attention products not counted); "
+             f"peak {_gb(peak)} = params {_gb(p_bytes)} + optimizer "
+             f"{_gb(o_bytes)} + grads {_gb(p_bytes)} + activations and "
+             f"temporaries {_gb(peak - 2 * p_bytes - o_bytes)}")
+        if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                and h["grad_norm"] > 0):
+            raise AssertionError(f"(b) step {h['step']}: {h}")
+    if len(hist) != TRAIN_STEPS:
+        raise AssertionError(f"(b) {len(hist)} steps logged")
+    same = [k for k, v in _flat(trainer.state["params"]).items()
+            if float(v.double().sum()) == before[k]]
+    if same:
+        raise AssertionError(f"(b) params unchanged: {same}")
+    if _kernel_launches() != launched:
+        raise AssertionError("(b) the training route launched a kernel")
+    _log(f"[train] (b) every leaf changed; loss {hist[0]['loss']:.5f} -> "
+         f"{hist[-1]['loss']:.5f}; no kernel launched")
+    # the stacked leaves taken apart once (unbind) against indexed per layer
+    batch = {k: torch.as_tensor(v).cuda() for k, v in data.batch(0).items()}
+    unbind = transformer.unstack_layers
+
+    def indexed(blocks, layers):
+        return [transformer._index_tree(blocks[layer.stack], layer.index)
+                for layer in layers]
+
+    def one_step():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        trainer.step_fn(trainer.state, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, torch.cuda.max_memory_allocated()
+
+    ab = {"unbind": [], "index": []}
+    try:
+        for way in ("unbind", "index", "index", "unbind"):
+            transformer.unstack_layers = unbind if way == "unbind" \
+                else indexed
+            ab[way].append(one_step())
+    finally:
+        transformer.unstack_layers = unbind
+    for way, runs in ab.items():
+        _log(f"[train] (b) stacked leaves by {way}: "
+             + ", ".join(f"{s:.3f} s (peak {_gb(m)})" for s, m in runs))
+    _profile_tick(lambda: trainer.step_fn(trainer.state, batch),
+                  "15b train step", ticks=1, top=12)
+    del trainer, state, model
+    _free_device()
+
+
+def _timed_trainer(log):
+    """A ``Trainer`` class that times its checkpoint saves and restores
+    (synchronized) into ``log``."""
+    from repro_torch.runtime.train import Trainer
+
+    class TimedTrainer(Trainer):
+        def save(self):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            super().save()
+            log.append(("save", self.step, time.perf_counter() - t))
+
+        def maybe_restore(self):
+            t = time.perf_counter()
+            ok = super().maybe_restore()
+            torch.cuda.synchronize()
+            if ok:
+                log.append(("restore", self.step, time.perf_counter() - t))
+            return ok
+
+    return TimedTrainer
+
+
+def _train_restart():
+    """(c) examples/train_lm.py's model: ``run_with_failures`` with a
+    failure at step ``RESTART_FAIL_AT`` resumes from the last checkpoint
+    and finishes; its history against an uninterrupted run's."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import MarkovSynthetic
+    from repro_torch.models import LM, RuntimeKnobs
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.fault import FailureInjector, run_with_failures
+    from repro_torch.runtime.train import TrainConfig, Trainer
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), **RESTART)
+    model = LM(cfg, RuntimeKnobs(cache_dtype=torch.float32, q_chunk=128,
+                                 ce_chunk=256), device="cuda")
+    data = MarkovSynthetic(vocab_size=cfg.vocab_size, seq_len=256,
+                           global_batch=8, seed=0, noise=0.1)
+    tcfg = dict(steps=RESTART_STEPS, grad_accum=2, log_every=1,
+                opt=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                total_steps=RESTART_STEPS))
+    t0 = time.perf_counter()
+    whole = Trainer(model, data, TrainConfig(checkpoint_every=0, **tcfg))
+    want = {h["step"]: h for h in whole.run()["history"]}
+    t_whole = time.perf_counter() - t0
+    del whole
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    log = []
+    timed_trainer = _timed_trainer(log)
+    try:
+        t0 = time.perf_counter()
+        out = run_with_failures(
+            lambda attempt: timed_trainer(model, data, TrainConfig(
+                checkpoint_every=5, keep_checkpoints=2, checkpoint_dir=tmp,
+                **tcfg)),
+            injector=FailureInjector(fail_at_steps=(RESTART_FAIL_AT,)))
+        t_run = time.perf_counter() - t0
+        kept = sorted(os.listdir(tmp))
+        size = os.path.getsize(os.path.join(tmp, kept[-1], "arrays.npz"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if out["restarts"] != 1 or out["step"] != RESTART_STEPS:
+        raise AssertionError(f"(c) restarts {out['restarts']}, step "
+                             f"{out['step']}")
+    got = out["history"]
+    if [h["step"] for h in got] != list(range(11, RESTART_STEPS + 1)):
+        raise AssertionError(f"(c) resumed steps {[h['step'] for h in got]}")
+    worst = max(abs(h[k] - want[h["step"]][k]) / abs(want[h["step"]][k])
+                for h in got for k in ("loss", "grad_norm"))
+    bitwise = all(h == want[h["step"]] for h in got)
+    _log(f"[train] (c) {cfg.param_count():,} parameters: uninterrupted "
+         f"{RESTART_STEPS} steps {t_whole:.1f} s; with a failure at step "
+         f"{RESTART_FAIL_AT}: restarts {out['restarts']}, resumed at step "
+         f"11, {t_run:.1f} s; kept {kept}; checkpoint {size:,} bytes; "
+         + ", ".join(f"{what} at step {s} {sec:.2f} s"
+                     for what, s, sec in log))
+    _log(f"[train] (c) resumed history against the uninterrupted run: "
+         f"{'bitwise equal' if bitwise else 'not bitwise'}, worst relative "
+         f"difference {worst:.3g} (loss, grad_norm; bound {RESUME_RTOL:g}); "
+         f"use_deterministic_algorithms="
+         f"{torch.are_deterministic_algorithms_enabled()}")
+    if worst > RESUME_RTOL:
+        raise AssertionError("(c) the resumed run left the uninterrupted one")
+    del model
+    _free_device()
+
+
+def _train_launcher():
+    """(d) ``python -m repro_torch.launch.train --arch internlm2-1.8b
+    --smoke --steps 30`` on the card: exit 0, the last logged loss below
+    the first."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_ARCH, "--smoke", "--steps", "30"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env={**os.environ,
+                                           "PYTHONPATH": str(ROOT / "src")})
+    lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
+    _log(f"[train] (d) launcher ({' '.join(cmd[2:])}): exit "
+         f"{res.returncode} in {time.perf_counter() - t0:.1f}s; {lines}")
+    losses = [float(ln.split()[3]) for ln in lines if ln.startswith("step ")]
+    if res.returncode or len(losses) < 2 or losses[-1] >= losses[0]:
+        _log(res.stderr[-3000:])
+        raise AssertionError("(d) the training launcher failed or its loss "
+                             "did not fall")
+
+
+def _train_guard():
+    """(e) #6's and #7's wrappers on the card, an input requiring grad:
+    each raises by name and launches nothing."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda
+
+    q = torch.randn(1, 256, H, D, device="cuda", requires_grad=True)
+    k = torch.randn(1, 256, KV, D, device="cuda")
+    x = torch.randn(1, 1, 8, 64, 64, device="cuda", requires_grad=True)
+    bc = torch.randn(1, 1, 1, 64, 64, device="cuda")
+    dt = torch.rand(1, 1, 8, 64, device="cuda")
+    launched = _kernel_launches()
+    for name, call in (("flash_attention_cuda",
+                        lambda: flash_attention_cuda(q, k, k)),
+                       ("ssd_chunk_cuda",
+                        lambda: ssd_chunk_cuda(x, bc, bc, dt,
+                                               dt.cumsum(-1)))):
+        try:
+            call()
+        except RuntimeError as e:
+            if f"{name} is forward only" not in str(e):
+                raise
+            _log(f"[train] (e) {name} on an input requiring grad: raised "
+                 f"({e})")
+        else:
+            raise AssertionError(f"(e) {name} took an input requiring grad")
+    if _kernel_launches() != launched:
+        raise AssertionError("(e) a refused call launched a kernel")
+
+
+def phase_train(smi):
+    """Phase 15: training on the card (no kernel on its path)."""
+    _free_device()
+    for label, part in (("15a card vs cpu", _train_card_vs_cpu),
+                        ("15b full width and depth",
+                         lambda: _train_full(smi)),
+                        ("15c restart", _train_restart),
+                        ("15d launcher", _train_launcher),
+                        ("15e guard", _train_guard)):
+        t0 = time.perf_counter()
+        part()
+        _log(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4288,6 +4746,7 @@ def main():
     for row_name, count in (*timed("13 llava", phase_llava).items(),
                             *cluster.items()):
         launches[row_name] = launches.get(row_name, 0) + count
+    timed("15 train", phase_train, smi)
     _log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     for row in rows:
         row["launches"] = launches[row["name"]]

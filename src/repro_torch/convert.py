@@ -1,5 +1,5 @@
-"""Carry weights, dense caches and paged pools across from the JAX
-package.
+"""Carry weights, train states, dense caches and paged pools across from
+the JAX package.
 
 The caller turns each JAX leaf into numpy (``np.asarray``); this module
 never imports jax.  Trees keep their structure: the stacked leading layer
@@ -34,6 +34,21 @@ def _to_torch(a, device):
 def params_from_jax(tree, device="cpu"):
     """JAX ``LM.init`` pytree of numpy arrays -> the port's params."""
     return _tree_map(lambda a: _to_torch(a, device), tree)
+
+
+def train_state_from_jax(tree, device="cpu"):
+    """JAX ``init_train_state`` tree as numpy ({"params", "opt": {"master",
+    "mu", "nu", "step"}}) -> the port's train state, the step an int32
+    scalar tensor."""
+    out = _tree_map(lambda a: _to_torch(a, device), tree)
+    out["opt"]["step"] = out["opt"]["step"].to(torch.int32).reshape(())
+    return out
+
+
+def train_state_to_numpy(state):
+    """The port's train state -> numpy in the reference's structure (bf16
+    leaves come back as f32)."""
+    return cache_to_numpy(state)
 
 
 def cache_from_jax(tree, device="cpu"):

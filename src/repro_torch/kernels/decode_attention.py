@@ -112,6 +112,22 @@ def _check_shapes(q, k, v, what, layout, quant=False):
                          f"{HEAD_DIMS})")
 
 
+def refuse_grad(name, *tensors):
+    """Raise, by the wrapper's ``name``, when autograd would record this
+    call: the kernels write their outputs through ctypes into
+    ``torch.empty`` tensors, which carry no ``grad_fn``, so a gradient
+    through them would be lost without a word.  The kernels are forward
+    only, as the reference's Pallas kernels are (it trains on its XLA
+    route, and so does the port).  Checked before anything else, so that
+    it shows on the CPU too."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is forward only: an input requires "
+                           f"grad, and the kernel's output would carry no "
+                           f"gradient (train through LM.loss, which "
+                           f"reaches no kernel)")
+
+
 def rows_aligned(c):
     """Whether every row of the 4-D cache or pool ``c`` starts on 16 bytes
     (its pointer and its three outer strides), as the kernels' 16-byte
@@ -257,6 +273,7 @@ def decode_attention_cuda(q, k_cache, v_cache, pos, *, active=None,
     q (B, T, H, D), any G*T rows per KV head (``row_tiles``); caches (B,
     S, KV, D); ``pos`` scalar or (B,); ``active`` (B,) 0/1, default
     ``pos >= 0``."""
+    refuse_grad("decode_attention_cuda", q, k_cache, v_cache)
     pos, active = _check(q, k_cache, v_cache, pos, active)
     b, t, h, d = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
@@ -274,6 +291,7 @@ def decode_attention_splitk_cuda(q, k_cache, v_cache, pos, *, active=None,
     ``S % num_splits == 0``.  The splits are chunks clipped at
     ``S / num_splits``, merged as the reference's combine does in the same
     launch: one kernel launch, no combine launch."""
+    refuse_grad("decode_attention_splitk_cuda", q, k_cache, v_cache)
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"split-K decode is single-token, got q "
                          f"{tuple(q.shape)}")

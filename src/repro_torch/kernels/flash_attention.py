@@ -1,5 +1,6 @@
 """Wrapper of the hand-written CUDA flash attention
-(``csrc/flash_attention.cu``), forward only.
+(``csrc/flash_attention.cu``), forward only: a call that autograd would
+record raises (``refuse_grad``).
 
 Model layout in and out: q (B, Sq, H, D), k/v (B, Sk, KV, D), result
 (B, Sq, H, D) in q's dtype.  The inputs are passed by pointer and strides;
@@ -24,7 +25,7 @@ import torch
 
 from . import _build
 from .decode_attention import (_DTYPE_CODE, _check_device, _check_shapes,
-                               _strides)
+                               _strides, refuse_grad)
 
 ROWS = 64  # query rows (positions x heads) one CTA serves (csrc MR_ROWS)
 CTAS_PER_SM = 2  # CTAs of the many-row kernel one SM holds (csrc)
@@ -96,6 +97,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0):
     sees at least one key), H / KV at most 64, D one of ``HEAD_DIMS``.
     Row i attends key j when ``j <= i`` (``causal``) and ``i - j <
     window`` (``window > 0``)."""
+    refuse_grad("flash_attention_cuda", q, k, v)
     _check_shapes(q, k, v, "input", "(B,S,KV,D)")
     b, sq, h, d = q.shape
     kb, sk, kv, kd = k.shape

@@ -31,7 +31,7 @@ import torch
 from . import _build
 from .decode_attention import (_DTYPE_CODE, QUANT_DTYPES, _check_device,
                                _check_shapes, _pos_active, _strides,
-                               launch_chunked_decode)
+                               launch_chunked_decode, refuse_grad)
 from .flash_attention import check_grouping, launch_many_row
 
 _P = ctypes.c_void_p
@@ -136,6 +136,8 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_idx, pos, *,
     (B, max_pages) int32; ``pos`` scalar or (B,); ``active`` (B,) 0/1,
     default ``pos >= 0``; ``k_scale``/``v_scale`` (P, page_size, KV, 1) f32
     with int8/fp8 pools."""
+    refuse_grad("paged_decode_attention_cuda", q, k_pages, v_pages, k_scale,
+                v_scale)
     out = _launch_decode("paged_decode_attention", q, k_pages, v_pages,
                          page_idx, pos, active, window, 1, k_scale, v_scale)
     paged_decode_attention_cuda.launches += 1
@@ -152,6 +154,8 @@ def paged_decode_attention_splitk_cuda(q, k_pages, v_pages, page_idx, pos,
     num_splits == 0`` so that each split owns whole pages of the table.
     The chunks are clipped at the split boundaries and merged, as the
     splits' (acc, m, l) are combined, in the same launch."""
+    refuse_grad("paged_decode_attention_splitk_cuda", q, k_pages, v_pages,
+                k_scale, v_scale)
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"split-K decode is single-token, got q "
                          f"{tuple(q.shape)}")
@@ -174,6 +178,8 @@ def paged_prefill_attention_cuda(q, k_pages, v_pages, page_row, q_offset, *,
     K/V already written to the pool.  ``q_offset + C`` must fit the row's
     ``max_pages * page_size`` positions; H / KV at most 64;
     ``k_scale``/``v_scale`` as for ``paged_decode_attention_cuda``."""
+    refuse_grad("paged_prefill_attention_cuda", q, k_pages, v_pages, k_scale,
+                v_scale)
     page_size, kv, scales = _check_pools(q, k_pages, v_pages, k_scale,
                                          v_scale)
     _check_table(page_row, q, 1, "page_row")

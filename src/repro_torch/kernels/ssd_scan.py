@@ -1,5 +1,6 @@
 """Wrapper of the hand-written CUDA Mamba2 SSD chunk kernel
-(``csrc/ssd_scan.cu``), forward only.
+(``csrc/ssd_scan.cu``), forward only: a call that autograd would record
+raises (``refuse_grad``).
 
 Kernel layout in and out, as ``repro/kernels/ssd_scan.py``: x (B, NC, NH,
 Q, hp); b, c (B, NC, G, Q, ds); dt, cum (B, NC, NH, Q) f32 -> y (B, NC, NH,
@@ -24,7 +25,7 @@ import ctypes
 import torch
 
 from . import _build
-from .decode_attention import _DTYPE_CODE, FLOAT_DTYPES
+from .decode_attention import _DTYPE_CODE, FLOAT_DTYPES, refuse_grad
 
 HEAD_DIM = 64  # hp, the built width (csrc HP)
 MAX_CHUNK = 256
@@ -108,6 +109,7 @@ def ssd_chunk_cuda(x, b, c, dt, cum):
     (B * exp(cum_last - cum) * dt)^T @ x, per (batch, chunk, head); head h
     reads group h // (NH // G).  Needs hp = 64, ds a multiple of 32 up to
     128, Q a multiple of 32 up to 256.  One kernel launch."""
+    refuse_grad("ssd_chunk_cuda", x, b, c, dt, cum)
     hpc = _check(x, b, c, dt, cum)
     bb, nc, nh, q, hp = x.shape
     g, ds = b.shape[2], b.shape[4]

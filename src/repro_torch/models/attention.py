@@ -22,7 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from .layers import _init, apply_rope
+from .layers import _init, apply_rope, remat
 
 NEG_INF = -1e30
 
@@ -96,7 +96,10 @@ def flash_attention_xla(q, k, v, *, causal=True, window=0, q_chunk=512,
     score tile.  ``window > 0`` reads only the (window + q_chunk)-long KV
     slice a chunk can see.  ``q_offset`` is the absolute position of the
     first query (chunked prefill).  Plain tensor ops: the reference runs
-    no kernel here either.
+    no kernel here either.  Under autograd each chunk is rematerialized
+    (``remat``, the reference's nested ``jax.checkpoint``): the backward
+    then keeps no chunk's f32 probabilities, which together are the whole
+    (Sq, Sk) attention matrix.
     """
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
@@ -104,6 +107,19 @@ def flash_attention_xla(q, k, v, *, causal=True, window=0, q_chunk=512,
     q_chunk = min(q_chunk, sq)
     assert sq % q_chunk == 0, (sq, q_chunk)
     kv_span = min(sk, window + q_chunk) if window else sk
+
+    def body(qc, kc, vc, qpos, kpos):
+        scores = _grouped_scores(qc, kc)  # (B,KV,G,bq,span)
+        mask = torch.ones((q_chunk, kpos.shape[0]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window:
+            mask &= qpos[:, None] - kpos[None, :] < window
+        scores = torch.where(mask, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        return _grouped_context(probs, vc)  # (B,bq,KV,G,D)
+
     outs = []
     for idx in range(sq // q_chunk):
         qc = q[:, idx * q_chunk:(idx + 1) * q_chunk].reshape(
@@ -116,16 +132,7 @@ def flash_attention_xla(q, k, v, *, causal=True, window=0, q_chunk=512,
             kpos = start + torch.arange(kv_span, device=q.device)
         else:
             kc, vc, kpos = k, v, torch.arange(sk, device=q.device)
-        scores = _grouped_scores(qc, kc)  # (B,KV,G,bq,span)
-        mask = torch.ones((q_chunk, kpos.shape[0]), dtype=torch.bool,
-                          device=q.device)
-        if causal:
-            mask &= kpos[None, :] <= qpos[:, None]
-        if window:
-            mask &= qpos[:, None] - kpos[None, :] < window
-        scores = torch.where(mask, scores, NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
-        outs.append(_grouped_context(probs, vc))  # (B,bq,KV,G,D)
+        outs.append(remat(body, qc, kc, vc, qpos, kpos))
     return torch.cat(outs, dim=1).reshape(b, sq, h, d)
 
 

@@ -1,5 +1,5 @@
 """Shared layers: RMSNorm, RoPE, gated / GELU MLP, embeddings, chunked
-next-token cross-entropy.
+next-token cross-entropy, and ``remat``.
 
 The PyTorch counterpart of ``repro/models/layers.py``.  Parameters are
 plain dicts of tensors; weight init draws from an explicit
@@ -10,14 +10,49 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def _init(gen: torch.Generator, shape, scale=0.02, dtype=torch.float32,
           device="cpu"):
-    # drawn where the generator lives (a CUDA generator draws on the card)
+    # drawn where the generator lives (a CUDA generator draws on the card);
+    # a tensor on the meta device is only a shape, and draws nothing
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     return (scale * w).to(device=device, dtype=dtype)
+
+
+def _requires_grad(args) -> bool:
+    """Whether autograd records a call on ``args``: grad mode on and a
+    tensor among them (in nested dicts, lists and tuples too) requiring
+    grad."""
+    if not torch.is_grad_enabled():
+        return False
+    todo = list(args)
+    while todo:
+        a = todo.pop()
+        if isinstance(a, torch.Tensor):
+            if a.requires_grad:
+                return True
+        elif isinstance(a, dict):
+            todo.extend(a.values())
+        elif isinstance(a, (list, tuple)):
+            todo.extend(a)
+    return False
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its intermediates recomputed in the backward pass
+    instead of kept (``torch.utils.checkpoint``, non-reentrant: the
+    counterpart of ``jax.checkpoint``) when autograd records the call;
+    a plain call otherwise, so serving pays nothing for it.  ``fn`` must be
+    deterministic: the recompute has to give the tensors the forward
+    gave."""
+    if _requires_grad(args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------- rmsnorm
@@ -84,7 +119,11 @@ def embedding_init(gen, vocab: int, d_model: int, tied: bool,
 
 
 def embed(params, tokens):
-    return params["table"][tokens.long()]
+    """The table's rows at ``tokens``: ``F.embedding``, whose backward sums
+    a repeated token's rows in a fixed order; indexing ``table[tokens]``
+    gives the same rows, but its backward accumulates with atomics, so its
+    gradient changes from run to run (measured on the CPU)."""
+    return F.embedding(tokens.long(), params["table"])
 
 
 def unembed(params, x):
@@ -99,21 +138,27 @@ def chunked_ce_loss(emb_params, x, targets, mask, chunk: int = 1024):
     x: (B, S, d) final hidden states; targets/mask: (B, S).  A loop over
     sequence chunks: each chunk's (B, chunk, V) f32 logits exist only
     transiently, against the tied head when there is no separate one.
-    Forward only (the reference's remat matters only for its gradient).
+    Under autograd each chunk is rematerialized (``remat``, as the
+    reference's nested ``jax.checkpoint``): without it the backward would
+    keep every chunk's logits, the whole (B, S, V) tensor.
     """
     b, s, d = x.shape
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"seq {s} not divisible by CE chunk {chunk}")
     head = emb_params.get("head", emb_params["table"])
+
+    def body(xc, tc, mc, head):
+        logits = (xc @ head.T).float()  # (B, chunk, V)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+        return ((logz - gold) * mc).sum(), mc.sum()
+
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, s, chunk):
-        logits = (x[:, i:i + chunk] @ head.T).float()  # (B, chunk, V)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            targets[:, i:i + chunk, None].long())[..., 0]
-        mc = mask[:, i:i + chunk].float()
-        tot = tot + ((logz - gold) * mc).sum()
-        cnt = cnt + mc.sum()
+        nll, n = remat(body, x[:, i:i + chunk], targets[:, i:i + chunk],
+                       mask[:, i:i + chunk].float(), head)
+        tot = tot + nll
+        cnt = cnt + n
     return tot / torch.clamp(cnt, min=1.0)

@@ -1,7 +1,9 @@
-"""LM: the model wrapper the serving engine and the prefill step drive.
+"""LM: the model wrapper that training, the serving engine and the prefill
+step drive.
 
 The PyTorch counterpart of ``repro/models/model.py``: the whole-sequence
-forward (``hidden``, ``prefill``, and ``loss`` forward only), decode, the
+forward (``hidden``, ``prefill``, and ``loss``, which autograd
+differentiates on the training route), decode, the
 speculative verify block and chunked prefill over dense caches and paged
 pools, the dense checkpoint copies of preemption and the page copies of
 copy-on-write and the disaggregated handoff.  ``LM`` holds the arch
@@ -50,8 +52,10 @@ class RuntimeKnobs:
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.float32
     cache_dtype: Any = torch.bfloat16
-    q_chunk: int = 512  # chunked-prefill query block
+    q_chunk: int = 512  # query block of chunked prefill and training
     ce_chunk: int = 1024  # chunked cross-entropy block
+    # training: recompute each layer (and group) in the backward pass
+    remat: bool = True
     # 0 = auto (the serving engine picks per tick from (max(pos), batch)
     # via runtime.steps.pick_decode_splits); >= 1 is a static override.
     # Both 0 and 1 take the single-pass kernel outside the engine.
@@ -124,10 +128,12 @@ class LM:
         return x, aux, caches
 
     def loss(self, params, batch):
-        """Next-token CE over batch {"tokens": (B,S)} (and "embeds"),
-        forward only, plus the MoE auxiliary losses: (loss, {"ce_loss",
-        "loss"} and, with MoE FFNs, "moe_lb_loss", "moe_z_loss",
-        "moe_drop_frac", each the mean over the MoE layers)."""
+        """Next-token CE over batch {"tokens": (B,S)} (and "embeds"), plus
+        the MoE auxiliary losses: (loss, {"ce_loss", "loss"} and, with MoE
+        FFNs, "moe_lb_loss", "moe_z_loss", "moe_drop_frac", each the mean
+        over the MoE layers).  It runs the training route (``apply_blocks``
+        mode "train": no kernel, remat per ``knobs.remat``), so autograd
+        differentiates it with respect to the params."""
         x, aux, _ = self.hidden(params, batch, mode="train")
         tokens = self._tokens(batch["tokens"])
         targets = torch.nn.functional.pad(tokens[:, 1:], (0, 1))

@@ -1,11 +1,13 @@
 """Mamba2 (SSD, state-space duality) block.
 
 The PyTorch counterpart of ``repro/models/ssm.py``.  Within a chunk of Q
-tokens the token mixing is a masked, decay-weighted "attention" product
-(``kernels.ops.ssd_chunk``: the hand-written CUDA kernel on the card, its
-plain version on the CPU); across chunks a (heads, head_dim, d_state)
-state is carried by a Python loop over the S / Q chunks (the reference's
-``lax.scan``).  Per-token decode is the O(1) linear recurrence:
+tokens the token mixing is a masked, decay-weighted "attention" product:
+``kernels.ops.ssd_chunk`` (the hand-written CUDA kernel on the card, its
+plain version on the CPU) on the prefill route, the reference's einsums
+(``ssd_chunk_einsum``, differentiable) on the training route.  Across
+chunks a (heads, head_dim, d_state) state is carried by a Python loop over
+the S / Q chunks (the reference's ``lax.scan``).  Per-token decode is the
+O(1) linear recurrence:
 
     S_t = exp(dt_t * a) * S_{t-1} + dt_t * B_t (x) x_t
     y_t = C_t . S_t + D * x_t
@@ -84,14 +86,45 @@ def _causal_conv(xbc, conv_w, conv_b):
     return out + conv_b.to(xbc.dtype)
 
 
+def ssd_chunk_einsum(xh, bs, cs, dt, cum, nh):
+    """The intra-chunk SSD as the reference's einsums (its
+    ``use_pallas=False`` route): xh (b,nc,q,nh,hp); bs, cs (b,nc,q,g,ds);
+    dt, cum (b,nc,q,nh) f32 -> (y_intra (b,nc,q,nh,hp) in xh's dtype,
+    chunk states (b,nc,nh,hp,ds) f32).  Plain tensor ops, differentiable.
+
+    The decay exp(cum_t - cum_j) is taken only where j <= t: above the
+    diagonal cum_t - cum_j > 0 grows with the chunk and overflows f32 at
+    full-size chunks, and the reference's exp-then-mask then gives the
+    masked entries inf, whose gradient is inf * 0 = NaN.  Masking before
+    the exp gives the same forward values (the masked entries are zero
+    either way) and a finite gradient."""
+    q, g = xh.shape[2], bs.shape[3]
+    bh = bs.repeat_interleave(nh // g, dim=3).float()  # (b,nc,q,nh,ds)
+    chh = cs.repeat_interleave(nh // g, dim=3).float()
+    cb = torch.einsum("bnqhs,bnkhs->bnhqk", chh, bh)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (b,nc,t,j,nh)
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                 device=xh.device))
+    decay = torch.exp(torch.where(mask[..., None], seg, -math.inf))
+    att = (cb * decay.permute(0, 1, 4, 2, 3)
+           * dt[:, :, None, :, :].permute(0, 1, 4, 2, 3))
+    y_intra = torch.einsum("bnhqk,bnkhp->bnqhp", att.to(xh.dtype), xh)
+    w_state = torch.exp(cum[:, :, -1:, :] - cum) * dt  # (b,nc,q,nh)
+    s_chunk = torch.einsum("bnkhs,bnkhp->bnhps", bh * w_state[..., None],
+                           xh.float())
+    return y_intra, s_chunk
+
+
 def ssm_forward(params, x, d_model: int, cfg, *, initial_state=None,
-                return_state=False):
+                return_state=False, kernel=True):
     """Full-sequence chunked SSD.  x (B,S,dm) -> y (B,S,dm) [+ cache].
 
     ``S % min(chunk_size, S) == 0``.  ``return_state`` adds the decode
     cache: ``conv``, the last ``conv_width - 1`` raw (pre-conv) xBC rows,
     left-padded with zeros when S is shorter, in x's dtype; ``state``, the
-    final (B, NH, hp, ds) f32 state."""
+    final (B, NH, hp, ds) f32 state.  ``kernel`` takes the intra-chunk
+    through ``ops.ssd_chunk`` (forward only on the card); ``kernel=False``
+    through ``ssd_chunk_einsum``, the training route."""
     b, s, _ = x.shape
     di, nh, conv_dim = _dims(d_model, cfg)
     g, ds, hp = cfg.n_groups, cfg.d_state, cfg.head_dim
@@ -115,12 +148,17 @@ def ssm_forward(params, x, d_model: int, cfg, *, initial_state=None,
     cum = torch.cumsum(dt * a, dim=2)  # inclusive cumsum within the chunk
 
     # ---- intra-chunk: kernel layout through transposed views ------------
-    bg = bs.reshape(b, nc, q, g, ds).transpose(2, 3)
-    cg = cs.reshape(b, nc, q, g, ds).transpose(2, 3)
-    yk, st = ops.ssd_chunk(xh.transpose(2, 3), bg, cg, dt.transpose(2, 3),
-                           cum.transpose(2, 3))
-    y_intra = yk.transpose(2, 3)  # (b,nc,q,nh,hp)
-    s_chunk = st.transpose(3, 4)  # (b,nc,nh,hp,ds)
+    if kernel:
+        bg = bs.reshape(b, nc, q, g, ds).transpose(2, 3)
+        cg = cs.reshape(b, nc, q, g, ds).transpose(2, 3)
+        yk, st = ops.ssd_chunk(xh.transpose(2, 3), bg, cg,
+                               dt.transpose(2, 3), cum.transpose(2, 3))
+        y_intra = yk.transpose(2, 3)  # (b,nc,q,nh,hp)
+        s_chunk = st.transpose(3, 4)  # (b,nc,nh,hp,ds)
+    else:
+        y_intra, s_chunk = ssd_chunk_einsum(
+            xh, bs.reshape(b, nc, q, g, ds), cs.reshape(b, nc, q, g, ds), dt,
+            cum, nh)
 
     # ---- chunk states and the inter-chunk recurrence ---------------------
     chunk_decay = torch.exp(cum[:, :, -1, :])  # (b,nc,nh)

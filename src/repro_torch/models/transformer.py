@@ -17,19 +17,25 @@ index.  Caches are written in place.
 Ported: attention plans (dense, SWA and GQA archs, gemma3's grouped
 local/global plan) with dense or MoE FFNs, the uniform SSM plan (mamba2)
 and the hybrid plan (zamba2).  The whole-sequence forward
-(``apply_blocks``, modes "prefill" and "train") runs attention through
-``ops.flash_attention`` and SSM blocks through ``ssm_forward``; it is
-forward only, so the reference's remat of training is left out.
+(``apply_blocks``) has the reference's two routes.  Mode "prefill" runs
+attention through ``ops.flash_attention`` and the SSD intra-chunk through
+``ops.ssd_chunk`` (the CUDA kernels on the card, forward only).  Mode
+"train" is the reference's ``use_pallas=False`` route, differentiable and
+reaching no kernel: ``attn.flash_attention_xla`` at ``knobs.q_chunk`` and
+the SSD einsums, under the reference's remat (each layer and, in a grouped
+plan, each group, with ``knobs.remat``; each attention query chunk and
+each CE chunk always).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from . import attention as attn
-from .layers import mlp, mlp_init, rmsnorm, rmsnorm_init
+from .layers import mlp, mlp_init, remat, rmsnorm, rmsnorm_init
 from .moe import moe_ffn, moe_init
 from .ssm import ssm_decode_step, ssm_forward, ssm_init, ssm_init_cache
 from ..kernels import ops
@@ -249,14 +255,20 @@ def _pool(cache):
 def _apply_attn_block(p, x, positions, *, cfg, window, knobs, collect_cache,
                       ffn):
     """Whole-sequence attention block: x (B,S,dm) at ``positions``
-    (B,S).  Attention runs through ``ops.flash_attention`` (the CUDA
-    kernel on the card, its plain version on the CPU); ``collect_cache``
-    returns the block's K/V in ``knobs.cache_dtype``.  An MoE FFN runs at
-    the training capacity unless ``collect_cache`` (as the reference's).
-    Returns (x, aux, cache)."""
+    (B,S).  With ``collect_cache`` (prefill) attention runs through
+    ``ops.flash_attention`` (the CUDA kernel on the card, its plain version
+    on the CPU) and the block returns its K/V in ``knobs.cache_dtype``;
+    without (training) through ``attn.flash_attention_xla`` at
+    ``knobs.q_chunk``, which autograd can differentiate.  An MoE FFN runs
+    at the training capacity unless ``collect_cache`` (as the
+    reference's).  Returns (x, aux, cache)."""
     h = rmsnorm(p["ln1"], x)
     q, k, v = attn.qkv_project(p["attn"], h, positions, cfg.rope_theta)
-    ctx = ops.flash_attention(q, k, v, causal=True, window=window)
+    if collect_cache:
+        ctx = ops.flash_attention(q, k, v, causal=True, window=window)
+    else:
+        ctx = attn.flash_attention_xla(q, k, v, causal=True, window=window,
+                                       q_chunk=knobs.q_chunk)
     x = x + attn.attn_output(p["attn"], ctx)
     h2 = rmsnorm(p["ln2"], x)
     out, aux = _ffn(p, h2, ffn, cfg=cfg, train=not collect_cache)
@@ -266,12 +278,16 @@ def _apply_attn_block(p, x, positions, *, cfg, window, knobs, collect_cache,
 
 
 def _apply_ssm_block(p, x, *, cfg, collect_cache):
+    """Whole-sequence SSM block: the SSD intra-chunk through the kernel
+    when ``collect_cache`` (prefill), through the einsums otherwise
+    (training).  Returns (x, cache)."""
     h = rmsnorm(p["ln"], x)
     if collect_cache:
         y, state = ssm_forward(p["ssm"], h, cfg.d_model, cfg.ssm,
                                return_state=True)
     else:
-        y, state = ssm_forward(p["ssm"], h, cfg.d_model, cfg.ssm), None
+        y = ssm_forward(p["ssm"], h, cfg.d_model, cfg.ssm, kernel=False)
+        state = None
     return x + y, state
 
 
@@ -383,19 +399,73 @@ def _apply_attn_block_prefill_chunk(p, x, cache, slot, offset, *, cfg,
 
 
 # ========================================================== sequence apply
+def unstack_layers(blocks, layers):
+    """Each layer's parameter tree, in ``layers`` order: every stacked leaf
+    taken apart once (``unbind`` of its layer axes, views), the hybrid
+    plan's shared block the same tree at each use.  Under autograd a
+    stacked leaf's gradient is then one stack of its layers' gradients;
+    indexing ``leaf[i]`` per layer would make each layer's backward write
+    a zero tensor of the whole stack's size."""
+    parts = {}
+
+    def split(tree, depth):
+        if isinstance(tree, dict):
+            return {k: split(v, depth) for k, v in tree.items()}
+        if depth == 0:
+            return tree
+        return [split(t, depth - 1) for t in tree.unbind(0)]
+
+    def pick(tree, index):
+        if isinstance(tree, dict):
+            return {k: pick(v, index) for k, v in tree.items()}
+        for i in index:
+            tree = tree[i]
+        return tree
+
+    out = []
+    for layer in layers:
+        if layer.stack not in parts:
+            parts[layer.stack] = split(blocks[layer.stack], len(layer.index))
+        out.append(pick(parts[layer.stack], layer.index))
+    return out
+
+
+def _units(layers):
+    """The plan's layers as remat units, lists of indices into ``layers``:
+    a grouped plan's group (its inner layers and the outer one) is one
+    unit, every other layer one of its own (the reference checkpoints the
+    scan body of each stack and the group body)."""
+    units, group = [], []
+    for i, layer in enumerate(layers):
+        if layer.stack == "inner":
+            group.append(i)
+        elif layer.stack == "outer":
+            units.append(group + [i])
+            group = []
+        else:
+            units.append([i])
+    return units
+
+
 def apply_blocks(blocks, x, positions, *, cfg, knobs, mode: str):
-    """The whole-sequence forward.  mode: "train" (no caches) or "prefill"
-    (emit each layer's cache, in the plan's tree: attention K/V
-    (..., B, S, KV, D), SSM conv and state).  Returns (x, aux, caches or
-    None); aux sums the MoE losses over the layers (empty without MoE)."""
+    """The whole-sequence forward.  mode: "train" (no caches; the
+    differentiable route, see the module docstring) or "prefill" (emit each
+    layer's cache, in the plan's tree: attention K/V (..., B, S, KV, D),
+    SSM conv and state).  Returns (x, aux, caches or None); aux sums the
+    MoE losses over the layers (empty without MoE).
+
+    Training with ``knobs.remat`` recomputes in the backward pass what the
+    reference's ``jax.checkpoint`` recomputes: each layer's body, and in a
+    grouped plan each group (its inner layers, each checkpointed again
+    inside it, and its outer block)."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown mode {mode!r}")
     plan = build_plan(cfg)
+    layers = _layers(plan, cfg)
+    ps = unstack_layers(blocks, layers)
     collect = mode == "prefill"
-    aux = _zero_aux(cfg, x.device)
-    caches = []
-    for layer in _layers(plan, cfg):
-        p = _index_tree(blocks[layer.stack], layer.index)
+
+    def layer_fn(p, x, aux, layer):
         if layer.kind == "attn":
             x, a, cache = _apply_attn_block(
                 p, x, positions, cfg=cfg, window=layer.window, knobs=knobs,
@@ -404,8 +474,39 @@ def apply_blocks(blocks, x, positions, *, cfg, knobs, mode: str):
         else:
             x, cache = _apply_ssm_block(p, x, cfg=cfg,
                                         collect_cache=collect)
-        caches.append(cache)
-    return x, aux, (_plan_tree(plan, caches, "groups") if collect else None)
+        return x, aux, cache
+
+    aux = _zero_aux(cfg, x.device)
+    if collect:
+        caches = []
+        for p, layer in zip(ps, layers):
+            x, aux, cache = layer_fn(p, x, aux, layer)
+            caches.append(cache)
+        return x, aux, _plan_tree(plan, caches, "groups")
+
+    def run(i, x, aux, *, ckpt):
+        body = lambda p, x, aux: layer_fn(p, x, aux, layers[i])[:2]
+        if ckpt:
+            return remat(body, ps[i], x, aux)
+        return body(ps[i], x, aux)
+
+    def group_fn(unit, unit_ps, x, aux):
+        # unit_ps is ps over ``unit``: passed so that remat sees the params
+        for i in unit:
+            x, aux = run(i, x, aux, ckpt=knobs.remat
+                         and layers[i].stack == "inner")
+        return x, aux
+
+    for unit in _units(layers):
+        if len(unit) == 1:
+            x, aux = run(unit[0], x, aux, ckpt=knobs.remat)
+        elif knobs.remat:
+            # bound now: the backward's recompute runs after the loop
+            x, aux = remat(functools.partial(group_fn, unit),
+                           [ps[i] for i in unit], x, aux)
+        else:
+            x, aux = group_fn(unit, None, x, aux)
+    return x, aux, None
 
 
 # ============================================================ decode apply

@@ -31,7 +31,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
-from typing import Any as Trainer  # runtime/train.py is not ported yet
+from repro_torch.runtime.train import TrainConfig, Trainer
 
 
 class SimulatedHostFailure(RuntimeError):

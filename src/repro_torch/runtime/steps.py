@@ -1,6 +1,6 @@
-"""Serving step functions and the step cache (dense and paged, greedy and
-sampled, the speculative verify step), and the batched whole-prompt
-prefill step.
+"""Step functions: the train step (grad-accum microbatching and AdamW),
+the serving steps and the step cache (dense and paged, greedy and sampled,
+the speculative verify step), and the batched whole-prompt prefill step.
 
 The PyTorch counterpart of ``repro/runtime/steps.py``.  There is no jit:
 a step is a plain callable that runs eagerly and updates the caches in
@@ -21,7 +21,93 @@ from typing import Callable
 
 import torch
 
+from ..optim import adamw_init, adamw_update, warmup_cosine
+from ..optim.adamw import AdamWConfig, tree_leaves, tree_map
 from .sampling import sample_tokens, sample_tokens_multi
+
+
+def _unflatten(tree, leaves):
+    """``tree``'s structure over ``leaves``, given in ``tree_leaves``
+    (sorted-key) order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return build(tree)
+
+
+def init_train_state(model, generator: torch.Generator,
+                     moments_dtype=torch.float32) -> dict:
+    """{"params", "opt"}: params drawn by ``model.init(generator)`` (f32
+    leaves cast to ``knobs.param_dtype``), the AdamW state built from the
+    drawn values."""
+    params_f32 = model.init(generator)
+    params = tree_map(lambda p: p.to(model.knobs.param_dtype)
+                      if p.dtype == torch.float32 else p, params_f32)
+    return {"params": params, "opt": adamw_init(params_f32, moments_dtype)}
+
+
+def _value_and_grad(model, params, batch):
+    """(loss, metrics, grads in ``tree_leaves`` order) of ``model.loss`` at
+    ``params``; a leaf the loss does not read gets a zero gradient, as
+    under ``jax.grad``."""
+    leaves = tree_leaves(params)
+    live = [p.detach().requires_grad_() for p in leaves]
+    loss, metrics = model.loss(_unflatten(params, live), batch)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_train_step(model, opt_cfg: AdamWConfig, grad_accum: int = 1,
+                    accum_dtype=torch.float32) -> Callable:
+    """``train_step(state, batch) -> (state, metrics)``.  With
+    ``grad_accum > 1`` the batch's B rows go as ``grad_accum`` microbatches
+    of B / grad_accum consecutive rows, their gradients summed in
+    ``accum_dtype`` (bf16 halves the accumulator) and divided by
+    ``grad_accum``; the metrics are the microbatches' means and ``loss``
+    their summed loss over ``grad_accum``.  Then AdamW: the new params are
+    the new master cast to each param's dtype.  The state's tensors are
+    updated in place (the reference donates the state) and returned; the
+    metrics add ``grad_norm`` and ``lr``."""
+    schedule = warmup_cosine(opt_cfg)
+
+    def train_step(state, batch):
+        params = state["params"]
+        if grad_accum == 1:
+            _, metrics, grads = _value_and_grad(model, params, batch)
+            grads = [g.to(accum_dtype) for g in grads]
+        else:
+            n = next(iter(batch.values())).shape[0] // grad_accum
+            grads = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+                     for p in tree_leaves(params)]
+            lsum = torch.zeros((), dtype=torch.float32, device=model.device)
+            ms = []
+            for i in range(grad_accum):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                loss, m, g = _value_and_grad(model, params, mb)
+                for acc, gi in zip(grads, g):
+                    acc.add_(gi.to(accum_dtype))
+                lsum = lsum + loss
+                ms.append(m)
+            for acc in grads:
+                acc.div_(grad_accum)
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+            metrics["loss"] = lsum / grad_accum
+        new_master, new_opt, om = adamw_update(
+            _unflatten(params, grads), state["opt"], opt_cfg, schedule)
+        with torch.no_grad():
+            for p, m in zip(tree_leaves(params), tree_leaves(new_master)):
+                p.copy_(m)
+        metrics.update(om)
+        return {"params": params, "opt": new_opt}, metrics
+
+    return train_step
 
 
 def _greedy(logits):

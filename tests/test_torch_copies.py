@@ -16,6 +16,7 @@ import pytest
 SRC = Path(__file__).resolve().parents[1] / "src"
 COPIES = sorted(
     [f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob("*.py")]
+    + ["data/pipeline.py"]
     + [f"core/{n}.py" for n in ("hw", "resources", "drf", "jobs", "cluster",
                                 "costmodel", "policies", "scheduler",
                                 "simulator")]
@@ -29,10 +30,7 @@ REWORDED = {
     "runtime/kv_pool.py": ("continuous batching made decode work",),
     "runtime/scheduler.py": ("first come, first served (the original "
                              "behavior).",),
-    # run_with_failures names the Trainer in annotations only, and the
-    # port has no runtime/train.py yet
-    "runtime/fault.py": ("from typing import Any as Trainer",
-                         "relaunches the job's main process.",
+    "runtime/fault.py": ("relaunches the job's main process.",
                          "3. The job restores the last checkpoint",
                          "Serving half: ``ReplicaFaultInjector``"),
     "runtime/cluster.py": ("and re-prefilled, and the position-folded",),

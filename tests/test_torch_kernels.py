@@ -3,9 +3,10 @@ JAX package's Pallas kernels (interpret mode) on the same numpy inputs.
 
 The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
 them against these plain versions there.  Here the wrappers are checked
-for refusing what the kernels do not take, and, on a fake card (the
-library and the device check stubbed), for launching the chunked kernel
-once per call with its grid, scratch and tickets.
+for refusing what the kernels do not take (every CUDA wrapper refuses an
+input that requires grad), and, on a fake card (the library and the
+device check stubbed), for launching the chunked kernel once per call
+with its grid, scratch and tickets.
 """
 import numpy as np
 import pytest
@@ -319,3 +320,61 @@ def test_dense_wrappers_refuse_a_head_dim_not_built(d, monkeypatch):
     with pytest.raises(ValueError, match=f"head_dim {d} not built"):
         tdecode.max_rows(d)
     assert not lib.calls and not lib.head_dims
+
+
+# ------------------------------------------- the wrappers refuse autograd
+def _grad_calls():
+    """Each CUDA wrapper called on CPU inputs (B=1, T=1, H=KV=2, D=16; a
+    4-page pool; an SSD chunk of 32) of which one requires grad."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_splitk_cuda,
+        paged_prefill_attention_cuda)
+    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda
+
+    q = torch.randn(1, 1, 2, D, requires_grad=True)
+    kv = torch.randn(1, 8, 2, D)
+    pool = torch.randn(4, 4, 2, D)
+    table = torch.tensor([[1, 2]], dtype=torch.int32)
+    x = torch.randn(1, 1, 2, 32, 64, requires_grad=True)
+    bc = torch.randn(1, 1, 1, 32, 32)
+    dt = torch.rand(1, 1, 2, 32)
+    return {
+        "decode_attention_cuda":
+            lambda: decode_attention_cuda(q, kv, kv, 3),
+        "decode_attention_splitk_cuda":
+            lambda: decode_attention_splitk_cuda(q, kv, kv, 3, num_splits=2),
+        "paged_decode_attention_cuda":
+            lambda: paged_decode_attention_cuda(q, pool, pool, table, 3),
+        "paged_decode_attention_splitk_cuda":
+            lambda: paged_decode_attention_splitk_cuda(q, pool, pool, table,
+                                                       3, num_splits=2),
+        "paged_prefill_attention_cuda":
+            lambda: paged_prefill_attention_cuda(q, pool, pool, table[0], 0),
+        "flash_attention_cuda":
+            lambda: flash_attention_cuda(q, kv[:, :1].clone(),
+                                         kv[:, :1].clone()),
+        "ssd_chunk_cuda":
+            lambda: ssd_chunk_cuda(x, bc, bc, dt, dt.cumsum(-1)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_grad_calls()))
+def test_cuda_wrappers_refuse_inputs_that_require_grad(name):
+    """A kernel writes its output through ctypes into ``torch.empty``: no
+    ``grad_fn``, so a gradient through it would vanish.  Every wrapper
+    raises by name, before its device check (so here, on CPU tensors),
+    when autograd would record the call; under ``no_grad`` the same call
+    passes the guard and stops at the device check."""
+    from repro_torch.kernels import flash_attention, paged_attention, ssd_scan
+
+    call = _grad_calls()[name]
+    fn = next(getattr(m, name) for m in (tdecode, paged_attention,
+                                         flash_attention, ssd_scan)
+              if hasattr(m, name))
+    before = fn.launches
+    with pytest.raises(RuntimeError, match=f"{name} is forward only"):
+        call()
+    with torch.no_grad(), pytest.raises(ValueError):
+        call()
+    assert fn.launches == before
