@@ -230,7 +230,40 @@ Run from the repository root.  Phases, each raising on failure:
    uninterrupted run's (bitwise or not, printed), the checkpoint's bytes
    and the save and restore seconds; (d) the training launcher as a
    subprocess, ``--smoke --steps 30``: exit 0, the loss falls; (e) #6's
-   and #7's wrappers refuse an input that requires grad.
+   and #7's wrappers refuse an input that requires grad;
+16. sharded serving (``ServeEngine(mesh=...)``, the gather form of
+   ``sharding/rules.py``) of internlm2-1.8b at full width and depth on
+   the one card: the unsharded engine first serves 4 requests (prompts
+   of 200-900 tokens, 12-20 new tokens, greedy and seeded-sampled; 4
+   slots, 2048 positions, 256-token chunks) dense, paged and speculative
+   paged (draft_k = 3) and the preemption flood below, runs the logits
+   probe (4 prompts of 300 tokens prefilled in chunks, then one decode
+   step) and checks whether the products the cut changes (wq, wk, wv,
+   w_gate, w_up: 4 rows cut to 2, columns cut in half) keep their bits;
+   then worlds of ranks spawned
+   over gloo on ``cuda:0`` (``chip_smoke.py --shard-rank``, a file
+   rendezvous; rank 0 loads the kernels first; CUDA tensors exchanged as
+   they are) serve the same requests: paged at mesh (1, 2); dense, paged
+   and speculative paged at (2, 2) (drafts replayed from the unsharded
+   paged streams, so that verify blocks run: the n-gram drafter finds no
+   repeats in the random weights' output), and at (2, 2) a preemption
+   flood on a paged pool (drf-fair, 6 gold requests of 3-19 prompt
+   tokens, 2 free ones two ticks later; the unsharded engine serves it
+   too) whose resumed chains move to the other data row.  Each rank
+   prints its local shapes (heads, KV heads, slots, pages), the launches
+   of each kernel and its verify rows (and verify ticks), each kernel
+   against its plain version at the shard shape after the run (#1 and #2
+   on its stripes; #3, #5 at T = 1 and 4 and #4 on its pools), and its
+   tick host and CUDA-event times, labelled as one card shared by the
+   ranks.  A rank that fails fails the run; every rank must launch #1
+   (dense) and #3 and #4 (paged), the speculative engine's ranks #3 at T
+   = 4, and the flood's ranks must preempt and move a chain across data
+   rows; the ranks' streams must agree, and each stream is compared with
+   the unsharded engine's, a difference
+   reported with its first position and the top-2 logit margin there;
+   the logits probe must stay within LOGIT_TOL of the unsharded model's
+   (bitwise or not, printed).  Last, the launcher with ``--tp 2`` in a
+   world of 2 on one card must refuse ("needs 2 devices").
 
 The last lines are the nvidia-smi line, a JSON ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -4691,10 +4724,531 @@ def phase_train(smi):
         _log(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------- 16: sharded serving
+SHARD_MESHES = ((1, 2), (2, 2))
+SHARD_SLOTS, SHARD_LEN, SHARD_CHUNK, SHARD_PAGE = 4, 2048, 256, 16
+SHARD_REQUESTS = 4  # one wave of the 4 slots: the run's time pays per tick
+SHARD_NEW = (12, 21)  # new tokens a request, drawn from [12, 21)
+SHARD_TIMEOUT = 420  # seconds for one spawned world, every rank included
+SHARD_PROBE_LEN = 300  # the logits probe's prompt
+# the preemption flood: gold's 6 requests, free's 2 two ticks later
+SHARD_FLOOD = dict(policy="drf-fair", tenant_weights={"gold": 3, "free": 1},
+                   preempt=True, victim_policy="lowest-weight-share-first")
+
+
+def _shard_cases(shape, drafter=None):
+    """(name, ServeConfig kwargs) of the engines one world serves: paged,
+    and at (2, 2) dense, the preemption flood on a paged pool and the
+    speculative paged engine with ``drafter`` (``_shard_drafter``)."""
+    base = dict(batch_slots=SHARD_SLOTS, max_len=SHARD_LEN,
+                prefill_chunk=SHARD_CHUNK)
+    paged = dict(base, cache="paged", page_size=SHARD_PAGE)
+    if shape != (2, 2):
+        return [("paged", paged)]
+    cases = [("dense", base), ("paged", paged),
+             ("preempt", dict(paged, **SHARD_FLOOD))]
+    if drafter is not None:
+        cases.append(("spec", dict(paged, draft_k=3, drafter=drafter)))
+    return cases
+
+
+def _shard_flood(vocab):
+    """The preemption flood's requests: 8 prompts of 3-19 tokens, 12 new
+    tokens each, odd ones seeded-sampled; the first 6 of tenant "gold",
+    the last 2 of tenant "free", submitted two ticks later.  Returns
+    (first, late)."""
+    from repro_torch.runtime.serve import Request, SamplingParams
+
+    rng = np.random.default_rng(7)
+    out = []
+    for i in range(8):
+        prompt = rng.integers(0, vocab, size=int(rng.integers(3, 20)))
+        sp = (SamplingParams(temperature=0.8, top_k=20, seed=i) if i % 2
+              else SamplingParams())
+        out.append(Request(i, prompt.astype(np.int32), max_new_tokens=12,
+                           sampling=sp, tenant="gold" if i < 6 else "free"))
+    return out[:6], out[6:]
+
+
+def _shard_case_requests(name, vocab):
+    """(first, late) requests of a case: the flood's for "preempt", else
+    ``_shard_requests`` all at once."""
+    if name == "preempt":
+        return _shard_flood(vocab)
+    return _shard_requests(vocab), []
+
+
+def _shard_drafter(reqs, plain, vocab):
+    """The replay drafter of the unsharded paged engine's streams: the
+    random weights never repeat their context, so the n-gram drafter would
+    propose nothing and no verify block would run."""
+    return _replay_drafter([r.prompt for r in reqs],
+                           [plain[r.req_id] for r in reqs], vocab)
+
+
+def _shard_requests(vocab):
+    """Prompts of 200-900 tokens, 12-20 new tokens each; odd requests
+    seeded-sampled (temperature 0.8, top-p 0.9), even ones greedy."""
+    from repro_torch.runtime.serve import Request, SamplingParams
+
+    rng = np.random.default_rng(16)
+    out = []
+    for i in range(SHARD_REQUESTS):
+        prompt = rng.integers(0, vocab, size=int(rng.integers(200, 901)))
+        sp = (SamplingParams(temperature=0.8, top_p=0.9, seed=7) if i % 2
+              else SamplingParams())
+        out.append(Request(i, prompt.astype(np.int32),
+                           max_new_tokens=int(rng.integers(*SHARD_NEW)),
+                           sampling=sp))
+    return out
+
+
+def _shard_probe(model, params, slots, lo=0):
+    """The logits probe: each of ``slots`` local slots prefills a seeded
+    ``SHARD_PROBE_LEN``-token prompt (its global slot's) in chunks, then
+    all take one decode step.  Returns (last prefill rows (slots, V),
+    decode logits (slots, V)) on the CPU."""
+    caches = model.init_cache(slots, SHARD_LEN)
+    rng = np.random.default_rng(160)
+    prompts = rng.integers(0, model.cfg.vocab_size,
+                           size=(SHARD_SLOTS, SHARD_PROBE_LEN)).astype(
+                               np.int32)
+    c, n = SHARD_CHUNK, -(-SHARD_PROBE_LEN // SHARD_CHUNK)
+    last, nxt = [], []
+    for s in range(slots):
+        padded = np.zeros(n * c, np.int32)
+        padded[:SHARD_PROBE_LEN] = prompts[lo + s]
+        for ci in range(n):
+            logits, caches = model.prefill_chunk_step(
+                params, caches, padded[None, ci * c:(ci + 1) * c], s, ci * c)
+        row = logits[SHARD_PROBE_LEN - 1 - (n - 1) * c]
+        last.append(row)
+        nxt.append(int(row.argmax()))
+    dec, _ = model.decode_step(
+        params, caches, np.asarray(nxt, np.int32)[:, None],
+        np.full(slots, SHARD_PROBE_LEN, np.int32))
+    return torch.stack(last).cpu(), dec.cpu()
+
+
+def _shard_kernel_checks(eng, seed):
+    """Each kernel of the rank's path against its plain version at the
+    rank's shard shape, on its own cache after the run: #1 (and #2 at 2
+    splits) on the dense stripes, #3 (#5 at 2 splits, T = 4 rows) and #4
+    on its pools through a random table of its pages.  Returns {kernel:
+    max_abs_err}; raises past TOL."""
+    from repro_torch.kernels import ops
+
+    cfg = eng.model.cfg
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    slots = eng._hi - eng._lo
+    # room for T = 4 rows behind each position
+    pos = torch.tensor([(SHARD_LEN - 4 - 611 * i) % (SHARD_LEN - 4)
+                        for i in range(slots)], dtype=torch.int32,
+                       device="cuda")
+    errs = {}
+
+    def held(name, got, want):
+        err = float((got - want).abs().max())
+        errs[name] = max(errs.get(name, 0.0), err)
+        if not (torch.isfinite(got).all() and err <= TOL[torch.float32]):
+            raise AssertionError(f"{name} at the shard shape: max_abs_err "
+                                 f"{err:.3g} (tol {TOL[torch.float32]})")
+
+    layer = {k: v[0] for k, v in eng.caches["stack"].items()}
+    k, v = layer["k"], layer["v"]
+    for t in (1, 4):
+        q = torch.randn((slots, t, cfg.num_heads, cfg.head_dim),
+                        generator=g, device="cuda")
+        if eng.kv is None:
+            for splits in ((1, 2) if t == 1 else (1,)):
+                name = ("decode_attention" if splits == 1
+                        else "decode_attention_splitk")
+                held(name, ops.decode_attention(q, k, v, pos,
+                                                num_splits=splits),
+                     ops.decode_attention_plain(q, k, v, pos,
+                                                num_splits=splits))
+            continue
+        n_pages = k.shape[0]
+        table = torch.stack([
+            1 + torch.randperm(n_pages - 1, generator=g, device="cuda")[
+                :SHARD_LEN // SHARD_PAGE] for _ in range(slots)]).to(
+                    torch.int32)
+        for splits in ((1, 2) if t == 1 else (1,)):
+            name = ("paged_decode_attention" if splits == 1
+                    else "paged_decode_attention_splitk")
+            held(name, ops.paged_decode_attention(
+                q, k, v, table, pos, num_splits=splits),
+                ops.paged_decode_attention_plain(q, k, v, table, pos,
+                                                 num_splits=splits))
+        if t == 1:
+            qc = torch.randn((1, SHARD_CHUNK, cfg.num_heads, cfg.head_dim),
+                             generator=g, device="cuda")
+            off = SHARD_LEN // 4
+            held("paged_prefill_attention",
+                 ops.paged_prefill_attention(qc, k, v, table, 0, off),
+                 ops.paged_prefill_attention_plain(qc, k, v, table, 0, off))
+    return errs
+
+
+def _shard_serve(eng, reqs, late=()):
+    """Serve ``reqs`` tick by tick, ``late`` submitted after two ticks;
+    returns (streams, launches, verify launches, per-tick host ms,
+    per-tick CUDA-event ms)."""
+    for r in reqs:
+        eng.submit(r)
+    late = list(late)
+    kernels = _all_kernels()
+    verify = (kernels[0], kernels[2])  # the decode kernels' T > 1 counts
+    torch.cuda.synchronize()
+    for kern in kernels:
+        kern.launches = 0
+    for kern in verify:
+        kern.verify_launches = 0
+    host, dev = [], []
+    while late or eng.queue or any(r is not None for r in eng.active):
+        if len(host) == 2:
+            for r in late:
+                eng.submit(r)
+            late = []
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        eng.step()
+        b.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(a.elapsed_time(b))
+        if len(host) > 5000:
+            raise AssertionError("sharded engine did not drain")
+    launches = {k.__name__.removesuffix("_cuda"): k.launches
+                for k in kernels}
+    vl = {k.__name__.removesuffix("_cuda"): k.verify_launches
+          for k in verify}
+    done = eng.run()
+    return _streams(done), launches, vl, host, dev
+
+
+def _shard_rank():
+    """One rank of a phase-16 world (``chip_smoke.py --shard-rank``, its
+    rank, world, mesh shape, rendezvous and output directory in the
+    environment): build or load the kernels (rank 0 first), draw the full
+    weights, serve every case on ``ServeEngine(mesh=...)``, check each
+    kernel at the shard shape, run the logits probe, and write its record.
+    Any failure raises, and the rank exits non-zero."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    shape = tuple(int(s) for s in os.environ["SHARD_SHAPE"].split(","))
+    out_dir = Path(os.environ["SHARD_OUT"])
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=os.environ["SHARD_INIT"],
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=SHARD_TIMEOUT))
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.runtime.serve import ServeConfig, ServeEngine
+
+    t0 = time.perf_counter()
+    if rank == 0:
+        _build.build_all()  # phase 2 built them: this loads
+    dist.barrier()
+    if rank:
+        _build.build_all()
+    model, params = make_model()
+    mesh = make_serve_mesh(shape)
+    with open(out_dir / "plain.json") as f:
+        plain = {int(k): v for k, v in json.load(f).items()}
+    drafter = _shard_drafter(_shard_requests(model.cfg.vocab_size), plain,
+                             model.cfg.vocab_size)
+    rec = {"rank": rank, "coord": list(mesh.get_coordinate()),
+           "backend": dist.get_backend(), "setup_s":
+           time.perf_counter() - t0, "cases": {}}
+    for name, kw in _shard_cases(shape, drafter):
+        eng = ServeEngine(model, params, ServeConfig(**kw), mesh=mesh)
+        streams, launches, vl, host, dev = _shard_serve(
+            eng, *_shard_case_requests(name, model.cfg.vocab_size))
+        case = {"streams": {str(k): v for k, v in streams.items()},
+                "launches": launches, "verify_launches": vl,
+                "heads": eng.model.cfg.num_heads,
+                "kv_heads": eng.model.cfg.num_kv_heads,
+                "slots": [eng._lo, eng._hi], "hosts": eng._num_hosts,
+                "tick_host_ms": host, "tick_dev_ms": dev,
+                "errs": _shard_kernel_checks(eng, seed=rank)}
+        if eng.scheduler.preempt:
+            case["preempted"] = eng.scheduler.preempted_total
+            case["moved"] = eng.moved_across_rows
+        if eng.draft_k:
+            st = eng.spec_stats()
+            case["spec"] = {k: st[k] for k in ("spec_ticks", "proposed",
+                                               "accepted", "acceptance_rate")}
+        if eng.kv is not None:
+            case["pages"] = int(eng.caches["stack"]["k"].shape[1])
+            off = eng.offer()
+            case["free_pages_by_host"] = off.get("free_pages_by_host")
+            case["free_pages"] = off["free_pages"]
+        if name == _shard_cases(shape)[0][0]:  # once a world
+            last, dec = _shard_probe(eng.model, eng.params,
+                                     eng._hi - eng._lo, eng._lo)
+            if mesh.get_coordinate()[-1] == 0:
+                torch.save({"lo": eng._lo, "last": last, "decode": dec},
+                           out_dir / f"probe_{eng._lo}.pt")
+        rec["cases"][name] = case
+        del eng
+        _free_device()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(out_dir / f"rank{rank}.json", "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _shard_world(shape, out_dir):
+    """Spawn one world of ``prod(shape)`` ranks on ``cuda:0`` (gloo, a
+    file rendezvous) and wait for all; a rank that fails, or a world past
+    ``SHARD_TIMEOUT``, fails the phase with the rank's output."""
+    n = int(np.prod(shape))
+    env = {**os.environ, "WORLD_SIZE": str(n),
+           "SHARD_SHAPE": ",".join(map(str, shape)),
+           "SHARD_OUT": str(out_dir),
+           "SHARD_INIT": f"file://{out_dir}/rendezvous"}
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--shard-rank"],
+        cwd=ROOT, env={**env, "RANK": str(r)}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=SHARD_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            _log(out[-6000:])
+            raise AssertionError(f"mesh {shape}: rank {r} exited "
+                                 f"{p.returncode}")
+    recs = []
+    for r in range(n):
+        with open(out_dir / f"rank{r}.json") as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _shard_products(model, params):
+    """Whether each product the sharded decode cuts keeps its bits on the
+    card, at internlm2's shapes: the model's own first-layer weights, a
+    4-row decode input cut to 2 rows, and each sharded weight cut to half
+    its columns (TP 2).  Returns the names of the products that differ."""
+    p = {k: v[0] for k, v in params["blocks"]["stack"]["attn"].items()}
+    p.update({k: v[0] for k, v in params["blocks"]["stack"]["mlp"].items()})
+    x = torch.randn((SHARD_SLOTS, 1, model.cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    ein = lambda a, w: torch.einsum("bsd,dhk->bshk", a, w)  # noqa: E731
+    mm = lambda a, w: a @ w  # noqa: E731
+    differ = []
+    for name, f, dim in (("wq", ein, 1), ("wk", ein, 1), ("wv", ein, 1),
+                         ("w_gate", mm, 1), ("w_up", mm, 1)):
+        w = p[name]
+        full = f(x, w)
+        rows = torch.equal(f(x[2:].contiguous(), w), full[2:])
+        n = w.shape[dim] // 2
+        part = f(x, w.narrow(dim, n, n).contiguous())
+        cols = torch.equal(part, full.narrow(-2 if w.ndim == 3 else -1, n,
+                                             n))
+        _log(f"[shard] product {name} {tuple(w.shape)}: rows 4 -> 2 "
+             f"bitwise {rows}; columns cut in half (TP 2) bitwise {cols}")
+        if not (rows and cols):
+            differ.append(name)
+    return differ
+
+
+def _shard_differences(model, params, reqs, got, want, label):
+    """Each request whose stream differs from the unsharded engine's: the
+    first differing position and the top-2 logit margin of the unsharded
+    model there (the whole-sequence prefill of the prompt and the agreed
+    tokens).  Returns the number of differing requests."""
+    n = 0
+    for r in reqs:
+        a, b = got[str(r.req_id)], want[r.req_id]
+        if a == b:
+            continue
+        n += 1
+        k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        toks = np.concatenate([r.prompt, np.asarray(b[:k], np.int32)])
+        logits, _ = model.prefill(params, {"tokens": torch.as_tensor(
+            toks[None], device="cuda")})
+        top = torch.topk(logits[0], 2).values
+        _log(f"[shard] {label}: request {r.req_id} "
+             f"({'sampled' if r.sampling.temperature else 'greedy'}) "
+             f"differs first at output position {k} of {len(b)} "
+             f"({a[k:k + 1]} against {b[k:k + 1]}); top-2 logit margin "
+             f"there {float(top[0] - top[1]):.3g}")
+    return n
+
+
+def _shard_launcher_refusal():
+    """The launcher, ``--tp 2`` in a world of 2 on a machine with fewer
+    cards than ranks: it must raise the reference's "needs n devices"
+    error, not move to gloo or the CPU."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "internlm2-1.8b", "--tp", "2", "--requests", "2"]
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300, env={
+                             **os.environ, "RANK": "0", "WORLD_SIZE": "2",
+                             "LOCAL_RANK": "0",
+                             "PYTHONPATH": str(ROOT / "src")})
+    said = (res.stderr.strip().splitlines() or [""])[-1]
+    _log(f"[shard] launcher --tp 2 on {torch.cuda.device_count()} card(s): "
+         f"exit {res.returncode}; {said}")
+    if torch.cuda.device_count() < 2 and (
+            res.returncode == 0 or "needs 2 devices" not in said):
+        raise AssertionError("the launcher did not refuse a world larger "
+                             "than the visible cards")
+
+
+def phase_sharded(smi):
+    """Phase 16: sharded serving on the one card, ranks over gloo."""
+    import tempfile
+
+    from repro_torch.runtime.serve import ServeConfig, ServeEngine
+
+    _free_device()
+    model, params = make_model()
+    vocab = model.cfg.vocab_size
+    reqs = _shard_requests(vocab)
+    t0 = time.perf_counter()
+    base, drafter = {}, None
+    for name, kw in _shard_cases((2, 2)) + [("spec", None)]:
+        if kw is None:  # the speculative engine replays the paged streams
+            drafter = _shard_drafter(reqs, base["paged"], vocab)
+            name, kw = _shard_cases((2, 2), drafter)[-1]
+        eng = ServeEngine(model, params, ServeConfig(**kw))
+        first, late = _shard_case_requests(name, vocab)
+        for r in first:
+            eng.submit(r)
+        eng.step()
+        eng.step()
+        for r in late:
+            eng.submit(r)
+        base[name] = _streams(eng.run())
+        if kw.get("preempt") and eng.scheduler.preempted_total < 1:
+            raise AssertionError("the unsharded flood preempted nothing")
+        del eng
+    probe = _shard_probe(model, params, SHARD_SLOTS)
+    differ = _shard_products(model, params)
+    _log(f"[time] 16 unsharded engines and probe: "
+         f"{time.perf_counter() - t0:.1f} s")
+    totals = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for shape in SHARD_MESHES:
+            t0 = time.perf_counter()
+            out_dir = Path(tmp) / "x".join(map(str, shape))
+            out_dir.mkdir()
+            with open(out_dir / "plain.json", "w") as f:
+                json.dump(base["paged"], f)
+            recs = _shard_world(shape, out_dir)
+            label = f"mesh {shape[0]}x{shape[1]}"
+            _log(f"[time] 16 {label} world: {time.perf_counter() - t0:.1f} "
+                 f"s (ranks' setup {[round(r['setup_s'], 1) for r in recs]}"
+                 f" s; peak {[round(r['peak_gb'], 2) for r in recs]} GB)")
+            for rec in recs:
+                for name, case in rec["cases"].items():
+                    lc = case["launches"]
+                    host, dev = case["tick_host_ms"], case["tick_dev_ms"]
+                    _log(f"[shard] {label} rank {rec['rank']} "
+                         f"{tuple(rec['coord'])} {name}: H {case['heads']} "
+                         f"KV {case['kv_heads']} slots "
+                         f"{case['slots'][0]}-{case['slots'][1] - 1}"
+                         + (f" pages {case['pages']}" if "pages" in case
+                            else "")
+                         + f"; launches {lc}, verify rows "
+                         f"{case['verify_launches']}"
+                         + (f" ({case['spec']['spec_ticks']} verify ticks, "
+                            f"acceptance "
+                            f"{case['spec']['acceptance_rate']:.3f})"
+                            if "spec" in case else "")
+                         + "; kernel vs plain at the "
+                         f"shard shape {case['errs']}; {len(host)} ticks, "
+                         f"host ms median {statistics.median(host):.2f} max "
+                         f"{max(host):.2f}, CUDA-event ms median "
+                         f"{statistics.median(dev):.2f} (one {smi} shared "
+                         f"by {len(recs)} ranks over {rec['backend']})"
+                         + (f"; {case['preempted']} preemptions, "
+                            f"{case['moved']} checkpoints moved across "
+                            f"data rows" if "moved" in case else ""))
+                    want = (("paged_decode_attention", "paged_prefill_"
+                             "attention") if "pages" in case
+                            else ("decode_attention",))
+                    if any(lc[k] <= 0 for k in want) or (
+                            name == "spec" and (case["spec"]["spec_ticks"] < 1
+                                                or case["verify_launches"][
+                                "paged_decode_attention"] <= 0)) or (
+                            name == "preempt" and min(
+                                case["preempted"], case["moved"]) < 1):
+                        raise AssertionError(f"{label} rank {rec['rank']} "
+                                             f"{name}: launches {lc}, verify "
+                                             f"rows {case['verify_launches']}")
+                    for k, c in lc.items():
+                        totals[k] = totals.get(k, 0) + c
+                    if "pages" in case and case["free_pages_by_host"]:
+                        if sum(case["free_pages_by_host"]) != \
+                                case["free_pages"]:
+                            raise AssertionError(f"{label}: per-host pages "
+                                                 f"do not sum")
+            for name, _ in _shard_cases(shape, drafter):
+                got = recs[0]["cases"][name]["streams"]
+                if any(r["cases"][name]["streams"] != got for r in recs):
+                    raise AssertionError(f"{label} {name}: the ranks' "
+                                         f"streams disagree")
+                case_reqs = sum(_shard_case_requests(name, vocab), [])
+                n = _shard_differences(model, params, case_reqs, got,
+                                       base[name], f"{label} {name}")
+                _log(f"[shard] {label} {name}: streams against the "
+                     f"unsharded engine's: {len(case_reqs) - n} of "
+                     f"{len(case_reqs)} equal token for token")
+            worst, bitwise = 0.0, True
+            probes = sorted(out_dir.glob("probe_*.pt"))
+            if len(probes) != shape[0]:
+                raise AssertionError(f"{label}: {len(probes)} probe records "
+                                     f"for {shape[0]} data rows")
+            for f in probes:
+                got = torch.load(f)
+                lo, m = got["lo"], got["last"].shape[0]
+                for key, want in (("last", probe[0]), ("decode", probe[1])):
+                    w = want[lo:lo + m]
+                    bitwise &= torch.equal(got[key], w)
+                    worst = max(worst, float((got[key] - w).abs().max()))
+            _log(f"[shard] {label} logits probe (prefill's last rows and a "
+                 f"decode step, {SHARD_SLOTS} slots of "
+                 f"{SHARD_PROBE_LEN} tokens) against the unsharded model: "
+                 f"bitwise {bitwise}, max_abs_err {worst:.3g} (tol "
+                 f"{LOGIT_TOL}); products whose bits the cut changes: "
+                 f"{differ or 'none'}")
+            if worst > LOGIT_TOL:
+                raise AssertionError(f"{label}: sharded logits left the "
+                                     f"unsharded model's")
+    del model, params
+    _free_device()
+    _shard_launcher_refusal()
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--shard-rank"]:
+        return _shard_rank()
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
 
@@ -4747,6 +5301,10 @@ def main():
                             *cluster.items()):
         launches[row_name] = launches.get(row_name, 0) + count
     timed("15 train", phase_train, smi)
+    # phase 16's ranks launch the engine kernels on their shards: their
+    # launches add to those rows'
+    for row_name, count in timed("16 sharded", phase_sharded, smi).items():
+        launches[row_name] = launches.get(row_name, 0) + count
     _log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     for row in rows:
         row["launches"] = launches[row["name"]]

@@ -65,11 +65,28 @@ built for):
 
     python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --replicas 2 --cache paged --fault-schedule "6:kill:1,14:rejoin:1"
+
+``--tp N`` shards the engine over N ranks (tensor parallel, the mesh
+``(1, N)``); ``--mesh-shape D,M`` (or ``P,D,M``) gives the whole mesh,
+whose leading data axes shard the decode slots and the KV page pool.  The
+launcher then runs under ``torchrun``, one process per rank::
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch internlm2-1.8b --tp 2
+
+On the card every rank takes a card of its own (``cuda:LOCAL_RANK``,
+NCCL), and a world larger than the visible cards raises; ``--device cpu``
+runs the ranks over gloo.  ``--dist-init`` names the process group's
+rendezvous (default ``env://``, which torchrun sets).  Rank 0 prints the
+report.  A mesh takes one engine: no ``--replicas`` or ``--roles``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
+import os
 import time
 
 import numpy as np
@@ -133,6 +150,46 @@ def parse_roles(spec: str) -> dict:
     if not out:
         raise ValueError("empty --roles spec")
     return out
+
+
+def parse_mesh_shape(spec: str) -> tuple:
+    """``"2,4"`` -> ``(2, 4)``: a (data, model) or (pod, data, model)
+    mesh shape.  Raises ``ValueError`` (an argparse usage error) on junk
+    so bad shapes fail at the CLI, not at engine construction."""
+    try:
+        shape = tuple(int(p) for p in spec.split(","))
+    except ValueError:
+        raise ValueError(f"expected comma-separated ints, got {spec!r}")
+    if len(shape) not in (2, 3) or any(s < 1 for s in shape):
+        raise ValueError(f"mesh shape must be D,M or P,D,M of positive "
+                         f"ints, got {spec!r}")
+    return shape
+
+
+def _init_mesh_world(args, n: int) -> str:
+    """Join the process group of an ``n``-rank mesh (``RANK`` and
+    ``WORLD_SIZE`` from the environment, as torchrun sets them): NCCL with
+    a card per rank, gloo on the CPU.  Returns the rank's device.  A world
+    larger than the visible cards raises: no rank moves to another
+    backend or to the CPU."""
+    import torch.distributed as dist
+
+    rank = int(os.environ.get("RANK", "0"))
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    device = args.device
+    if args.device == "cuda":
+        visible = torch.cuda.device_count()
+        if max(world, n) > visible:
+            raise ValueError(f"mesh shape needs {max(world, n)} devices, "
+                             f"{visible} visible (one card per rank)")
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        torch.cuda.set_device(local)
+        device = f"cuda:{local}"
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "nccl" if args.device == "cuda" else "gloo",
+            init_method=args.dist_init, rank=rank, world_size=world)
+    return device
 
 
 def _check_cluster_args(ap, args) -> None:
@@ -302,6 +359,16 @@ def main(argv=None):
     ap.add_argument("--flight-recorder", type=int, default=0, metavar="N",
                     help="arm the flight recorder: dump the last N trace "
                          "events + metrics to artifacts/ on replica fence")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="shard the engine over N ranks (tensor parallel; "
+                         "shorthand for --mesh-shape 1,N)")
+    ap.add_argument("--mesh-shape", type=parse_mesh_shape, default=None,
+                    metavar="D,M",
+                    help="the engine's mesh 'data,model' (or "
+                         "'pod,data,model'); data axes shard the decode "
+                         "slots + KV page pool across hosts")
+    ap.add_argument("--dist-init", default="env://",
+                    help="process group rendezvous of a mesh's ranks")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--seed", type=int, default=0, help="weight init seed")
     args = ap.parse_args(argv)
@@ -310,10 +377,39 @@ def main(argv=None):
     if args.kv_dtype and args.cache != "paged":
         ap.error(f"--kv-dtype {args.kv_dtype} needs --cache paged")
     _check_cluster_args(ap, args)
+    if args.tp < 1:
+        ap.error(f"--tp must be >= 1 (got {args.tp})")
+    if args.tp > 1 and args.mesh_shape is not None:
+        ap.error("--tp is shorthand for --mesh-shape 1,N — pass one "
+                 "or the other")
+    mesh_shape = (args.mesh_shape if args.mesh_shape is not None
+                  else ((1, args.tp) if args.tp > 1 else None))
+    if mesh_shape is not None and args.mode != "continuous":
+        ap.error(f"--mesh-shape/--tp need --mode continuous "
+                 f"(got {args.mode!r})")
+    if mesh_shape is not None and (args.replicas > 1 or args.roles
+                                   or args.fault_schedule):
+        ap.error("--mesh-shape/--tp serve one engine: no --replicas, "
+                 "--roles or --fault-schedule")
+    if mesh_shape is None:
+        return _serve(args, args.device, None)
+    import torch.distributed as dist
 
+    device = _init_mesh_world(args, int(np.prod(mesh_shape)))
+    try:
+        if int(os.environ.get("RANK", "0")) == 0:
+            return _serve(args, device, mesh_shape)
+        with contextlib.redirect_stdout(io.StringIO()):
+            return _serve(args, device, mesh_shape)
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve(args, device, mesh_shape):
+    """Build the model and the engine (or the router), serve the request
+    stream and print the report."""
     cfg = get_config(args.arch, smoke=args.smoke)
-    model = LM(cfg, RuntimeKnobs(cache_dtype=torch.float32),
-               device=args.device)
+    model = LM(cfg, RuntimeKnobs(cache_dtype=torch.float32), device=device)
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     params = model.init(gen)
     serve_cfg = ServeConfig(
@@ -325,7 +421,7 @@ def main(argv=None):
         tenant_weights=args.tenant_weights, preempt=args.preempt,
         victim_policy=args.victim_policy,
         draft_k=args.draft_k if args.speculate else 0,
-        drafter=args.drafter)
+        drafter=args.drafter, mesh_shape=mesh_shape)
     tm = Telemetry(trace=bool(args.trace_out) or args.flight_recorder > 0,
                    flight=args.flight_recorder, flight_dir="artifacts")
     router = _make_router(args, model, params, serve_cfg, tm)
@@ -351,10 +447,12 @@ def main(argv=None):
     toks = sum(len(r.output) for r in done)
     ttft = [t for t in (h.metrics().get("ttft_s") for h in handles)
             if t is not None]
+    mesh_note = (f" mesh={'x'.join(map(str, mesh_shape))}"
+                 if mesh_shape else "")
     print(f"arch={args.arch} mode={args.mode} cache={args.cache} "
-          f"device={model.device} "
-          f"policy={args.policy} served {len(done)} requests, {toks} "
-          f"tokens in {dt:.1f}s ({toks / max(dt, 1e-9):.1f} tok/s)")
+          f"device={model.device} policy={args.policy}{mesh_note} "
+          f"served {len(done)} requests, {toks} tokens in {dt:.1f}s "
+          f"({toks / max(dt, 1e-9):.1f} tok/s)")
     if router is not None:
         _print_cluster(args, router, done)
     if args.preempt and router is None:

@@ -100,12 +100,24 @@ def mlp_init(gen, d_model: int, d_ff: int, gated: bool, dtype=torch.float32,
     return p
 
 
-def mlp(params, x, gated: bool):
+def _identity_shard(name, x):
+    return x
+
+
+def mlp(params, x, gated: bool, shard_fn=_identity_shard):
+    """``shard_fn("mlp_up", ...)`` is the seam of the gather-form serving
+    layout (``sharding.rules.ServeShardFn``): it all-gathers the
+    ff-sharded up/gate products, so that the activation and the down
+    product run replicated, in the single-device order.  The seam sits on
+    the products, before the activation, as the reference's does."""
     if gated:
-        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+        g = shard_fn("mlp_up", x @ params["w_gate"])
+        u = shard_fn("mlp_up", x @ params["w_up"])
+        h = F.silu(g) * u
     else:
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ params["w_up"], approximate="tanh")
+        h = F.gelu(shard_fn("mlp_up", x @ params["w_up"]),
+                   approximate="tanh")
     return h @ params["w_down"]
 
 

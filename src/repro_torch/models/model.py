@@ -14,13 +14,13 @@ donates its buffers instead).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
-from .layers import (chunked_ce_loss, embed, embedding_init, rmsnorm,
-                     rmsnorm_init, unembed)
+from .layers import (_identity_shard, chunked_ce_loss, embed,
+                     embedding_init, rmsnorm, rmsnorm_init, unembed)
 from .transformer import (_cat_rows, _row, apply_blocks, apply_blocks_decode,
                           apply_blocks_prefill_chunk, cache_batch_axes,
                           copy_cache_in, copy_cache_out, copy_cache_pages,
@@ -63,6 +63,9 @@ class RuntimeKnobs:
     # quantized paged KV: "" (pools at cache_dtype), "int8" or "fp8"
     # (float8_e4m3fn); set by ServeEngine from ServeConfig.kv_dtype
     kv_quant: str = ""
+    # the seams' hook of sharded serving (``sharding.rules.ServeShardFn``):
+    # shard_fn(name, x) at the reference's seams; the identity unsharded
+    shard_fn: Callable = _identity_shard
 
     def with_(self, **kw) -> "RuntimeKnobs":
         return dataclasses.replace(self, **kw)
@@ -121,6 +124,7 @@ class LM:
         x = self._embed_inputs(params, batch)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=self.device).expand(b, s)
+        x = self.knobs.shard_fn("hidden", x)
         x, aux, caches = apply_blocks(params["blocks"], x, positions,
                                       cfg=self.cfg, knobs=self.knobs,
                                       mode=mode)

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import _init
+from .layers import _identity_shard, _init
 
 
 def moe_init(gen, d_model: int, moe_cfg, dtype=torch.float32, device="cpu"):
@@ -44,7 +44,7 @@ def _capacity(chunk: int, moe_cfg, train: bool) -> int:
     return max(moe_cfg.experts_per_token, c)
 
 
-def moe_ffn(params, x, moe_cfg, *, train=True):
+def moe_ffn(params, x, moe_cfg, *, train=True, shard_fn=_identity_shard):
     """x (B, S, d) -> (out (B, S, d), aux losses {"moe_lb_loss",
     "moe_z_loss", "moe_drop_frac"} as f32 scalars)."""
     b, s, d = x.shape
@@ -74,10 +74,13 @@ def moe_ffn(params, x, moe_cfg, *, train=True):
     buf = x.new_zeros((e * m + 1, d))
     xs = x.reshape(b, n, chunk, 1, d).expand(b, n, chunk, k, d)
     buf.index_copy_(0, row.reshape(-1), xs.reshape(-1, d))
-    expert_in = buf[:e * m].view(e, m, d)
+    # the seams of the gather-form serving layout: a rank's experts' rows
+    # in, every expert's rows back before the combine
+    expert_in = shard_fn("moe_expert_in", buf[:e * m].view(e, m, d))
     h = F.silu(torch.bmm(expert_in, params["w_gate"]))
     h = h * torch.bmm(expert_in, params["w_up"])
-    expert_out = torch.bmm(h, params["w_down"]).reshape(e * m, d)
+    expert_out = shard_fn("moe_expert_out", torch.bmm(h, params["w_down"]))
+    expert_out = expert_out.reshape(e * m, d)
     w = torch.where(keep, top_w, 0.0).to(x.dtype)
     got = expert_out[torch.where(keep, row, 0).reshape(-1)]
     out = (got.reshape(b, n, chunk, k, d) * w[..., None]).sum(3)

@@ -230,19 +230,19 @@ def _acc_aux(aux, new):
     return {k: aux[k] + new.get(k, 0.0) for k in aux}
 
 
-def _ffn(p, h2, ffn, *, cfg, train):
+def _ffn(p, h2, ffn, *, cfg, train, shard_fn):
     """The FFN tail: (out, aux); aux holds the MoE losses of an MoE FFN."""
     if ffn == "moe":
-        return moe_ffn(p["moe"], h2, cfg.moe, train=train)
+        return moe_ffn(p["moe"], h2, cfg.moe, train=train, shard_fn=shard_fn)
     if ffn == "mlp":
-        return mlp(p["mlp"], h2, cfg.gated_mlp), {}
+        return mlp(p["mlp"], h2, cfg.gated_mlp, shard_fn=shard_fn), {}
     return torch.zeros_like(h2), {}
 
 
-def _ffn_out(p, h2, ffn, *, cfg):
+def _ffn_out(p, h2, ffn, *, cfg, shard_fn):
     """The inference FFN tail of the cached block bodies (eval capacity,
     aux dropped)."""
-    return _ffn(p, h2, ffn, cfg=cfg, train=False)[0]
+    return _ffn(p, h2, ffn, cfg=cfg, train=False, shard_fn=shard_fn)[0]
 
 
 # ============================================================ block bodies
@@ -262,22 +262,28 @@ def _apply_attn_block(p, x, positions, *, cfg, window, knobs, collect_cache,
     ``knobs.q_chunk``, which autograd can differentiate.  An MoE FFN runs
     at the training capacity unless ``collect_cache`` (as the
     reference's).  Returns (x, aux, cache)."""
+    shard_fn = knobs.shard_fn
     h = rmsnorm(p["ln1"], x)
     q, k, v = attn.qkv_project(p["attn"], h, positions, cfg.rope_theta)
+    q = shard_fn("attn_q", q)
+    k = shard_fn("attn_kv", k)
+    v = shard_fn("attn_kv", v)
     if collect_cache:
         ctx = ops.flash_attention(q, k, v, causal=True, window=window)
     else:
         ctx = attn.flash_attention_xla(q, k, v, causal=True, window=window,
                                        q_chunk=knobs.q_chunk)
+    ctx = shard_fn("attn_out", ctx)
     x = x + attn.attn_output(p["attn"], ctx)
     h2 = rmsnorm(p["ln2"], x)
-    out, aux = _ffn(p, h2, ffn, cfg=cfg, train=not collect_cache)
+    out, aux = _ffn(p, h2, ffn, cfg=cfg, train=not collect_cache,
+                    shard_fn=shard_fn)
     cache = ({"k": k.to(knobs.cache_dtype), "v": v.to(knobs.cache_dtype)}
              if collect_cache else None)
-    return x + out, aux, cache
+    return shard_fn("hidden", x + out), aux, cache
 
 
-def _apply_ssm_block(p, x, *, cfg, collect_cache):
+def _apply_ssm_block(p, x, *, cfg, collect_cache, shard_fn):
     """Whole-sequence SSM block: the SSD intra-chunk through the kernel
     when ``collect_cache`` (prefill), through the einsums otherwise
     (training).  Returns (x, cache)."""
@@ -288,7 +294,7 @@ def _apply_ssm_block(p, x, *, cfg, collect_cache):
     else:
         y = ssm_forward(p["ssm"], h, cfg.d_model, cfg.ssm, kernel=False)
         state = None
-    return x + y, state
+    return shard_fn("hidden", x + y), state
 
 
 def _apply_ssm_block_decode(p, x, cache, *, cfg):
@@ -349,11 +355,13 @@ def _apply_attn_block_decode(p, xs, cache, pos, active, index, *, cfg,
         ctx = ops.decode_attention(q, cache["k"], cache["v"], pos,
                                    active=active, window=window,
                                    num_splits=knobs.decode_splits)
+    ctx = knobs.shard_fn("attn_out", ctx)
     out = []
     for t, x in enumerate(xs):
         x = x + attn.attn_output(p["attn"], _row(ctx, t))
         h2 = rmsnorm(p["ln2"], x)
-        out.append(x + _ffn_out(p, h2, ffn, cfg=cfg))
+        out.append(x + _ffn_out(p, h2, ffn, cfg=cfg,
+                                shard_fn=knobs.shard_fn))
     return out
 
 
@@ -393,9 +401,10 @@ def _apply_attn_block_prefill_chunk(p, x, cache, slot, offset, *, cfg,
             q, cache["k"][slot:slot + 1], cache["v"][slot:slot + 1],
             causal=True, window=window, q_chunk=min(knobs.q_chunk, c),
             q_offset=offset)
+    ctx = knobs.shard_fn("attn_out", ctx)
     x = x + attn.attn_output(p["attn"], ctx)
     h2 = rmsnorm(p["ln2"], x)
-    return x + _ffn_out(p, h2, ffn, cfg=cfg)
+    return x + _ffn_out(p, h2, ffn, cfg=cfg, shard_fn=knobs.shard_fn)
 
 
 # ========================================================== sequence apply
@@ -473,7 +482,8 @@ def apply_blocks(blocks, x, positions, *, cfg, knobs, mode: str):
             aux = _acc_aux(aux, a)
         else:
             x, cache = _apply_ssm_block(p, x, cfg=cfg,
-                                        collect_cache=collect)
+                                        collect_cache=collect,
+                                        shard_fn=knobs.shard_fn)
         return x, aux, cache
 
     aux = _zero_aux(cfg, x.device)

@@ -68,8 +68,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-import torch
-
 from repro_torch.runtime.cluster import (ClusterRouter, ReplicaHandle,
                                          ReplicaState, _RouterRequest)
 from repro_torch.runtime.telemetry import ROUTER_PID, Telemetry
@@ -111,12 +109,12 @@ def transfer_chain(src_engine, dst_engine, req) -> bool:
     ``dst_engine``; True on success, False on destination backpressure.
 
     Dense checkpoints (``ckpt.pages is None``) are host snapshots —
-    engine-independent, nothing to do.  Paged: adopt fresh pages in the
-    destination pool, gather the chain's pages from every layer's source
-    pool and write them into the destination's in place
-    (``copy_cache_pages_across`` on int64 index tensors on the pools'
-    device, one chain length at a time: nothing is compiled, so nothing
-    is padded), then release the source pool's hold."""
+    engine-independent, nothing to do (a sharded destination broadcasts
+    one from the data row that took it when it resumes).  Paged: adopt
+    fresh pages in the destination pool, copy the chain's K/V into them
+    in every layer's pool, in place (``ServeEngine.carry_pages``: across
+    data rows of a sharded pair by a broadcast; nothing is compiled, so
+    nothing is padded), then release the source pool's hold."""
     ck = req._ckpt
     if ck.pages is None:
         return True
@@ -125,13 +123,7 @@ def transfer_chain(src_engine, dst_engine, req) -> bool:
     new_pages = dst_kv.adopt_chain(n)
     if new_pages is None:
         return False
-    model = dst_engine.model
-    src_idx = torch.as_tensor(ck.pages, dtype=torch.int64,
-                              device=model.device)
-    dst_idx = torch.as_tensor(new_pages, dtype=torch.int64,
-                              device=model.device)
-    dst_engine.caches = model.copy_cache_pages_across(
-        src_engine.caches, dst_engine.caches, src_idx, dst_idx)
+    dst_engine.carry_pages(src_engine, ck.pages, new_pages)
     src_engine.kv.release_chain(ck.pages)
     ck.pages = new_pages
     req._ckpt_pages = new_pages

@@ -73,8 +73,29 @@ page chain, zero-copy; dense: a host copy of the stripe), and
 ``offer()``/``free_slots()``/``can_accept()``/``live_requests()`` are what
 the routers of ``runtime/cluster.py`` and ``runtime/disagg.py`` read.
 
-Not in this slice (the field exists and raises ``NotImplementedError``
-when set): ``mesh_shape``.
+Sharded serving (``mesh=`` a ``DeviceMesh`` from
+``launch.mesh.make_serve_mesh``, or ``mesh_shape``; continuous mode): one
+engine over the ranks of a ``(data, model)`` or ``(pod, data, model)``
+mesh, each rank a process holding plain local tensors, in the gather form
+of ``sharding/rules.py``.  A rank holds its parameter shard (its query
+and KV heads, its MLP columns and experts) and the cache of its data
+row's slot block with its KV heads: a dense stripe per local slot, or its
+host's page sub-pool (``KVCacheManager(num_hosts=...)``; global page ids
+are translated to local ones behind a local null page, which takes the
+padded and parked writes).  The host loop is SPMD:
+every rank runs the same scheduler, drafter and sampler bookkeeping on the
+same requests, a device step runs each data row's slots on its ranks
+(the attention kernels on the local heads, the seams gathering over
+"model"), and one exchange over the data axes then carries the per-slot
+tokens to every rank, so every rank's host state stays identical.  A
+prefill chunk runs on the data row that owns its slot, and its token is
+broadcast.  The split-K fan-out is picked from the global ``(max pos,
+live)``.  The streams are bitwise the unsharded engine's where the
+products keep their bits under a cut of their rows or columns (see
+``PERF.md``).  A checkpoint resumed, or a chain handed off, into a slot
+of another data row moves there: a dense snapshot is broadcast from the
+row that took it, and a page chain is copied into fresh pages of the
+slot's sub-pool and its old pages released (``_carry_pages``).
 """
 from __future__ import annotations
 
@@ -88,7 +109,9 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import data_group, make_serve_mesh
 from repro_torch.models.transformer import tree_leaves
+from repro_torch.optim.adamw import tree_map
 from repro_torch.runtime.draft import get_drafter
 from repro_torch.runtime.kv_pool import KVCacheManager
 from repro_torch.runtime.sampling import (SamplingParams, matches_stop,
@@ -97,6 +120,10 @@ from repro_torch.runtime.scheduler import Scheduler
 from repro_torch.runtime.steps import (compiled_step, pick_decode_splits,
                                        step_cache_stats)
 from repro_torch.runtime.telemetry import Telemetry
+from repro_torch.sharding import (ServeShardFn, all_gather_cat, block_index,
+                                  broadcast_from, local_caches, local_cfg,
+                                  mesh_coord, mesh_sizes, model_cuts,
+                                  serve_batch_sharding, shard_params)
 
 __all__ = ["Checkpoint", "Request", "RequestHandle", "RequestState",
            "SamplingParams", "ServeConfig", "ServeEngine", "ServeStalled",
@@ -130,6 +157,11 @@ def _ckpt_fns(model, max_len: int):
     return copy_out, copy_in
 
 
+def _tree_to(tree, device):
+    """Every tensor of a nested dict on ``device``."""
+    return tree_map(lambda t: t.to(device), tree)
+
+
 class ServeStalled(RuntimeError):
     """``run()`` exhausted its tick budget with requests undrained, or a
     streaming handle stopped making progress."""
@@ -153,6 +185,7 @@ class Checkpoint:
     last_token: int  # the token to feed at ``pos``
     pages: Optional[list] = None
     kv: object = None
+    row: int = 0  # sharded: the data row whose ranks hold ``kv``
 
 
 @dataclass
@@ -253,11 +286,11 @@ class ServeConfig:
     mesh_shape: Optional[tuple] = None
 
 
-def _check_ported(config: ServeConfig) -> None:
-    if config.mesh_shape is not None:
-        raise NotImplementedError(
-            "ServeConfig mesh_shape: not ported yet (the port serves "
-            "unsharded engines; see ROADMAP.md)")
+def _check_mesh(config: ServeConfig) -> None:
+    """The reference's check of a mesh."""
+    if config.mode != "continuous":
+        raise ValueError("sharded serving (mesh / mesh_shape) "
+                         "requires mode='continuous'")
 
 
 def _check_role(config: ServeConfig, model) -> None:
@@ -297,7 +330,7 @@ def _check_speculative(config: ServeConfig, model) -> None:
 
 class ServeEngine:
     def __init__(self, model, params, config: Optional[ServeConfig] = None,
-                 *, telemetry=None, replica: int = 0):
+                 *, mesh=None, telemetry=None, replica: int = 0):
         config = config if config is not None else ServeConfig()
         if config.mode not in ("continuous", "wave"):
             raise ValueError(f"unknown mode {config.mode!r}")
@@ -305,7 +338,6 @@ class ServeEngine:
             raise ValueError(f"unknown cache {config.cache!r}")
         if config.on_stall not in ("raise", "warn"):
             raise ValueError(f"unknown on_stall {config.on_stall!r}")
-        _check_ported(config)
         _check_role(config, model)
         if config.preempt and config.mode != "continuous":
             raise ValueError("preempt=True requires mode='continuous' "
@@ -325,6 +357,15 @@ class ServeEngine:
                 model = type(model)(
                     model.cfg, model.knobs.with_(kv_quant=config.kv_dtype),
                     model.device)
+        # ---- device mesh: shard this replica without changing its output
+        self._num_hosts, self._host = 1, 0
+        self._lo, self._hi = 0, config.batch_slots
+        self._cache_mesh = None  # the axis sizes that cut the caches
+        if mesh is None and config.mesh_shape is not None:
+            mesh = make_serve_mesh(config.mesh_shape)
+        self.mesh = mesh
+        if mesh is not None:
+            model, params = self._shard(model, params, mesh, config)
         self.config = config
         self.model = model
         self.params = params
@@ -343,6 +384,8 @@ class ServeEngine:
         self.samp_topp = np.ones(batch_slots, np.float32)
         self.samp_keys = np.zeros((batch_slots, 2), np.uint32)
         self._finished: list[Request] = []
+        # checkpoints (dense snapshots, page chains) moved across data rows
+        self.moved_across_rows = 0
         self._admit_emitted = 0  # tokens emitted by chunked prefill
         self._decode_one = compiled_step(model, "decode_one")
         # checkpoint/restore (dense): built on first preemption
@@ -351,7 +394,7 @@ class ServeEngine:
         if config.cache == "paged":
             self._init_paged(config)
         else:
-            self.caches = model.init_cache(batch_slots, max_len)
+            self.caches = self._new_caches(False, batch_slots, max_len)
             self._step = compiled_step(model, "serve")
             self._step_sampled = compiled_step(model, "serve", sampled=True)
             # chunked prefill: one (1, C) step reused for every slot and
@@ -427,12 +470,21 @@ class ServeEngine:
         num_pages = config.num_pages
         if num_pages is None:
             num_pages = config.batch_slots * (max_len // page_size) + 1
+        hosts = self._num_hosts
+        if hosts > 1:
+            # host sub-pools tile the pool evenly: round capacity UP, so
+            # that a caller-sized pool never shrinks
+            num_pages = -(-num_pages // hosts) * hosts
         self.kv = KVCacheManager(
             slots=config.batch_slots, max_len=max_len, page_size=page_size,
             num_pages=num_pages, policy=config.page_policy,
-            prefix_cache=config.prefix_cache, chunk=c)
-        self.caches = self.model.init_cache_paged(self.kv.pool.num_pages,
-                                                  page_size)
+            prefix_cache=config.prefix_cache, chunk=c, num_hosts=hosts)
+        # a rank holds its host's sub-pool behind a null page of its own
+        # (``_page_table``), which takes the writes the null page takes
+        # unsharded
+        self._host_pages = self.kv.pool.num_pages // hosts
+        self.caches = self._new_caches(True, self.kv.pool.num_pages,
+                                       page_size)
         self._step = compiled_step(self.model, "paged_serve",
                                    page_size=page_size)
         self._step_sampled = compiled_step(self.model, "paged_serve",
@@ -462,6 +514,173 @@ class ServeEngine:
 
         return reset
 
+    def _shard(self, model, params, mesh, config):
+        """This rank's local model (its head counts and the seams' hook)
+        and parameter shard, its data row and slot block; the groups of
+        the host loop's exchange."""
+        _check_mesh(config)
+        sizes, coord = mesh_sizes(mesh), mesh_coord(mesh)
+        dp = serve_batch_sharding(mesh, config.batch_slots)
+        if dp is not None:
+            self._host, self._num_hosts = block_index(sizes, coord, dp[0])
+            per = config.batch_slots // self._num_hosts
+            self._lo, self._hi = self._host * per, (self._host + 1) * per
+            self._cache_mesh = sizes
+        else:  # every data row holds every slot and the whole pool
+            self._cache_mesh = {a: 1 if a in ("pod", "data") else n
+                                for a, n in sizes.items()}
+        cfg = model.cfg
+        cuts = model_cuts(mesh, params)
+        self._full_model = type(model)(cfg, model.knobs, "meta")
+        local = type(model)(
+            local_cfg(cfg, sizes, coord["model"], cuts),
+            model.knobs.with_(shard_fn=ServeShardFn(mesh, cuts)),
+            model.device)
+        params = shard_params(params, mesh, cfg)
+        params = _tree_to(params, model.device)
+        if self._num_hosts > 1:
+            self._dp_group = data_group(mesh)
+            # the rank of each data row that shares this rank's model
+            # index: the source of that row's prefill tokens
+            grid = mesh.mesh.reshape(self._num_hosts, sizes["model"])
+            self._row_src = grid[:, coord["model"]].tolist()
+        return local, params
+
+    def _new_caches(self, paged: bool, n: int, size: int):
+        """Zeroed caches of ``n`` slots of ``size`` positions (dense) or
+        ``n`` pages of ``size`` tokens (paged).  Sharded: this rank's share
+        of them, sized by the rules (``local_caches``), behind a null page
+        of its own when the pool is cut over data rows."""
+        if self.mesh is None:
+            return (self.model.init_cache_paged(n, size) if paged
+                    else self.model.init_cache(n, size))
+        full = self._full_model
+        full = full.init_cache_paged(n, size) if paged else full.init_cache(
+            n, size)
+        return local_caches(self._cache_mesh, full, paged=paged,
+                            kv_heads=self.model.cfg.num_kv_heads,
+                            sink=self._num_hosts > 1,
+                            device=self.model.device)
+
+    def _local(self, a):
+        """The rows of a per-slot host array that this rank computes."""
+        return a if self._num_hosts == 1 else a[self._lo:self._hi]
+
+    def _rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every slot's rows of a per-slot result, from the data rows that
+        computed them (the host loop's exchange)."""
+        if self._num_hosts == 1:
+            return t
+        return all_gather_cat(t, self._dp_group, dim=0)
+
+    def _owns(self, s: int) -> bool:
+        return self._lo <= s < self._hi
+
+    def _row(self, s: int) -> int:
+        """The data row that computes slot ``s``."""
+        return s // (self._hi - self._lo) if self._num_hosts > 1 else 0
+
+    def _snapshot(self, s: int):
+        """A dense checkpoint of slot ``s``: a host copy of its stripe on
+        the ranks of its data row (None on the other rows)."""
+        if not self._owns(s):
+            return None
+        self._ensure_ckpt_fns()
+        return self._copy_out(self.caches, s - self._lo)
+
+    def _restore(self, s: int, ck: "Checkpoint") -> None:
+        """Write a dense checkpoint back into slot ``s``.  Taken on
+        another data row, it is first broadcast from that row's rank of
+        this rank's model index (every rank of the data group joins)."""
+        self._ensure_ckpt_fns()
+        snap = ck.kv
+        if self._num_hosts > 1 and ck.row != self._row(s):
+            if snap is None:  # the shapes of a stripe of this rank's
+                snap = self._copy_out(self.caches, 0)
+            snap = tree_map(lambda t: broadcast_from(
+                t.to(self.model.device), self._row_src[ck.row],
+                self._dp_group), snap)
+            self.moved_across_rows += 1
+        if self._owns(s):
+            self.caches = self._copy_in(self.caches, snap, s - self._lo)
+
+    def _to_local(self, pages):
+        """Global ids of pages of one host sub-pool as a rank's pool
+        indices: page ``h * n + i`` of host ``h`` at ``1 + i``, behind the
+        rank's null page at 0.  Unsharded pools keep their ids."""
+        pages = np.asarray(pages, np.int64)
+        return pages % self._host_pages + 1 if self._num_hosts > 1 else pages
+
+    def _local_pages(self, pages) -> torch.Tensor:
+        """``_to_local`` of ``pages`` as int64 on the device."""
+        return torch.as_tensor(self._to_local(pages),
+                               device=self.model.device)
+
+    def carry_pages(self, src_engine, src_pages, dst_pages) -> None:
+        """Copy the K/V of ``src_engine``'s pages ``src_pages`` into this
+        engine's ``dst_pages`` (global ids; ``src_engine`` may be this
+        engine), every layer and scale leaf.  Sharded over data rows, each
+        chain lies in one host sub-pool: a copy within one row stays on
+        that row's ranks; across rows, the source row's rank of each model
+        index broadcasts the pages over the data group and the destination
+        row's ranks write them.  Both engines cut their pools over the
+        same data rows of one mesh, or neither does."""
+        if src_engine._num_hosts != self._num_hosts:
+            raise ValueError(f"page copy between pools cut over "
+                             f"{src_engine._num_hosts} and {self._num_hosts} "
+                             f"data rows")
+        a = 0 if self._num_hosts == 1 else src_engine.kv.pool.host_of(
+            src_pages[0])
+        b = 0 if self._num_hosts == 1 else self.kv.pool.host_of(dst_pages[0])
+        if a == b:
+            if self._host == a:
+                self.caches = self.model.copy_cache_pages_across(
+                    src_engine.caches, self.caches,
+                    src_engine._local_pages(src_pages),
+                    self._local_pages(dst_pages))
+            return
+        src_idx = src_engine._local_pages(src_pages)
+        dst_idx = self._local_pages(dst_pages)
+        for s_leaf, d_leaf in zip(tree_leaves(src_engine.caches),
+                                  tree_leaves(self.caches)):
+            ax = s_leaf.ndim - 4
+            if self._host == a:
+                buf = s_leaf.index_select(ax, src_idx)
+            else:
+                shape = list(s_leaf.shape)
+                shape[ax] = len(src_pages)
+                buf = torch.empty(shape, dtype=s_leaf.dtype,
+                                  device=s_leaf.device)
+            buf = broadcast_from(buf, self._row_src[a], self._dp_group)
+            if self._host == b:
+                d_leaf.index_copy_(ax, dst_idx, buf)
+
+    def _localize_chain(self, s: int) -> None:
+        """A chain attached to slot ``s`` from another data row's sub-pool
+        (a resumed or handed-off request placed on this row) moves into
+        fresh pages of the slot's sub-pool; the old pages are released.
+        No room on the slot's row, after evicting its prefix pages, raises:
+        the port computes a slot only against its own row's pages."""
+        kv = self.kv
+        pages = kv.detach_slot(s)
+        host = kv.slot_host(s)
+        if all(kv.pool.host_of(p) == host for p in pages):
+            kv.attach_slot(s, pages)
+            return
+        n = len(pages)
+        if kv.pool.free_in_host(host) < n and kv.prefix is not None:
+            kv.prefix.evict(n - kv.pool.free_in_host(host), host=host)
+        if kv.pool.free_in_host(host) < n:
+            kv.attach_slot(s, pages)
+            raise RuntimeError(
+                f"a chain of {n} pages resumed into slot {s} of data row "
+                f"{host}, which has {kv.pool.free_in_host(host)} free")
+        fresh = kv.pool.alloc(n, host=host)
+        self.carry_pages(self, pages, fresh)
+        kv.attach_slot(s, fresh)
+        kv.release_chain(pages)
+        self.moved_across_rows += 1
+
     def kv_reserved_bytes(self) -> int:
         """Device bytes held by the KV cache (dense stripes, or the page
         pools and their scale pools)."""
@@ -470,8 +689,19 @@ class ServeEngine:
 
     def _page_table(self) -> torch.Tensor:
         """The page table on the model's device (one host-to-device copy;
-        every layer of the step reads it)."""
-        return torch.as_tensor(self.kv.page_table, device=self.model.device)
+        every layer of the step reads it).  Sharded over data rows: this
+        rank's slot rows in local ids, page ``h * n + i`` of host ``h``'s
+        sub-pool at ``1 + i`` and the null page at 0, where the model's
+        padded and parked writes go."""
+        pt = self.kv.page_table
+        if self._num_hosts > 1:
+            pt = pt[self._lo:self._hi]
+            if ((pt != 0) & (pt // self._host_pages != self._host)).any():
+                raise RuntimeError(
+                    f"a page chain of data row {self._host} holds a page "
+                    f"of another row's sub-pool")
+            pt = np.where(pt == 0, 0, self._to_local(pt)).astype(np.int32)
+        return torch.as_tensor(pt, device=self.model.device)
 
     def bind_telemetry(self, telemetry: Optional[Telemetry] = None, *,
                        replica: int = 0) -> None:
@@ -615,15 +845,12 @@ class ServeEngine:
         already did the host half (page detach, DRF credit, requeue);
         this runs before any admission reuses the slot."""
         s, req = pre.slot, pre.req
-        if self.kv is not None:
-            kv_snap = None  # zero-copy: the detached page chain IS the KV
-        else:
-            self._ensure_ckpt_fns()
-            kv_snap = self._copy_out(self.caches, s)
+        # paged: zero-copy, the detached page chain IS the KV
+        kv_snap = None if self.kv is not None else self._snapshot(s)
         req._ckpt = Checkpoint(pos=int(self.pos[s]),
                                last_token=int(self.tokens[s, 0]),
                                pages=getattr(req, "_ckpt_pages", None),
-                               kv=kv_snap)
+                               kv=kv_snap, row=self._row(s))
         self._set_state(req, RequestState.PREEMPTED, pos=req._ckpt.pos,
                         count=req.preempt_count + 1)
         req.preempt_count += 1
@@ -637,8 +864,9 @@ class ServeEngine:
         nothing behind."""
         ck = req._ckpt
         if self.kv is None:
-            self._ensure_ckpt_fns()
-            self.caches = self._copy_in(self.caches, ck.kv, s)
+            self._restore(s, ck)
+        elif self._num_hosts > 1:
+            self._localize_chain(s)
         self.pos[s] = ck.pos
         self.tokens[s, 0] = ck.last_token
         req._feed = deque()  # type: ignore
@@ -664,12 +892,11 @@ class ServeEngine:
             req._ckpt_pages = self.kv.detach_slot(s)
             kv_snap = None
         else:
-            self._ensure_ckpt_fns()
-            kv_snap = self._copy_out(self.caches, s)
+            kv_snap = self._snapshot(s)
         req._ckpt = Checkpoint(pos=int(self.pos[s]),
                                last_token=int(self.tokens[s, 0]),
                                pages=getattr(req, "_ckpt_pages", None),
-                               kv=kv_snap)
+                               kv=kv_snap, row=self._row(s))
         req.state = RequestState.PREEMPTED
         self.tm.req_end(self.replica, req.req_id, reason="handoff",
                         pos=req._ckpt.pos)
@@ -689,8 +916,8 @@ class ServeEngine:
             self._execute_resume(s, req)
             return
         self._set_state(req, RequestState.PREFILL, slot=s)
-        if self._needs_reset:
-            self.caches = self._reset(self.caches, s)
+        if self._needs_reset and self._owns(s):
+            self.caches = self._reset(self.caches, s - self._lo)
         if self.chunked:
             # paged: prefill starts where the prefix cache left off; CoW
             # pages (adm.kv.cow) need no device copy, since they span
@@ -737,21 +964,29 @@ class ServeEngine:
         padded = np.zeros(n_chunks * c, np.int32)
         padded[:p - start] = prompt[start:]
         req._feed = deque()  # type: ignore
-        extra = () if self.kv is None else (self._page_table(),)
         sp = req.sampling
         last_row = (p - start - 1) - (n_chunks - 1) * c
-        nxt = None
-        for ci in range(n_chunks):
-            args = (self.params, self.caches,
-                    padded[None, ci * c:(ci + 1) * c], s, start + ci * c,
-                    *extra)
-            if ci == n_chunks - 1 and not sp.greedy:
-                nxt, self.caches = self._prefill_sampled(
-                    *args, last_row, sp.temperature, sp.top_k, sp.top_p,
-                    sp.key_data(req.req_id))
-            else:
-                nxt, self.caches = self._prefill(*args)
-        tok = int(nxt if not sp.greedy else nxt[last_row])
+        if self._owns(s):
+            extra = () if self.kv is None else (self._page_table(),)
+            for ci in range(n_chunks):
+                args = (self.params, self.caches,
+                        padded[None, ci * c:(ci + 1) * c], s - self._lo,
+                        start + ci * c, *extra)
+                if ci == n_chunks - 1 and not sp.greedy:
+                    nxt, self.caches = self._prefill_sampled(
+                        *args, last_row, sp.temperature, sp.top_k, sp.top_p,
+                        sp.key_data(req.req_id))
+                else:
+                    nxt, self.caches = self._prefill(*args)
+            tok_t = nxt if not sp.greedy else nxt[last_row]
+        else:  # another data row prefills the slot
+            tok_t = torch.zeros((), dtype=torch.int32,
+                                device=self.model.device)
+        if self._num_hosts > 1:
+            src = self._row_src[self._row(s)]
+            tok_t = broadcast_from(tok_t.to(torch.int32).reshape(()), src,
+                                   self._dp_group)
+        tok = int(tok_t)
         self.pos[s] = p
         self.tokens[s, 0] = tok
         self._emit(req, tok)
@@ -846,9 +1081,11 @@ class ServeEngine:
                 int(self.pos.max()), live, max_len=self.max_len,
                 page_size=0 if self.kv is None else self.kv.page_size),
                 bool(samp))
-        nxt_dev, self.caches = step(self.params, self.caches, self.tokens,
-                                    self.pos, *extra, *samp)
-        nxt = nxt_dev.cpu().numpy()
+        loc = self._local
+        nxt_dev, self.caches = step(self.params, self.caches,
+                                    loc(self.tokens), loc(self.pos), *extra,
+                                    *(loc(a) for a in samp))
+        nxt = self._rows(nxt_dev).cpu().numpy()
         for s, req in enumerate(self.active):
             if req is None:
                 continue
@@ -921,9 +1158,11 @@ class ServeEngine:
         samp = self._samp_arrays()
         step = self._spec_step_sampled if samp else self._spec_step
         extra = () if self.kv is None else (self._page_table(),)
-        target_dev, self.caches = step(self.params, self.caches, feed,
-                                       self.pos, *extra, *samp)
-        target = target_dev.cpu().numpy()  # (B, T) verified tokens
+        loc = self._local
+        target_dev, self.caches = step(self.params, self.caches, loc(feed),
+                                       loc(self.pos), *extra,
+                                       *(loc(a) for a in samp))
+        target = self._rows(target_dev).cpu().numpy()  # (B, T) verified
         self.spec_ticks += 1
         for s, req in enumerate(self.active):
             if req is None:

@@ -141,17 +141,18 @@ def test_engine_api_edges():
     ("kv_dtype", "int8"), ("draft_k", 2), ("preempt", True),
     ("role", "prefill"), ("mesh_shape", (1, 2))])
 def test_unported_serve_config_fields_raise(field, value):
-    """The field of a later slice (``mesh_shape``) raises
-    NotImplementedError; ``kv_dtype`` is ported and on the (default) dense
-    cache raises the reference's ValueError; ``draft_k``, ``preempt`` and
-    ``role`` are ported and construct an engine."""
+    """Every field is ported: ``kv_dtype`` on the (default) dense cache
+    raises the reference's ValueError, and so does ``mesh_shape`` in a
+    process without a world of its size (the reference's "needs n
+    devices"); ``draft_k``, ``preempt`` and ``role`` construct an
+    engine."""
     model, params = _port()
     if field in ("draft_k", "preempt", "role"):
         eng = ServeEngine(model, params, ServeConfig(**{field: value}))
         assert getattr(eng.config, field) == value
         return
     error, match = ((ValueError, "cache='paged'") if field == "kv_dtype"
-                    else (NotImplementedError, "ROADMAP"))
+                    else (ValueError, "needs 2 devices, 1 visible"))
     with pytest.raises(error, match=match):
         ServeEngine(model, params, ServeConfig(**{field: value}))
 
