@@ -262,8 +262,30 @@ Run from the repository root.  Phases, each raising on failure:
    the unsharded engine's, a difference
    reported with its first position and the top-2 logit margin there;
    the logits probe must stay within LOGIT_TOL of the unsharded model's
-   (bitwise or not, printed).  Last, the launcher with ``--tp 2`` in a
-   world of 2 on one card must refuse ("needs 2 devices").
+   (bitwise or not, printed).  Then each world trains (its training
+   part, the ranks' serving model freed first): internlm2-1.8b at full
+   width, 2 of 24 layers, B = 4 x 512 (``MarkovSynthetic``), the
+   training launcher's knobs.  The unsharded train step on the card runs
+   first in the phase's own process (``grad_accum`` 2, 3 steps) and
+   writes its losses, grad norms and params.  At (2, 2):
+   ZeRO-2 (``grad_shardings``), ``grad_accum`` 2, 2 steps, then the
+   ``Trainer``'s save (the state gathered whole, rank 0 writing it) and
+   the int8 compressed all-reduce over the data group on a (8192, 2048)
+   CUDA tensor (within 2% of the float mean, the ranks bitwise alike).
+   At (1, 2): tensor parallel, ``grad_accum`` 2, 2 steps; a ``Trainer``
+   restoring (2, 2)'s checkpoint (elastic: its own blocks, read from the
+   memory-mapped arrays) for one more step; a 2-stage
+   ``make_pipelined_forward`` at width 2048 against the sequential
+   stack.  Every step's loss and grad_norm within
+   SHARD_LOSS_RTOL / SHARD_NORM_RTOL of the unsharded step's, every
+   param within SHARD_PARAM_ATOL but for at most SHARD_NEAR0_FRAC of a
+   leaf (elements whose gradient lies near 0 move by up to 2 lr a step);
+   each rank prints its step host ms (ranks time-sliced on one card:
+   not a data-parallel speed), its master, mu and nu bytes against the
+   unsharded state's (a (2, 2) rank must hold at most half a (1, 2)
+   rank's) and ``max_memory_allocated``.  Last, the launcher with
+   ``--tp 2`` in a world of 2 on one card must refuse ("needs 2
+   devices").
 
 The last lines are the nvidia-smi line, a JSON ``{"kernels": [...]}`` line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -400,6 +422,43 @@ def _ptxas_report(log):
                                timeout=60).stdout.splitlines()
     return {n.replace("(anonymous namespace)::", "").replace("void ", "")
             .split("(")[0]: tuple(v) for n, v in zip(names, found.values())}
+
+
+_EARLY = {}  # name: a launcher started at the top of main, reaped later
+_CHILDREN = []  # every process started by _spawn, killed if left running
+
+
+def _spawn(cmd, extra_env=None):
+    """Start ``cmd`` from the repo root with ``src`` on its path, its
+    output in temporary files; ``_reap`` waits for it."""
+    import tempfile
+
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err,
+                            text=True, env={**os.environ, **(extra_env or {}),
+                                            "PYTHONPATH": str(ROOT / "src")})
+    _CHILDREN.append(proc)
+    return proc, out, err, time.perf_counter()
+
+
+def _reap(job, timeout):
+    """(the finished process as ``subprocess.run`` returns it, seconds
+    since its start); kills it past ``timeout`` seconds from its start."""
+    proc, out, err, t0 = job
+    try:
+        proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    secs = time.perf_counter() - t0
+    out.seek(0)
+    err.seek(0)
+    res = subprocess.CompletedProcess(proc.args, proc.returncode,
+                                      out.read(), err.read())
+    out.close()
+    err.close()
+    return res, secs
 
 
 def phase_build():
@@ -1003,6 +1062,7 @@ def _profile_tick(run, label, ticks=3, top=8):
     kernels that took the most, and the share of the window the card was
     busy."""
     from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -1015,10 +1075,15 @@ def _profile_tick(run, label, ticks=3, top=8):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, n = by_kernel.get(e.name, (0.0, 0))
-            by_kernel[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    # the raw events: ``prof.events()`` would first build the host ops'
+    # tree in Python, seconds a call, for kernel times that are the same
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or _filter_name(e.name())
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        name = _rewrite_name(e.name(), with_wildcard=True)
+        us, n = by_kernel.get(name, (0.0, 0))
+        by_kernel[name] = (us + (e.end_ns() - e.start_ns()) / 1e3, n + 1)
     if not by_kernel:
         _log(f"[profile] {label}: not measured (the profiler saw no "
              f"device kernels)")
@@ -4660,19 +4725,19 @@ def _train_restart():
     _free_device()
 
 
+TRAIN_LAUNCHER_CMD = [sys.executable, "-m", "repro_torch.launch.train",
+                      "--arch", TRAIN_ARCH, "--smoke", "--steps", "30"]
+
+
 def _train_launcher():
     """(d) ``python -m repro_torch.launch.train --arch internlm2-1.8b
-    --smoke --steps 30`` on the card: exit 0, the last logged loss below
-    the first."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           TRAIN_ARCH, "--smoke", "--steps", "30"]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=600, env={**os.environ,
-                                           "PYTHONPATH": str(ROOT / "src")})
+    --smoke --steps 30`` on the card (started beside the build, as it
+    needs no kernel): exit 0, the last logged loss below the first."""
+    cmd = TRAIN_LAUNCHER_CMD
+    res, secs = _reap(_EARLY.pop("train", None) or _spawn(cmd), 600)
     lines = [ln for ln in res.stdout.splitlines() if ln.strip()]
     _log(f"[train] (d) launcher ({' '.join(cmd[2:])}): exit "
-         f"{res.returncode} in {time.perf_counter() - t0:.1f}s; {lines}")
+         f"{res.returncode} in {secs:.1f}s since its start; {lines}")
     losses = [float(ln.split()[3]) for ln in lines if ln.startswith("step ")]
     if res.returncode or len(losses) < 2 or losses[-1] >= losses[0]:
         _log(res.stderr[-3000:])
@@ -4725,7 +4790,7 @@ def phase_train(smi):
 
 
 # ------------------------------------------------- 16: sharded serving
-SHARD_MESHES = ((1, 2), (2, 2))
+SHARD_MESHES = ((2, 2), (1, 2))  # (1, 2) restores (2, 2)'s checkpoint
 SHARD_SLOTS, SHARD_LEN, SHARD_CHUNK, SHARD_PAGE = 4, 2048, 256, 16
 SHARD_REQUESTS = 4  # one wave of the 4 slots: the run's time pays per tick
 SHARD_NEW = (12, 21)  # new tokens a request, drawn from [12, 21)
@@ -5002,11 +5067,309 @@ def _shard_rank():
         del eng
         _free_device()
     rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model, params
+    _free_device()
+    rec["train"] = _shard_train(shape, mesh, out_dir.parent)
     with open(out_dir / f"rank{rank}.json", "w") as f:
         json.dump(rec, f)
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+# phase 16's training part: internlm2-1.8b at full width, 2 of 24 layers
+# (phase 15a's depth), B = 4 x 512, inside the phase's worlds
+SHARD_TRAIN = dict(layers=2, batch=4, seq=512, steps=2)
+SHARD_TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=4)
+# the sharded step against the unsharded one on the card: the loss and
+# grad_norm (gloo sums the data ranks' gradients in another order than
+# one GEMM sums the rows); the params after the steps element by element:
+# AdamW moves an element by about lr a step whatever its gradient's size,
+# so an element whose gradient lies near 0 may move either way on either
+# side (at most 2 lr a step); every other one within SHARD_PARAM_ATOL.
+# A leaf may hold at most SHARD_NEAR0_FRAC of its elements past that.
+SHARD_LOSS_RTOL, SHARD_NORM_RTOL = 1e-5, 1e-4
+SHARD_PARAM_ATOL, SHARD_NEAR0_FRAC = 1e-6, 1e-2
+SHARD_COMPRESS_SHAPE = (8192, 2048)  # one layer's w_up
+SHARD_PIPE = dict(layers=2, micro=4, rows=256, width=2048)
+
+
+def _shard_train_model(mesh=None):
+    """Phase 16's training model: ``TRAIN_ARCH`` at full width, cut to
+    ``SHARD_TRAIN["layers"]`` layers, the training launcher's knobs, over
+    ``mesh``'s seams when given."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.sharding import make_shard_fn
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=SHARD_TRAIN["layers"])
+    knobs = _train_knobs(SHARD_TRAIN["seq"])
+    if mesh is not None:
+        knobs = knobs.with_(shard_fn=make_shard_fn(mesh, cfg))
+    return LM(cfg, knobs, device="cuda")
+
+
+def _shard_train_data(vocab):
+    from repro_torch.data import MarkovSynthetic
+
+    return MarkovSynthetic(vocab_size=vocab, seq_len=SHARD_TRAIN["seq"],
+                           global_batch=SHARD_TRAIN["batch"], seed=0)
+
+
+def _shard_train_reference(ref_dir):
+    """The unsharded train step on the card from the phase's init,
+    ``grad_accum`` 2 for 3 steps.  Writes each step's loss, grad_norm,
+    lr and host ms (``ref.json``) and the params after steps 2 and 3 for
+    the ranks to hold theirs against."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+
+    model = _shard_train_model()
+    data = _shard_train_data(model.cfg.vocab_size)
+    out = {}
+    for accum, n in ((2, SHARD_TRAIN["steps"] + 1),):
+        state = init_train_state(
+            model, torch.Generator(device="cuda").manual_seed(0))
+        step = make_train_step(model, AdamWConfig(**SHARD_TRAIN_OPT), accum)
+        mets = []
+        for i in range(n):
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in data.batch(i).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            mets.append({"loss": float(met["loss"]),
+                         "grad_norm": float(met["grad_norm"]),
+                         "lr": float(met["lr"]),
+                         "ms": (time.perf_counter() - t0) * 1e3})
+            if i >= 1:
+                torch.save(tree_map(lambda t: t.cpu(), state["params"]),
+                           ref_dir / f"params_a{accum}_s{i + 1}.pt")
+        out[str(accum)] = mets
+        opt_bytes = {k: _tree_bytes(state["opt"][k])
+                     for k in ("master", "mu", "nu")}
+        del state, step
+    out["opt_bytes"] = opt_bytes
+    out["params"] = model.cfg.param_count()
+    with open(ref_dir / "ref.json", "w") as f:
+        json.dump(out, f)
+    del model
+    _free_device()
+    return out
+
+
+def _shard_params_held(label, params, pspec, ref_path, sizes, coord, lrs):
+    """Each leaf block of ``params`` against the rank's block of the
+    unsharded params at ``ref_path``: every element within 2 sum(lr) +
+    SHARD_PARAM_ATOL, at most SHARD_NEAR0_FRAC of a leaf's past
+    SHARD_PARAM_ATOL.  Returns (max abs err, worst leaf's share past)."""
+    from repro_torch.sharding.rules import shard_block
+
+    ref = _flat(torch.load(ref_path, mmap=True))
+    got = _flat(params)
+    worst, frac, where = 0.0, 0.0, ""
+    for key, r in ref.items():
+        r = shard_block(r, pspec[key], sizes, coord).to("cuda")
+        err = (got[key].float() - r.float()).abs()
+        worst = max(worst, float(err.max()))
+        f = float((err > SHARD_PARAM_ATOL).float().mean())
+        if f > frac:
+            frac, where = f, key
+    if worst > 2 * sum(lrs) + SHARD_PARAM_ATOL or frac > SHARD_NEAR0_FRAC:
+        raise AssertionError(f"{label}: params off by {worst:.3g} (bound "
+                             f"{2 * sum(lrs):.3g}), {frac:.4f} of {where} "
+                             f"past {SHARD_PARAM_ATOL}")
+    return worst, frac
+
+
+def _shard_train_steps(label, step, state, data, ref, first=0):
+    """Run ``len(ref)`` steps of ``step`` from ``state`` on ``data``'s
+    batches from ``first`` and hold each step's loss and grad_norm to the
+    unsharded step's.  Returns (state, per-step records)."""
+    out = []
+    for i, want in enumerate(ref):
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in data.batch(first + i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        rec = {"loss": float(met["loss"]), "grad_norm":
+               float(met["grad_norm"]), "ms":
+               (time.perf_counter() - t0) * 1e3}
+        out.append(rec)
+        if (abs(rec["loss"] - want["loss"]) > SHARD_LOSS_RTOL * want["loss"]
+                or abs(rec["grad_norm"] - want["grad_norm"])
+                > SHARD_NORM_RTOL * want["grad_norm"]):
+            raise AssertionError(f"{label} step {first + i + 1}: loss "
+                                 f"{rec['loss']!r} grad_norm "
+                                 f"{rec['grad_norm']!r} against the "
+                                 f"unsharded {want}")
+    return state, out
+
+
+def _shard_compress(mesh):
+    """The int8 compressed all-reduce over the data group on CUDA
+    tensors: a rank's seeded (8192, 2048) gradient, against the float
+    mean; every data rank's result bitwise the others'."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import data_group
+    from repro_torch.optim import CompressionState, compress_error_feedback
+    from repro_torch.sharding import all_gather_cat
+
+    group = data_group(mesh)
+    gen = torch.Generator(device="cuda").manual_seed(dist.get_rank())
+    g = {"w": torch.randn(SHARD_COMPRESS_SHAPE, generator=gen,
+                          device="cuda")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = compress_error_feedback(g, CompressionState.init(g), group)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    exact = g["w"].clone()
+    dist.all_reduce(exact, group=group)
+    exact /= dist.get_world_size(group)
+    rel = float((out["w"] - exact).abs().max() / exact.abs().max())
+    every = all_gather_cat(out["w"][None], group, 0)
+    same = all(torch.equal(every[0], e) for e in every)
+    if rel > 0.02 or not same:
+        raise AssertionError(f"compressed all-reduce: rel err {rel:.4g}, "
+                             f"ranks agree {same}")
+    return {"rel_err": rel, "ranks_agree": same, "ms": ms}
+
+
+def _shard_pipeline():
+    """A 2-stage ``make_pipelined_forward`` at width 2048 (2 layers of
+    tanh(h @ w + b) a stage, 4 microbatches of 256 rows) on the world of
+    2, against the sequential stack on the card."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.sharding import make_pipelined_forward
+
+    n, c = dist.get_world_size(), SHARD_PIPE
+    mesh = DeviceMesh("cpu", torch.arange(n), mesh_dim_names=("stage",))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    d = c["width"]
+    params = {"w": torch.randn((n, c["layers"], d, d), generator=gen,
+                               device="cuda") * d ** -0.5,
+              "b": torch.randn((n, c["layers"], d), generator=gen,
+                               device="cuda") * 0.1}
+    x = torch.randn((c["micro"], c["rows"], d), generator=gen, device="cuda")
+
+    def stage_fn(p, h):
+        for w, b in zip(p["w"], p["b"]):
+            h = torch.tanh(h @ w + b)
+        return h
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = make_pipelined_forward(stage_fn, mesh)(params, x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = x
+    for s in range(n):
+        want = stage_fn({k: v[s] for k, v in params.items()}, want)
+    err = float((out - want).abs().max())
+    if not torch.isfinite(out).all() or err > 1e-5:
+        raise AssertionError(f"pipeline: max_abs_err {err:.3g}")
+    return {"max_abs_err": err, "bitwise": torch.equal(out, want), "ms": ms}
+
+
+def _shard_train(shape, mesh, ref_dir):
+    """Phase 16's training part in one rank (see the module docstring);
+    returns the rank's record.  Every check raises."""
+    import torch.distributed as dist
+
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+    from repro_torch.runtime.train import TrainConfig, Trainer
+    from repro_torch.sharding import grad_shardings
+    from repro_torch.sharding.rules import (mesh_coord, mesh_sizes,
+                                            param_shapes)
+    from repro_torch.sharding.zero import state_shardings_of
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with open(ref_dir / "ref.json") as f:
+        ref = json.load(f)
+    model = _shard_train_model(mesh)
+    cfg = model.cfg
+    data = _shard_train_data(cfg.vocab_size)
+    opt = AdamWConfig(**SHARD_TRAIN_OPT)
+    specs = state_shardings_of(model)
+    pspec = _flat(specs["params"])
+    sizes, coord = mesh_sizes(mesh), mesh_coord(mesh)
+    ckpt = ref_dir / "ckpt"
+    steps = SHARD_TRAIN["steps"]
+    rec = {}
+    if shape == (2, 2):  # ZeRO-2, grad_accum 2, then the save
+        state = init_train_state(
+            model, torch.Generator(device="cuda").manual_seed(0))
+        step = make_train_step(model, opt, 2, grad_shardings=grad_shardings(
+            mesh, cfg, param_shapes(cfg)))
+        state, rec["steps"] = _shard_train_steps(
+            "zero2", step, state, data, ref["2"][:steps])
+        rec["params"] = _shard_params_held(
+            "zero2", state["params"], pspec, ref_dir / "params_a2_s2.pt",
+            sizes, coord, [m["lr"] for m in ref["2"][:steps]])
+        rec["opt_bytes"] = {k: _tree_bytes(state["opt"][k])
+                            for k in ("master", "mu", "nu")}
+        t0 = time.perf_counter()
+        tr = Trainer(model, data, TrainConfig(checkpoint_dir=str(ckpt),
+                                              opt=opt), mesh=mesh)
+        tr.state, tr.step = state, steps
+        tr.save()
+        rec["save_s"] = time.perf_counter() - t0
+        del state, step, tr
+        _free_device()
+        rec["compress"] = _shard_compress(mesh)
+    else:  # tensor parallel, the elastic restore, the pipeline
+        state = init_train_state(
+            model, torch.Generator(device="cuda").manual_seed(0))
+        step = make_train_step(model, opt, 2)
+        state, rec["steps"] = _shard_train_steps(
+            "tp", step, state, data, ref["2"][:steps])
+        rec["params"] = _shard_params_held(
+            "tp", state["params"], pspec, ref_dir / "params_a2_s2.pt",
+            sizes, coord, [m["lr"] for m in ref["2"][:steps]])
+        rec["opt_bytes"] = {k: _tree_bytes(state["opt"][k])
+                            for k in ("master", "mu", "nu")}
+        del state, step
+        _free_device()
+        t0 = time.perf_counter()
+        tr = Trainer(model, data, TrainConfig(
+            steps=steps + 1, grad_accum=2, checkpoint_every=0,
+            checkpoint_dir=str(ckpt), log_every=1, opt=opt), mesh=mesh)
+        tr.maybe_restore()
+        rec["restore_s"] = time.perf_counter() - t0
+        if tr.step != steps:
+            raise AssertionError(f"restored step {tr.step}, saved {steps}")
+        hist = tr.run()["history"]
+        want = ref["2"][steps]
+        got = hist[-1]
+        rec["resumed"] = {"loss": got["loss"], "grad_norm":
+                          got["grad_norm"]}
+        if abs(got["loss"] - want["loss"]) > SHARD_LOSS_RTOL * want["loss"]:
+            raise AssertionError(f"resumed step {steps + 1}: loss "
+                                 f"{got['loss']!r}, unsharded {want}")
+        rec["resumed_params"] = _shard_params_held(
+            "resumed", tr.state["params"], pspec,
+            ref_dir / f"params_a2_s{steps + 1}.pt", sizes, coord,
+            [m["lr"] for m in ref["2"]])
+        del tr
+        _free_device()
+        rec["pipeline"] = _shard_pipeline()
+    dist.barrier()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["seconds"] = time.perf_counter() - t_start
+    del model
+    _free_device()
+    return rec
 
 
 def _shard_world(shape, out_dir):
@@ -5096,17 +5459,18 @@ def _shard_differences(model, params, reqs, got, want, label):
     return n
 
 
+REFUSAL_CMD = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+               "internlm2-1.8b", "--tp", "2", "--requests", "2"]
+REFUSAL_ENV = {"RANK": "0", "WORLD_SIZE": "2", "LOCAL_RANK": "0"}
+
+
 def _shard_launcher_refusal():
     """The launcher, ``--tp 2`` in a world of 2 on a machine with fewer
-    cards than ranks: it must raise the reference's "needs n devices"
-    error, not move to gloo or the CPU."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-           "internlm2-1.8b", "--tp", "2", "--requests", "2"]
-    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=300, env={
-                             **os.environ, "RANK": "0", "WORLD_SIZE": "2",
-                             "LOCAL_RANK": "0",
-                             "PYTHONPATH": str(ROOT / "src")})
+    cards than ranks (started beside the build: it stops before any
+    kernel): it must raise the reference's "needs n devices" error, not
+    move to gloo or the CPU."""
+    res, _ = _reap(_EARLY.pop("refusal", None)
+                   or _spawn(REFUSAL_CMD, REFUSAL_ENV), 300)
     said = (res.stderr.strip().splitlines() or [""])[-1]
     _log(f"[shard] launcher --tp 2 on {torch.cuda.device_count()} card(s): "
          f"exit {res.returncode}; {said}")
@@ -5114,6 +5478,67 @@ def _shard_launcher_refusal():
             res.returncode == 0 or "needs 2 devices" not in said):
         raise AssertionError("the launcher did not refuse a world larger "
                              "than the visible cards")
+
+
+def _shard_train_report(shape, recs, ref, smi):
+    """Log each rank's training record of one world (the ranks checked
+    their numbers against the unsharded step already)."""
+    label = f"mesh {shape[0]}x{shape[1]}"
+    case = "ZeRO-2, grad_accum 2" if shape == (2, 2) else \
+        "tensor parallel, grad_accum 2"
+    want = ref["2"]
+    for rec in recs:
+        t = rec["train"]
+        steps = t["steps"]
+        _log(f"[shard-train] {label} rank {rec['rank']} "
+             f"{tuple(rec['coord'])} {case}, B={SHARD_TRAIN['batch']} x "
+             f"{SHARD_TRAIN['seq']}: loss {[m['loss'] for m in steps]} "
+             f"(unsharded {[m['loss'] for m in want[:len(steps)]]}), "
+             f"grad_norm {[round(m['grad_norm'], 6) for m in steps]} "
+             f"(unsharded {[round(m['grad_norm'], 6) for m in want[:len(steps)]]}); "
+             f"params after {len(steps)} steps: max_abs_err "
+             f"{t['params'][0]:.3g}, worst leaf's share past "
+             f"{SHARD_PARAM_ATOL:g}: {t['params'][1]:.2e}; step host ms "
+             f"{[round(m['ms'], 1) for m in steps]} (ranks time-sliced on "
+             f"one {smi} over gloo: not a data-parallel speed; unsharded "
+             f"{[round(m['ms'], 1) for m in want[:len(steps)]]}); master/"
+             f"mu/nu bytes {[t['opt_bytes'][k] for k in ('master', 'mu', 'nu')]}"
+             f" against the unsharded "
+             f"{[ref['opt_bytes'][k] for k in ('master', 'mu', 'nu')]} "
+             f"({t['opt_bytes']['master'] / ref['opt_bytes']['master']:.3f}"
+             f"); max_memory_allocated {t['peak_gb']:.2f} GB; "
+             f"{t['seconds']:.1f} s")
+        if "save_s" in t:
+            _log(f"[shard-train] {label} rank {rec['rank']}: checkpoint "
+                 f"gathered and written by rank 0 in {t['save_s']:.1f} s; "
+                 f"compressed all-reduce over the data group "
+                 f"{SHARD_COMPRESS_SHAPE}: rel err "
+                 f"{t['compress']['rel_err']:.4g}, ranks bitwise "
+                 f"{t['compress']['ranks_agree']}, "
+                 f"{t['compress']['ms']:.1f} ms host")
+        if "resumed" in t:
+            r, p = t["resumed"], t["pipeline"]
+            _log(f"[shard-train] {label} rank {rec['rank']}: restored "
+                 f"(2, 2)'s step-{SHARD_TRAIN['steps']} checkpoint in "
+                 f"{t['restore_s']:.1f} s, one more step: loss "
+                 f"{r['loss']!r} (unsharded "
+                 f"{ref['2'][SHARD_TRAIN['steps']]['loss']!r}), params "
+                 f"max_abs_err {t['resumed_params'][0]:.3g}; 2-stage "
+                 f"pipeline at width {SHARD_PIPE['width']}: max_abs_err "
+                 f"{p['max_abs_err']:.3g} (bitwise {p['bitwise']}), "
+                 f"{p['ms']:.1f} ms host")
+
+
+def _shard_train_zero(train, ref):
+    """ZeRO over data 2: a (2, 2) rank's master, mu and nu hold at most
+    half a (1, 2) rank's (the same model cut, the data axis added)."""
+    for k in ("master", "mu", "nu"):
+        a = max(t["opt_bytes"][k] for t in train[(2, 2)])
+        b = min(t["opt_bytes"][k] for t in train[(1, 2)])
+        _log(f"[shard-train] {k} bytes a rank: (1, 2) {b}, (2, 2) {a} "
+             f"({a / b:.3f}); unsharded {ref['opt_bytes'][k]}")
+        if a * 2 > b * 1.01:
+            raise AssertionError(f"ZeRO did not halve {k} at data 2")
 
 
 def phase_sharded(smi):
@@ -5148,8 +5573,12 @@ def phase_sharded(smi):
     differ = _shard_products(model, params)
     _log(f"[time] 16 unsharded engines and probe: "
          f"{time.perf_counter() - t0:.1f} s")
-    totals = {}
+    totals, train = {}, {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        train_ref = _shard_train_reference(Path(tmp))
+        _log(f"[time] 16 training reference (the unsharded steps): "
+             f"{time.perf_counter() - t0:.1f} s")
         for shape in SHARD_MESHES:
             t0 = time.perf_counter()
             out_dir = Path(tmp) / "x".join(map(str, shape))
@@ -5237,6 +5666,9 @@ def phase_sharded(smi):
             if worst > LOGIT_TOL:
                 raise AssertionError(f"{label}: sharded logits left the "
                                      f"unsharded model's")
+            train[shape] = [r["train"] for r in recs]
+            _shard_train_report(shape, recs, train_ref, smi)
+        _shard_train_zero(train, train_ref)
     del model, params
     _free_device()
     _shard_launcher_refusal()
@@ -5259,6 +5691,19 @@ def main():
         return out
 
     device_name, smi = phase_device()
+    # the two launchers that need no kernel run beside the build
+    _EARLY["train"] = _spawn(TRAIN_LAUNCHER_CMD)
+    _EARLY["refusal"] = _spawn(REFUSAL_CMD, REFUSAL_ENV)
+    try:
+        return _main(t_start, timed, device_name, smi)
+    finally:
+        for proc in _CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _main(t_start, timed, device_name, smi):
     timed("2 build", phase_build)
     rows = []
     for label, phase in (("3", phase_kernels), ("3p", phase_paged_kernels),

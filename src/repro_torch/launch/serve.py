@@ -78,7 +78,10 @@ On the card every rank takes a card of its own (``cuda:LOCAL_RANK``,
 NCCL), and a world larger than the visible cards raises; ``--device cpu``
 runs the ranks over gloo.  ``--dist-init`` names the process group's
 rendezvous (default ``env://``, which torchrun sets).  Rank 0 prints the
-report.  A mesh takes one engine: no ``--replicas`` or ``--roles``.
+report.  ``--replicas``, ``--roles`` and ``--fault-schedule`` build every
+replica over the mesh, and every rank runs the router; its straggler
+watchdog reads rank 0's clock (``runtime.serve.MeshWatchdog``), so the
+ranks flag the same steps and place alike.
 """
 from __future__ import annotations
 
@@ -101,7 +104,7 @@ from repro_torch.runtime.draft import DRAFTERS
 from repro_torch.runtime.fault import ReplicaFaultInjector
 from repro_torch.runtime.scheduler import ADMISSION_POLICIES, VICTIM_POLICIES
 from repro_torch.runtime.serve import (Request, SamplingParams, ServeConfig,
-                                       ServeEngine)
+                                       ServeEngine, mesh_watchdogs)
 from repro_torch.runtime.telemetry import Telemetry
 
 
@@ -387,10 +390,6 @@ def main(argv=None):
     if mesh_shape is not None and args.mode != "continuous":
         ap.error(f"--mesh-shape/--tp need --mode continuous "
                  f"(got {args.mode!r})")
-    if mesh_shape is not None and (args.replicas > 1 or args.roles
-                                   or args.fault_schedule):
-        ap.error("--mesh-shape/--tp serve one engine: no --replicas, "
-                 "--roles or --fault-schedule")
     if mesh_shape is None:
         return _serve(args, args.device, None)
     import torch.distributed as dist
@@ -425,6 +424,10 @@ def _serve(args, device, mesh_shape):
     tm = Telemetry(trace=bool(args.trace_out) or args.flight_recorder > 0,
                    flight=args.flight_recorder, flight_dir="artifacts")
     router = _make_router(args, model, params, serve_cfg, tm)
+    if router is not None and mesh_shape is not None:
+        # every rank runs the router: its straggler flags follow rank 0's
+        # clock, so that the ranks place alike
+        mesh_watchdogs(router, model.device)
     if router is None:
         engine = ServeEngine(model, params, serve_cfg, telemetry=tm)
     front = router if router is not None else engine

@@ -75,12 +75,26 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
+_ROPE_FREQS: dict = {}
+
+
+def _rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
+    """The f32 frequencies on ``device``, copied there once: a copy from
+    host memory at every call waits for the work queued on the card, so
+    each attention layer would stall the host."""
+    key = (hd, float(theta), str(device))
+    freqs = _ROPE_FREQS.get(key)
+    if freqs is None:
+        freqs = torch.as_tensor(rope_frequencies(hd, theta),
+                                dtype=torch.float32, device=device)
+        _ROPE_FREQS[key] = freqs
+    return freqs
+
+
 def apply_rope(x, positions, theta: float):
     """x: (..., seq, heads, head_dim); positions: (..., seq).  Rotates the
     two halves of the head (not interleaved pairs)."""
-    hd = x.shape[-1]
-    freqs = torch.as_tensor(rope_frequencies(hd, theta), dtype=torch.float32,
-                            device=x.device)
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
     ang = positions[..., :, None].float() * freqs  # (..., seq, hd/2)
     cos = torch.cos(ang)[..., None, :]  # broadcast over heads
     sin = torch.sin(ang)[..., None, :]
@@ -109,7 +123,11 @@ def mlp(params, x, gated: bool, shard_fn=_identity_shard):
     layout (``sharding.rules.ServeShardFn``): it all-gathers the
     ff-sharded up/gate products, so that the activation and the down
     product run replicated, in the single-device order.  The seam sits on
-    the products, before the activation, as the reference's does."""
+    the products, before the activation, as the reference's does.
+    ``shard_fn("mlp_in", x)`` is where the replicated input enters the
+    rank's columns: the identity, whose backward a sharded train step
+    sums over the model axis (``sharding.rules.TrainShardFn``)."""
+    x = shard_fn("mlp_in", x)
     if gated:
         g = shard_fn("mlp_up", x @ params["w_gate"])
         u = shard_fn("mlp_up", x @ params["w_up"])

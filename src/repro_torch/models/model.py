@@ -91,9 +91,14 @@ class LM:
         }
 
     def _tokens(self, tokens):
+        """Tokens on the model's device.  Host tokens go without waiting
+        for the work queued on the card (a blocking copy would stall the
+        host at every prefill chunk); the port pins no host memory, so
+        the copy is staged or done at the call and the caller may reuse
+        its array at once."""
         if not isinstance(tokens, torch.Tensor):
             tokens = torch.as_tensor(np.asarray(tokens, np.int64))
-        return tokens.to(self.device)
+        return tokens.to(self.device, non_blocking=True)
 
     def _page_idx(self, page_idx):
         """int32 on the model's device, no copy if already so."""

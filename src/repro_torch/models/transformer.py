@@ -263,7 +263,7 @@ def _apply_attn_block(p, x, positions, *, cfg, window, knobs, collect_cache,
     at the training capacity unless ``collect_cache`` (as the
     reference's).  Returns (x, aux, cache)."""
     shard_fn = knobs.shard_fn
-    h = rmsnorm(p["ln1"], x)
+    h = shard_fn("attn_in", rmsnorm(p["ln1"], x))
     q, k, v = attn.qkv_project(p["attn"], h, positions, cfg.rope_theta)
     q = shard_fn("attn_q", q)
     k = shard_fn("attn_kv", k)

@@ -90,18 +90,22 @@ def adamw_init(params, moments_dtype=torch.float32):
 
 @torch.no_grad()
 def adamw_update(grads, opt_state, cfg: AdamWConfig,
-                 schedule: Callable | None = None):
+                 schedule: Callable | None = None,
+                 norm: torch.Tensor | None = None):
     """One AdamW step from ``grads`` (a tree like the master's): returns
     (new master, new state, {"grad_norm", "lr"}).  The gradient is clipped
     to global norm ``clip_norm`` (scale ``min(1, clip_norm / max(norm,
     1e-12))``), the bias corrections take the new step as f32, and the
     learning rate is ``schedule`` (default ``warmup_cosine``) at the new
     step.  The master, mu and nu tensors are updated in place, leaf by
-    leaf, so no second copy of the state is held."""
+    leaf, so no second copy of the state is held.  ``norm`` is the global
+    norm when ``grads`` holds only blocks of the gradient (a ZeRO shard,
+    whose norm the caller sums over the ranks); default
+    ``global_norm(grads)``."""
     schedule = schedule or warmup_cosine(cfg)
     step = opt_state["step"] + 1
     lr = schedule(step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if norm is None else norm
     scale = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                          max=1.0) if cfg.clip_norm
              else torch.ones((), device=gnorm.device))

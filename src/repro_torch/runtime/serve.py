@@ -113,6 +113,7 @@ from repro_torch.launch.mesh import data_group, make_serve_mesh
 from repro_torch.models.transformer import tree_leaves
 from repro_torch.optim.adamw import tree_map
 from repro_torch.runtime.draft import get_drafter
+from repro_torch.runtime.fault import StepWatchdog
 from repro_torch.runtime.kv_pool import KVCacheManager
 from repro_torch.runtime.sampling import (SamplingParams, matches_stop,
                                           sample_tokens, speculative_accept)
@@ -328,6 +329,91 @@ def _check_speculative(config: ServeConfig, model) -> None:
                          f"max_len {config.max_len}")
 
 
+class MeshWatchdog(StepWatchdog):
+    """The straggler watchdog of a router that every rank of the world
+    runs in step (each rank holds every replica's shard and decides every
+    placement itself).  ``StepWatchdog`` reads each rank's own clock, so
+    the ranks could flag different steps and route apart; this one
+    records rank 0's step duration on every rank (a broadcast of a
+    float64 on ``device``), so every rank flags the same steps.  Each
+    replica step makes one broadcast, in the same order on every rank."""
+
+    def __init__(self, device, **kw):
+        super().__init__(**kw)
+        self.device = device
+
+    def __call__(self, step: int, metrics):
+        now = time.monotonic()
+        dt = torch.tensor([now - self._last], dtype=torch.float64,
+                          device=self.device)
+        torch.distributed.broadcast(dt, src=0)
+        self._last = now
+        dt = float(dt[0])
+        self.times.append(dt)
+        hist = self.times[-self.window:-1]
+        if len(hist) >= 5:
+            med = sorted(hist)[len(hist) // 2]
+            if dt > self.threshold * med:
+                self.flagged.append((step, dt, med))
+
+
+def mesh_watchdogs(router, device) -> None:
+    """Give each of ``router``'s replica handles a ``MeshWatchdog``, and
+    a fresh one at each rejoin (``ReplicaHandle.rejoin`` makes a plain
+    ``StepWatchdog``)."""
+    for rh in router.replicas:
+        rh.watchdog = MeshWatchdog(device)
+
+        def rejoin(tick, rh=rh, plain=rh.rejoin):
+            plain(tick)
+            rh.watchdog = MeshWatchdog(device)
+
+        rh.rejoin = rejoin
+
+
+class _RowScheduler(Scheduler):
+    """The scheduler of a paged engine whose pool is cut over data rows: a
+    resumed (or handed-off) request is admitted into a slot only where the
+    slot's row can hold its chain.  A chain from another row's sub-pool
+    needs fresh pages on the slot's row, which
+    ``ServeEngine._localize_chain`` copies it into: they are taken here,
+    at the decision, after evicting the row's prefix pages if need be, so
+    that a later admission of the same round cannot take them.  Without
+    room the request stays queued, as a fresh request whose pages do not
+    fit (the round moves on to the next free slot, which may lie on
+    another row).  ``row_deferrals`` counts the admissions so deferred."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.row_deferrals = 0
+
+    def _admit_into(self, s: int, plan, view: list, req=None) -> bool:
+        if req is None:
+            req = self.queue[self.policy.select(self.queue)]
+        if getattr(req, "_preempted", False) and not self._row_pages(s, req):
+            self._m_backpressure.inc()
+            self.row_deferrals += 1
+            return False
+        return super()._admit_into(s, plan, view, req=req)
+
+    def _row_pages(self, s: int, req) -> bool:
+        """Whether slot ``s``'s row holds ``req``'s chain, or takes fresh
+        pages there for it (``req._row_pages``)."""
+        kv = self.kv
+        pages = req._ckpt_pages
+        host = kv.slot_host(s)
+        if all(kv.pool.host_of(p) == host for p in pages):
+            return True
+        short = len(pages) - kv.pool.free_in_host(host)
+        if short > 0:
+            if (kv.prefix is None
+                    or kv.prefix.evictable(host=host) < short):
+                return False
+            kv.prefix.evict(short, host=host)
+        req._row_pages = kv.pool.alloc(len(pages), host=host)
+        return True
+
+
 class ServeEngine:
     def __init__(self, model, params, config: Optional[ServeConfig] = None,
                  *, mesh=None, telemetry=None, replica: int = 0):
@@ -430,11 +516,13 @@ class ServeEngine:
             self.spec_accepted = 0
             self.spec_emitted = 0
             self.spec_ticks = 0
-        self.scheduler = Scheduler(config.policy, slots=batch_slots,
-                                   max_len=max_len, kv=self.kv,
-                                   weights=config.tenant_weights,
-                                   preempt=config.preempt,
-                                   victim=config.victim_policy)
+        sched = (_RowScheduler if self.kv is not None and self._num_hosts > 1
+                 else Scheduler)
+        self.scheduler = sched(config.policy, slots=batch_slots,
+                               max_len=max_len, kv=self.kv,
+                               weights=config.tenant_weights,
+                               preempt=config.preempt,
+                               victim=config.victim_policy)
         # split-K autotune: pick the fan-out per tick from (max(pos), live
         # slots) whatever the device
         self._autotune = (config.mode == "continuous"
@@ -658,24 +746,22 @@ class ServeEngine:
     def _localize_chain(self, s: int) -> None:
         """A chain attached to slot ``s`` from another data row's sub-pool
         (a resumed or handed-off request placed on this row) moves into
-        fresh pages of the slot's sub-pool; the old pages are released.
-        No room on the slot's row, after evicting its prefix pages, raises:
-        the port computes a slot only against its own row's pages."""
+        the fresh pages of the slot's sub-pool that the scheduler took for
+        it (``_RowScheduler``); the old pages are released.  The port
+        computes a slot only against its own row's pages."""
         kv = self.kv
         pages = kv.detach_slot(s)
         host = kv.slot_host(s)
         if all(kv.pool.host_of(p) == host for p in pages):
             kv.attach_slot(s, pages)
             return
-        n = len(pages)
-        if kv.pool.free_in_host(host) < n and kv.prefix is not None:
-            kv.prefix.evict(n - kv.pool.free_in_host(host), host=host)
-        if kv.pool.free_in_host(host) < n:
+        req = self.active[s]
+        fresh, req._row_pages = getattr(req, "_row_pages", None), None
+        if fresh is None or len(fresh) != len(pages):
             kv.attach_slot(s, pages)
             raise RuntimeError(
-                f"a chain of {n} pages resumed into slot {s} of data row "
-                f"{host}, which has {kv.pool.free_in_host(host)} free")
-        fresh = kv.pool.alloc(n, host=host)
+                f"a chain of {len(pages)} pages resumed into slot {s} of "
+                f"data row {host} without pages taken there")
         self.carry_pages(self, pages, fresh)
         kv.attach_slot(s, fresh)
         kv.release_chain(pages)

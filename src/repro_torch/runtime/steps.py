@@ -23,6 +23,8 @@ import torch
 
 from ..optim import adamw_init, adamw_update, warmup_cosine
 from ..optim.adamw import AdamWConfig, tree_leaves, tree_map
+from ..sharding.zero import (ShardedTrainStep, is_sharded, shard_state,
+                             state_shardings_of)
 from .sampling import sample_tokens, sample_tokens_multi
 
 
@@ -40,13 +42,23 @@ def _unflatten(tree, leaves):
 
 
 def init_train_state(model, generator: torch.Generator,
-                     moments_dtype=torch.float32) -> dict:
+                     moments_dtype=torch.float32, shardings=None) -> dict:
     """{"params", "opt"}: params drawn by ``model.init(generator)`` (f32
     leaves cast to ``knobs.param_dtype``), the AdamW state built from the
-    drawn values."""
+    drawn values.  A model over a mesh (``sharding.make_shard_fn``) keeps
+    the rank's blocks of each leaf under ``shardings`` (default: the
+    mesh's ``train_state_shardings``), drawn whole as unsharded."""
+    if shardings is not None and not is_sharded(model):
+        raise ValueError("shardings need a model over a mesh "
+                         "(knobs.shard_fn = sharding.make_shard_fn(...))")
     params_f32 = model.init(generator)
     params = tree_map(lambda p: p.to(model.knobs.param_dtype)
                       if p.dtype == torch.float32 else p, params_f32)
+    if is_sharded(model):
+        specs, mesh = (state_shardings_of(model, shardings),
+                       model.knobs.shard_fn.mesh)
+        params = shard_state(params, specs["params"], mesh)
+        params_f32 = shard_state(params_f32, specs["opt"]["master"], mesh)
     return {"params": params, "opt": adamw_init(params_f32, moments_dtype)}
 
 
@@ -64,7 +76,8 @@ def _value_and_grad(model, params, batch):
 
 
 def make_train_step(model, opt_cfg: AdamWConfig, grad_accum: int = 1,
-                    accum_dtype=torch.float32) -> Callable:
+                    accum_dtype=torch.float32, grad_shardings=None, *,
+                    state_shardings=None, batch_shardings=None) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``.  With
     ``grad_accum > 1`` the batch's B rows go as ``grad_accum`` microbatches
     of B / grad_accum consecutive rows, their gradients summed in
@@ -73,8 +86,23 @@ def make_train_step(model, opt_cfg: AdamWConfig, grad_accum: int = 1,
     their summed loss over ``grad_accum``.  Then AdamW: the new params are
     the new master cast to each param's dtype.  The state's tensors are
     updated in place (the reference donates the state) and returned; the
-    metrics add ``grad_norm`` and ``lr``."""
+    metrics add ``grad_norm`` and ``lr``.
+
+    A model over a mesh (``knobs.shard_fn = sharding.make_shard_fn(mesh,
+    cfg)``) gets a ``sharding.zero.ShardedTrainStep``: the state holds the
+    rank's blocks under ``state_shardings`` (default the mesh's
+    ``train_state_shardings``), ``batch`` is the global batch, cut by
+    ``batch_shardings`` (default ``sharding.batch_shardings``), and
+    ``grad_shardings`` (``sharding.grad_shardings``) reduce-scatters each
+    microbatch's gradients into the rank's block (ZeRO-2)."""
     schedule = warmup_cosine(opt_cfg)
+    if is_sharded(model):
+        return ShardedTrainStep(model, opt_cfg, grad_accum, accum_dtype,
+                                schedule, grad_shardings, state_shardings,
+                                batch_shardings)
+    if (grad_shardings, state_shardings, batch_shardings) != (None,) * 3:
+        raise ValueError("shardings need a model over a mesh "
+                         "(knobs.shard_fn = sharding.make_shard_fn(...))")
 
     def train_step(state, batch):
         params = state["params"]

@@ -21,7 +21,16 @@ the norms and the unembedding.
 In ``torch.distributed`` each rank holds plain local tensors:
 ``shard_params`` cuts a rank's shard from the full parameter tree, and
 ``ServeShardFn`` is the seams' hook, which gathers over the mesh's
-"model" group.  The training rules come with the training collectives.
+"model" group.
+
+The training half (the reference's ``param_shardings``,
+``opt_state_shardings``, ``grad_shardings``, ``batch_shardings``,
+``cache_shardings`` and ``make_shard_fn``'s seam specs) gives the same
+spec tuples as the reference's.  A sharded train step
+(``runtime.steps.make_train_step``) stores each leaf of its state as the
+block its spec gives the rank, and computes in the gather form above
+(``TrainShardFn``): the specs say where a leaf lives between steps, the
+gather form how the forward and backward run.
 """
 from __future__ import annotations
 
@@ -30,12 +39,15 @@ from typing import Optional
 
 import torch
 
-from .collectives import all_gather_cat
+from .collectives import all_gather_cat, gather_seam, reduce_seam, slice_seam
 
-__all__ = ["ServeShardFn", "block_index", "head_layout", "local_caches",
-           "local_cfg", "mesh_coord", "mesh_sizes", "model_cuts",
-           "serve_batch_sharding", "serve_cache_shardings",
-           "serve_param_shardings", "shard_params"]
+__all__ = ["ServeShardFn", "TrainShardFn", "batch_shardings",
+           "block_index", "cache_shardings", "grad_shardings", "head_layout",
+           "local_caches", "local_cfg", "make_shard_fn", "mesh_coord",
+           "mesh_sizes", "model_cuts", "opt_state_shardings",
+           "param_shardings", "serve_batch_sharding",
+           "serve_cache_shardings", "serve_param_shardings", "shard_block",
+           "shard_params", "train_seam_spec", "train_state_shardings"]
 
 
 # --------------------------------------------------------------- utilities
@@ -318,27 +330,33 @@ def shard_params(params, mesh, cfg=None, *, coord: Optional[dict] = None):
     if cfg is not None and "model" in sizes:
         kv_range = head_layout(cfg, sizes, coord["model"],
                                model_cuts(sizes, params))[1]
+    return _map_with_path(
+        lambda pstr, leaf: serve_cut(pstr, leaf, sizes, coord, kv_range),
+        params)
 
-    def cut(pstr, leaf):
-        spec = _param_spec(sizes, pstr, leaf.shape)
-        out = leaf
-        for dim, axis in enumerate(spec):
-            if axis is None:
-                continue
-            i, n = block_index(sizes, coord, axis)
-            size = leaf.shape[dim] // n
-            out = out.narrow(dim, i * size, size)
-        key = pstr.rsplit("/", 1)[-1]
-        if (kv_range is not None and key in ("wk", "wv", "bk", "bv")
-                and all(a is None for a in spec)
-                and kv_range[1] - kv_range[0] != leaf.shape[-2]):
-            # replicated by the rules; the KV dim of (..., dm, KV, hd) and
-            # of (..., KV, hd)
-            k0, k1 = kv_range
-            out = out.narrow(leaf.ndim - 2, k0, k1 - k0)
-        return out.contiguous() if out is not leaf else leaf
 
-    return _map_with_path(cut, params)
+def kv_narrowed(pstr: str, spec, kv_range, shape) -> bool:
+    """Whether ``shard_params`` cuts leaf ``pstr`` (of ``spec`` and
+    ``shape``) to the rank's ``kv_range`` although the rules keep it
+    replicated: ``wk``/``wv``/``bk``/``bv`` when the query heads shard and
+    the KV heads do not divide the model axis."""
+    return (kv_range is not None
+            and pstr.rsplit("/", 1)[-1] in ("wk", "wv", "bk", "bv")
+            and all(a is None for a in spec)
+            and kv_range[1] - kv_range[0] != shape[-2])
+
+
+def serve_cut(pstr: str, leaf, sizes: dict, coord: dict, kv_range=None):
+    """One leaf of ``shard_params``: the block of the serving spec, and
+    the rank's KV heads where ``kv_narrowed``."""
+    spec = _param_spec(sizes, pstr, leaf.shape)
+    out = shard_block(leaf, spec, sizes, coord)
+    if kv_narrowed(pstr, spec, kv_range, leaf.shape):
+        # replicated by the rules; the KV dim of (..., dm, KV, hd) and of
+        # (..., KV, hd)
+        k0, k1 = kv_range
+        out = out.narrow(leaf.ndim - 2, k0, k1 - k0)
+    return out.contiguous() if out is not leaf else leaf
 
 
 # ------------------------------------------------------------ seam hook
@@ -390,3 +408,311 @@ class ServeShardFn:
         if name == "moe_expert_out" and self._experts:  # (E_local, rows, d)
             return all_gather_cat(x, self._group, dim=0)
         return x
+
+
+# ------------------------------------------------------ training rules
+def _trailing_spec(pstr: str, key: str, shape, mesh, fsdp: bool,
+                   zero_axis) -> tuple:
+    """The training spec of one param's semantic (trailing) dims: the
+    reference's, candidate by candidate ("model" for heads, MLP columns,
+    experts and vocab; ``fsdp`` or ``zero_axis`` for a weight dim)."""
+    fs = zero_axis if zero_axis is not None else ("data" if fsdp else None)
+    rank = len(shape)
+
+    def c(*cands):
+        return _choose(mesh, shape, *cands)
+
+    if key in ("table", "head"):  # (V, dm); vocab may not divide (mamba2)
+        # never FSDP-cut the embedding's dm (the reference's H1 finding:
+        # the token gather would repartition it every microbatch)
+        if zero_axis is None:
+            fs = None
+        return c(("model", fs), ("model", None), (fs, "model"),
+                 (None, "model"), (None, None))
+    if key == "wq":  # (dm, H, hd)
+        return c((fs, "model", None), (None, "model", None),
+                 ("model", None, None), (None, None, None))
+    if key in ("wk", "wv"):  # (dm, KV, hd)
+        return c((fs, "model", None), ("model", None, None),
+                 (None, None, None))
+    if key == "wo":  # (H, hd, dm)
+        return c(("model", None, fs), ("model", None, None),
+                 (None, None, "model"), (None, None, None))
+    if key in ("bq", "bk", "bv"):  # (H, hd)
+        return c(("model", None), (None, None))
+    if "moe" in pstr:
+        if key == "router":  # (dm, E)
+            return (None,) * rank
+        if key in ("w_gate", "w_up"):  # (E, dm, dff)
+            return c(("model", fs, None), ("model", None, None),
+                     (None, fs, "model"), (None, None, "model"),
+                     (None, None, None))
+        if key == "w_down":  # (E, dff, dm)
+            return c(("model", None, fs), ("model", None, None),
+                     (None, "model", fs), (None, "model", None),
+                     (None, None, None))
+    if key in ("w_gate", "w_up"):  # mlp (dm, ff)
+        return c((fs, "model"), (None, "model"), (None, None))
+    if key == "w_down":  # (ff, dm)
+        return c(("model", fs), ("model", None), (None, None))
+    if key == "in_proj":  # (dm, d_in)
+        return c((fs, "model"), (None, "model"), (None, None))
+    if key == "out_proj":  # (di, dm)
+        return c(("model", fs), ("model", None), (None, None))
+    # conv_w, conv_b, A_log, dt_bias, D, norm scales, biases: replicated
+    return (None,) * rank
+
+
+def _train_param_spec(mesh, pstr: str, shape, fsdp: bool,
+                      zero_axis=None) -> tuple:
+    key = pstr.rsplit("/", 1)[-1]
+    if "moe" in pstr and key in ("w_gate", "w_up", "w_down"):
+        rank = 3
+    else:
+        rank = _SEMANTIC_RANK.get(key, len(shape))
+    lead = len(shape) - rank  # stacked layer dims, never sharded
+    return (None,) * lead + _trailing_spec(pstr, key, tuple(shape[lead:]),
+                                           mesh, fsdp, zero_axis)
+
+
+def param_shardings(mesh, cfg, params, *, fsdp: bool, layout: str = "tp"):
+    """The training parameter layout, a spec per leaf of ``params``.
+    ``layout="dp"``: every weight replicated, every mesh axis a batch axis
+    (the reference's layout for small models on big meshes)."""
+    if layout == "dp":
+        return _map_with_path(lambda p, leaf: (None,) * len(leaf.shape),
+                              params)
+    return _map_with_path(
+        lambda p, leaf: _train_param_spec(mesh, p, leaf.shape, fsdp), params)
+
+
+def opt_state_shardings(mesh, cfg, params, *, fsdp: bool,
+                        layout: str = "tp"):
+    """The optimizer state's layout (master, mu, nu): ZeRO, the FSDP dim
+    extended over ("pod", "data") where both exist.  Under ``layout="dp"``
+    the state still shards (ZeRO-1)."""
+    zero = _dp_axes(mesh)
+    return _map_with_path(
+        lambda p, leaf: _train_param_spec(mesh, p, leaf.shape, True, zero),
+        params)
+
+
+def grad_shardings(mesh, cfg, params):
+    """The gradient accumulator's layout (ZeRO-2), over "data" only: a
+    pod-cut accumulator would reduce every microbatch over the pods
+    (the reference's H1 finding); the pod sum runs once a step."""
+    return _map_with_path(
+        lambda p, leaf: _train_param_spec(mesh, p, leaf.shape, True, "data"),
+        params)
+
+
+def train_state_shardings(mesh, cfg, params, *, fsdp: bool = False,
+                          layout: str = "tp"):
+    """The specs of a train state ``{"params", "opt": {"master", "mu",
+    "nu", "step"}}``: ``param_shardings`` for the params,
+    ``opt_state_shardings`` for the master and moments, the step
+    replicated (as the reference's tests assemble them)."""
+    o = opt_state_shardings(mesh, cfg, params, fsdp=fsdp, layout=layout)
+    return {"params": param_shardings(mesh, cfg, params, fsdp=fsdp,
+                                      layout=layout),
+            "opt": {"master": o, "mu": o, "nu": o, "step": ()}}
+
+
+def _all_axes(mesh):
+    axes = tuple(mesh_sizes(mesh))
+    return axes if len(axes) > 1 else axes[0]
+
+
+def batch_axes(mesh, layout: str = "tp") -> tuple:
+    """The axes a batch is cut over, as a tuple of names: (pod, data), or
+    every axis under ``layout="dp"``."""
+    axis = _all_axes(mesh) if layout == "dp" else _dp_axes(mesh)
+    if axis is None:
+        return ()
+    return tuple(axis) if isinstance(axis, tuple) else (axis,)
+
+
+def batch_shardings(mesh, specs, layout: str = "tp"):
+    """Inputs: the batch dim over (pod, data) where it divides; under
+    ``layout="dp"`` over every mesh axis.  ``specs`` is a tree of leaves
+    with a ``.shape``."""
+    dp = _all_axes(mesh) if layout == "dp" else _dp_axes(mesh)
+
+    def spec_for(leaf):
+        shape = tuple(leaf.shape)
+        if not shape:
+            return ()
+        cands = [(dp,) + (None,) * (len(shape) - 1)] if dp else []
+        cands.append((None,) * len(shape))
+        return _choose(mesh, shape, *cands)
+
+    return _map_with_path(lambda p, leaf: spec_for(leaf), specs)
+
+
+def cache_shardings(mesh, caches):
+    """KV and SSM caches, the reference's training-side rules: attention
+    k/v (L..., B, S, KV, hd) with the batch over (pod, data) where it
+    divides, else the sequence over "data" (sequence-parallel KV for
+    batch-1 long context); head-like dims over "model"; SSM state (L...,
+    B, nh, hp, ds) and conv (L..., B, w, ch) likewise."""
+    dp = _dp_axes(mesh)
+
+    def spec_for(pstr, leaf):
+        key = pstr.rsplit("/", 1)[-1]
+        shape = tuple(leaf.shape)
+        if key in ("k", "v"):
+            base = (None,) * (len(shape) - 4)
+            cands = []
+            if dp:
+                cands += [base + (dp, "model", None, None),
+                          base + (dp, None, "model", None),
+                          base + (dp, None, None, "model"),
+                          base + (dp, None, None, None)]
+            cands += [base + (None, ("data", "model"), None, None),
+                      base + (None, "data", "model", None),
+                      base + (None, "data", None, None),
+                      base + (None, None, "model", None),
+                      (None,) * len(shape)]
+            return _choose(mesh, shape, *cands)
+        if key == "state":
+            base = (None,) * (len(shape) - 4)
+            cands = ([base + (dp, "model", None, None),
+                      base + (dp, None, None, None)] if dp else [])
+            cands += [base + (None, "model", None, None),
+                      (None,) * len(shape)]
+            return _choose(mesh, shape, *cands)
+        if key == "conv":
+            base = (None,) * (len(shape) - 3)
+            cands = ([base + (dp, None, "model"), base + (dp, None, None)]
+                     if dp else [])
+            cands += [base + (None, None, "model"), (None,) * len(shape)]
+            return _choose(mesh, shape, *cands)
+        return (None,) * len(shape)
+
+    return _map_with_path(spec_for, caches)
+
+
+def train_seam_spec(mesh, name: str, shape, *, sp: bool = False,
+                    layout: str = "tp"):
+    """The spec the reference's ``make_shard_fn`` constrains seam ``name``
+    of an activation of ``shape`` to, or None where it leaves the
+    activation as it is (an unknown seam, a rank it does not match, or a
+    spec with no axis)."""
+    dp = _all_axes(mesh) if layout == "dp" else _dp_axes(mesh)
+    tp = None if layout == "dp" else "model"
+    shape = tuple(shape)
+    if name == "hidden" and len(shape) == 3:  # (B, S, dm)
+        if sp and tp:
+            spec = _choose(mesh, shape, (dp, tp, None), (dp, None, None),
+                           (None,) * 3)
+        else:
+            spec = _choose(mesh, shape, (dp, None, None), (None,) * 3)
+    elif name == "microbatch":  # (accum, B / accum, ...)
+        spec = _choose(mesh, shape, (None, dp) + (None,) * (len(shape) - 2),
+                       (None,) * len(shape))
+    elif name in ("moe_expert_in", "moe_expert_out") and len(shape) == 5:
+        tokens = shape[0] * shape[1] * shape[3]  # (B, n, E, C, d)
+        if tokens <= 4096 and tp:
+            # the serving regime: weight-stationary, dm over "data"
+            spec = _choose(mesh, shape, (None, None, tp, None, "data"),
+                           (None, None, tp, None, None), (None,) * 5)
+        else:
+            spec = _choose(mesh, shape, (dp, None, tp, None, None),
+                           (None, None, tp, None, None),
+                           (dp, None, None, None, None), (None,) * 5)
+    elif name == "attn_q" and len(shape) == 4:  # (B, S, H, hd)
+        spec = _choose(mesh, shape, (dp, None, tp, None), (None,) * 4)
+    elif name == "attn_kv" and len(shape) == 4:
+        spec = _choose(mesh, shape, (dp, None, tp, None),
+                       (dp, None, None, None), (None,) * 4)
+    else:
+        return None
+    if all(a is None for a in spec):
+        return None
+    return spec
+
+
+def shard_block(full, spec, sizes: dict, coord: dict):
+    """The block of ``full`` that ``spec`` gives the rank at ``coord``:
+    each cut dim narrowed to the rank's block along its axis (row-major
+    over a tuple of axes), the order ``gather_block`` restores."""
+    out = full
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        i, n = block_index(sizes, coord, axis)
+        size = full.shape[dim] // n
+        out = out.narrow(dim, i * size, size)
+    return out
+
+
+class TrainShardFn(ServeShardFn):
+    """The seams' hook of a sharded train step: the gather form of
+    ``ServeShardFn``, with the backward each seam needs.
+
+    - "attn_out", "mlp_up", "moe_expert_out" gather over "model"
+      (``gather_seam``): the backward keeps the rank's slice of the
+      gradient, which every rank holds whole.
+    - "attn_in", "mlp_in" (the normed activation entering the rank's
+      heads or MLP columns) are the identity whose backward sums over
+      "model" (``reduce_seam``): each rank's input gradient there holds
+      only its heads' or columns' terms.
+    - "moe_expert_in" cuts the dispatch buffer to the rank's experts
+      (``slice_seam``): the backward sums the buffer's gradient over
+      "model".
+
+    Every other seam, and every seam under ``layout="dp"`` (no model
+    cut), is the identity.  ``spec(name, shape)`` is the reference's
+    constraint at that seam (``train_seam_spec``)."""
+
+    def __init__(self, mesh, cuts: dict, *, layout: str = "tp"):
+        if layout == "dp":
+            cuts = {k: False for k in cuts}
+        super().__init__(mesh, cuts)
+        self.layout = layout
+
+    def __eq__(self, other):
+        return (isinstance(other, TrainShardFn) and super().__eq__(other)
+                and self.layout == other.layout)
+
+    def __hash__(self):
+        return hash((super().__hash__(), self.layout))
+
+    def __call__(self, name: str, x):
+        g = self._group
+        if name == "attn_in" and self._heads:
+            return reduce_seam(x, g)
+        if name == "mlp_in" and self._ff:
+            return reduce_seam(x, g)
+        if name == "attn_out" and self._heads:  # (B, S, H_local, hd)
+            return gather_seam(x, g, -2, self._index)
+        if name == "mlp_up" and self._ff:  # (B, S, ff_local)
+            return gather_seam(x, g, -1, self._index)
+        if name == "moe_expert_in" and self._experts:  # (E, rows, d)
+            return slice_seam(x, g, 0, self._index, self._m)
+        if name == "moe_expert_out" and self._experts:  # (E_local, rows, d)
+            return gather_seam(x, g, 0, self._index)
+        return x
+
+
+def param_shapes(cfg):
+    """The parameter tree of ``cfg`` on the meta device: shapes and
+    dtypes, nothing allocated."""
+    from ..models import LM
+
+    return LM(cfg, device="meta").init(torch.Generator())
+
+
+def make_shard_fn(mesh, cfg, *, sp: bool = False, layout: str = "tp"):
+    """The seams' hook of a sharded train step over ``mesh`` (the
+    reference's ``make_shard_fn``): a ``TrainShardFn`` whose model cuts
+    follow the serving rules' specs of ``cfg``'s parameters.  The gather
+    form keeps each rank's residual stream whole, so ``sp=True`` (the
+    reference's sequence-parallel residual) is not ported and raises;
+    ``train_seam_spec`` gives its specs."""
+    if sp:
+        raise NotImplementedError(
+            "sp=True (a sequence-parallel residual) is not ported: the "
+            "gather form keeps every rank's residual whole")
+    cuts = model_cuts(mesh_sizes(mesh), param_shapes(cfg))
+    return TrainShardFn(mesh, cuts, layout=layout)

@@ -4,16 +4,14 @@ the unsharded port engine's, greedy and seeded-sampled alike.
 
 The twin of ``tests/test_sharded_serve.py``: its tiny internlm2 (d_model
 64, four query heads on two KV heads, JAX init) and its mixed requests.
-Each world is spawned once per module (``python -c`` per rank, a
-``file://`` rendezvous under the test's tmp dir, one torch thread per
-rank and a timeout per world) and runs every case of its shape; the
-tests compare what its rank 0 wrote with engines run here."""
+Each world is spawned once per module through ``torch_worlds`` (the
+port's one harness of spawned worlds) and runs every case of its shape,
+rank 0 writing each case's record as it finishes; the tests compare those
+records with engines run here.  A case whose world failed before it fails
+with the world's error; the cases it finished still count."""
 import dataclasses
 import json
-import os
-import subprocess
 import sys
-import textwrap
 
 import numpy as np
 import pytest
@@ -24,9 +22,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import LM, RuntimeKnobs  # noqa: E402
 from repro_torch.runtime.serve import (Request, SamplingParams,  # noqa: E402
                                        ServeConfig, ServeEngine)
-
-ROOT = os.path.join(os.path.dirname(__file__), "..")
-WORLD_TIMEOUT = 150  # seconds for one spawned world, every rank included
+from torch_worlds import WorldFailed, read_records, spawn_world  # noqa: E402
 
 TINY = dict(num_layers=2, vocab_size=64, d_model=64, num_heads=4,
             num_kv_heads=2, head_dim=16, d_ff=128)
@@ -110,7 +106,33 @@ def run_disagg(model, params, mesh=None, **kw):
     return streams(router.run(max_ticks=500)), engines
 
 
-RUNNERS = {"run": run_engine, "flood": run_flood, "disagg": run_disagg}
+def run_tight(model, params, mesh=None, **kw):
+    """A prefill engine handing off to one decode engine on a pool tight
+    enough that a handed-off chain lands on the data row with more free
+    pages while the decode slot that frees first lies on the other row,
+    which has too few: the request must wait for a slot of a row that can
+    hold its chain (unsharded, any slot can)."""
+    from repro_torch.runtime.disagg import DisaggRouter
+
+    roles = ["prefill", "decode"]
+    base = ServeConfig(batch_slots=4, max_len=64, **kw)
+    engines = []
+
+    def make(rid):
+        engines.append(ServeEngine(model, params, dataclasses.replace(
+            base, role=roles[rid]), mesh=mesh))
+        return engines[-1]
+
+    router = DisaggRouter(make, 2, roles=roles)
+    for rh in router.replicas:
+        rh.watchdog.threshold = float("inf")
+    for r in requests(max_new=30):
+        router.submit(r)
+    return streams(router.run(max_ticks=500)), engines
+
+
+RUNNERS = {"run": run_engine, "flood": run_flood, "disagg": run_disagg,
+           "tight": run_tight}
 
 # (case name, arch, ServeConfig kwargs, runner); each world runs its cases
 # at its mesh shapes
@@ -126,25 +148,18 @@ CASES = {
                       "flood"),
     "disagg": ("internlm2-1.8b", {"cache": "dense"}, "disagg"),
     "disagg_paged": ("internlm2-1.8b", {"cache": "paged"}, "disagg"),
+    "tight": ("internlm2-1.8b", {"cache": "paged", "page_size": 8,
+                                 "num_pages": 24}, "tight"),
 }
 WORLDS = {
     4: [((2, 2), "dense"), ((2, 2), "paged"), ((2, 2), "spec"),
         ((2, 1, 2), "paged"), ((2, 2), "preempt"), ((2, 2), "preempt_paged"),
-        ((2, 2), "disagg"), ((2, 2), "disagg_paged")],
+        ((2, 2), "disagg"), ((2, 2), "disagg_paged"), ((2, 2), "tight")],
     2: [((1, 2), "dense"), ((1, 2), "paged"), ((1, 2), "moe"),
         ((1, 2), "moe_paged"), ((2, 1), "ssm"), ((2, 1), "paged")],
 }
 
 WORKER = """
-import json, os, sys
-from datetime import timedelta
-sys.path.insert(0, "src")
-sys.path.insert(0, "tests")
-import torch
-import torch.distributed as dist
-torch.set_num_threads(1)
-
-
 def _flat(tree, path=""):
     if isinstance(tree, dict):
         out = {}
@@ -159,13 +174,9 @@ from test_torch_sharded_serve import requests
 from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.models import LM, RuntimeKnobs
 
-rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-dist.init_process_group("gloo", init_method=os.environ["INIT"], rank=rank,
-                        world_size=world, timeout=timedelta(seconds=90))
-out = {}
 for shape, name in WORLDS[world]:
     arch, kw, runner = CASES[name]
-    params = torch.load(os.path.join(os.environ["DIR"], arch + ".pt"))
+    params = torch.load(os.path.join(os.environ["PARAMS"], arch + ".pt"))
     model = LM(tiny_cfg(arch), RuntimeKnobs(cache_dtype=torch.float32),
                device="cpu")
     got, engs = RUNNERS[runner](model, params, mesh=make_serve_mesh(shape),
@@ -176,6 +187,8 @@ for shape, name in WORLDS[world]:
            "slots": eng._hi - eng._lo, "hosts": eng._num_hosts,
            "moved": sum(e.moved_across_rows for e in engs),
            "preempted": sum(e.scheduler.preempted_total for e in engs),
+           "deferred": sum(getattr(e.scheduler, "row_deferrals", 0)
+                           for e in engs),
            "pool_pages": None if eng.kv is None else eng.kv.pool.num_pages,
            "cache_shapes": {
                k: list(v.shape) for k, v in _flat(eng.caches).items()}}
@@ -192,37 +205,10 @@ for shape, name in WORLDS[world]:
             for s in range(eng.slots) for pg in eng.kv._held[s]
         ) if eng.kv.num_hosts > 1 else None
         eng.run(max_ticks=500)
-    out["x".join(map(str, shape)) + "/" + name] = rec
-if rank == 0:
-    with open(os.path.join(os.environ["DIR"], f"world{world}.json"),
-              "w") as f:
-        json.dump(out, f)
+    if rank == 0:
+        write_record(out_dir, "x".join(map(str, shape)) + "_" + name, rec)
 dist.destroy_process_group()
 """
-
-
-def spawn_world(n, tmp, argv=None):
-    """``n`` ranks of ``python -c WORKER`` (or ``argv``) over a file
-    rendezvous; every rank must exit 0 within ``WORLD_TIMEOUT``."""
-    env = dict(os.environ, WORLD_SIZE=str(n), DIR=str(tmp),
-               INIT=f"file://{tmp}/rendezvous{n}", OMP_NUM_THREADS="1",
-               PYTHONPATH=os.path.join(ROOT, "src"))
-    procs = [subprocess.Popen(
-        argv or [sys.executable, "-c", textwrap.dedent(WORKER)],
-        cwd=ROOT, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(n)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=WORLD_TIMEOUT))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r}:\n{so}\n{se[-4000:]}"
-    return [so for so, _ in outs]
 
 
 def _port_params(arch):
@@ -257,12 +243,32 @@ def worlds(tmp_path_factory):
         model = LM(tiny_cfg(arch), RuntimeKnobs(cache_dtype=torch.float32),
                    device="cpu")
         base[name], _ = RUNNERS[runner](model, params[arch], **kw)
-    recs = {}
+    recs, errors = {}, {}
     for n in WORLDS:
-        spawn_world(n, tmp)
-        with open(tmp / f"world{n}.json") as f:
-            recs.update(json.load(f))
-    return {"recs": recs, "base": base, "jax": jax_model, "tmp": tmp}
+        out = tmp / f"world{n}"
+        out.mkdir()
+        try:
+            spawn_world(n, out, WORKER, env={"PARAMS": str(tmp)},
+                        name=f"serve-world{n}")
+        except WorldFailed as e:
+            errors[n] = str(e)
+        recs.update({k.replace("_", "/", 1): v
+                     for k, v in read_records(out).items()})
+    return {"recs": _Records(recs, errors), "base": base, "jax": jax_model,
+            "tmp": tmp}
+
+
+class _Records(dict):
+    """The worlds' records by "shape/case"; a case missing because its
+    world failed fails the test with that world's error."""
+
+    def __init__(self, recs, errors):
+        super().__init__(recs)
+        self.errors = errors
+
+    def __missing__(self, key):
+        pytest.fail(f"no record of {key}: "
+                    + ("\n".join(self.errors.values()) or "no world failed"))
 
 
 def _cases():
@@ -346,11 +352,12 @@ def test_launcher_tp2_runs_in_a_two_rank_world(worlds):
     mesh, rank 1 prints nothing."""
     tmp = worlds["tmp"] / "launcher"
     tmp.mkdir()
-    outs = spawn_world(2, tmp, [
+    outs = spawn_world(2, tmp, argv=[
         sys.executable, "-m", "repro_torch.launch.serve", "--arch",
         "internlm2-1.8b", "--smoke", "--device", "cpu", "--tp", "2",
         "--requests", "4", "--cache", "paged", "--page-size", "8",
-        "--dist-init", f"file://{tmp}/rendezvous"])
+        "--dist-init", f"file://{tmp}/launcher.rendezvous"],
+        name="serve-launcher")
     assert "mesh=1x2 served 4 requests" in outs[0], outs[0]
     assert outs[1] == ""
 
@@ -414,3 +421,81 @@ def test_sharded_caches_follow_reference_cache_specs(worlds, shape, name):
             local[-4] += 1
         want[key] = local
     assert rec["cache_shapes"] == want
+
+
+def test_tight_pool_resumes_only_onto_rows_with_room(worlds):
+    """A handed-off chain whose decode slot's data row has too few free
+    pages, even after evicting that row's prefix pages, waits for a slot
+    of a row that can hold it instead of raising (the parent raised at
+    the first such handoff), and the streams stay bitwise the unsharded
+    router's."""
+    rec = worlds["recs"]["2x2/tight"]
+    assert rec["streams"] == worlds["base"]["tight"]
+    assert rec["deferred"] >= 1
+    assert all(len(v[0]) for v in rec["streams"].values())
+
+
+C8_ARGS = ["--arch", "internlm2-1.8b", "--smoke", "--device", "cpu",
+           "--replicas", "2", "--requests", "8", "--max-new", "16",
+           "--fault-schedule", "9:stall:1:0.2:2"]
+
+# rank 0's clock alone sees replica 1's 8th step take a second longer
+C8_WORKER = """
+import time
+import repro_torch.launch.serve as L
+
+routers = []
+make = L._make_router
+
+
+def grab(*a):
+    routers.append(make(*a))
+    eng = routers[-1].replicas[1].engine
+    plain, n = eng.step, [0]
+
+    def step():
+        out = plain()
+        n[0] += 1
+        if n[0] == 8 and rank == 0:
+            time.sleep(1.0)
+        return out
+
+    eng.step = step
+    return routers[-1]
+
+
+L._make_router = grab
+done = L.main(json.loads(os.environ["ARGS"]))
+write_record(out_dir, "launcher", {
+    "streams": {str(r.req_id): list(map(int, r.output)) for r in done},
+    "times": [rh.watchdog.times for rh in routers[0].replicas],
+    "flags": [[f[0] for f in rh.watchdog.flagged]
+              for rh in routers[0].replicas]}, rank)
+"""
+
+
+def test_launcher_replicas_under_a_mesh_flag_the_same_steps(worlds):
+    """``--replicas 2 --mesh-shape 1,2`` with a fault schedule that stalls
+    replica 1: every replica is sharded over the mesh and every rank runs
+    the router.  Rank 0 alone sleeps a second after one of replica 1's
+    steps (its clock sees that step slow, rank 1's the next one); the
+    watchdog records rank 0's step times on both ranks, so both flag the
+    same step.  The streams equal the unsharded router's.  (A scheduled
+    stall sleeps before the watchdog's start, so the watchdog does not
+    time it.)"""
+    import repro_torch.launch.serve as L
+
+    tmp = worlds["tmp"] / "c8"
+    tmp.mkdir()
+    spawn_world(2, tmp, C8_WORKER, env={"ARGS": json.dumps(
+        C8_ARGS + ["--mesh-shape", "1,2", "--dist-init",
+                   f"file://{tmp}/launcher.rendezvous"])},
+        name="serve-replicas")
+    ranks = [read_records(tmp, r)["launcher"] for r in range(2)]
+    done = L.main(C8_ARGS)
+    want = {str(r.req_id): list(map(int, r.output)) for r in done}
+    for rec in ranks:
+        assert rec["streams"] == want
+    assert ranks[0]["times"] == ranks[1]["times"]
+    assert ranks[0]["flags"] == ranks[1]["flags"]
+    assert ranks[0]["flags"][1], ranks[0]["times"]

@@ -81,10 +81,20 @@ def test_trainer_follows_the_reference_history(grad_accum):
 
 
 def test_trainer_refuses_a_mesh():
+    """The Trainer trains over a mesh (``test_torch_sharded_train.py``);
+    it refuses shardings without the mesh they cut over, and a mesh other
+    than the one the model's seams run over."""
+    from repro_torch.sharding import make_shard_fn
+
     model = _tiny_model()
-    for kw in ("mesh", "state_shardings", "batch_shardings"):
-        with pytest.raises(NotImplementedError, match=kw):
-            Trainer(model, _dataset(model), TrainConfig(), **{kw: object()})
+    for kw in ("state_shardings", "batch_shardings"):
+        with pytest.raises(ValueError, match="needs the mesh"):
+            Trainer(model, _dataset(model), TrainConfig(), **{kw: {}})
+    sizes = {"data": 1, "model": 1}
+    sharded = type(model)(model.cfg, model.knobs.with_(
+        shard_fn=make_shard_fn(sizes, model.cfg)), model.device)
+    with pytest.raises(ValueError, match="another mesh"):
+        Trainer(sharded, _dataset(model), TrainConfig(), mesh=dict(sizes))
 
 
 # ------------------------------------------- twins of tests/test_runtime.py
