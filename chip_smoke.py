@@ -230,7 +230,14 @@ Run from the repository root.  Phases, each raising on failure:
    uninterrupted run's (bitwise or not, printed), the checkpoint's bytes
    and the save and restore seconds; (d) the training launcher as a
    subprocess, ``--smoke --steps 30``: exit 0, the loss falls; (e) #6's
-   and #7's wrappers refuse an input that requires grad;
+   and #7's wrappers refuse an input that requires grad; (f) the dry run
+   of (b)'s step: the same step traced once on the meta device at a
+   world of one (``launch/roofline.py``'s ``TraceCounter``, no card): its
+   counted flops and HBM bytes, the bytes live before the step and the
+   peak it adds, and the roofline step time on the H100 constants
+   (``core/h100.py``), beside (b)'s measured step and
+   ``max_memory_allocated``; the predicted peak within DRY_PEAK_RTOL of
+   the measured one, and the measured step no faster than the roofline;
 16. sharded serving (``ServeEngine(mesh=...)``, the gather form of
    ``sharding/rules.py``) of internlm2-1.8b at full width and depth on
    the one card: the unsharded engine first serves 4 requests (prompts
@@ -276,7 +283,9 @@ Run from the repository root.  Phases, each raising on failure:
    restoring (2, 2)'s checkpoint (elastic: its own blocks, read from the
    memory-mapped arrays) for one more step; a 2-stage
    ``make_pipelined_forward`` at width 2048 against the sequential
-   stack.  Every step's loss and grad_norm within
+   stack; tensor parallel with the sequence-parallel residual
+   (``make_shard_fn(sp=True)``: each rank's layers over its half of the
+   512 positions), ``grad_accum`` 2, 2 steps.  Every step's loss and grad_norm within
    SHARD_LOSS_RTOL / SHARD_NORM_RTOL of the unsharded step's, every
    param within SHARD_PARAM_ATOL but for at most SHARD_NEAR0_FRAC of a
    leaf (elements whose gradient lies near 0 move by up to 2 lr a step);
@@ -310,21 +319,12 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-# The many-row kernel (#4, #6) multiplies on the tensor cores: f32 operands
-# as three TF32 products (3xTF32, f32-accurate), so f32 work runs at most at
-# a third of the 495 TFLOP/s TF32 rate; bf16 q and K/V at the bf16 rate.
-TF32X3_FLOPS = 495e12 / 3
-# int8 and e4m3 values are exact in TF32, so an f32-accurate product of f32
-# q (or p) with a quantized pool's raw K (or V) takes two TF32 products
-# (big and small part of the f32 side), the per-key scale applied outside.
-TF32X2_FLOPS = 495e12 / 2
-BF16_TC_FLOPS = 989e12
-RATE_NAMES = {F32_FLOPS: "f32 CUDA cores, 67 TFLOP/s",
-              TF32X3_FLOPS: "3xTF32 tensor cores, 165 TFLOP/s",
-              TF32X2_FLOPS: "2xTF32 tensor cores, 247.5 TFLOP/s",
-              BF16_TC_FLOPS: "bf16 tensor cores, 989 TFLOP/s"}
+# The card's rates (memory, and each class of flops: the decode kernels on
+# the CUDA cores, the many-row kernels and the SSD chunk on the tensor
+# cores, 3xTF32 for f32, 2xTF32 against a 1-byte pool) and each kernel's
+# work are the port's: ``repro_torch/core/h100.py`` and
+# ``repro_torch/kernels/cost.py``, the functions the dry run's meta
+# branch records a kernel's work with.
 H, KV, D, B, S = 16, 8, 128, 4, 8192
 POS = [-1, 1000, 4200, S - 1]
 # the decode kernel's chunk boundaries (256 keys): the last key of a
@@ -547,47 +547,22 @@ def _library_call(q, k, v, pos):
     return lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask)
 
 
-def _bound(t_ops, t_bytes, rate):
-    """(bound ms, what bounds it, the flop rate used); ``rate`` is a key of
-    ``RATE_NAMES`` or, for mixed rates, their description."""
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", RATE_NAMES.get(rate, rate))
-
-
-def _tc_rate(q, k):
-    """The least-time flop rate of the many-row kernel's work for these
-    operand dtypes: bf16 at the bf16 rate, a quantized (1-byte) pool at the
-    2xTF32 rate, f32 at the 3xTF32 rate."""
-    if q.dtype == k.dtype == torch.bfloat16:
-        return BF16_TC_FLOPS
-    return TF32X2_FLOPS if k.element_size() == 1 else TF32X3_FLOPS
-
-
-def _scale_bytes(k):
-    """Bytes of a pool's scales per key and KV head: one f32 for a
-    quantized (1-byte) pool, none for f32/bf16."""
-    return 4 if k.element_size() == 1 else 0
-
-
 def _bound_ms(q, k, pos, paged=False):
-    """Least time for the work these inputs need: the live K/V prefix of
-    the active slots read once (keys up to pos + T - 1 for a T-row q;
+    """Least time for the work these inputs need (``cost.decode_work``,
+    (ms, "bytes" or "operations", the rate)): the live K/V prefix of the
+    active slots read once (keys up to pos + T - 1 for a T-row q;
     ``paged``: and the page-table entries that map it; a quantized, 1-byte
     pool: and its f32 scale per key and KV head), q read and the output
     written once, against the card's memory rate; and QK + PV flops
     (row t sees pos + t + 1 keys) against its f32 rate (the decode
     kernels run on the CUDA cores)."""
-    t = q.shape[1]
-    active = [p for p in pos.tolist() if p >= 0]
-    live = sum(min(p + t, S) for p in active)
-    kv_bytes = 2 * live * KV * (D * k.element_size() + _scale_bytes(k))
-    io_bytes = 2 * q.numel() * q.element_size() + 4 * len(pos)
-    if paged:
-        io_bytes += 4 * sum(-(-min(p + t, S) // PAGE) for p in active)
-    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    pairs = sum(min(p + i + 1, S) for p in active for i in range(t))
-    t_ops = 4 * pairs * H * D / F32_FLOPS * 1e3
-    return _bound(t_ops, t_bytes, F32_FLOPS)
+    from repro_torch.kernels import cost
+
+    b, t, h, d = q.shape
+    return cost.decode_work(
+        b, t, h, d, k.shape[2], S, q.element_size(), k.element_size(),
+        pos.tolist(), page_size=PAGE if paged else 0,
+        scales=k.element_size() == 1).bound()
 
 
 def phase_kernels():
@@ -739,18 +714,17 @@ def _paged_library_call(q, k, v, table, pos):
 
 
 def _prefill_bound_ms(q, k, q_offset):
-    """Least time of one chunk: its causal QK + PV flops at the tensor-core
-    rate of ``_tc_rate`` against the live K/V prefix (a quantized pool: and
-    its f32 scales), q and the output at the card's memory rate."""
-    c = q.shape[1]
-    keys = c * q_offset + c * (c + 1) // 2  # (row, key) pairs attended
-    rate = _tc_rate(q, k)
-    t_ops = 4 * H * D * keys / rate * 1e3
-    kv_bytes = 2 * (q_offset + c) * KV * (D * k.element_size()
-                                          + _scale_bytes(k))
-    io_bytes = 2 * q.numel() * q.element_size() + 4 * (q_offset + c) // PAGE
-    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    return _bound(t_ops, t_bytes, rate)
+    """Least time of one chunk (``cost.prefill_work``): its causal QK + PV
+    flops at the many-row kernel's tensor-core rate (``cost.tc_class``)
+    against the live K/V prefix (a quantized pool: and its f32 scales),
+    its page-table entries, q and the output at the card's memory
+    rate."""
+    from repro_torch.kernels import cost
+
+    _, c, h, d = q.shape
+    return cost.prefill_work(
+        c, h, d, k.shape[2], q_offset, q.element_size(), k.element_size(),
+        PAGE, cost.tc_class(q, k), scales=k.element_size() == 1).bound()
 
 
 def _prefill_library_call(q, k, v, row, q_offset):
@@ -1920,22 +1894,13 @@ def _flash_inputs(b, s, dtype, seed=0):
 def _flash_bound_ms(q, k, causal, window):
     """QK + PV flops (4 D per attended (row, key) pair) at the many-row
     kernel's tensor-core rate, against q, K, V and the output read or
-    written once."""
-    b, s = q.shape[0], q.shape[1]
-    qpos = torch.arange(s, device="cuda")[:, None]
-    kpos = torch.arange(s, device="cuda")[None, :]
-    seen = torch.ones((s, s), dtype=torch.bool, device="cuda")
-    if causal:
-        seen &= kpos <= qpos
-    if window:
-        seen &= qpos - kpos < window
-    pairs = b * H * int(seen.sum())
-    rate = _tc_rate(q, k)
-    t_ops = 4 * D * pairs / rate * 1e3
-    nbytes = (2 * q.numel() * q.element_size()
-              + 2 * k.numel() * k.element_size())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return _bound(t_ops, t_bytes, rate)
+    written once (``cost.flash_work``)."""
+    from repro_torch.kernels import cost
+
+    b, s, h, d = q.shape
+    return cost.flash_work(b, s, h, d, k.shape[2], q.element_size(),
+                           k.element_size(), cost.tc_class(q, k),
+                           causal=causal, window=window).bound()
 
 
 def _ssd_inputs(B_, NC, NH, G, Q, HP_, DS, seed=0, dtype=torch.float32):
@@ -1958,35 +1923,17 @@ def _ssd_inputs(B_, NC, NH, G, Q, HP_, DS, seed=0, dtype=torch.float32):
 
 
 def _ssd_bound_ms(x, b, cuda_cores=False):
-    """Products over the lower triangle (the pairs i >= j a chunk needs):
-    C.B^T 2 ds flops per pair per (chunk, group), att @ x 2 hp per pair
-    per (chunk, head), the state 2 Q ds hp per (chunk, head); against x,
-    B, C, dt, cum read once and y, the state written once.  Each product
-    at its route's rate: f32 inputs at the 3xTF32 rate; bf16 inputs C.B^T
-    and att @ x (bf16 x bf16) at the bf16 rate and the state (f32 B * w
-    against bf16 x) at the 2xTF32 rate.  ``cuda_cores``: all at the f32
-    CUDA-core rate (the PR 13 design's bound)."""
+    """Products over the lower triangle (the pairs i >= j a chunk needs)
+    against x, B, C, dt, cum read once and y, the state written once
+    (``cost.ssd_work``): f32 inputs at the 3xTF32 rate; bf16 inputs C.B^T
+    and att @ x at the bf16 rate and the state (f32 B * w against bf16 x)
+    at the 2xTF32 rate.  ``cuda_cores``: all at the f32 CUDA-core rate
+    (the PR 13 design's bound)."""
+    from repro_torch.kernels import cost
+
     bb, nc, nh, q, hp = x.shape
-    g, ds = b.shape[2], b.shape[4]
-    pairs = q * (q + 1) // 2
-    cb = bb * nc * g * 2 * ds * pairs
-    att_x = bb * nc * nh * 2 * hp * pairs
-    state = bb * nc * nh * 2 * q * ds * hp
-    if cuda_cores:
-        rate = F32_FLOPS
-        t_ops = (cb + att_x + state) / F32_FLOPS * 1e3
-    elif x.dtype == torch.float32:
-        rate = TF32X3_FLOPS
-        t_ops = (cb + att_x + state) / TF32X3_FLOPS * 1e3
-    else:
-        rate = (f"{RATE_NAMES[BF16_TC_FLOPS]} (C.B^T, att @ x) and "
-                f"{RATE_NAMES[TF32X2_FLOPS]} (state)")
-        t_ops = ((cb + att_x) / BF16_TC_FLOPS + state / TF32X2_FLOPS) * 1e3
-    es = x.element_size()
-    nbytes = (2 * x.numel() * es + 2 * b.numel() * es
-              + 2 * bb * nc * nh * q * 4 + bb * nc * nh * ds * hp * 4)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return _bound(t_ops, t_bytes, rate)
+    return cost.ssd_work(bb, nc, nh, q, hp, b.shape[2], b.shape[4],
+                         x.element_size(), cuda_cores=cuda_cores).bound()
 
 
 def _check_ssd(label, got, want, y_extra=None):
@@ -4180,7 +4127,7 @@ def _disagg_paged(model, params, totals, smi):
                 _log(f"[cluster] {label}: {len(copies)} page transfers, "
                      f"{pages} pages, {moved} B read + written, "
                      f"{ms:.3f} ms in all ({rate / 1e12:.3f} TB/s, "
-                     f"{rate / HBM_BYTES_PER_S:.3f} of 3.35 TB/s; each "
+                     f"{rate / 3.35e12:.3f} of 3.35 TB/s; each "
                      f"transfer {each}); {smi}")
             del router, xmodel
             _free_device()
@@ -4632,6 +4579,60 @@ def _train_full(smi):
                   "15b train step", ticks=1, top=12)
     del trainer, state, model
     _free_device()
+    return {"times": times, "peaks": peaks}
+
+
+# (f) the dry run's peak (the bytes live before the step plus the most it
+# allocates at once, counted on the meta device) against (b)'s
+# max_memory_allocated: the allocator rounds each block up (512 bytes)
+# and cuBLAS takes its workspace from it, and a kernel's own scratch is
+# not an output the counter sees; measured 46.88 GB counted against 46.95
+# GB in PR 24's runs, so 2% is room and still catches a missed gradient
+# or optimizer buffer (7.6 GB each here)
+DRY_PEAK_RTOL = 0.02
+
+
+def _train_dryrun(measured, smi):
+    """(f) (b)'s step traced on the meta device at a world of one."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import TraceCounter, roofline
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+
+    model = LM(get_config(TRAIN_ARCH), _train_knobs(TRAIN_S), device="meta")
+    state = init_train_state(model, torch.Generator())
+    step = make_train_step(model, AdamWConfig(**TRAIN_OPT))
+    batch = {"tokens": torch.empty((TRAIN_B, TRAIN_S), dtype=torch.int32,
+                                   device="meta")}
+    counter = TraceCounter()
+    counter.track_args(state, batch)
+    t0 = time.perf_counter()
+    with counter:
+        step(state, batch)
+    trace_s = time.perf_counter() - t0
+    c = counter.summary()
+    terms = roofline(c["flops_by_class"], c["hbm_bytes"], c)
+    peak = c["mem_args_bytes"] + c["mem_temp_bytes"]
+    step_s = statistics.median(measured["times"])
+    real = statistics.median(measured["peaks"])
+    _log(f"[dryrun] (f) {TRAIN_ARCH} B={TRAIN_B} S={TRAIN_S} f32 remat, "
+         f"traced on meta in {trace_s:.1f} s ({c['n_ops']} ops): "
+         f"{c['flops']:.4e} flops ({c['flops_by_class']}), "
+         f"{c['hbm_bytes']:.4e} HBM bytes; args {_gb(c['mem_args_bytes'])} "
+         f"+ temp {_gb(c['mem_temp_bytes'])} = predicted peak {_gb(peak)} "
+         f"against measured max_memory_allocated {_gb(real)} (median of "
+         f"(b)'s steps; {(peak - real) / real:+.4f}); roofline compute "
+         f"{terms['compute_s']:.3f} s, memory {terms['memory_s']:.3f} s, "
+         f"step {terms['step_s']:.3f} s ({terms['bottleneck']}) against "
+         f"the measured step {step_s:.3f} s (median, host clock "
+         f"synchronized; {terms['step_s'] / step_s:.3f} of it); {smi}")
+    if abs(peak - real) > DRY_PEAK_RTOL * real:
+        raise AssertionError(f"(f) predicted peak {peak} against measured "
+                             f"{real}: past DRY_PEAK_RTOL")
+    if step_s < terms["step_s"]:
+        raise AssertionError(f"(f) measured step {step_s} s faster than "
+                             f"the roofline's {terms['step_s']} s")
 
 
 def _timed_trainer(log):
@@ -4778,12 +4779,15 @@ def _train_guard():
 def phase_train(smi):
     """Phase 15: training on the card (no kernel on its path)."""
     _free_device()
+    measured = {}
     for label, part in (("15a card vs cpu", _train_card_vs_cpu),
                         ("15b full width and depth",
-                         lambda: _train_full(smi)),
+                         lambda: measured.update(_train_full(smi))),
                         ("15c restart", _train_restart),
                         ("15d launcher", _train_launcher),
-                        ("15e guard", _train_guard)):
+                        ("15e guard", _train_guard),
+                        ("15f dry run", lambda: _train_dryrun(measured,
+                                                              smi))):
         t0 = time.perf_counter()
         part()
         _log(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
@@ -5094,10 +5098,11 @@ SHARD_COMPRESS_SHAPE = (8192, 2048)  # one layer's w_up
 SHARD_PIPE = dict(layers=2, micro=4, rows=256, width=2048)
 
 
-def _shard_train_model(mesh=None):
+def _shard_train_model(mesh=None, sp=False):
     """Phase 16's training model: ``TRAIN_ARCH`` at full width, cut to
     ``SHARD_TRAIN["layers"]`` layers, the training launcher's knobs, over
-    ``mesh``'s seams when given."""
+    ``mesh``'s seams when given (``sp``: the sequence-parallel
+    residual)."""
     from repro_torch.configs import get_config
     from repro_torch.models import LM
     from repro_torch.sharding import make_shard_fn
@@ -5106,7 +5111,7 @@ def _shard_train_model(mesh=None):
                               num_layers=SHARD_TRAIN["layers"])
     knobs = _train_knobs(SHARD_TRAIN["seq"])
     if mesh is not None:
-        knobs = knobs.with_(shard_fn=make_shard_fn(mesh, cfg))
+        knobs = knobs.with_(shard_fn=make_shard_fn(mesh, cfg, sp=sp))
     return LM(cfg, knobs, device="cuda")
 
 
@@ -5364,6 +5369,18 @@ def _shard_train(shape, mesh, ref_dir):
         del tr
         _free_device()
         rec["pipeline"] = _shard_pipeline()
+        # the sequence-parallel residual from the same init
+        sp_model = _shard_train_model(mesh, sp=True)
+        state = init_train_state(
+            sp_model, torch.Generator(device="cuda").manual_seed(0))
+        step = make_train_step(sp_model, opt, 2)
+        state, rec["sp_steps"] = _shard_train_steps(
+            "sp", step, state, data, ref["2"][:steps])
+        rec["sp_params"] = _shard_params_held(
+            "sp", state["params"], pspec, ref_dir / "params_a2_s2.pt",
+            sizes, coord, [m["lr"] for m in ref["2"][:steps]])
+        del state, step, sp_model
+        _free_device()
     dist.barrier()
     rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     rec["seconds"] = time.perf_counter() - t_start
@@ -5527,6 +5544,17 @@ def _shard_train_report(shape, recs, ref, smi):
                  f"pipeline at width {SHARD_PIPE['width']}: max_abs_err "
                  f"{p['max_abs_err']:.3g} (bitwise {p['bitwise']}), "
                  f"{p['ms']:.1f} ms host")
+            sp = t["sp_steps"]
+            _log(f"[shard-train] {label} rank {rec['rank']}: sequence-"
+                 f"parallel residual (sp=True, {SHARD_TRAIN['seq'] // 2} "
+                 f"positions a rank between layers): loss "
+                 f"{[m['loss'] for m in sp]} (unsharded "
+                 f"{[m['loss'] for m in want[:len(sp)]]}), grad_norm "
+                 f"{[round(m['grad_norm'], 6) for m in sp]}; params after "
+                 f"{len(sp)} steps: max_abs_err {t['sp_params'][0]:.3g}, "
+                 f"worst leaf's share past {SHARD_PARAM_ATOL:g}: "
+                 f"{t['sp_params'][1]:.2e}; step host ms "
+                 f"{[round(m['ms'], 1) for m in sp]}")
 
 
 def _shard_train_zero(train, ref):

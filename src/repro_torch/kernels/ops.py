@@ -8,12 +8,17 @@ quantized pool on the card is read by the kernels, never dequantized into
 an f32 pool for them.  Paged pools stay in the model layout
 (P, page_size, KV, D), scale pools (P, page_size, KV, 1): the kernels read
 them through strides, so no pool is transposed or copied per call.
+
+Tensors on the meta device (the dry run, ``launch/dryrun.py``) run
+nothing: each wrapper returns its output's shape on meta and records the
+kernel's work (``cost.py``, the function the kernels' bounds use too)
+with the active recorder.  That is no fallback: nothing is computed.
 """
 from __future__ import annotations
 
 import torch
 
-from . import ref
+from . import cost, ref
 from .decode_attention import (decode_attention_cuda,
                                decode_attention_splitk_cuda)
 from .flash_attention import flash_attention_cuda
@@ -21,6 +26,27 @@ from .paged_attention import (paged_decode_attention_cuda,
                               paged_decode_attention_splitk_cuda,
                               paged_prefill_attention_cuda)
 from .ssd_scan import ssd_chunk_cuda
+
+
+def _meta(name, work, *outs):
+    """The meta device's call: record ``work`` and return empty outputs
+    of the given (shape, dtype) pairs on meta."""
+    cost.record(name, work)
+    out = [torch.empty(shape, dtype=dt, device="meta") for shape, dt in outs]
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def _decode_meta(name, q, k, span, pos, page_size=0, k_scale=None):
+    """One decode call on meta (#1-#3, #5 and the scaled pools) against
+    a prefix of ``span`` rows: ``pos`` counts where it is host data, else
+    every slot sits at the last row (``cost._positions``)."""
+    if isinstance(pos, torch.Tensor):
+        pos = pos.numpy() if pos.device.type == "cpu" else None
+    b, t, h, d = q.shape
+    work = cost.decode_work(b, t, h, d, k.shape[2], span, q.element_size(),
+                            k.element_size(), pos, page_size=page_size,
+                            scales=k_scale is not None)
+    return _meta(name, work, (q.shape, q.dtype))
 
 
 def _split(q, num_splits):
@@ -74,6 +100,10 @@ def decode_attention(q, k_cache, v_cache, pos, *, active=None, window=0,
         return decode_attention_plain(q, k_cache, v_cache, pos,
                                       active=active, window=window,
                                       num_splits=num_splits)
+    if q.device.type == "meta":
+        return _decode_meta("decode_attention_splitk" if _split(q, num_splits)
+                            else "decode_attention", q, k_cache,
+                            k_cache.shape[1], pos)
     if _split(q, num_splits):
         return decode_attention_splitk_cuda(q, k_cache, v_cache, pos,
                                             active=active, window=window,
@@ -137,6 +167,12 @@ def paged_decode_attention(q, k_pages, v_pages, page_idx, pos, *,
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pages, v_pages, page_idx, pos, num_splits=num_splits, **kw)
+    if q.device.type == "meta":
+        page = k_pages.shape[1]
+        return _decode_meta(
+            "paged_decode_attention_splitk" if _split(q, num_splits)
+            else "paged_decode_attention", q, k_pages,
+            page_idx.shape[1] * page, pos, page, k_scale)
     if _split(q, num_splits):
         return paged_decode_attention_splitk_cuda(
             q, k_pages, v_pages, page_idx, pos, num_splits=num_splits, **kw)
@@ -170,6 +206,13 @@ def paged_prefill_attention(q, k_pages, v_pages, page_idx, slot, offset, *,
         return paged_prefill_attention_plain(
             q, k_pages, v_pages, page_idx, slot, offset, window=window,
             k_scale=k_scale, v_scale=v_scale)
+    if q.device.type == "meta":
+        _, c, h, d = q.shape
+        work = cost.prefill_work(c, h, d, k_pages.shape[2], int(offset),
+                                 q.element_size(), k_pages.element_size(),
+                                 k_pages.shape[1], cost.tc_class(q, k_pages),
+                                 scales=k_scale is not None)
+        return _meta("paged_prefill_attention", work, (q.shape, q.dtype))
     return paged_prefill_attention_cuda(q, k_pages, v_pages,
                                         page_idx[int(slot)], int(offset),
                                         window=window, k_scale=k_scale,
@@ -191,6 +234,12 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     (``window > 0``)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type == "meta":
+        b, s, h, d = q.shape
+        work = cost.flash_work(b, s, h, d, k.shape[2], q.element_size(),
+                               k.element_size(), cost.tc_class(q, k),
+                               causal=causal, window=window)
+        return _meta("flash_attention", work, (q.shape, q.dtype))
     return flash_attention_cuda(q, k, v, causal=causal, window=window)
 
 
@@ -207,4 +256,10 @@ def ssd_chunk(x, b, c, dt, cum):
     f32)."""
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, b, c, dt, cum)
+    if x.device.type == "meta":
+        bb, nc, nh, q, hp = x.shape
+        g, ds = b.shape[2], b.shape[4]
+        work = cost.ssd_work(bb, nc, nh, q, hp, g, ds, x.element_size())
+        return _meta("ssd_chunk", work, (x.shape, x.dtype),
+                     ((bb, nc, nh, ds, hp), torch.float32))
     return ssd_chunk_cuda(x, b, c, dt, cum)

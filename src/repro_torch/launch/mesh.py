@@ -9,18 +9,22 @@ gather-form tensor parallelism of ``sharding/rules.py`` and the leading
 data axes carry the decode slots and the KV page sub-pools.
 
 The mesh's device type names the backend of its collectives: "cpu" under
-gloo, "cuda" under NCCL.  ``make_production_mesh`` (the reference's 256-chip pod
-for its dry run) is not ported.
+gloo (and the fake backend), "cuda" under NCCL.  ``make_production_mesh``
+is the reference's production mesh for the dry run: 16 x 16 ("data",
+"model"), or 2 x 16 x 16 ("pod", "data", "model"), over a world of 256 or
+512 ranks, which ``fake_world`` provides in one process: the "fake"
+backend, whose collectives return at once and move nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch.distributed as dist
 
-__all__ = ["data_group", "make_job_mesh", "make_serve_mesh",
-           "mesh_device_type", "placement_mesh_shape",
-           "submesh_for_placement"]
+__all__ = ["data_group", "fake_world", "make_job_mesh",
+           "make_production_mesh", "make_serve_mesh", "mesh_device_type",
+           "placement_mesh_shape", "submesh_for_placement"]
 
 def mesh_device_type() -> str:
     """The DeviceMesh device type of the process group's backend: "cuda"
@@ -61,6 +65,38 @@ def make_serve_mesh(shape):
                          f"{world} visible (ranks of the initialized "
                          f"process group)")
     return _device_mesh(shape, _axes(len(shape)))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh: (16, 16) ("data", "model") for one
+    pod of 256 devices, (2, 16, 16) ("pod", "data", "model") for two.
+    Its size must be the world's (``fake_world(256)`` or ``(512)`` for the
+    dry run).  On H100 hosts of 8 the model axis of 16 spans two hosts:
+    the dry run keeps the reference's shape so that its rows compare with
+    the reference's, and shows what that costs on this card."""
+    return make_serve_mesh((2, 16, 16) if multi_pod else (16, 16))
+
+
+@contextlib.contextmanager
+def fake_world(n: int, rank: int = 0):
+    """A process group of ``n`` ranks in this one process, this process
+    being ``rank``: the "fake" backend (``torch.testing``'s ``FakeStore``),
+    whose collectives return at once and move nothing, for tracing a
+    rank's step (``launch/dryrun.py``).  Refuses if a process group
+    already exists (the default group is process-global: a test worker
+    runs many tests in one process), and always destroys the group on
+    exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world needs a process without a process "
+                           "group; one is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def data_group(mesh):

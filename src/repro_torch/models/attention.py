@@ -89,7 +89,7 @@ def _grouped_context(probs, v):
 
 
 def flash_attention_xla(q, k, v, *, causal=True, window=0, q_chunk=512,
-                        q_offset=0):
+                        q_offset=0, causal_skip=False):
     """Blocked attention.  q (B,Sq,H,D); k,v (B,Sk,KV,D); GQA-aware.
 
     Loops over query chunks with a transient (B, KV, G, q_chunk, span)
@@ -100,12 +100,19 @@ def flash_attention_xla(q, k, v, *, causal=True, window=0, q_chunk=512,
     (``remat``, the reference's nested ``jax.checkpoint``): the backward
     then keeps no chunk's f32 probabilities, which together are the whole
     (Sq, Sk) attention matrix.
+
+    ``causal_skip``: the reference's recursive triangle decomposition
+    (``_flash_causal_recursive``), where it applies as the reference's
+    does: causal, no window, and the queries ending at the last key.
     """
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
     q_chunk = min(q_chunk, sq)
     assert sq % q_chunk == 0, (sq, q_chunk)
+    if causal_skip and causal and not window and q_offset + sq == sk:
+        return _flash_causal_recursive(q, k, v, q_chunk=q_chunk,
+                                       q_offset=q_offset)
     kv_span = min(sk, window + q_chunk) if window else sk
 
     def body(qc, kc, vc, qpos, kpos):
@@ -134,6 +141,27 @@ def flash_attention_xla(q, k, v, *, causal=True, window=0, q_chunk=512,
             kc, vc, kpos = k, v, torch.arange(sk, device=q.device)
         outs.append(remat(body, qc, kc, vc, qpos, kpos))
     return torch.cat(outs, dim=1).reshape(b, sq, h, d)
+
+
+def _flash_causal_recursive(q, k, v, *, q_chunk, q_offset, depth=4):
+    """Static triangle decomposition of causal attention (the reference's,
+    with its split and depth).  q (B, Sq, H, D) attends k[:, :q_offset +
+    Sq] causally.  The upper half of the queries runs one rectangular
+    blocked attention over the whole prefix; the lower half recurses with
+    a prefix half as long.  Cost against the full rectangle: 0.5 (1 + 1/4
+    + ...), ~0.67 at depth 4."""
+    sq = q.shape[1]
+    end = q_offset + sq
+    half = (sq // 2 // q_chunk) * q_chunk
+    if depth == 0 or half < q_chunk or sq <= 2 * q_chunk:
+        return flash_attention_xla(q, k[:, :end], v[:, :end], causal=True,
+                                   q_chunk=q_chunk, q_offset=q_offset)
+    lower = _flash_causal_recursive(q[:, :half], k, v, q_chunk=q_chunk,
+                                    q_offset=q_offset, depth=depth - 1)
+    upper = flash_attention_xla(q[:, half:], k[:, :end], v[:, :end],
+                                causal=True, q_chunk=q_chunk,
+                                q_offset=q_offset + half)
+    return torch.cat([lower, upper], dim=1)
 
 
 def _host_values(pos):

@@ -60,6 +60,11 @@ class RuntimeKnobs:
     # via runtime.steps.pick_decode_splits); >= 1 is a static override.
     # Both 0 and 1 take the single-pass kernel outside the engine.
     decode_splits: int = 0
+    # training route: causal attention as the reference's recursive
+    # triangle (``attention._flash_causal_recursive``): the upper half of
+    # the queries attends the whole prefix, the lower half recurses on a
+    # prefix half as long, so most fully masked blocks are never computed
+    causal_skip: bool = False
     # quantized paged KV: "" (pools at cache_dtype), "int8" or "fp8"
     # (float8_e4m3fn); set by ServeEngine from ServeConfig.kv_dtype
     kv_quant: str = ""
@@ -130,9 +135,15 @@ class LM:
         b, s = x.shape[:2]
         positions = torch.arange(s, device=self.device).expand(b, s)
         x = self.knobs.shard_fn("hidden", x)
+        # a sequence-parallel hook (``sharding.rules.SequenceShardFn``)
+        # takes the layers over the rank's sequence slice; the final norm
+        # and what follows see the whole sequence again
+        seq = getattr(self.knobs.shard_fn, "sequence", None)
+        knobs = self.knobs if seq is None else self.knobs.with_(shard_fn=seq)
+        x = knobs.shard_fn("seq_in", x)
         x, aux, caches = apply_blocks(params["blocks"], x, positions,
-                                      cfg=self.cfg, knobs=self.knobs,
-                                      mode=mode)
+                                      cfg=self.cfg, knobs=knobs, mode=mode)
+        x = knobs.shard_fn("seq_out", x)
         x = rmsnorm(params["final_norm"], x)
         return x, aux, caches
 

@@ -55,8 +55,9 @@ def moe_ffn(params, x, moe_cfg, *, train=True, shard_fn=_identity_shard):
                          f"chunk {chunk}")
     n = s // chunk
     cap = _capacity(chunk, moe_cfg, train)
-    # router in f32; combine weights: softmax over the chosen logits
-    logits = x.reshape(b, n, chunk, d).float() @ params["router"]
+    # router in f32 (a bf16-stored router upcast, as the reference's einsum
+    # promotes it); combine weights: softmax over the chosen logits
+    logits = x.reshape(b, n, chunk, d).float() @ params["router"].float()
     top_vals, top_idx = torch.topk(logits, k, dim=-1)  # (b,n,c,k)
     top_w = torch.softmax(top_vals, dim=-1)
     # position in expert: cumsum over (k-major, then token) choices
@@ -86,11 +87,15 @@ def moe_ffn(params, x, moe_cfg, *, train=True, shard_fn=_identity_shard):
     out = (got.reshape(b, n, chunk, k, d) * w[..., None]).sum(3)
 
     # aux losses: load balance (kept choices per expert against the mean
-    # router probability), z-loss, and the dropped share of the choices
+    # router probability), z-loss, and the dropped share of the choices.
+    # The load balance is a product of batch means: in training under
+    # data parallelism both means are the global batch's
+    # ("moe_batch_mean": the batch ranks' mean, the identity unsharded)
     probs = torch.softmax(logits, dim=-1)
     kept = (F.one_hot(top_idx, e) * keep[..., None]).float().sum(3)
-    frac = kept.mean(dim=(0, 1, 2)) / k
-    mean_prob = probs.mean(dim=(0, 1, 2))
+    batch_mean = shard_fn if train else _identity_shard
+    frac = batch_mean("moe_batch_mean", kept.mean(dim=(0, 1, 2))) / k
+    mean_prob = batch_mean("moe_batch_mean", probs.mean(dim=(0, 1, 2)))
     aux = {"moe_lb_loss": e * (frac * mean_prob).sum(),
            "moe_z_loss": (torch.logsumexp(logits, dim=-1) ** 2).mean(),
            "moe_drop_frac": 1.0 - keep.float().mean()}

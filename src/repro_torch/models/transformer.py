@@ -231,9 +231,13 @@ def _acc_aux(aux, new):
 
 
 def _ffn(p, h2, ffn, *, cfg, train, shard_fn):
-    """The FFN tail: (out, aux); aux holds the MoE losses of an MoE FFN."""
+    """The FFN tail: (out, aux); aux holds the MoE losses of an MoE FFN.
+    The MoE runs between the seams "moe_in" and "moe_out" (the identity
+    but under sequence parallelism)."""
     if ffn == "moe":
-        return moe_ffn(p["moe"], h2, cfg.moe, train=train, shard_fn=shard_fn)
+        out, aux = moe_ffn(p["moe"], shard_fn("moe_in", h2), cfg.moe,
+                           train=train, shard_fn=shard_fn)
+        return shard_fn("moe_out", out), aux
     if ffn == "mlp":
         return mlp(p["mlp"], h2, cfg.gated_mlp, shard_fn=shard_fn), {}
     return torch.zeros_like(h2), {}
@@ -272,7 +276,8 @@ def _apply_attn_block(p, x, positions, *, cfg, window, knobs, collect_cache,
         ctx = ops.flash_attention(q, k, v, causal=True, window=window)
     else:
         ctx = attn.flash_attention_xla(q, k, v, causal=True, window=window,
-                                       q_chunk=knobs.q_chunk)
+                                       q_chunk=knobs.q_chunk,
+                                       causal_skip=knobs.causal_skip)
     ctx = shard_fn("attn_out", ctx)
     x = x + attn.attn_output(p["attn"], ctx)
     h2 = rmsnorm(p["ln2"], x)
@@ -287,14 +292,14 @@ def _apply_ssm_block(p, x, *, cfg, collect_cache, shard_fn):
     """Whole-sequence SSM block: the SSD intra-chunk through the kernel
     when ``collect_cache`` (prefill), through the einsums otherwise
     (training).  Returns (x, cache)."""
-    h = rmsnorm(p["ln"], x)
+    h = shard_fn("ssm_in", rmsnorm(p["ln"], x))
     if collect_cache:
         y, state = ssm_forward(p["ssm"], h, cfg.d_model, cfg.ssm,
                                return_state=True)
     else:
         y = ssm_forward(p["ssm"], h, cfg.d_model, cfg.ssm, kernel=False)
         state = None
-    return shard_fn("hidden", x + y), state
+    return shard_fn("hidden", x + shard_fn("ssm_out", y)), state
 
 
 def _apply_ssm_block_decode(p, x, cache, *, cfg):

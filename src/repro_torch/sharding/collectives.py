@@ -9,8 +9,11 @@ a page chain's K/V).  A tensor travels as it is, on the CPU or on the
 card: NCCL and gloo both take CUDA tensors.
 
 Training adds the seams with gradients (``gather_seam``, ``reduce_seam``,
-``slice_seam``: autograd Functions of the port's own, whose backward is
-the one the gather form needs, see each) and the block moves of ZeRO:
+``scatter_seam``: autograd Functions of the port's own, whose backward is
+the one the gather form needs, see each; ``sum_seam`` for a loss term
+built from the batch ranks' sums; ``gather_scatter_seam`` and
+``swap_seam`` for the sequence-parallel residual) and the block moves of
+ZeRO:
 ``axis_group`` names the group of one mesh axis or of several flattened,
 ``gather_block`` rebuilds a leaf from the blocks its spec cut, and
 ``reduce_block`` sums a gradient over the batch axes into the block a spec
@@ -21,9 +24,11 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather_cat", "axis_group", "broadcast_from", "gather_block",
-           "gather_block_to_first", "gather_seam", "reduce_block",
-           "reduce_scatter_cat", "reduce_seam", "slice_seam"]
+__all__ = ["all_gather_cat", "all_to_all_cat", "axis_group",
+           "broadcast_from", "gather_block", "gather_block_to_first",
+           "gather_scatter_seam", "gather_seam", "reduce_block",
+           "reduce_scatter_cat", "reduce_seam", "scatter_seam", "sum_seam",
+           "swap_seam"]
 
 
 def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -79,24 +84,115 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
-class _Slice(torch.autograd.Function):
+class _Sum(torch.autograd.Function):
+    """Forward: the sum over the group.  Backward: the incoming gradient
+    summed over the group (``torch.distributed.nn``'s all-reduce).  For a
+    loss term every rank computes alike from the group's sum: each rank's
+    share of the sum then gets the gradient of every rank's copy of the
+    term, and the train step's mean of the ranks' gradients gives the
+    term's gradient once."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _GatherScatter(torch.autograd.Function):
+    """Forward: ``all_gather_cat``.  Backward: the incoming gradient
+    reduce-scattered over the group (summed, the rank's block kept): the
+    sequence-parallel all-gather before the products of the rank's share
+    of heads or columns, whose gradient each rank holds only its share's
+    terms of."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, index):
+        ctx.group, ctx.dim, ctx.index = group, dim, index
+        return all_gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter_cat(g, ctx.group, ctx.dim, ctx.index), None,
+                None, None)
+
+
+def all_to_all_cat(x: torch.Tensor, group, split_dim: int,
+                   cat_dim: int) -> torch.Tensor:
+    """``x`` cut into the group's size of blocks along ``split_dim``, block
+    j sent to member j, and the blocks received concatenated along
+    ``cat_dim`` in the group's rank order (one ``all_to_all_single``)."""
+    n = dist.get_world_size(group)
+    parts = [p.contiguous() for p in x.chunk(n, dim=split_dim)]
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    out = torch.empty_like(flat)
+    dist.all_to_all_single(out, flat, group=group)
+    return torch.cat(list(out.view(n, *parts[0].shape).unbind(0)),
+                     dim=cat_dim)
+
+
+class _Swap(torch.autograd.Function):
+    """Forward: ``all_to_all_cat(x, split_dim, cat_dim)``.  Backward: the
+    inverse exchange, ``all_to_all_cat(g, cat_dim, split_dim)``."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, cat_dim):
+        ctx.group, ctx.split_dim, ctx.cat_dim = group, split_dim, cat_dim
+        return all_to_all_cat(x, group, split_dim, cat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_to_all_cat(g, ctx.group, ctx.cat_dim, ctx.split_dim),
+                None, None, None)
+
+
+class _Scatter(torch.autograd.Function):
     """Forward: block ``index`` of ``n`` along ``dim``.  Backward: the
-    block's gradient in place in zeros of the whole, summed over the group
-    (every member's block, each from its owner)."""
+    members' block gradients all-gathered along ``dim``: downstream of the
+    cut each rank holds its own block's gradient (the products of its
+    experts, or of its sequence slice), upstream every rank computes the
+    whole alike."""
 
     @staticmethod
     def forward(ctx, x, group, dim, index, n):
         size = x.shape[dim] // n
-        ctx.group, ctx.dim, ctx.start, ctx.shape = (group, dim, index * size,
-                                                    x.shape)
-        return x.narrow(dim, index * size, size)
+        ctx.group, ctx.dim = group, dim
+        # a copy, so that the whole is freed once nothing else holds it
+        return x.narrow(dim, index * size, size).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        full = g.new_zeros(ctx.shape)
-        full.narrow(ctx.dim, ctx.start, g.shape[ctx.dim]).copy_(g)
-        dist.all_reduce(full, group=ctx.group)
-        return full, None, None, None, None
+        return all_gather_cat(g, ctx.group, ctx.dim), None, None, None, None
+
+
+def sum_seam(x, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, whose backward sums the gradient
+    over the group; see ``_Sum``."""
+    return _Sum.apply(x, group)
+
+
+def gather_scatter_seam(x, group, dim: int, index: int) -> torch.Tensor:
+    """``all_gather_cat`` whose backward reduce-scatters the gradient;
+    see ``_GatherScatter``."""
+    return _GatherScatter.apply(x, group, dim, index)
+
+
+def swap_seam(x, group, split_dim: int, cat_dim: int) -> torch.Tensor:
+    """``all_to_all_cat`` whose backward is the inverse exchange."""
+    return _Swap.apply(x, group, split_dim, cat_dim)
+
+
+def scatter_seam(x, group, dim: int, index: int, n: int) -> torch.Tensor:
+    """Block ``index`` of ``n`` along ``dim``, whose backward all-gathers
+    the blocks' gradients; see ``_Scatter``."""
+    return _Scatter.apply(x, group, dim, index, n)
 
 
 def gather_seam(x, group, dim: int, index: int) -> torch.Tensor:
@@ -108,12 +204,6 @@ def gather_seam(x, group, dim: int, index: int) -> torch.Tensor:
 def reduce_seam(x, group) -> torch.Tensor:
     """The identity, whose backward sums the gradient over ``group``."""
     return _Reduce.apply(x, group)
-
-
-def slice_seam(x, group, dim: int, index: int, n: int) -> torch.Tensor:
-    """Block ``index`` of ``n`` along ``dim``, whose backward sums the
-    whole's gradient over ``group``; see ``_Slice``."""
-    return _Slice.apply(x, group, dim, index, n)
 
 
 # ------------------------------------------------------------ ZeRO blocks

@@ -39,13 +39,16 @@ from typing import Optional
 
 import torch
 
-from .collectives import all_gather_cat, gather_seam, reduce_seam, slice_seam
+from .collectives import (all_gather_cat, axis_group, gather_scatter_seam,
+                          gather_seam, reduce_seam, scatter_seam, sum_seam,
+                          swap_seam)
 
-__all__ = ["ServeShardFn", "TrainShardFn", "batch_shardings",
+__all__ = ["SequenceShardFn", "ServeShardFn", "TrainShardFn",
+           "batch_shardings",
            "block_index", "cache_shardings", "grad_shardings", "head_layout",
            "local_caches", "local_cfg", "make_shard_fn", "mesh_coord",
            "mesh_sizes", "model_cuts", "opt_state_shardings",
-           "param_shardings", "serve_batch_sharding",
+           "param_shardings", "serve_batch_sharding", "sp_partial",
            "serve_cache_shardings", "serve_param_shardings", "shard_block",
            "shard_params", "train_seam_spec", "train_state_shardings"]
 
@@ -658,25 +661,49 @@ class TrainShardFn(ServeShardFn):
       "model" (``reduce_seam``): each rank's input gradient there holds
       only its heads' or columns' terms.
     - "moe_expert_in" cuts the dispatch buffer to the rank's experts
-      (``slice_seam``): the backward sums the buffer's gradient over
+      (``scatter_seam``): the backward gathers the buffer's gradient over
       "model".
+    - "moe_batch_mean" (each of the load-balance loss's two batch means)
+      is the batch ranks' mean (``sum_seam``: the backward sums too), so
+      that the loss is the global batch's, as the reference's GSPMD step
+      computes it.
 
     Every other seam, and every seam under ``layout="dp"`` (no model
     cut), is the identity.  ``spec(name, shape)`` is the reference's
-    constraint at that seam (``train_seam_spec``)."""
+    constraint at that seam (``train_seam_spec``).  With ``sp`` (and a
+    model axis of more than one rank under ``layout="tp"``),
+    ``sequence`` is the hook of the whole-sequence route, where the
+    residual stream is cut over "model" along the sequence
+    (``SequenceShardFn``); None otherwise."""
 
-    def __init__(self, mesh, cuts: dict, *, layout: str = "tp"):
+    def __init__(self, mesh, cuts: dict, *, layout: str = "tp",
+                 sp: bool = False):
         if layout == "dp":
             cuts = {k: False for k in cuts}
         super().__init__(mesh, cuts)
         self.layout = layout
+        self.sp = bool(sp) and layout != "dp" and self._m > 1
+        sizes = mesh_sizes(mesh)
+        self._batch = batch_axes(mesh, layout)
+        self._n_batch = 1
+        for a in self._batch:
+            self._n_batch *= sizes[a]
+        self._batch_group = None
+        self.sequence = SequenceShardFn(self) if self.sp else None
 
     def __eq__(self, other):
         return (isinstance(other, TrainShardFn) and super().__eq__(other)
-                and self.layout == other.layout)
+                and self.layout == other.layout and self.sp == other.sp)
 
     def __hash__(self):
-        return hash((super().__hash__(), self.layout))
+        return hash((super().__hash__(), self.layout, self.sp))
+
+    def batch_group(self):
+        """The process group over the batch axes (made on first use, by
+        every rank at once: the ranks run the same layers)."""
+        if self._batch_group is None:
+            self._batch_group = axis_group(self.mesh, self._batch)
+        return self._batch_group
 
     def __call__(self, name: str, x):
         g = self._group
@@ -689,10 +716,89 @@ class TrainShardFn(ServeShardFn):
         if name == "mlp_up" and self._ff:  # (B, S, ff_local)
             return gather_seam(x, g, -1, self._index)
         if name == "moe_expert_in" and self._experts:  # (E, rows, d)
-            return slice_seam(x, g, 0, self._index, self._m)
+            return scatter_seam(x, g, 0, self._index, self._m)
         if name == "moe_expert_out" and self._experts:  # (E_local, rows, d)
             return gather_seam(x, g, 0, self._index)
+        if name == "moe_batch_mean" and self._n_batch > 1:
+            return sum_seam(x, self.batch_group()) / self._n_batch
         return x
+
+
+# the leaves that run on a rank's sequence slice under sp: their gradient
+# on each rank holds its slice's terms only, summed over "model" by the
+# train step
+_SP_PARTIAL = ("ln1/scale", "ln2/scale", "ln/scale", "attn/wo",
+               "mlp/w_down")
+
+
+def sp_partial(pstr: str) -> bool:
+    """Whether leaf ``pstr``'s gradient is a sum over "model" under sp."""
+    return pstr.startswith("blocks/") and pstr.endswith(_SP_PARTIAL)
+
+
+class SequenceShardFn:
+    """The seams of the whole-sequence route (``LM.hidden``) under sp: the
+    residual stream between layers is (B, S / |model|, d) on each rank,
+    the sequence cut over "model" in rank order, so that remat saves a
+    |model|-th of each layer boundary (the reference's ``(dp, "model",
+    None)``).
+
+    The port's counterpart of Megatron's sequence parallelism in the
+    gather form (``TrainShardFn``):
+
+    - "seq_in" (the embedding) keeps the rank's slice; "seq_out" (before
+      the final norm) gathers the sequence back: the final norm, the
+      chunked cross-entropy and its mean run over the global sequence, as
+      unsharded.  RoPE positions are the global sequence's: attention
+      runs on the gathered sequence.
+    - "attn_in", "mlp_in": the normed slice is all-gathered before the
+      products of the rank's heads or MLP columns; the backward
+      reduce-scatters (``gather_scatter_seam``).
+    - "attn_out", "mlp_up": the gather form has no row-parallel product
+      (``wo`` and ``w_down`` stay whole), so where Megatron
+      reduce-scatters the row-parallel output, the rank's heads (or
+      columns) of the whole sequence are exchanged for every head of its
+      slice (``swap_seam``, one all-to-all; the backward is the inverse
+      exchange), and ``wo`` (``w_down``) multiply the slice in the
+      single-device order.
+    - Where the rules do not cut the heads or columns over "model", those
+      seams gather the sequence (``gather_seam``) and keep the rank's
+      slice after (``scatter_seam``).
+    - "moe_in"/"moe_out", "ssm_in"/"ssm_out": the MoE FFN and the SSM
+      mixer run on the gathered sequence (the MoE's dispatch chunks and
+      capacity, and the scan, are the global sequence's) and keep the
+      rank's slice after.
+    - Norms and residual adds run on the slice; so their leaves' and
+      ``wo``/``w_down``'s gradients are summed over "model" by the train
+      step (``sp_partial``).  Every other seam is the gather form's."""
+
+    def __init__(self, fn: TrainShardFn):
+        self.fn = fn
+
+    def __eq__(self, other):
+        return isinstance(other, SequenceShardFn) and self.fn == other.fn
+
+    def __hash__(self):
+        return hash(("sequence", hash(self.fn)))
+
+    def __call__(self, name: str, x):
+        fn = self.fn
+        g, i, m = fn._group, fn._index, fn._m
+        if name == "seq_in":  # (B, S, d) -> (B, S/m, d)
+            return scatter_seam(x, g, 1, i, m)
+        if name in ("seq_out", "moe_in", "ssm_in"):
+            return gather_seam(x, g, 1, i)
+        if name in ("moe_out", "ssm_out"):
+            return scatter_seam(x, g, 1, i, m)
+        if name in ("attn_in", "mlp_in"):
+            cut = fn._heads if name == "attn_in" else fn._ff
+            return (gather_scatter_seam(x, g, 1, i) if cut
+                    else gather_seam(x, g, 1, i))
+        if name in ("attn_out", "mlp_up"):  # (B, S, H_l, hd) | (B, S, ff_l)
+            cut = fn._heads if name == "attn_out" else fn._ff
+            return (swap_seam(x, g, 1, 2) if cut
+                    else scatter_seam(x, g, 1, i, m))
+        return fn(name, x)
 
 
 def param_shapes(cfg):
@@ -706,13 +812,9 @@ def param_shapes(cfg):
 def make_shard_fn(mesh, cfg, *, sp: bool = False, layout: str = "tp"):
     """The seams' hook of a sharded train step over ``mesh`` (the
     reference's ``make_shard_fn``): a ``TrainShardFn`` whose model cuts
-    follow the serving rules' specs of ``cfg``'s parameters.  The gather
-    form keeps each rank's residual stream whole, so ``sp=True`` (the
-    reference's sequence-parallel residual) is not ported and raises;
-    ``train_seam_spec`` gives its specs."""
-    if sp:
-        raise NotImplementedError(
-            "sp=True (a sequence-parallel residual) is not ported: the "
-            "gather form keeps every rank's residual whole")
+    follow the serving rules' specs of ``cfg``'s parameters.  ``sp=True``:
+    the sequence-parallel residual (``SequenceShardFn``) on the
+    whole-sequence route; ``train_seam_spec`` gives the reference's
+    specs."""
     cuts = model_cuts(mesh_sizes(mesh), param_shapes(cfg))
-    return TrainShardFn(mesh, cuts, layout=layout)
+    return TrainShardFn(mesh, cuts, layout=layout, sp=sp)

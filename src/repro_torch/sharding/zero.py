@@ -30,9 +30,13 @@ One step:
 
 Each rank's loss is the mean over its rows; every row has the same number
 of target tokens, so the mean over the batch ranks is the global batch's.
-An MoE's load-balance loss is the exception: it is a product of batch
-means, and each rank takes its own rows' (the reference's GSPMD step
-takes the global batch's).
+An MoE's load-balance loss is a product of batch means: its two means are
+the global batch's on every rank (``TrainShardFn``'s "moe_batch_mean"),
+as the reference's GSPMD step takes them.
+
+With the sequence-parallel residual (``make_shard_fn(sp=True)``) the
+norms, ``wo`` and ``w_down`` run on the rank's sequence slice, so their
+gradients (``rules.sp_partial``) are also summed over "model" in step 3.
 """
 from __future__ import annotations
 
@@ -44,7 +48,8 @@ from .collectives import (axis_group, gather_block, gather_block_to_first,
 from .rules import (TrainShardFn, _param_spec,
                     batch_axes, batch_shardings, head_layout, kv_narrowed,
                     local_cfg, mesh_coord, mesh_sizes, param_shapes,
-                    serve_cut, shard_block, train_state_shardings)
+                    serve_cut, shard_block, sp_partial,
+                    train_state_shardings)
 
 __all__ = ["ShardedTrainStep", "gather_state", "is_sharded", "shard_state",
            "state_shardings_of"]
@@ -138,6 +143,10 @@ class ShardedTrainStep:
                       else _flat(grad_shardings))
         tp = self.layout != "dp" and self.sizes.get("model", 1) > 1
         self.tp, self.full_kv = tp, cfg.num_kv_heads
+        # the axes each leaf's gradient is summed over (step 3)
+        self.sum_axes = {k: self.batch_axes + (("model",) if fn.sp
+                                               and sp_partial(k) else ())
+                         for k in shapes}
         self.kv_range = (head_layout(cfg, self.sizes, self.coord["model"],
                                      fn.cuts)[1] if tp else None)
         # the gather form's spec of each leaf (None: kv-narrowed, no spec)
@@ -199,7 +208,7 @@ class ShardedTrainStep:
                 g = gather_block(g, (None,) * dim + (a,), self.mesh,
                                  self.sizes)
         return reduce_block(g, tuple(spec), self.mesh, self.sizes,
-                            self.coord, self.batch_axes, scatter)
+                            self.coord, self.sum_axes[k], scatter)
 
     def _model_whole(self, k, g):
         """A kv-narrowed gradient leaf whole over the KV heads: several

@@ -456,13 +456,30 @@ _CALLS = {
 }
 
 
+# the CUDA wrappers the calls above reach for a CUDA tensor
+_CUDA_CALLS = {
+    "decode": lambda q, k, v, ks, vs, t: tpaged.paged_decode_attention_cuda(
+        q, k, v, t, [3, 5], k_scale=ks, v_scale=vs),
+    "splitk": lambda q, k, v, ks, vs, t:
+        tpaged.paged_decode_attention_splitk_cuda(
+            q, k, v, t, [3, 5], num_splits=2, k_scale=ks, v_scale=vs),
+    "prefill": lambda q, k, v, ks, vs, t: tpaged.paged_prefill_attention_cuda(
+        q, k, v, t[1], 0, k_scale=ks, v_scale=vs),
+}
+
+
 @pytest.mark.parametrize("kind", list(_CALLS))
 def test_quant_pool_off_the_cpu_never_reaches_a_plain_version(kind,
                                                               monkeypatch):
-    """Tensors that are not on the CPU (here on the meta device, which
-    stands in for the card) go to the CUDA wrapper, which raises for a
-    device it cannot launch on: no plain version and no dequantized f32
-    pool is ever computed for them."""
+    """Tensors that are not on the CPU never reach a plain version or a
+    dequantized f32 pool.  On the meta device (the dry run) the wrapper
+    computes nothing: it returns q's shape on meta and records the
+    kernel's work, the int8 pool's scales counted (4 bytes a key and KV
+    head beside its 1-byte values); the CUDA wrapper, which a CUDA tensor
+    reaches, raises for a device it cannot launch on (meta stands in for
+    the card)."""
+    from repro_torch.kernels import cost
+
     def refuse(*args, **kwargs):
         raise AssertionError("a plain version ran for a non-CPU tensor")
 
@@ -474,8 +491,15 @@ def test_quant_pool_off_the_cpu_never_reaches_a_plain_version(kind,
                "paged_prefill_attention_quant_ref"):
         monkeypatch.setattr(ref, fn, refuse)
     args = _card_shaped("int8", "meta", c=8 if kind == "prefill" else 0)
+    got = []
+    with cost.recording(lambda name, work: got.append(work)):
+        out = _CALLS[kind](*args)
+    assert out.device.type == "meta" and out.shape == args[0].shape
+    (work,) = got
+    keys = 8 if kind == "prefill" else 4 + 6  # the chunk; slots at 3 and 5
+    assert work.bytes_read >= 2 * keys * 2 * (128 + 4)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        _CALLS[kind](*args)
+        _CUDA_CALLS[kind](*args)
 
 
 class _FakeLib:

@@ -43,6 +43,16 @@ def tiny_cfg():
                                **TINY)
 
 
+def moe_cfg():
+    """A tiny MoE: mixtral's smoke config (4 experts, top-2, capacity
+    chunks of 16) at two layers and vocab 64."""
+    return dataclasses.replace(get_config("mixtral-8x7b", smoke=True),
+                               num_layers=2, vocab_size=64)
+
+
+CFGS = {"tiny": tiny_cfg, "moe": moe_cfg}
+
+
 def knobs():
     return RuntimeKnobs(cache_dtype=torch.float32, q_chunk=16)
 
@@ -89,18 +99,21 @@ cfg = T.tiny_cfg()
 ckpt = os.environ["CKPT"]
 
 
-def sharded(shape, layout="tp"):
+def sharded(shape, layout="tp", sp=False, cfg=cfg):
     mesh = make_serve_mesh(shape)
     return mesh, LM(cfg, T.knobs().with_(
-        shard_fn=make_shard_fn(mesh, cfg, layout=layout)), device="cpu")
+        shard_fn=make_shard_fn(mesh, cfg, layout=layout, sp=sp)),
+        device="cpu")
 
 
 def nbytes(tree):
     return {k: v.numel() * v.element_size() for k, v in T.flat(tree).items()}
 
 
-def steps(shape, accum=1, zero2=False, layout="tp", fsdp=False):
-    mesh, model = sharded(shape, layout)
+def steps(shape, accum=1, zero2=False, layout="tp", fsdp=False, sp=False,
+          arch="tiny"):
+    cfg = T.CFGS[arch]()
+    mesh, model = sharded(shape, layout, sp, cfg)
     specs = train_state_shardings(mesh, cfg, param_shapes(cfg), fsdp=fsdp,
                                   layout=layout)
     state = init_train_state(model, torch.Generator().manual_seed(0),
@@ -108,7 +121,7 @@ def steps(shape, accum=1, zero2=False, layout="tp", fsdp=False):
     gsh = grad_shardings(mesh, cfg, param_shapes(cfg)) if zero2 else None
     step = make_train_step(model, AdamWConfig(**T.OPT), accum,
                            grad_shardings=gsh, state_shardings=specs)
-    grads, _ = step.whole_grads(state, T.batches()[0])
+    grads, first = step.whole_grads(state, T.batches()[0])
     losses = []
     for b in T.batches():
         state, met = step(state, b)
@@ -116,7 +129,8 @@ def steps(shape, accum=1, zero2=False, layout="tp", fsdp=False):
     opt_bytes = nbytes(state["opt"]["master"])
     full = gather_state(state, specs, mesh)
     return {"losses": losses, "grads": grads, "state": full,
-            "opt_bytes": opt_bytes}
+            "opt_bytes": opt_bytes,
+            "metrics": {k: float(v) for k, v in first.items()}}
 
 
 def save(name, rec):
@@ -141,6 +155,8 @@ if world == 4:
     save("zero2_2x1x2", steps((2, 1, 2), accum=2, zero2=True))
     save("accum_2x2", steps((2, 2), accum=2))
     save("trainer_2x2", trainer((2, 2), until=3, every=3))
+    save("moe_2x2", steps((2, 2), arch="moe"))
+    save("steps_sp2x2", steps((2, 2), sp=True))
     # the seam: a rank's 3 values gathered over "model", weighted by
     # arange(6)
     from repro_torch.sharding.collectives import all_gather_cat, gather_seam
@@ -176,6 +192,7 @@ else:
     save("steps_1x2", steps((1, 2)))
     save("steps_2x1", steps((2, 1)))
     save("steps_dp1x2", steps((1, 2), layout="dp"))
+    save("steps_sp1x2", steps((1, 2), sp=True))
     for shape in ((1, 2), (2, 1)):
         mesh, model = sharded(shape)
         shapes = LM(cfg, T.knobs(), device="meta")
@@ -213,14 +230,18 @@ def worlds(tmp_path_factory):
                 res[name] = torch.load(path)
     res["seam"] = [read_records(tmp / "w4", r)["seam"] for r in range(4)]
     base = {}
-    for accum in (1, 2):
-        model = LM(tiny_cfg(), knobs(), device="cpu")
+    for accum in (1, 2, "moe"):
+        cfg = moe_cfg() if accum == "moe" else tiny_cfg()
+        model = LM(cfg, knobs(), device="cpu")
         state = init_train_state(model, torch.Generator().manual_seed(0))
-        step = make_train_step(model, AdamWConfig(**OPT), accum)
+        step = make_train_step(model, AdamWConfig(**OPT),
+                               2 if accum == 2 else 1)
         from repro_torch.runtime.steps import _value_and_grad, _unflatten
-        if accum == 1:
-            _, _, g = _value_and_grad(model, state["params"], batches()[0])
-            base["grads"] = _unflatten(state["params"], g)
+        if accum != 2:
+            _, met, g = _value_and_grad(model, state["params"], batches()[0])
+            base["grads" if accum == 1 else "moe_grads"] = _unflatten(
+                state["params"], g)
+            base[f"metrics_{accum}"] = {k: float(v) for k, v in met.items()}
         losses, seen = [], []
         for b in batches():
             _, _, g = _value_and_grad(model, state["params"], b)
@@ -262,18 +283,19 @@ def _lrs():
     return [float(sched(t + 1)) for t in range(STEPS)]
 
 
-SHAPES = ["2x2", "1x2", "2x1", "fsdp2x2", "dp1x2"]
+SHAPES = ["2x2", "1x2", "2x1", "fsdp2x2", "dp1x2", "sp1x2", "sp2x2"]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
 def test_sharded_steps_equal_unsharded(worlds, shape):
     """Two train steps at (2, 2), (1, 2) and (2, 1) from the unsharded
     init, at (2, 2) with the params stored FSDP-cut (``fsdp=True``:
-    gathered over "data" to compute) and at (1, 2) under ``layout="dp"``
+    gathered over "data" to compute), at (1, 2) under ``layout="dp"``
     (no model cut: every axis a batch axis, the optimizer state still
-    cut, ZeRO-1): the loss of each within 1e-6 relative, the params,
-    master, mu and nu after both within the step tolerance (module
-    docstring)."""
+    cut, ZeRO-1) and at (1, 2) and (2, 2) with the sequence-parallel
+    residual (``sp=True``: the layers over each rank's half of the
+    sequence): the loss of each within 1e-6 relative, the params, master,
+    mu and nu after both within the step tolerance (module docstring)."""
     got = worlds["res"][f"steps_{shape}"]
     want = worlds["base"][1]
     for a, b in zip(got["losses"], want["losses"]):
@@ -382,6 +404,66 @@ def test_zero_cuts_each_ranks_opt_state(worlds):
         sum(full.values())
 
 
+def test_sharded_moe_load_balance_is_the_global_batchs(worlds):
+    """A tiny MoE (4 experts, top-2) at (2, 2): its load-balance loss is
+    the global batch's product of means (each rank's kept choices and
+    router probabilities averaged over the batch ranks before the
+    product), so the loss, ``moe_lb_loss`` and every gradient equal the
+    unsharded step's within the module's tolerances, and the params after
+    two steps within the step tolerance.  A rank's own rows' product (the
+    port before the repair) misses the first loss by 2.1e-6 relative,
+    twice LOSS_RTOL."""
+    got = worlds["res"]["moe_2x2"]
+    want = worlds["base"]["moe"]
+    for a, b in zip(got["losses"], want["losses"]):
+        assert a == pytest.approx(b, rel=LOSS_RTOL)
+    wmet = worlds["base"]["metrics_moe"]
+    for k in ("loss", "moe_lb_loss", "moe_z_loss", "moe_drop_frac"):
+        assert got["metrics"][k] == pytest.approx(wmet[k], rel=LOSS_RTOL,
+                                                  abs=1e-7), k
+    gflat, wflat = flat(got["grads"]), flat(worlds["base"]["moe_grads"])
+    assert set(gflat) == set(wflat)
+    for k, w in wflat.items():
+        err = float((gflat[k] - w).abs().max())
+        assert err <= GRAD_TOL * float(w.abs().max()), (k, err)
+    gs, ws = flat(got["state"]), flat(want["state"])
+    keys = [k for k in ws if k.startswith(("params/", "opt/master/"))]
+    _hold_params({k: gs[k] for k in keys}, {k: ws[k] for k in keys},
+                 want["grads_seen"], _lrs())
+
+
+def test_sharded_moe_equals_jax_value_and_grad(worlds):
+    """The (2, 2) MoE step's first loss, ``moe_lb_loss`` and gradient
+    against the reference's ``jax.value_and_grad(LM.loss)`` on one device
+    at the same params and batch: the loss within 1e-6 relative, every
+    gradient leaf within 2e-4 of its max abs (``test_torch_train_grads``'s
+    bar for f32 gradients summed in other orders) plus 1e-6."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.configs import get_config as jget_config
+    from repro.models import LM as JLM
+    from repro.models import RuntimeKnobs as JKnobs
+    from repro_torch import convert
+
+    params = LM(moe_cfg(), knobs(), device="cpu").init(
+        torch.Generator().manual_seed(0))
+    jm = JLM(dataclasses.replace(jget_config("mixtral-8x7b", smoke=True),
+                                 num_layers=2, vocab_size=64),
+             JKnobs(cache_dtype=jnp.float32, q_chunk=16))
+    jp = jax.tree.map(jnp.asarray, convert.cache_to_numpy(params))
+    (loss, met), grads = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(
+        jp, {"tokens": jnp.asarray(batches()[0]["tokens"].numpy())})
+    got = worlds["res"]["moe_2x2"]
+    assert got["metrics"]["loss"] == pytest.approx(float(loss),
+                                                   rel=LOSS_RTOL)
+    assert got["metrics"]["moe_lb_loss"] == pytest.approx(
+        float(met["moe_lb_loss"]), rel=LOSS_RTOL)
+    gflat = flat(got["grads"])
+    for k, w in flat(jax.tree.map(np.asarray, grads)).items():
+        err = float(np.abs(gflat[k].numpy() - w).max())
+        assert err <= 2e-4 * float(np.abs(w).max()) + 1e-6, (k, err)
+
+
 @pytest.mark.parametrize("shape", ["1x2", "2x1", "unsharded"])
 def test_elastic_restore_is_bitwise(worlds, shape):
     """The Trainer's checkpoint written at (2, 2) (every leaf gathered,
@@ -463,7 +545,9 @@ def test_launcher_trains_in_a_two_rank_world(worlds):
 
 def test_sharded_training_refusals():
     """What needs a mesh says so: shardings without a model over a mesh,
-    a restore's shardings without their mesh, ``sp=True``."""
+    a restore's shardings without their mesh.  ``sp=True`` is taken
+    (``test_sharded_steps_equal_unsharded``'s sp cases): on a model axis
+    of one rank it cuts nothing."""
     from repro_torch.checkpoint import restore
     from repro_torch.runtime.train import TrainConfig, Trainer
     from repro_torch.sharding import make_shard_fn
@@ -477,5 +561,5 @@ def test_sharded_training_refusals():
         Trainer(model, Markov(1), TrainConfig(), state_shardings={})
     with pytest.raises(ValueError, match="needs the mesh"):
         restore("/nonexistent", {}, {})
-    with pytest.raises(NotImplementedError, match="sp=True"):
-        make_shard_fn({"data": 1, "model": 1}, tiny_cfg(), sp=True)
+    assert make_shard_fn({"data": 1, "model": 1}, tiny_cfg(),
+                         sp=True).sequence is None
