@@ -1983,8 +1983,8 @@ def phase_forward_kernels():
     from repro_torch.kernels.ssd_scan import ssd_chunk_cuda
 
     flash_err = 0.0
-    # the last two: S = 1000 is no multiple of the 32-position query tile
-    # or the 32-key tile
+    # the last two: S = 1000 is no multiple of a CTA's flattened rows or
+    # of the 32-key tile
     for s, causal, window, dt in ((FS, True, 0, torch.float32),
                                   (FS, True, 1024, torch.float32),
                                   (1024, False, 0, torch.float32),
@@ -2906,8 +2906,9 @@ MUSICGEN_DRAFT_K = 8
 # in a verify block), qwen2.5-32b (H = 40, KV = 8: G = 5), qwen3-moe's
 # verify block (H = 64, KV = 4, T = 4: 64 rows) and G = 1 blocks past the
 # 8-row instance at head dims 64 and 80: the chunked decode kernel's row
-# tiles.  The many-row kernel (#4, #6) at G = 5 and 48, which do not
-# divide its 64 rows.  (label, H, KV, D, the T of the decode checks)
+# tiles.  The many-row kernel (#4, #6) at G = 5 and 48, whose positions
+# straddle its CTAs' flattened rows.  (label, H, KV, D, the T of the decode
+# checks)
 ROW_CASES = (("g48", 48, 1, 128, (1, VERIFY_T)),
              ("g5", 40, 8, 128, (1, VERIFY_T, 8)),
              ("g16", 64, 4, 128, (VERIFY_T,)),
@@ -3076,9 +3077,10 @@ def _row_many_row_checks():
     """#4 (256-row chunks at 0 and 3840, the ragged 104-row one at 4096;
     f32, bf16, int8 and fp8 pools) and #6 (S = 4096 causal, windows 0 and
     1024; S = 1000 with window 300, causal and not; a bf16 case) at the
-    module's H and KV, whose G does not divide 64: a CTA holds floor(64 /
-    G) positions of all G heads and its other rows must stay inert.
-    Returns the worst f32 (and quantized) error per kernel."""
+    module's H and KV, whose G does not divide a CTA's rows: a CTA's
+    flattened (position, head) rows start and end inside a position, and
+    the last CTA's rows past the end must stay inert.  Returns the worst
+    f32 (and quantized) error per kernel."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ops import (flash_attention_plain,
                                          paged_prefill_attention_plain)
@@ -3091,7 +3093,7 @@ def _row_many_row_checks():
     def note(name, err):
         errs[name] = max(errs.get(name, 0.0), err)
 
-    tag = f"H={H} KV={KV} G={H // KV} ({64 // (H // KV)} positions a tile)"
+    tag = f"H={H} KV={KV} G={H // KV} (flattened rows)"
     slot = B - 1
     for c, q_offset, window in ((CHUNK, 0, 0), (CHUNK, S // 2 - CHUNK, 0),
                                 (CHUNK, S // 2 - CHUNK, 1024),

@@ -3,9 +3,9 @@
 // element conversions, the loaded-value type of a K/V storage type, 16-byte
 // chunks of a key row as f32, 16-, 8- and 4-byte cp.async, the key-row
 // addressing of the many-row kernel (dense strides or a page-table lookup),
-// 4- and 2-element row loads, 4-element stores, and the tensor-core
-// products of the many-row kernel and the SSD chunk (mma.sync TF32 with
-// the 3xTF32 split).
+// 4-element row loads, 4- and 2-element stores, and the TF32 operands of
+// the many-row kernel's and the SSD chunk's tensor-core products (the
+// 3xTF32 split; the products themselves are wgmma_tf32.cuh's).
 // The chunked decode kernel of the dense and the paged decode is in
 // chunked_decode.cuh; the many-row kernel of the
 // full-sequence flash attention and the paged chunked prefill is in
@@ -206,28 +206,7 @@ __device__ __forceinline__ void load4(const __nv_fp8_e4m3* v, float* f) {
   f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
 }
 
-// Two consecutive elements of a row as f32 (the many-row kernel's last 16
-// columns at head dim 80).
-__device__ __forceinline__ void load2(const float* v, float* f) {
-  const float2 x = *reinterpret_cast<const float2*>(v);
-  f[0] = x.x; f[1] = x.y;
-}
-__device__ __forceinline__ void load2(const __nv_bfloat16* v, float* f) {
-  const float2 x =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(v));
-  f[0] = x.x; f[1] = x.y;
-}
-__device__ __forceinline__ void load2(const int8_t* v, float* f) {
-  const char2 c = *reinterpret_cast<const char2*>(v);
-  f[0] = c.x; f[1] = c.y;
-}
-__device__ __forceinline__ void load2(const __nv_fp8_e4m3* v, float* f) {
-  const float2 x =
-      fp8x2_to_float2(*reinterpret_cast<const unsigned short*>(v));
-  f[0] = x.x; f[1] = x.y;
-}
-
-// ---- tensor-core products (the many-row kernel and the SSD chunk) -------
+// ---- TF32 operands (the many-row kernel and the SSD chunk) --------------
 
 // cvt.rna.tf32.f32 for finite x: round to the nearest TF32 value, ties
 // away from zero.  Adding half a TF32 ulp (bit 12) to the sign-magnitude
@@ -254,23 +233,6 @@ struct Frag {
   }
 };
 
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a . b: the small-part products first, then big . big.
-template <bool SA, bool SB>
-__device__ __forceinline__ void mma_split(float* c, const Frag<4, SA>& a,
-                                          const Frag<2, SB>& b) {
-  if (SA) mma_tf32(c, a.small, b.big);
-  if (SB) mma_tf32(c, a.big, b.small);
-  mma_tf32(c, a.big, b.big);
-}
-
 // Four consecutive f32 values to memory as f32 or bf16 (16 or 8 bytes).
 __device__ __forceinline__ void store4(float* p, const float* y) {
   *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
@@ -279,6 +241,14 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* y) {
   __nv_bfloat162 v[2] = {__floats2bfloat162_rn(y[0], y[1]),
                          __floats2bfloat162_rn(y[2], y[3])};
   *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(v);
+}
+
+// Two consecutive f32 values to memory as f32 or bf16 (8 or 4 bytes).
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 }  // namespace

@@ -1,7 +1,7 @@
-// The many-row attention kernel on Hopper's tensor cores: full-sequence
-// flash attention (flash_attention.cu: dense, batch B, causal or not,
-// windowed or not) and one slot's paged prefill chunk (paged_attention.cu:
-// the same body with a page-table lookup per key row).
+// The many-row attention kernel on Hopper's warpgroup products: full-
+// sequence flash attention (flash_attention.cu: dense, batch B, causal or
+// not, windowed or not) and one slot's paged prefill chunk
+// (paged_attention.cu: the same body with a page-table lookup per key row).
 //
 // Replaces
 //   flash_attention_tpu          (src/repro/kernels/flash_attention.py:83,
@@ -25,102 +25,101 @@
 // the tensor cores, whose TF32 rate is 495 TFLOP/s dense, and keeps f32
 // accuracy with three TF32 products per f32 product (below), so its bound
 // is 495 / 3 = 165 TFLOP/s of f32-accurate work (0.833 ms at 2 x 4096).
-// mma.sync reaches only part of the TF32 rate on Hopper (wgmma the rest),
-// and the count of mma.sync products, not the split's integer work, sets
-// this kernel's time now (PERF.md).
+// Only wgmma reaches the full TF32 rate on Hopper; the warp-level mma
+// reaches part of it.
 //
 // What the design does about it:
-//   * Products on the tensor cores: mma.sync m16n8k8 TF32 with f32
-//     accumulation, FlashAttention-2 style (each warp owns 16 query rows,
-//     the mma's M).  An f32 operand x is split into x_big = rna_tf32(x)
-//     and x_small = rna_tf32(x - x_big) (3xTF32, as CUTLASS's
-//     OpMultiplyAddFastF32): a.b = a_small.b_big + a_big.b_small +
-//     a_big.b_big, the small.small term (<= 2^-22 |a b|) dropped.  A bf16
-//     operand (a bf16 q or cache, or p rounded to a bf16 v) is exact in
-//     TF32 and has no small part, so bf16 x f32 takes two products and
-//     bf16 x bf16 one, each exact as a bf16 product.  (mma m16n8k16 bf16
-//     would run bf16 x bf16 at twice the TF32 rate; TF32 on the exact bf16
-//     values gives the same products with one code path, and the served
-//     model is f32.)  The split is integer work (tf32_rna, in
-//     attention_common.cuh with the other TF32 helpers): sm_90's
-//     cvt.rna.tf32.f32 is a sequence of about five instructions, and with
-//     it the split, not the mma, set the kernel's time.
-//   * Softmax in the accumulator layout: a row's 8 key scores of a tile
-//     lie in the four lanes of a quad, so its max and sum take two
-//     __shfl_xor_sync; the mask is computed per fragment element (not at
-//     all in a tile every row sees whole), and it selects before the exp.
-//     The exp is __expf (ex2.approx after a multiply by log2 e, relative
-//     error ~2^-21 where p matters): faster than expf, and the max abs
-//     error against the plain version did not move.  P then
-//     feeds the PV product from registers: the S accumulator's columns
-//     (2t, 2t + 1) become the A operand's k indices (t, t + 4) and the V
-//     fragment reads keys (2t, 2t + 1) to match, so P never round-trips
-//     through shared memory and needs no shuffle.
-//   * K/V tiles of 32 keys in a 2-stage ring filled by 16-byte cp.async
-//     (the paged instance finds each row's page in the table, as
-//     KeyRows<.., true> does); rows outside [lo, hi) are zero-filled
-//     without a read.  A lane reads 4 consecutive values of q, K and V at
-//     once (16 bytes in f32): QK takes d in a permuted order and PV's
-//     output n-tiles a permuted set of columns, which both sums allow.
-//     K/V and q rows are padded by 16 bytes, so the 16-byte reads of each
-//     quarter-warp hit 8 distinct bank groups (f32).
-//   * q (64 rows, f32) lives in shared memory and its fragments are
-//     reloaded and split per k-step, so the 3xTF32 halves pin no
-//     registers across the loop.
-//   * One CTA per (KV head, QT = floor(64 / G) query positions, batch)
-//     serves all G heads of those positions, so each K/V tile feeds QT * G
-//     rows: 64 where G divides 64, 60 at G = 5 (QT = 12), 48 at granite's
-//     G = 48 (QT = 1).  The 64 - QT * G rows left over load q as 0, take
-//     no key in the mask (t >= nt) and store nothing; their (m, l, acc)
-//     stay finite (m = -1e30, l = 0) and no shuffle crosses rows, so they
-//     touch no row that writes.  G > 64 is refused.  The key loop starts
-//     at the window's first tile and, causal, ends at the tile's last
-//     position (the TPU's skip of masked blocks); causal query tiles run
-//     last-first, heaviest first.
+//   * Products on wgmma.mma_async m64nNk8 TF32 with f32 accumulation
+//     (wgmma_tf32.cuh, shared with ssd_scan.cu).  A CTA is MR_WG = 2
+//     consumer warpgroups of 64 query rows each.  S = q K^T is m64n32 per 32-key
+//     tile: A is q, loaded from shared memory and split per k-step; B is
+//     the K tile in the K-major core-matrix layout (d contiguous, so an f32
+//     row's 16-byte chunks land in place).  O += P V is m64nD (D = 64, 80
+//     or 128 are legal TF32 N): A is P, formed in registers from S's
+//     accumulator, whose columns (2t, 2t + 1) of an 8-key step become A's
+//     k indices (t, t + 4); B is V^T, transposed as the tile is staged with
+//     the keys of each 8-key step permuted to match (k index t is key 2t,
+//     k index t + 4 key 2t + 1).  A tile's P V is summed in fresh
+//     registers and added to O in f32: the accumulation truncates, and O
+//     as the accumulator over every tile drifted 8x further in internlm2's
+//     prefill logits (4.2e-4) and past the logits' tolerance in
+//     qwen3-moe's (PERF.md).
+//   * 3xTF32: an f32 operand x is split into x_big = rna_tf32(x) and
+//     x_small = rna_tf32(x - x_big) (as CUTLASS's OpMultiplyAddFastF32):
+//     a.b = a_small.b_big + a_big.b_small + a_big.b_big, in that order, the
+//     small.small term (<= 2^-22 |a b|) dropped.  A bf16 operand (a bf16 q
+//     or cache, or p rounded to a bf16 v) is exact in TF32 and has no small
+//     part, so bf16 x f32 takes two products and bf16 x bf16 one.  The
+//     split is integer work (attention_common.cuh's tf32_rna and Frag).
+//   * Rows: (position, group head) flattened.  Within one (batch row, KV
+//     head j), query row r is position r / G, query head j G + r % G; a CTA
+//     takes MR_ROWS = 64 MR_WG consecutive rows, each warpgroup 64 of them,
+//     whatever G is, so no row is idle but in the last CTA of a (batch row,
+//     KV head): its rows past Sq G load q as 0 and store nothing (their
+//     m, l and O stay finite and no shuffle crosses rows).  Each K/V tile
+//     so feeds MR_ROWS rows at every grouping (granite's G = 48 too).
+//     The CTA's key range runs from its first row's window start to its
+//     last row's position; the mask is per row and selects before the exp.
+//     Key tiles start at multiples of MR_TK on the global key axis, so a row
+//     meets the same tiles in the same order in whichever CTA holds it: a
+//     tile it sees none of adds exactly 0 and rescales by exp(0) = 1.  G > 64
+//     is refused (no arch needs more).  Causal row blocks run last-first,
+//     heaviest first.
+//   * The ring: 32-key tiles in two stages of shared memory, each four
+//     operand tiles of 32 x D f32 (K big and small, V^T big and small: 64 KB
+//     at D = 128), one CTA per SM.  While tile i's products run, tile i + 1
+//     is copied by 16-byte cp.async into its stage's small slots (raw
+//     values: f32 K in the core-matrix layout, other K row-major with a
+//     16-byte pad, V row-major; rows outside [lo, hi) zero-filled without a
+//     read; the paged instance finds each row's page in the table, as
+//     KeyRows<.., true> does); then every thread reads its share of the raw
+//     tile, the CTA syncs, and the staging pass writes the operand tiles:
+//     quantized values dequantized (float(x) * scale, so #4q keeps the
+//     arithmetic of its contract: K, V and p f32, split), f32 values split,
+//     V transposed.  The staging of tile i + 1 overlaps tile i's PV product.
+//   * q in shared memory as f32, in the A fragments' order (a lane's four
+//     values of a k-step are one 16-byte read): 32 KB a warpgroup at
+//     D = 128.  Split per k-step, two k-steps per wgmma group, the
+//     fragments of two groups alive (wgmma_wait<1>).
+//   * Softmax in the accumulator layout: a row's 8 key scores of a tile lie
+//     in the four lanes of a quad, so its max and sum take two
+//     __shfl_xor_sync; the mask is computed per element from the row's
+//     position (a table in shared memory), not at all in a tile every row
+//     of the CTA sees whole.  The exp is __expf.  A warp whose rows all
+//     kept their max skips O's rescale (alpha = 1 is exact).
+//   * Shared memory and registers: q 32 KB a warpgroup + the ring 128 KB at
+//     D = 128 (+ the rows' positions, and 256 B of scales for 1-byte
+//     pools): 192.5 KB, one CTA per SM (a third warpgroup fits the 227 KB
+//     but not a tile's fresh P V sum under its 168-register cap).  Per
+//     thread: O and the tile's P V (D / 2 f32 each), S (16), the q
+//     fragments of two groups and P's of one tile, under
+//     __launch_bounds__(MR_THREADS, 1).  The copy and staging offsets and
+//     the rows' indices are recomputed from the thread's index each tile
+//     (thread_index), not held through the products, and the staging holds
+//     one operand's share at a time; no instance spills (chip_smoke's
+//     phase 2 prints ptxas's report and fails on a spill).
 //   * Filling the card: a launch with fewer CTAs than SMs (the paged
-//     prefill of one 256-row chunk is 8 KV heads x 8 query tiles = 64)
-//     splits each CTA's key range over num_splits CTAs (the wrapper picks
-//     it: 4 for that chunk, 256 CTAs on 132 SMs).  Each split writes its
-//     unnormalised (acc, m, l) to f32 scratch and a combine kernel merges
-//     them with the split-K rule exp(m_i - m*); an empty split has
-//     m = -1e30 and l = 0 and so weighs 0.
-//   * Quantized pools (the paged instance only; the TPU kernel's quant
-//     branch): int8 or fp8 K/V tiles with their rows' f32 scales, 4-byte
-//     cp.async.ca beside the rows.  Each value is dequantized where the
-//     fragment is loaded (float(x) * scale), so K, V and p are f32 values
-//     and take the 3xTF32 split, and p is not rounded: the same products as
-//     f32 operands, from a quarter of the tile bytes.  (int8 and e4m3
-//     values are exact in TF32, so K and V could skip their small parts
-//     with the scale applied to the score and folded into p; that changes
-//     the rounding against the dequantize-first reference and is left to a
-//     later redesign.)
-//   * Head dims D in {64, 80, 128} (one library per head dim).  QK takes d
-//     in blocks of 32 (each lane 4 consecutive d of two 16-d halves) and,
-//     at D = 80, a last block of 16 (lane tq reads d 64 + 4 tq ..); PV's
-//     output n-tiles cover 32 columns per 4 tiles and, at D = 80, 16
-//     columns in 2 tiles (n index x: columns 64 + 2 x, 64 + 2 x + 1, read
-//     2 at a time).  The tile copy's last pass is guarded where a tile's
-//     16-byte chunks do not split evenly over the threads (D = 80 bf16 and
-//     1-byte pools).
-//   * Registers and occupancy: 128 threads and 99 KB of shared memory per
-//     CTA with f32 K/V (68 KB with bf16, 52 KB with int8/fp8), two CTAs per
-//     SM for every instance (__launch_bounds__(128, 2): up to 255 registers
-//     a thread, no spills).  The split makes the paged instance launch as many CTAs
-//     as two per SM hold, so it needs no budget of its own; 16-key tiles
-//     at three CTAs per SM ran no faster (PERF.md).
+//     prefill of one 256-row chunk at G = 2: 8 KV heads x 4 row blocks of
+//     128 = 32) splits each CTA's key range over num_splits CTAs (the
+//     wrapper picks it by waves: 4 for that chunk at 3840, 128 CTAs on 132
+//     SMs), whole tiles each.
+//     Each split writes its unnormalised (acc, m, l) to f32 scratch and a
+//     combine kernel merges them with the split-K rule exp(m_i - m*); an
+//     empty split has m = -1e30 and l = 0 and so weighs 0.
 #pragma once
 
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
-constexpr int MR_ROWS = 64;  // query rows (positions x heads) per CTA
-constexpr int MR_WARPS = MR_ROWS / 16;
-constexpr int MR_THREADS = 32 * MR_WARPS;
-constexpr int MR_TK = 32;  // keys per tile
-constexpr int MR_CTAS_PER_SM = 2;
+constexpr int MR_WG = 2;               // consumer warpgroups per CTA
+constexpr int MR_ROWS = 64 * MR_WG;    // flattened query rows per CTA
+constexpr int MR_THREADS = 128 * MR_WG;
+constexpr int MR_TK = 32;              // keys per tile
+constexpr int MR_MAX_G = 64;           // query heads per KV head, at most
 
 struct PrefillParams {
   const void* q;        // (B, Sq, H, D) through strides
@@ -143,64 +142,121 @@ struct PrefillParams {
   float* l_part;  // (ns, B, Sq, H)
 };
 
-// q, the 2-stage K/V ring and (quantized pools) the ring's scales.
+// q in fragment order, the 2-stage ring of four 32 x D f32 operand tiles,
+// each row's position, and (quantized pools) the landing tile's K and V
+// scales.
 template <typename TKV, int D>
 constexpr int many_row_smem_bytes() {
-  return MR_ROWS * (D + 4) * (int)sizeof(float) +
-         2 * 2 * MR_TK * (D + 16 / (int)sizeof(TKV)) * (int)sizeof(TKV) +
-         (KVValue<TKV>::quant ? 2 * 2 * MR_TK * (int)sizeof(float) : 0);
+  return (MR_ROWS * D + 2 * 4 * MR_TK * D + MR_ROWS) * (int)sizeof(float) +
+         (KVValue<TKV>::quant ? 2 * MR_TK * (int)sizeof(float) : 0);
 }
 
-// Query row r of a CTA is row t0 + r / G, query head j * G + r % G.  Warp
-// w owns rows 16 w .. 16 w + 15; lane (g = lane / 4, tq = lane % 4) holds
-// rows 16 w + g and 16 w + g + 8 of every accumulator fragment.
+// The key rows of pool `base` (K, V or a scale pool) for batch row b, KV
+// head j: dense through (batch, seq, head) strides, paged through the
+// slot's page-table row and (page, token, head) strides.
+template <typename T, bool PAGED>
+__device__ __forceinline__ KeyRows<T, PAGED> pool_rows(
+    const PrefillParams& p, const void* base, long long sb, long long ss,
+    long long sh, int b, int j) {
+  KeyRows<T, PAGED> r;
+  r.row = p.page_row;
+  r.page_size = p.page_size;
+  r.base = static_cast<const T*>(base) + j * sh + (PAGED ? 0 : b * sb);
+  r.s_page = sb;
+  r.s_row = ss;
+  return r;
+}
+
+// The thread's index, read where it is used: the compiler cannot hoist an
+// asm volatile out of the key loop, so the copy and staging offsets derived
+// from it are recomputed per tile instead of held in registers through the
+// products.
+__device__ __forceinline__ int thread_index() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+// One raw K/V value as f32 (before a quantized pool's scale).
+__device__ __forceinline__ float raw_f(float x) { return x; }
+__device__ __forceinline__ float raw_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float raw_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float raw_f(__nv_fp8_e4m3 x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.__x, __NV_E4M3)));
+}
+
+// Warp w of the CTA (warpgroup w / 4) owns rows 16 w .. 16 w + 15; lane
+// (g = lane / 4, tq = lane % 4) holds rows 16 w + g and 16 w + g + 8 of
+// every accumulator (wgmma_tf32.cuh's layout).
 template <typename TQ, typename TKV, int D, bool PAGED, bool CAUSAL>
-__global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
+__global__ void __launch_bounds__(MR_THREADS, 1)
     many_row_kernel(PrefillParams p) {
   constexpr bool QUANT = KVValue<TKV>::quant;
   using TV = typename KVValue<TKV>::type;  // a loaded K/V value's type
   constexpr bool SQ = std::is_same<TQ, float>::value;   // q has small parts
   constexpr bool SKV = std::is_same<TV, float>::value;  // K, V and p do
-  constexpr int VEC = 16 / sizeof(TKV);
-  constexpr int LQ = D + 4;    // q row stride in shared memory (floats)
-  constexpr int LD = D + VEC;  // K/V row stride (elements, 16-byte pad)
-  constexpr int NS = MR_TK / 8;   // score n-tiles (8 keys each)
-  constexpr int NO = D / 8;       // output n-tiles (8 columns each)
-  constexpr int D32 = D / 32 * 32;  // columns in whole 32-blocks
-  constexpr int CPR = D / VEC;    // 16-byte chunks per K/V row
-  // chunks per thread, the last pass guarded unless they split evenly
-  constexpr int NCH = (MR_TK * CPR + MR_THREADS - 1) / MR_THREADS;
-  constexpr bool COPY_WHOLE = NCH * MR_THREADS == MR_TK * CPR;
-  static_assert(D % 16 == 0 && (D - D32 == 0 || D - D32 == 16),
-                "head dim: 32-blocks and at most one 16-block");
+  constexpr bool F32KV = std::is_same<TKV, float>::value;
+  constexpr int VEC = 16 / sizeof(TKV);  // values in a 16-byte chunk
+  constexpr int CPR = D / VEC;           // chunks per K/V row
+  constexpr int UNITS = MR_TK * CPR;     // chunks per K or V tile
+  constexpr int NCH = (UNITS + MR_THREADS - 1) / MR_THREADS;
+  constexpr bool CH_WHOLE = NCH * MR_THREADS == UNITS;
+  constexpr int VUNITS = MR_TK / 8 * D;  // V^T staging units (k-step, col)
+  constexpr int NVU = (VUNITS + MR_THREADS - 1) / MR_THREADS;
+  constexpr bool VU_WHOLE = NVU * MR_THREADS == VUNITS;
+  constexpr int KS = D / 8;              // k-steps of QK
+  constexpr int KG = 2;                  // k-steps per wgmma group of QK
+  constexpr int TILE = MR_TK * D;        // floats of one operand tile
+  constexpr int LR = D * (int)sizeof(TKV) + 16;  // raw K row bytes (not f32)
+  static_assert(D % 16 == 0 && KS % KG == 0, "head dim: whole 16-d blocks");
+  static_assert(F32KV || MR_TK * LR <= TILE * (int)sizeof(float),
+                "a raw K tile fits its landing slot");
   static_assert(!QUANT || PAGED, "quantized pools are paged");
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);                // [64][LQ]
-  TKV* kvs = reinterpret_cast<TKV*>(qs + MR_ROWS * LQ);     // [2][K|V][TK][LD]
-  // quantized pools: the ring's scales, [2][K|V][TK]
-  float* scs = reinterpret_cast<float*>(kvs + 2 * 2 * MR_TK * LD);
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [warp][KS][lane][4]
+  float* ring = qs + MR_ROWS * D;  // [2][K big|K small|V^T big|V^T small]
+  int* qrow = reinterpret_cast<int*>(ring + 2 * 4 * TILE);  // positions
+  float* scs = reinterpret_cast<float*>(qrow + MR_ROWS);  // [K|V][MR_TK]
 
   const int ns = p.num_splits;
   const int j = blockIdx.x, b = blockIdx.z / ns, isp = blockIdx.z % ns;
   const int nb = gridDim.z / ns;
-  const int G = p.H / p.KV, QT = MR_ROWS / G;
-  // causal: the last query tiles see the most keys; issue them first
-  const int t0 = (CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * QT;
-  const int nt = min(QT, p.Sq - t0);  // query positions this CTA holds
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
+  const int G = p.H / p.KV;
+  const int nrows = p.Sq * G;  // flattened rows of this (b, j)
+  // causal: the last row blocks see the most keys; issue them first
+  const int r0 =
+      (CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * MR_ROWS;
+  const int tid = threadIdx.x, tq = tid & 3;
 
-  const TQ* q = static_cast<const TQ*>(p.q) + b * p.q_sb;
-  for (int idx = tid; idx < MR_ROWS * D; idx += MR_THREADS) {
-    const int r = idx / D, d = idx - r * D;
-    const int t = r / G, gg = r - t * G;
-    qs[r * LQ + d] =
-        t < nt ? to_f(q[(t0 + t) * p.q_st + (j * G + gg) * p.q_sh + d]) : 0.f;
+  // q into shared memory in the A fragments' order: element (row r, d) is
+  // value h + 2 hi of lane 4 (r % 8) + d % 4 of k-step d / 8 of warp r / 16
+  // (h = r % 16 / 8, hi = d % 8 / 4); rows past the last position are 0
+  {
+    const TQ* q = static_cast<const TQ*>(p.q) + b * p.q_sb;
+    for (int idx = tid; idx < MR_ROWS * (D / 4); idx += MR_THREADS) {
+      const int r = idx / (D / 4), c4 = idx - r * (D / 4);
+      const int row = r0 + r, t = row / G, gg = row - t * G;
+      const bool in = row < nrows;
+      const TQ* src = q + (long long)t * p.q_st +
+                      (long long)(j * G + gg) * p.q_sh + 4 * c4;
+      float* dst = qs + (((r >> 4) * KS + (c4 >> 1)) * 32 + (r & 7) * 4) * 4 +
+                   ((r >> 3) & 1) + 2 * (c4 & 1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dst[4 * i] = in ? to_f(src[i]) : 0.f;
+    }
+    // row r's position, read by the mask (rows past the last position see
+    // keys too: their q is 0, their results finite and never stored)
+    for (int r = tid; r < MR_ROWS; r += MR_THREADS)
+      qrow[r] = p.q_offset + (r0 + r) / G;
   }
 
-  // keys this CTA may need: [lo, hi); causal: ending at its last row
-  const int qfirst = p.q_offset + t0;
-  const int hi = CAUSAL ? min(p.Sk, qfirst + nt) : p.Sk;
+  // keys this CTA may need: [lo, hi), from its first row's window start
+  // to its last row's position (causal)
+  const int tfirst = r0 / G, tlast = (min(r0 + MR_ROWS, nrows) - 1) / G;
+  const int qfirst = p.q_offset + tfirst, qlast = p.q_offset + tlast;
+  const int hi = CAUSAL ? min(p.Sk, qlast + 1) : p.Sk;
   const int lo = p.window ? max(0, qfirst - p.window + 1) : 0;
   int kbeg = lo < hi ? (lo / MR_TK) * MR_TK : hi;  // empty range: no tile
   int kend = hi;
@@ -211,44 +267,53 @@ __global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
     kbeg += min(ntiles, isp * per) * MR_TK;
   }
 
-  KeyRows<TKV, PAGED> krows, vrows;
-  krows.row = vrows.row = p.page_row;
-  krows.page_size = vrows.page_size = p.page_size;
-  krows.base = static_cast<const TKV*>(p.k) + j * p.k_sh +
-               (PAGED ? 0 : b * p.k_sb);
-  vrows.base = static_cast<const TKV*>(p.v) + j * p.v_sh +
-               (PAGED ? 0 : b * p.v_sb);
-  krows.s_page = p.k_sb;
-  vrows.s_page = p.v_sb;
-  krows.s_row = p.k_ss;
-  vrows.s_row = p.v_ss;
-  KeyRows<float, PAGED> ksrows, vsrows;  // quantized pools' scale rows
-  ksrows.row = vsrows.row = p.page_row;
-  ksrows.page_size = vsrows.page_size = p.page_size;
-  ksrows.base = p.ks + j * p.ks_sh;
-  vsrows.base = p.vs + j * p.vs_sh;
-  ksrows.s_page = p.ks_sb;
-  vsrows.s_page = p.vs_sb;
-  ksrows.s_row = p.ks_ss;
-  vsrows.s_row = p.vs_ss;
+  // K chunk u of a tile: a warp's lanes take 8 keys x 4 chunks, so each
+  // quarter-warp writes 8 keys' core-matrix rows (distinct bank groups)
+  // and the warp reads whole 64-byte row segments
+  auto k_unit = [](int u, int& kk, int& c) {
+    const int rest = u >> 3;
+    kk = 8 * (rest / CPR) + (u & 7);
+    c = rest - (rest / CPR) * CPR;
+  };
+  // where raw K chunk (kk, c) lands in its slot: f32 in place in the
+  // core-matrix layout, other types row-major with a 16-byte pad
+  auto k_raw = [](float* slot, int kk, int c) -> TKV* {
+    if constexpr (F32KV)
+      return reinterpret_cast<TKV*>(slot + bt_offset(kk, c));
+    else
+      return reinterpret_cast<TKV*>(reinterpret_cast<unsigned char*>(slot) +
+                                    kk * LR) + c * VEC;
+  };
 
-  // keys [k0, k0 + TK) into ring stage `st`; rows outside [lo, hi) are
-  // zero-filled without a read.  Quantized: thread i < 2 TK also copies the
-  // K (i < TK) or V scale of key i % TK.
+  // keys [k0, k0 + TK) into stage st's small slots (raw); rows outside
+  // [lo, hi) are zero-filled without a read.  Quantized: thread i < 2 TK
+  // also copies the K (i < TK) or V scale of key i % TK.
   auto load_tile = [&](int k0, int st) {
-    TKV* Ks = kvs + st * 2 * MR_TK * LD;
-    TKV* Vs = Ks + MR_TK * LD;
+    // built here from the launch's parameters: nothing of them need stay
+    // in registers across the key loop
+    const auto krows = pool_rows<TKV, PAGED>(p, p.k, p.k_sb, p.k_ss, p.k_sh,
+                                             b, j);
+    const auto vrows = pool_rows<TKV, PAGED>(p, p.v, p.v_sb, p.v_ss, p.v_sh,
+                                             b, j);
+    const int tid = thread_index();
+    float* kl = ring + (st * 4 + 1) * TILE;
+    TKV* vl = reinterpret_cast<TKV*>(ring + (st * 4 + 3) * TILE);
 #pragma unroll
     for (int i = 0; i < NCH; ++i) {
-      const int idx = tid + i * MR_THREADS;
-      if (!COPY_WHOLE && idx >= MR_TK * CPR) break;  // the last pass's rest
-      const int kk = idx / CPR, c = idx - kk * CPR;
-      const int kpos = k0 + kk;
-      const bool in = kpos >= lo && kpos < hi;
-      cp_async16(Ks + kk * LD + c * VEC,
-                 in ? krows(kpos) + c * VEC : krows.base, in);
-      cp_async16(Vs + kk * LD + c * VEC,
-                 in ? vrows(kpos) + c * VEC : vrows.base, in);
+      const int u = tid + i * MR_THREADS;
+      if (!CH_WHOLE && u >= UNITS) break;  // the last pass's rest
+      int kk, c;
+      k_unit(u, kk, c);
+      int kpos = k0 + kk;
+      bool in = kpos >= lo && kpos < hi;
+      cp_async16(k_raw(kl, kk, c), in ? krows(kpos) + c * VEC : krows.base,
+                 in);
+      kk = u / CPR;  // V: row-major, the lanes along a row
+      c = u - kk * CPR;
+      kpos = k0 + kk;
+      in = kpos >= lo && kpos < hi;
+      cp_async16(vl + kk * D + c * VEC, in ? vrows(kpos) + c * VEC
+                                           : vrows.base, in);
     }
     if (QUANT && tid < 2 * MR_TK) {
       const int kk = tid % MR_TK, isv = tid / MR_TK;
@@ -256,197 +321,274 @@ __global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
       const bool in = kpos >= lo && kpos < hi;
       // (a reference to one of the two KeyRows would put both in local
       // memory; select the address instead)
+      const auto ksrows = pool_rows<float, PAGED>(p, p.ks, p.ks_sb, p.ks_ss,
+                                                  p.ks_sh, b, j);
+      const auto vsrows = pool_rows<float, PAGED>(p, p.vs, p.vs_sb, p.vs_ss,
+                                                  p.vs_sh, b, j);
       const float* src = isv ? (in ? vsrows(kpos) : vsrows.base)
                              : (in ? ksrows(kpos) : ksrows.base);
-      cp_async4(scs + (st * 2 + isv) * MR_TK + kk, src, in);
+      cp_async4(scs + isv * MR_TK + kk, src, in);
     }
   };
 
-  float o[NO][4];
+  // stage st's raw tile (landed) into its operand tiles: K big/small in
+  // the core layout (a thread stages the chunks it copied; an f32 chunk is
+  // read and rewritten in place), then V^T big/small, keys permuted within
+  // each 8-key step (k index t = key 2t, k index t + 4 = key 2t + 1).
+  // Where small parts overwrite a raw tile other threads still read (1-byte
+  // K; f32 or 1-byte V), every thread reads its share, then the CTA syncs.
+  // Last, a fence for wgmma's reads.
+  auto stage_tile = [&](int st) {
+    const int tid = thread_index();
+    float* kb = ring + st * 4 * TILE;
+    float* ksm = kb + TILE;
+    float* vb = kb + 2 * TILE;
+    float* vsm = kb + 3 * TILE;
+    {
+      uint4 kr[NCH];  // raw chunks: 16 bytes a chunk held through the sync
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
-    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+      for (int i = 0; i < NCH; ++i) {
+        const int u = tid + i * MR_THREADS;
+        if (!CH_WHOLE && u >= UNITS) break;
+        int kk, c;
+        k_unit(u, kk, c);
+        kr[i] = *reinterpret_cast<const uint4*>(k_raw(ksm, kk, c));
+      }
+      if constexpr (QUANT) __syncthreads();
+#pragma unroll
+      for (int i = 0; i < NCH; ++i) {
+        const int u = tid + i * MR_THREADS;
+        if (!CH_WHOLE && u >= UNITS) break;
+        int kk, c;
+        k_unit(u, kk, c);
+        float kf[VEC];
+        Chunk<TKV>::get(kr[i], kf);
+        if (QUANT) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) kf[e] *= scs[kk];
+        }
+#pragma unroll
+        for (int q4 = 0; q4 < VEC / 4; ++q4) {
+          const int off = bt_offset(kk, c * (VEC / 4) + q4);
+          float big[4], small[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = kf[4 * q4 + e];
+            big[e] = SKV ? __uint_as_float(tf32_rna(x)) : x;
+            small[e] = __uint_as_float(tf32_rna(x - big[e]));
+          }
+          store4(kb + off, big);
+          if (SKV) store4(ksm + off, small);
+        }
+      }
+    }
+    {
+      const TKV* vl = reinterpret_cast<const TKV*>(vsm);
+      float vf[NVU][8];
+#pragma unroll
+      for (int i = 0; i < NVU; ++i) {
+        const int u = tid + i * MR_THREADS;
+        if (!VU_WHOLE && u >= VUNITS) break;
+        const int ks = u / D, col = u - ks * D;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          vf[i][e] = raw_f(vl[(8 * ks + e) * D + col]);
+          if (QUANT) vf[i][e] *= scs[MR_TK + 8 * ks + e];
+        }
+      }
+      if constexpr (SKV) __syncthreads();
+#pragma unroll
+      for (int i = 0; i < NVU; ++i) {
+        const int u = tid + i * MR_THREADS;
+        if (!VU_WHOLE && u >= VUNITS) break;
+        const int ks = u / D, col = u - ks * D;
+#pragma unroll
+        for (int kc = 0; kc < 2; ++kc) {
+          const int off = ks * kstep_floats(D) + core_offset(col, kc);
+          float big[4], small[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = vf[i][2 * e + kc];
+            big[e] = SKV ? __uint_as_float(tf32_rna(x)) : x;
+            small[e] = __uint_as_float(tf32_rna(x - big[e]));
+          }
+          store4(vb + off, big);
+          if (SKV) store4(vsm + off, small);
+        }
+      }
+    }
+    fence_proxy_async();  // the generic-proxy writes, seen by wgmma
+  };
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: this lane's part
   const float scale = 1.0f / sqrtf((float)D);
-  const float* qw = qs + (warp * 16 + g) * LQ;
-  const int t_row[2] = {(warp * 16 + g) / G, (warp * 16 + g + 8) / G};
+  // this lane's rows of the CTA, 16 warp + g + 8 h, from the thread's index
+  // where used (held through the loop they would cost registers the
+  // products use)
+  auto cta_row = [](int h) {
+    return (thread_index() >> 5) * 16 + ((thread_index() & 31) >> 2) + 8 * h;
+  };
 
-  if (kbeg < kend) load_tile(kbeg, 0);
-  int st = 0;
-  for (int k0 = kbeg; k0 < kend; k0 += MR_TK, st ^= 1) {
-    // tile k0 has landed for every thread, and every warp is done with
-    // the other stage: the next tile's copies go there and fly while this
-    // tile's math runs
+  if (kbeg < kend) {
+    load_tile(kbeg, 0);
     cp_async_wait_all();
     __syncthreads();
-    if (k0 + MR_TK < kend) load_tile(k0 + MR_TK, st ^ 1);
-    const TKV* Ks = kvs + st * 2 * MR_TK * LD;
-    const TKV* Vs = Ks + MR_TK * LD;
-    // quantized: the scales of this lane's keys, K's of key 8 n + g (QK)
-    // and V's of keys 8 n + 2 tq and 8 n + 2 tq + 1 (PV)
-    float ksc[NS], vsc[NS][2];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      const float* sc = scs + st * 2 * MR_TK;
-      ksc[n] = QUANT ? sc[n * 8 + g] : 1.f;
-      vsc[n][0] = QUANT ? sc[MR_TK + n * 8 + 2 * tq] : 1.f;
-      vsc[n][1] = QUANT ? sc[MR_TK + n * 8 + 2 * tq + 1] : 1.f;
-    }
+    stage_tile(0);
+  }
+  int st = 0;
+  for (int k0 = kbeg; k0 < kend; k0 += MR_TK, st ^= 1) {
+    // tile k0 is staged by every thread, and every wgmma of the last tile
+    // has completed: the next tile's copies go to the other stage and fly
+    // while this tile's products run
+    __syncthreads();
+    const bool more = k0 + MR_TK < kend;
+    if (more) load_tile(k0 + MR_TK, st ^ 1);
+    const float* kb = ring + st * 4 * TILE;
+    const float* ksm = kb + TILE;
+    const float* vb = kb + 2 * TILE;
+    const float* vsm = kb + 3 * TILE;
 
-    // S = q K^T over D.  The sum over d may take d in any order, so each
-    // lane reads 4 consecutive d of q and K at once: d0 = 32 kq + 8 tq +
-    // 4 hh + {0..3} (16-d block bb = 2 kq + hh of a 32-block; a last
-    // 16-block at D = 80: d0 = 64 + 4 tq) feed two k-steps, whose k index
-    // tq is d0 + 2 u and k index tq + 4 is d0 + 2 u + 1 (u = 0, 1).
-    float s[NS][4];
+    // S = q K^T over D, KG k-steps a group; the q fragments of two groups
+    // stay alive (the last group's until its wgmma are done)
+    float s[16];
+    Frag<4, SQ> qa[2][KG];
+    const float4* qf = reinterpret_cast<const float4*>(qs) +
+                       (thread_index() >> 5) * KS * 32 +
+                       (thread_index() & 31);
 #pragma unroll
-    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int kg = 0; kg < KS / KG; ++kg) {
 #pragma unroll
-    for (int bb = 0; bb < D / 16; ++bb) {
-      const int d0 = 16 * bb < D32
-                         ? 32 * (bb / 2) + 8 * tq + 4 * (bb % 2)
-                         : D32 + 4 * tq;
-      float qa[4], qb[4];
-      load4(qw + d0, qa);           // row g
-      load4(qw + 8 * LQ + d0, qb);  // row g + 8
-      Frag<4, SQ> a[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        a[u].set(0, qa[2 * u]);
-        a[u].set(1, qb[2 * u]);
-        a[u].set(2, qa[2 * u + 1]);
-        a[u].set(3, qb[2 * u + 1]);
+      for (int u = 0; u < KG; ++u) {
+        const float4 x = qf[(kg * KG + u) * 32];
+        qa[kg & 1][u].set(0, x.x);
+        qa[kg & 1][u].set(1, x.y);
+        qa[kg & 1][u].set(2, x.z);
+        qa[kg & 1][u].set(3, x.w);
       }
+      wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        float kf[4];
-        load4(Ks + (n * 8 + g) * LD + d0, kf);
-        if (QUANT) {  // dequantized before the product, as the TPU does
+      for (int u = 0; u < KG; ++u) {
+        const int ks = kg * KG + u;
+        const Frag<4, SQ>& a = qa[kg & 1][u];
+        const uint64_t db = smem_desc(kb + ks * BT_KSTEP);
+        const uint64_t dsm = smem_desc(ksm + ks * BT_KSTEP);
+        const int acc = ks > 0;  // the tile's first product starts fresh
+        if (SQ) wgmma_tf32(s, a.small, db, acc);
+        if (SKV) wgmma_tf32(s, a.big, dsm, SQ ? 1 : acc);
+        wgmma_tf32(s, a.big, db, (SQ || SKV) ? 1 : acc);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the group before: its fragments may be formed anew
 #pragma unroll
-          for (int i = 0; i < 4; ++i) kf[i] *= ksc[n];
-        }
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          Frag<2, SKV> bk;
-          bk.set(0, kf[2 * u]);
-          bk.set(1, kf[2 * u + 1]);
-          mma_split<SQ, SKV>(s[n], a[u], bk);
-        }
+      for (int u = 0; u < KG; ++u) {
+        fence_regs(qa[(kg + 1) & 1][u].big);
+        if constexpr (SQ) fence_regs(qa[(kg + 1) & 1][u].small);
       }
     }
+    wgmma_wait<0>();
+    fence_regs(s);
+#pragma unroll
+    for (int u = 0; u < KG; ++u) {
+      fence_regs(qa[(KS / KG - 1) & 1][u].big);
+      if constexpr (SQ) fence_regs(qa[(KS / KG - 1) & 1][u].small);
+    }
 
-    // online softmax of rows g (h = 0) and g + 8 (h = 1): element e of
-    // n-tile n is key k0 + 8 n + 2 tq + (e & 1); p overwrites s.  A
-    // tile that every row of the CTA sees whole needs no mask.
+    // online softmax of rows g (h = 0) and g + 8 (h = 1): element 4 n + 2 h
+    // + e of S is key k0 + 8 n + 2 tq + e; p overwrites s.  A tile that
+    // every row of the CTA sees whole needs no mask.
     const bool whole = k0 >= lo && k0 + MR_TK <= hi &&
                        (!CAUSAL || k0 + MR_TK - 1 <= qfirst) &&
-                       (p.window == 0 || qfirst + nt - 1 - k0 < p.window);
+                       (p.window == 0 || qlast - k0 < p.window);
+    float alpha[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int t = t_row[h];
-      const int qpos = qfirst + t;
+      const int qpos = qrow[cta_row(h)];
       float mx = NEG_INF;
       unsigned ok = 0;
 #pragma unroll
-      for (int n = 0; n < NS; ++n)
+      for (int n = 0; n < MR_TK / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kpos = k0 + 8 * n + 2 * tq + e;
-          const bool seen = whole ||
-                            (t < nt && kpos >= lo &&
-                             (CAUSAL ? kpos <= qpos : kpos < hi) &&
-                             (p.window == 0 || qpos - kpos < p.window));
-          const float x = s[n][2 * h + e] * scale;
-          s[n][2 * h + e] = seen ? x : NEG_INF;
+          const bool seen =
+              whole || (kpos >= lo && (CAUSAL ? kpos <= qpos : kpos < hi) &&
+                        (p.window == 0 || qpos - kpos < p.window));
+          float& x = s[4 * n + 2 * h + e];
+          x = seen ? x * scale : NEG_INF;
           ok |= (unsigned)seen << (2 * n + e);
-          mx = fmaxf(mx, s[n][2 * h + e]);
+          mx = fmaxf(mx, x);
         }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m[h], mx);
-      const float alpha = __expf(m[h] - m_new);
+      alpha[h] = __expf(m[h] - m_new);
       m[h] = m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int n = 0; n < NS; ++n)
+      for (int n = 0; n < MR_TK / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float pr = (ok >> (2 * n + e)) & 1u
-                               ? __expf(s[n][2 * h + e] - m_new)
-                               : 0.f;
+          float& x = s[4 * n + 2 * h + e];
+          const float pr =
+              (ok >> (2 * n + e)) & 1u ? __expf(x - m_new) : 0.f;
           sum += pr;
-          s[n][2 * h + e] = to_f(from_f<TV>(pr));
+          x = to_f(from_f<TV>(pr));
         }
-      l[h] = l[h] * alpha + sum;
+      l[h] = l[h] * alpha[h] + sum;
+    }
+    // O's rows rescaled where their max moved (alpha = 1 is exact: a warp
+    // whose 16 rows all kept theirs skips the multiplies)
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        o[n][2 * h] *= alpha;
-        o[n][2 * h + 1] *= alpha;
-      }
+      for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[4 * c + i] *= alpha[i >> 1];
     }
 
-    // O += P V: k-step n covers keys 8 n .. 8 n + 7, with the A operand's
-    // k index tq holding key 2 tq and k index tq + 4 key 2 tq + 1.  Output
-    // n-tile c = 4 j + i, column index x is column 32 j + 4 x + i of V and
-    // O, so a lane reads 4 consecutive columns of a V row at once (the last
-    // 16 columns at D = 80: n-tile 8 + i, column 64 + 2 x + i).  The
-    // mma's f32 accumulation truncates, so the tile's product is summed in
-    // fresh registers and added to O in f32: the truncation then scales
-    // with one tile's sum, not with all the keys' (a smaller max error).
-    float pv[NO][4];
+    // O += P V: k-step n is keys 8 n .. 8 n + 7, A's k index tq holding
+    // key 2 tq and k index tq + 4 key 2 tq + 1, as V^T was staged.  The
+    // accumulation truncates, so the tile's product is summed in fresh
+    // registers and added to O in f32: the truncation then scales with one
+    // tile's sum, not with every key's
+    Frag<4, SKV> pa[MR_TK / 8];
 #pragma unroll
-    for (int c = 0; c < NO; ++c)
-      pv[c][0] = pv[c][1] = pv[c][2] = pv[c][3] = 0.f;
+    for (int n = 0; n < MR_TK / 8; ++n) {
+      pa[n].set(0, s[4 * n]);
+      pa[n].set(1, s[4 * n + 2]);
+      pa[n].set(2, s[4 * n + 1]);
+      pa[n].set(3, s[4 * n + 3]);
+    }
+    float pv[D / 2];
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      Frag<4, SKV> a;
-      a.set(0, s[n][0]);
-      a.set(1, s[n][2]);
-      a.set(2, s[n][1]);
-      a.set(3, s[n][3]);
-      const TKV* vr = Vs + (n * 8 + 2 * tq) * LD + 4 * g;
-#pragma unroll
-      for (int j = 0; j < D / 32; ++j) {
-        float va[4], vb[4];
-        load4(vr + 32 * j, va);       // key 2 tq
-        load4(vr + LD + 32 * j, vb);  // key 2 tq + 1
-        if (QUANT) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            va[i] *= vsc[n][0];
-            vb[i] *= vsc[n][1];
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          Frag<2, SKV> bv;
-          bv.set(0, va[i]);
-          bv.set(1, vb[i]);
-          mma_split<SKV, SKV>(pv[4 * j + i], a, bv);
-        }
+    for (int n = 0; n < MR_TK / 8; ++n) {
+      const uint64_t db = smem_desc(vb + n * kstep_floats(D));
+      const uint64_t dsm = smem_desc(vsm + n * kstep_floats(D));
+      const int acc = n > 0;  // the tile's first product starts fresh
+      if (SKV) {
+        wgmma_tf32(pv, pa[n].small, db, acc);
+        wgmma_tf32(pv, pa[n].big, dsm, 1);
       }
-      if constexpr (D > D32) {  // the last 16 columns, 2 n-tiles
-        const TKV* vt = Vs + (n * 8 + 2 * tq) * LD + D32 + 2 * g;
-        float va[2], vb[2];
-        load2(vt, va);       // key 2 tq
-        load2(vt + LD, vb);  // key 2 tq + 1
+      wgmma_tf32(pv, pa[n].big, db, SKV ? 1 : acc);
+    }
+    wgmma_commit();
+    if (more) {  // the next tile, staged while this tile's PV runs
+      cp_async_wait_all();
+      __syncthreads();
+      stage_tile(st ^ 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(pv);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          if (QUANT) {
-            va[i] *= vsc[n][0];
-            vb[i] *= vsc[n][1];
-          }
-          Frag<2, SKV> bv;
-          bv.set(0, va[i]);
-          bv.set(1, vb[i]);
-          mma_split<SKV, SKV>(pv[D32 / 8 + i], a, bv);
-        }
-      }
+    for (int n = 0; n < MR_TK / 8; ++n) {
+      fence_regs(pa[n].big);
+      if constexpr (SKV) fence_regs(pa[n].small);
     }
 #pragma unroll
-    for (int c = 0; c < NO; ++c)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) o[c][i] += pv[c][i];
+    for (int i = 0; i < D / 2; ++i) o[i] += pv[i];
   }
 
 #pragma unroll
@@ -454,36 +596,22 @@ __global__ void __launch_bounds__(MR_THREADS, MR_CTAS_PER_SM)
     float lr = l[h];
     lr += __shfl_xor_sync(0xffffffffu, lr, 1);
     lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-    const int r = warp * 16 + g + 8 * h;
+    const int r = r0 + cta_row(h);
+    if (r >= nrows) continue;
     const int t = r / G, gg = r - t * G;
-    if (t >= nt) continue;
     const long long row =
-        ((long long)b * p.Sq + t0 + t) * p.H + j * G + gg;
-    // this lane's columns of the row: 32 j + 8 tq + 4 e + i, held in
-    // o[4 j + i][2 h + e]
+        ((long long)b * p.Sq + t) * p.H + j * G + gg;
+    // this lane's columns of the row: 8 c + 2 tq + e, held in o[4 c + 2 h + e]
     const float inv = ns > 1 ? 1.f : 1.0f / fmaxf(lr, 1e-30f);
     const long long prow = (long long)isp * nb * p.Sq * p.H + row;
 #pragma unroll
-    for (int j = 0; j < D / 32; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float y[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) y[i] = o[4 * j + i][2 * h + e] * inv;
-        const int col = 32 * j + 8 * tq + 4 * e;
-        if (ns > 1)
-          store4(p.o_part + prow * D + col, y);
-        else
-          store4(static_cast<TQ*>(p.out) + row * D + col, y);
-      }
-    if constexpr (D > D32) {  // columns D32 + 4 tq + 2 e + i: o[8 + i][2h+e]
-      const int c8 = D32 / 8;
-      const float y[4] = {o[c8][2 * h] * inv, o[c8 + 1][2 * h] * inv,
-                          o[c8][2 * h + 1] * inv, o[c8 + 1][2 * h + 1] * inv};
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = 8 * c + 2 * tq;
+      const float y0 = o[4 * c + 2 * h] * inv, y1 = o[4 * c + 2 * h + 1] * inv;
       if (ns > 1)
-        store4(p.o_part + prow * D + D32 + 4 * tq, y);
+        store2(p.o_part + prow * D + col, y0, y1);
       else
-        store4(static_cast<TQ*>(p.out) + row * D + D32 + 4 * tq, y);
+        store2(static_cast<TQ*>(p.out) + row * D + col, y0, y1);
     }
     if (ns > 1 && tq == 0) {
       p.m_part[prow] = m[h];
@@ -523,8 +651,9 @@ cudaError_t launch_many_row_causal(const PrefillParams& p, int B,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   if (p.num_splits < 1) return cudaErrorInvalidValue;
-  const int qt = MR_ROWS / (p.H / p.KV);
-  const dim3 grid(p.KV, (p.Sq + qt - 1) / qt, B * p.num_splits);
+  // MR_ROWS flattened (position, head) rows a CTA, per (batch, KV head)
+  const int blocks = (p.Sq * (p.H / p.KV) + MR_ROWS - 1) / MR_ROWS;
+  const dim3 grid(p.KV, blocks, B * p.num_splits);
   many_row_kernel<TQ, TKV, D, PAGED, CAUSAL>
       <<<grid, MR_THREADS, smem, st>>>(p);
   cudaError_t err = cudaGetLastError();
@@ -572,8 +701,7 @@ cudaError_t launch_many_row(const PrefillParams& p, int B, int d, int q_dtype,
   const bool quant = kv_dtype == 2 || kv_dtype == 3;
   if (d != D || (p.ks != nullptr) != quant || (p.vs != nullptr) != quant)
     return cudaErrorInvalidValue;
-  // QT = floor(MR_ROWS / G) query positions per CTA: at least one
-  if (p.KV < 1 || p.H % p.KV || p.H / p.KV > MR_ROWS)
+  if (p.KV < 1 || p.H % p.KV || p.H / p.KV > MR_MAX_G)
     return cudaErrorInvalidValue;
   if (q_dtype == 0)
     return launch_many_row_kv<float, D, PAGED>(p, B, kv_dtype, st);

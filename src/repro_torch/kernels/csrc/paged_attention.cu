@@ -48,10 +48,10 @@
 //   3.35 TB/s = 49).
 //   Design: the tensor-core many-row kernel of many_row_attention.cuh
 //   (shared with the dense flash attention) with the page-table row lookup
-//   in its cp.async tile loader.  One 256-row chunk is only 64 CTAs (8 KV
-//   heads x 8 query tiles) on 132 SMs, so the wrapper splits each CTA's
-//   key range (4 splits at offset 3840: 256 CTAs, two per SM) and a
-//   combine kernel merges the splits' (acc, m, l).
+//   in its cp.async tile loader.  One 256-row chunk at G = 2 is only 32
+//   CTAs (8 KV heads x 4 blocks of 128 flattened rows) on 132 SMs, so the
+//   wrapper splits each CTA's key range (4 splits at offset 3840: 128
+//   CTAs, one per SM) and a combine kernel merges the splits' (acc, m, l).
 
 #include "many_row_attention.cuh"
 #include "chunked_decode.cuh"

@@ -33,11 +33,12 @@
 //     CTA's 4 warps are one warpgroup of 64 rows, the A operand (C, att,
 //     (B * w)^T) is in registers, laid out as mma.m16n8k8's A per warp, and
 //     the B operand (B^T tiles, x^T tiles) is in shared memory in the
-//     K-major layout TF32 requires.  (mma.sync m16n8k8, as the many-row
-//     kernel uses, left this kernel issue-bound: each warp loaded and
-//     split all of x for its 16 rows.)  An f32 operand is split into big and
-//     small TF32 parts (3xTF32, attention_common.cuh's Frag); a.b is the
-//     three products small.big + big.small + big.big in mma_split's order.
+//     K-major layout TF32 requires (the helpers are wgmma_tf32.cuh's, shared
+//     with the many-row attention kernel).  (mma.sync m16n8k8, the earlier
+//     design, left this kernel issue-bound: each warp loaded and split all
+//     of x for its 16 rows.)  An f32 operand is split into big and small
+//     TF32 parts (3xTF32, attention_common.cuh's Frag); a.b is the three
+//     products small.big + big.small + big.big, in that order.
 //     bf16 C, B and x, and att rounded to bf16, are exact in TF32: one
 //     product for C.B^T and att @ x, two for the state, whose B * w is f32.
 //     The accumulation truncates, so each product is summed over 32 of its
@@ -89,6 +90,7 @@
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -141,105 +143,6 @@ __device__ __forceinline__ void cp_async_4el(float* dst, const float* src) {
 __device__ __forceinline__ void cp_async_4el(__nv_bfloat16* dst,
                                              const __nv_bfloat16* src) {
   cp_async8(dst, src, true);
-}
-
-// ---- wgmma (sm_90a): the CTA's 4 warps are one warpgroup ---------------
-// x^T tile of one 8-key step in the K-major layout without swizzle: core
-// matrices of 8 columns x 4 k (16 bytes a column), the two of a column
-// group along k XT_KCORE floats apart (the descriptor's leading byte
-// offset), column groups XT_NGROUP floats apart (its stride byte offset).
-constexpr int XT_KCORE = 32;              // 128 bytes
-constexpr int XT_NGROUP = 64;             // 256 bytes
-constexpr int XT_KSTEP = 8 * XT_NGROUP;   // 64 columns x 8 k: 2 KB
-__device__ __forceinline__ int xt_offset(int col) {
-  return (col >> 3) * XT_NGROUP + (col & 7) * 4;
-}
-
-// Phase 1's B tile of TK = 32 keys in the same layout: 4 column (key)
-// groups per k-step of ds.  Element offset of 4-element chunk c4 of key k.
-constexpr int BT_KSTEP = 4 * XT_NGROUP;   // 32 keys x 8 k: 1 KB
-__device__ __forceinline__ int bt_offset(int k, int c4) {
-  return (c4 >> 1) * BT_KSTEP + (c4 & 1) * XT_KCORE + (k >> 3) * XT_NGROUP +
-         (k & 7) * 4;
-}
-
-__device__ __forceinline__ uint64_t smem_desc(const float* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return (uint64_t)((a & 0x3FFFF) >> 4) |
-         ((uint64_t)(XT_KCORE * 4 >> 4) << 16) |
-         ((uint64_t)(XT_NGROUP * 4 >> 4) << 32);
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// d (+)= a . B: a 64 x 8 TF32 A fragment in registers (each warp its 16
-// rows, laid out as mma.m16n8k8's A) times the 8 x 64 B tile at desc;
-// acc = 0 overwrites d.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t* a,
-                                           uint64_t desc, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
-}
-
-// The same with an 8 x 32 B tile (phase 1's C.B^T).
-__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
-                                               const uint32_t* a,
-                                               uint64_t desc, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
-}
-
-// Pins registers that an asynchronous wgmma reads or writes: the compiler
-// may neither reuse them before this point nor read them earlier.
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// Two consecutive f32 values to memory as f32 or bf16 (8 or 4 bytes).
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // Warp w of a row block at i0: its 16 rows see keys [0, i0 + 16 w + 16),
@@ -397,11 +300,11 @@ __global__ void __launch_bounds__(NT, 2) ssd_chunk_kernel(SsdParams p) {
           const uint64_t db = smem_desc(bbig + ks * BT_KSTEP);
           const uint64_t dsm = smem_desc(bsml + ks * BT_KSTEP);
           if constexpr (SX) {
-            wgmma_tf32_n32(f, ac[ks].small, db, k > 0);
-            wgmma_tf32_n32(f, ac[ks].big, dsm, 1);
-            wgmma_tf32_n32(f, ac[ks].big, db, 1);
+            wgmma_tf32(f, ac[ks].small, db, k > 0);
+            wgmma_tf32(f, ac[ks].big, dsm, 1);
+            wgmma_tf32(f, ac[ks].big, db, 1);
           } else {
-            wgmma_tf32_n32(f, ac[ks].big, db, k > 0);
+            wgmma_tf32(f, ac[ks].big, db, k > 0);
           }
         }
         wgmma_commit();
@@ -536,8 +439,8 @@ __global__ void __launch_bounds__(NT, 2) ssd_chunk_kernel(SsdParams p) {
           big[i] = SX ? __uint_as_float(tf32_rna(x)) : x;
           small[i] = __uint_as_float(tf32_rna(x - big[i]));
         }
-        store4(xtb + off + kc * XT_KCORE, big);
-        if (SX) store4(xts + off + kc * XT_KCORE, small);
+        store4(xtb + off + kc * KCORE, big);
+        if (SX) store4(xts + off + kc * KCORE, small);
       }
     }
     fence_proxy_async();  // the generic-proxy writes, seen by wgmma
@@ -594,7 +497,7 @@ __global__ void __launch_bounds__(NT, 2) ssd_chunk_kernel(SsdParams p) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) as.set(i, bw[i]);
       }
-      // the products of mma_split, each m64 n64 k8 over the warpgroup
+      // the split's products, each m64 n64 k8 over the warpgroup
       const uint64_t db = smem_desc(xtb + ks * XT_KSTEP);
       const uint64_t dsm = smem_desc(xts + ks * XT_KSTEP);
       const int acc = ks > 0;  // the tile's first product starts fresh

@@ -9,7 +9,10 @@ product of TF32 values is exact in f32, and attention computed so is held
 to the f32 attention of the JAX package's oracle at the card's tolerance
 (``chip_smoke.py``'s TOL for f32, 5e-5); one TF32 product alone misses it.
 Inputs at phase 3c's scale: standard normal q, k, v from a seeded numpy
-generator.
+generator.  The kernel's tile loop is emulated too, on the flattened
+(position, head) rows of its CTAs at granite's G = 48 and qwen2.5's G = 5:
+a row's result is bitwise the same in whichever CTA holds it, however many
+fully masked tiles that CTA walks before or after the row's own.
 """
 import numpy as np
 import pytest
@@ -21,7 +24,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    CTAS_PER_SM, MIN_SPLIT_KEYS, ROWS, num_splits)
+    CTAS_PER_SM, MIN_SPLIT_KEYS, ROWS, SPLIT_COST_KEYS, TILE_KEYS, num_splits,
+    row_plan)
 
 TOL = 5e-5  # chip_smoke.py TOL[torch.float32]
 B, S, H, KV, D = 1, 256, 4, 2, 128
@@ -149,16 +153,135 @@ def test_bf16_operand_needs_two_products():
 
 
 @pytest.mark.parametrize("ctas,keys,want", [
-    (8 * 8, 3840 + 256, 4),    # paged chunk C=256 at 3840: 64 -> 256 CTAs
-    (8 * 4, 4096 + 104, 8),    # the ragged last chunk, 104 rows at 4096
-    (8 * 8, 256, 1),           # the first chunk: too few keys to split
-    (8 * 8, 512, 2),
-    (8 * 128 * 2, 4096, 1),    # flash B=2, S=4096: 2048 CTAs fill the card
+    (8 * 4, 3840 + 256, 4),    # paged chunk C=256 at 3840: 32 -> 128 CTAs
+    (8 * 2, 4096 + 104, 8),    # the ragged last chunk, 104 rows at 4096
+    (8 * 4, 256, 1),           # the first chunk: too few keys to split
+    (8 * 4, 512, 2),
+    (8 * 64 * 2, 4096, 1),     # flash B=2, S=4096: 1024 CTAs fill the card
     (132, 8192, 1)])
 def test_num_splits_fills_the_card(ctas, keys, want):
+    """CTA counts of internlm2's grouping (G = 2: 512 rows a chunk of 256
+    positions, 4 CTAs of ``ROWS`` rows per KV head)."""
     ns = num_splits(ctas, keys, 132)
     assert ns == want
     assert ctas * ns <= max(ctas, CTAS_PER_SM * 132)
-    if ns < keys // MIN_SPLIT_KEYS:  # not held back by the key range
-        assert ctas * ns >= 132
-    assert ROWS == 64
+    if ns < keys // MIN_SPLIT_KEYS:  # not held back by the key range:
+        # one split more would pass a full wave
+        assert ctas * (ns + 1) > CTAS_PER_SM * 132
+    assert ROWS == 128 and CTAS_PER_SM == 1
+
+
+@pytest.mark.parametrize("ctas,keys,want", [
+    (96, 4096, 4),    # granite's chunk (G = 48): 3 waves of a quarter
+    (80, 4096, 3),    # qwen2.5's (G = 5): 2 waves of a third
+    (64, 4096, 2),    # mixtral's (G = 4): one full wave
+    (128, 4096, 1)])  # qwen3-moe's (G = 16): already one wave
+def test_num_splits_counts_waves(ctas, keys, want):
+    """Past one wave, a split count is worth its waves: the launch's end,
+    waves x (keys a split + its start and merge), is least at ``want``."""
+    def end(ns):
+        return -(-ctas * ns // (CTAS_PER_SM * 132)) * (keys / ns +
+                                                       SPLIT_COST_KEYS)
+
+    ns = num_splits(ctas, keys, 132)
+    assert ns == want
+    assert all(end(ns) < end(n) for n in range(1, keys // MIN_SPLIT_KEYS + 1)
+               if n != ns)
+
+
+def _tf32_sum(a, b, dim):
+    """Sum over ``dim`` of the 3xTF32 products of ``a`` and ``b`` (in the
+    kernel's order: small.big, big.small, big.big), each output's sum in an
+    order that does not depend on the other rows."""
+    ab, as_ = split(a)
+    bb, bs = split(b)
+    return ((as_ * bb).sum(dim) + (ab * bs).sum(dim)) + (ab * bb).sum(dim)
+
+
+def emulate_many_row(q, k, v, causal, window, q_offset, rows):
+    """q (Sq, H, D) at positions ``q_offset + t`` against k/v (Sk, KV, D) as
+    the kernel's CTAs compute it: each KV head's flattened rows (row r is
+    position r // G, head r % G) in blocks of ``rows`` (``row_plan``), each
+    block walking the ``TILE_KEYS``-key tiles of its key range, keys outside
+    it zero-filled, with the mask selecting before the exp and the online
+    softmax (m, l, acc) in f32."""
+    sq, h, d = q.shape
+    sk, kv, _ = k.shape
+    g = h // kv
+    out = torch.empty_like(q)
+    for j in range(kv):
+        qf = q[:, j * g:(j + 1) * g].reshape(sq * g, d)
+        for r0, r1, kbeg, hi in row_plan(sq, g, sk, q_offset=q_offset,
+                                         causal=causal, window=window,
+                                         rows=rows):
+            lo = max(0, q_offset + r0 // g - window + 1) if window else 0
+            qpos = (q_offset + torch.arange(r0, r1) // g)[:, None]
+            m = torch.full((r1 - r0,), -1e30)
+            l = torch.zeros(r1 - r0)
+            o = torch.zeros(r1 - r0, d)
+            for k0 in range(kbeg, hi, TILE_KEYS):
+                kpos = torch.arange(k0, k0 + TILE_KEYS)
+                inside = (kpos >= lo) & (kpos < hi)
+                kt = torch.zeros(TILE_KEYS, d)
+                vt = torch.zeros(TILE_KEYS, d)
+                kt[inside] = k[kpos[inside], j]
+                vt[inside] = v[kpos[inside], j]
+                s = _tf32_sum(qf[r0:r1, None, :], kt[None], -1) * d ** -0.5
+                seen = (kpos >= lo) & (kpos <= qpos if causal else kpos < hi)
+                if window:
+                    seen = seen & (qpos - kpos < window)
+                x = torch.where(seen, s, -1e30)
+                m_new = torch.maximum(m, x.amax(dim=1))
+                alpha = torch.exp(m - m_new)
+                p = torch.where(seen, torch.exp(x - m_new[:, None]), 0.0)
+                m = m_new
+                l = l * alpha + p.sum(dim=1)
+                o = o * alpha[:, None] + _tf32_sum(p[:, :, None], vt[None], 1)
+            r = torch.arange(r0, r1)
+            out[r // g, j * g + r % g] = o / torch.clamp(l, min=1e-30)[:, None]
+    return out
+
+
+# (G, causal, window, q_offset): rows of one CTA span positions inside a
+# tile (G = 5: 25.6 positions a CTA; G = 48: 2.7), keys from 0 or from an
+# offset (a prefill chunk), windows that start the CTAs at other tiles
+G_CASES = [(5, True, 0, 0), (5, True, 40, 60), (5, False, 40, 0),
+           (48, True, 0, 60), (48, True, 40, 0), (48, False, 0, 0)]
+G_SQ, G_D = 100, 32
+
+
+def _g_inputs(g, q_offset, seed=3):
+    rng = np.random.default_rng(seed)
+    kv = 2 if g == 5 else 1
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((G_SQ, g * kv, G_D), (G_SQ, kv, G_D),
+                             (G_SQ, kv, G_D)))
+    return q, k, v
+
+
+@pytest.mark.parametrize("g,causal,window,q_offset", G_CASES)
+def test_a_row_is_bitwise_the_same_in_any_cta(g, causal, window, q_offset):
+    """The emulated kernel at 64, 128 and 192 rows a CTA (one, two, three
+    warpgroups): other CTAs, other key ranges, the same bits in every
+    row."""
+    q, k, v = (torch.from_numpy(a) for a in _g_inputs(g, q_offset))
+    q = q[q_offset:]
+    plans = {rows: row_plan(G_SQ - q_offset, g, G_SQ, q_offset=q_offset,
+                            causal=causal, window=window, rows=rows)
+             for rows in (64, 128, 192)}
+    # the plans differ: a row meets other leading or trailing tiles
+    assert len({tuple(p[2:] for p in plan) for plan in plans.values()}) == 3
+    outs = [emulate_many_row(q, k, v, causal, window, q_offset, rows)
+            for rows in plans]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.parametrize("g,causal,window,q_offset", G_CASES)
+def test_flattened_rows_within_f32_tolerance(g, causal, window, q_offset):
+    q, k, v = _g_inputs(g, q_offset)
+    got = emulate_many_row(torch.from_numpy(q[q_offset:]),
+                           torch.from_numpy(k), torch.from_numpy(v), causal,
+                           window, q_offset, ROWS)
+    want = _oracle(q[None], k[None], v[None], causal, window)[0]
+    err = float(np.abs(got.numpy() - want[q_offset:]).max())
+    assert err <= TOL, err
