@@ -154,11 +154,11 @@ Run from the repository root.  Phases, each raising on failure:
    (rows ``<kernel>_g48``, ``_g48_verify``, ``_g5``, ``_g5_verify``,
    ``_g16_verify``, ``_int8_g48``, ``decode_attention_d64_t9``; the
    shapes no model phase runs are timed and printed);
-9. zamba2-2.7b at full width and depth (54 mamba2 layers in 9 groups of
-   6, each followed by the shared attention block; 9.4 GB of f32
-   weights): the 2 x 4096 prefill step must launch #7 54 times and #6 9
-   times and match the plain path; a decode step from its caches in an
-   8192-position stripe at splits 1 and 2 (#1, #2 at head dim 80), bitwise
+9. zamba2-2.7b at full width, 18 of 54 layers (3 of its 9 groups of 6
+   mamba2 layers, each followed by the shared attention block): the 2 x
+   4096 prefill step must launch #7 18 times and #6 3 times and match the
+   plain path; a decode step from its caches in an 8192-position stripe
+   at splits 1 and 2 (#1, #2 at head dim 80), bitwise
    equal, against the plain path, then 8 greedy steps; a 128-token
    prompt's prefill-then-decode against the token feed and the engine;
    ``ServeEngine`` continuous (more requests than slots, a reused slot
@@ -188,9 +188,9 @@ Run from the repository root.  Phases, each raising on failure:
    the plain path within LOGIT_TOL, timed and profiled; phase 4's dense
    serving, logits, tick and wave trace; phase 4b's paged trace with the
    prefix hit and the replay;
-14. the serving cluster, on phase 4's internlm2-1.8b (run inside its
-   block, before phase 6): replicas of 4 slots, 2048 positions, 256-token
-   chunks; prompts of 200-900 tokens, 24-48 new tokens, greedy and seeded
+14. the serving cluster, on internlm2-1.8b at full width, 8 of 24 layers
+   (run after phase 5, before phase 6): replicas of 4 slots, 2048
+   positions, 256-token chunks; prompts of 200-900 tokens, 24-48 new tokens, greedy and seeded
    sampled (temperature 0.8, top-p 0.9).  (a) ``ClusterRouter`` over 3
    paged f32 replicas, spread and pack: a fault-free run, then the same
    requests under ``CHAOS`` (replica 1 killed mid-decode and rejoined,
@@ -239,9 +239,9 @@ Run from the repository root.  Phases, each raising on failure:
    ``max_memory_allocated``; the predicted peak within DRY_PEAK_RTOL of
    the measured one, and the measured step no faster than the roofline;
 16. sharded serving (``ServeEngine(mesh=...)``, the gather form of
-   ``sharding/rules.py``) of internlm2-1.8b at full width and depth on
-   the one card: the unsharded engine first serves 4 requests (prompts
-   of 200-900 tokens, 12-20 new tokens, greedy and seeded-sampled; 4
+   ``sharding/rules.py``) of internlm2-1.8b at full width, 8 of 24
+   layers, on the one card: the unsharded engine first serves 4 requests
+   (prompts of 200-900 tokens, 12-20 new tokens, greedy and seeded-sampled; 4
    slots, 2048 positions, 256-token chunks) dense, paged and speculative
    paged (draft_k = 3) and the preemption flood below, runs the logits
    probe (4 prompts of 300 tokens prefilled in chunks, then one decode
@@ -880,6 +880,44 @@ def _quant_paged_inputs(t, name, chunk=0, positions=POS):
     return q, kq, vq, ks, vs, table, pos
 
 
+def _check_quant_bitwise(name):
+    """On a 1-byte pool: slot 3 alone equals it in the batch, bitwise
+    (T = 1 and 4, split-K 2), and split-K at 2, 4 and 8 splits (4096,
+    2048 and 1024 keys: whole 1-byte chunks) equals the single pass,
+    bitwise."""
+    from repro_torch.kernels.paged_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_splitk_cuda)
+
+    def quant(t, positions):
+        q, k, v, ks, vs, table, pos = _quant_paged_inputs(
+            t, name, positions=positions)
+        return ((q, k, v, table, pos, ks, vs),
+                (q[3:], k, v, table[3:], pos[3:], ks, vs))
+
+    def decode(q, k, v, table, pos, ks, vs):
+        return paged_decode_attention_cuda(q, k, v, table, pos, k_scale=ks,
+                                           v_scale=vs)
+
+    def splitk(q, k, v, table, pos, ks, vs, num_splits):
+        return paged_decode_attention_splitk_cuda(
+            q, k, v, table, pos, num_splits=num_splits, k_scale=ks,
+            v_scale=vs)
+
+    _check_slot_alone(f"paged_decode_attention_{name}", quant, decode,
+                      splitk)
+    for positions in (POS, POS_EDGES):
+        args, _ = quant(1, positions)
+        one = decode(*args)
+        for ns in (2, 4, 8):
+            same = torch.equal(splitk(*args, ns), one)
+            _log(f"[kernels] paged_decode_attention_splitk_{name} "
+                 f"pos={positions} ns={ns}: bitwise the single pass: "
+                 f"{same}")
+            if not same:
+                raise AssertionError(f"split-K at whole chunks on {name} "
+                                     f"differs from the single pass")
+
+
 def phase_quant_kernels():
     """The three paged kernels on int8 and fp8 pools (their scale branch)
     against their plain versions at phase 3's shapes, then timed at the
@@ -934,6 +972,7 @@ def phase_quant_kernels():
                                                  q_offset, **sc),
                     paged_prefill_attention_plain(q, k, v, table, slot,
                                                   q_offset, **sc), k.dtype))
+        _check_quant_bitwise(name)
         torch.cuda.synchronize()
 
         q, k, v, ks, vs, table, pos = _quant_paged_inputs(1, name)
@@ -3437,6 +3476,7 @@ def phase_moe():
 
 # ------------------------------------------------------ 9: zamba2-2.7b
 ZB, ZS = 2, 4096  # zamba2's prefill step: 2 prompts x 4096 tokens
+ZAMBA2_LAYERS = 18  # of 54: 3 of its 9 groups (the run's time limit)
 
 
 def _place(dst, src):
@@ -3594,7 +3634,7 @@ def _zamba2_engines(model, params):
 
 def _zamba2_tick(model, params):
     """A decode tick of 4 slots at pos [4300, 300, -1, 4200] in an
-    8192-position cache (the shared block's K/V for 9 groups: 6.0 GB),
+    8192-position cache (the shared block's K/V for 3 groups: 2.0 GB),
     single pass against split-K 2, timed over rounds and profiled."""
     from repro_torch.runtime.steps import compiled_step
 
@@ -3612,15 +3652,16 @@ def _zamba2_tick(model, params):
 
 
 def phase_zamba2():
-    """Phase 9: zamba2-2.7b at full width and depth.  Returns the launches
-    of the phase, keyed as the rows of phases 3h and 3c."""
+    """Phase 9: zamba2-2.7b at full width, ``ZAMBA2_LAYERS`` of 54 layers.
+    Returns the launches of the phase, keyed as the rows of phases 3h and
+    3c."""
     from repro_torch.kernels.decode_attention import (
         decode_attention_cuda, decode_attention_splitk_cuda)
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ssd_scan import ssd_chunk_cuda
     from repro_torch.runtime.steps import make_prefill_step
 
-    model, params = make_model("zamba2-2.7b")
+    model, params = make_model("zamba2-2.7b", ZAMBA2_LAYERS)
     cfg = model.cfg
     groups = cfg.num_layers // cfg.shared_attn_period
     kernels = (flash_attention_cuda, ssd_chunk_cuda, decode_attention_cuda,
@@ -3814,8 +3855,10 @@ def phase_llava():
 
 
 # ------------------------------------------------- 14: the serving cluster
-# internlm2-1.8b at full width and depth, phase 4's model: replicas of 4
-# slots, 2048 positions, 256-token prefill chunks; 16-token pages
+# internlm2-1.8b at full width, CLUSTER_LAYERS of 24 layers (the run's time
+# limit): replicas of 4 slots, 2048 positions, 256-token prefill chunks;
+# 16-token pages
+CLUSTER_LAYERS = 8
 CLUSTER = dict(batch_slots=4, max_len=2048, prefill_chunk=256)
 # the prefix cache off, so that every pool drains to zero held pages
 CLUSTER_PAGED = dict(CLUSTER, cache="paged", page_size=PAGE,
@@ -4289,10 +4332,11 @@ def _cluster_launcher():
                              "or recovered none")
 
 
-def phase_cluster(model, params, smi):
-    """Phase 14: the serving cluster on phase 4's model (internlm2-1.8b,
-    24 layers, full width).  Returns the engine kernels' launches, keyed as
-    phase 3's rows."""
+def phase_cluster(smi):
+    """Phase 14: the serving cluster on internlm2-1.8b at full width,
+    ``CLUSTER_LAYERS`` of 24 layers.  Returns the engine kernels'
+    launches, keyed as phase 3's rows."""
+    model, params = make_model(num_layers=CLUSTER_LAYERS)
     totals = {}
     for label, part in (("14a router", _cluster_chaos),
                         ("14b disagg paged", lambda m, p, t: _disagg_paged(
@@ -4303,6 +4347,8 @@ def phase_cluster(model, params, smi):
         part(model, params, totals)
         _log(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    del model, params
+    _free_device()
     _cluster_launcher()
     _log(f"[time] 14e launcher: {time.perf_counter() - t0:.1f} s")
     _log(f"[cluster] launches: {totals}")
@@ -4797,6 +4843,7 @@ def phase_train(smi):
 
 # ------------------------------------------------- 16: sharded serving
 SHARD_MESHES = ((2, 2), (1, 2))  # (1, 2) restores (2, 2)'s checkpoint
+SHARD_LAYERS = 8  # of 24: the served model's depth (the run's time limit)
 SHARD_SLOTS, SHARD_LEN, SHARD_CHUNK, SHARD_PAGE = 4, 2048, 256, 16
 SHARD_REQUESTS = 4  # one wave of the 4 slots: the run's time pays per tick
 SHARD_NEW = (12, 21)  # new tokens a request, drawn from [12, 21)
@@ -5031,7 +5078,7 @@ def _shard_rank():
     dist.barrier()
     if rank:
         _build.build_all()
-    model, params = make_model()
+    model, params = make_model(num_layers=SHARD_LAYERS)
     mesh = make_serve_mesh(shape)
     with open(out_dir / "plain.json") as f:
         plain = {int(k): v for k, v in json.load(f).items()}
@@ -5079,8 +5126,6 @@ def _shard_rank():
     with open(out_dir / f"rank{rank}.json", "w") as f:
         json.dump(rec, f)
     dist.barrier()
-    dist.destroy_process_group()
-    return 0
 
 
 # phase 16's training part: internlm2-1.8b at full width, 2 of 24 layers
@@ -5578,7 +5623,7 @@ def phase_sharded(smi):
     from repro_torch.runtime.serve import ServeConfig, ServeEngine
 
     _free_device()
-    model, params = make_model()
+    model, params = make_model(num_layers=SHARD_LAYERS)
     vocab = model.cfg.vocab_size
     reqs = _shard_requests(vocab)
     t0 = time.perf_counter()
@@ -5710,7 +5755,11 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if sys.argv[1:] == ["--shard-rank"]:
-        return _shard_rank()
+        _shard_rank()
+        from repro_torch.launch.mesh import leave_world
+
+        leave_world()  # the rank's world, without interpreter exit
+        return 0
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
 
@@ -5753,9 +5802,9 @@ def _main(t_start, timed, device_name, smi):
     launches.update(phase_spec_engine(model, params))
     launches["flash_attention"], _ = phase_forward_attention(model, params)
     _log(f"[time] 4-5 internlm2: {time.perf_counter() - t0:.1f} s")
-    cluster = timed("14 cluster", phase_cluster, model, params, smi)
     del model, params
     _free_device()
+    cluster = timed("14 cluster", phase_cluster, smi)
     t0 = time.perf_counter()
     model, params = make_ssm_model()
     launches["ssd_chunk"], _ = phase_ssm(model, params)

@@ -62,31 +62,34 @@ def _source(name: str):
     return CSRC / f"{name}.cu", ()
 
 
-def _flags(name: str) -> tuple:
-    return NVCC_FLAGS + _source(name)[1]
+def _flags(name: str, extra_flags=()) -> tuple:
+    return NVCC_FLAGS + _source(name)[1] + tuple(extra_flags)
 
 
-def _target(name: str) -> Path:
+def _target(name: str, extra_flags=()) -> Path:
     h = hashlib.sha256()
     for path in [_source(name)[0], *sorted(CSRC.glob("*.cuh"))]:
         h.update(path.name.encode() + b"\0" + path.read_bytes())
-    h.update(" ".join(_flags(name)).encode())
+    h.update(" ".join(_flags(name, extra_flags)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=LIBS) -> dict:
+def build_all(names=LIBS, extra_flags=()) -> dict:
     """Compile every named library that has no up-to-date build, one
     ``nvcc`` process per library, all started together.  Returns
-    ``{name: library path}``; raises with nvcc's output on failure."""
+    ``{name: library path}``; raises with nvcc's output on failure.
+    ``extra_flags`` go to every nvcc and into the hash (a diagnostic build,
+    such as ``scripts/decode_trace.py``'s ``-DCD_TRACE``, is a library of
+    its own; ``load`` never returns it)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, out = {}, {}
     for name in names:
-        lib = _target(name)
+        lib = _target(name, extra_flags)
         out[name] = lib
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
+        cmd = [_nvcc(), *_flags(name, extra_flags), "-o", str(tmp),
                str(_source(name)[0])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

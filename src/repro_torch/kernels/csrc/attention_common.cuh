@@ -21,9 +21,12 @@
 // denominator is guarded with max(l, 1e-30).
 //
 // Quantized paged pools (int8_t, __nv_fp8_e4m3) hold each K/V row with an
-// f32 scale per (token, KV head): a value is float(x) * scale, computed as
-// the row arrives, and is an f32 value from then on, so p is not rounded
-// (the TPU kernel's quant branch casts p to the dequantized v's f32).
+// f32 scale per (token, KV head): a value is float(x) * scale, and p is not
+// rounded (the TPU kernel's quant branch casts p to the dequantized v's
+// f32).  The many-row kernel dequantizes each value as the row arrives
+// (Chunk::get, load4); the chunked decode kernel converts the codes a word
+// at a time (codes4; int8 off the conversion pipe) and applies the scales
+// once per key and row (chunked_decode.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -64,6 +67,40 @@ __device__ __forceinline__ float2 fp8x2_to_float2(unsigned short x) {
   const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(x, __NV_E4M3);
   return __half22float2(__half2(h));
 }
+
+// The values of four 1-byte codes (one 32-bit word, the low byte first)
+// as f32, exactly, before their scale.  A 1-byte pool converts four times
+// as many values per byte as f32 moves, and sm_90 issues I2F (what (float)x
+// of a char compiles to) at 16 per SM per clock, an eighth of the FMA rate.
+// int8: b ^ 0x80 = x + 128 in [0, 255] is permuted under the exponent of
+// 2^23 (0x4B000000 | (x + 128) is 2^23 + x + 128 as f32) and 2^23 + 128 is
+// subtracted: one LOP3 for the word, then one PRMT and one FADD a value,
+// on the integer and FMA pipes, exact for all 256 codes.
+__device__ __forceinline__ void int8x4_codes(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
+}
+// fp8 e4m3: cvt.rn.f16x2.e4m3x2 and f16 -> f32 a pair (fp8x2_to_float2).
+// Moving the sign, exponent and mantissa bits into an f16 with shifts and
+// permutes instead (the code times 2^-8, exact but for the NaNs) measured
+// 1-3% slower on the H100: the integer pipe runs at half the FMA rate.
+__device__ __forceinline__ void fp8x4_codes(uint32_t w, float* f) {
+  const float2 a = fp8x2_to_float2(w & 0xffffu), b = fp8x2_to_float2(w >> 16);
+  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+}
+// codes4<TKV>: a 1-byte pool's word of codes as values, before the scale.
+template <typename TKV> __device__ void codes4(uint32_t w, float* f);
+template <> __device__ __forceinline__ void codes4<int8_t>(uint32_t w,
+                                                           float* f) {
+  int8x4_codes(w, f);
+}
+template <> __device__ __forceinline__ void codes4<__nv_fp8_e4m3>(
+    uint32_t w, float* f) {
+  fp8x4_codes(w, f);
+}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -94,7 +131,8 @@ template <> struct Chunk<__nv_bfloat16> {
     }
   }
 };
-// The quantized pools' raw values (16 per chunk), before their scale.
+// The quantized pools' raw values (16 per chunk), before their scale (the
+// many-row kernel; the chunked decode kernel reads codes4, word by word).
 template <> struct Chunk<int8_t> {
   static constexpr int N = 16;
   __device__ __forceinline__ static void get(const uint4& raw, float* f) {

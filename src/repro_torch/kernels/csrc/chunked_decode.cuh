@@ -40,11 +40,14 @@
 //     rounded up to whole pages) and at the split boundaries; one CTA takes
 //     one (KV head, slot, chunk).  The grid (KV, B, chunks) follows from the
 //     shapes alone, so the host needs no position and the launch could be
-//     captured in a graph.  A CTA whose chunk holds no key its slot may see
-//     (past pos + T - 1, wholly before the window, an inactive slot)
-//     returns at once.  At 8 KV heads and pos [-1, 1000, 4200, 8191] that is
-//     424 working CTAs, 3.2 per SM, against 32 before.  Split-K needs no
-//     combine launch: its splits are chunks clipped at S / ns.
+//     captured in a graph.  A 1-byte pool takes the same grid: 512- and
+//     1024-key chunks (half or all of f32's chunk bytes) measured slower,
+//     their CTAs too few to hide a CTA's fixed waits.  A CTA whose chunk
+//     holds no key its slot may see (past pos + T - 1, wholly before the
+//     window, an inactive slot) returns at once.  At 8 KV heads and pos
+//     [-1, 1000, 4200, 8191] that is 424 working CTAs, 3.2 per SM, against
+//     32 before.  Split-K needs no combine launch: its splits are chunks
+//     clipped at S / ns.
 //   * Paged: the page table first.  A CTA reads its chunk's page-table
 //     entries (issued before it knows its slot's position) into shared
 //     memory, so no K/V load waits on a table read.  Dense: no table; the
@@ -55,14 +58,27 @@
 //     without a read.  At 50 KiB of shared memory four CTAs share an SM, so
 //     the 424 working CTAs above are all resident at once, each with two
 //     stages in flight.  Four stages (three CTAs per SM), 32 KiB stages, and
-//     128- or 512-key chunks all measured slower (PERF.md).
+//     128- or 512-key f32 chunks all measured slower (PERF.md).
 //   * Quantized pools (paged only: int8, fp8 e4m3; the TPU kernel's quant
 //     branch, _accumulate_page(quant=True) with _page_scale_spec): each
 //     stage also holds the tile's 64 K and 64 V scales, one 4-byte
 //     cp.async.ca per thread, found through the same table entry as the
-//     row.  A value is dequantized where it is read (float(x) * scale, in
-//     the score dot and in PV), so the bytes a tick moves are a quarter of
-//     f32's (plus 8 bytes of scales per key and KV head), and p stays f32.
+//     row.  The bytes a tick moves are a quarter of f32's (plus 8 bytes of
+//     scales per key and KV head), but a byte holds four times the values,
+//     and the TPU kernel's order (each value dequantized, float(x) * scale,
+//     before the dot and PV) spent an eighth-rate I2F or fp8 cvt and an
+//     FMUL on every value: about as long as the whole byte bound at
+//     phase 3's shape.  Here the dot and PV run on the codes, converted
+//     exactly (attention_common.cuh: a PRMT and an FADD per int8 value on
+//     the integer and FMA pipes; fp8 by cvt.rn.f16x2.e4m3x2), and the
+//     scales join once per key and row: s = (q . k_code) * (k_scale *
+//     D^-1/2), PV adds (p * v_scale) * v_code, and l sums the unscaled p.
+//     Against dequantizing first this moves each product's rounding, not
+//     its size: the score's error stays within D f32 roundings of
+//     sum |q_i k_i| (plus one of the scale product), PV's within one of
+//     p |v| per key; p stays f32.  A 16-byte K chunk then holds 16 values,
+//     64 bytes of q, so q is swizzled in shared memory (below) to keep the
+//     dot's q reads free of bank conflicts.
 //   * Warps own keys.  Each warp takes its quarter of every tile: LPK lanes
 //     share one key's score dot (each a slice of the row, in a rotated order
 //     so that the 16-byte reads of a quarter-warp hit 8 distinct bank
@@ -125,6 +141,32 @@ constexpr int CD_THREADS = 128;  // 4 warps; thread d < D owns column d
 constexpr int CD_WARPS = CD_THREADS / 32;
 constexpr int CD_STAGES = 3;     // ring depth
 constexpr int CD_TABLE = 256;    // most page-table entries a chunk spans
+
+#ifdef CD_TRACE
+// A diagnostic build (scripts/decode_trace.py, -DCD_TRACE): thread 0 of
+// each CTA records, 16 words a CTA by linear block index, its global start
+// and end time (ns), its SM, its chunk's working chunks and tiles, and the
+// SM clock at marks through its work (cycles since its start).  CTAs past
+// the buffer's 8192 record nothing.
+constexpr long long CD_TRACE_WORDS = 1 << 17;
+__device__ unsigned long long cd_trace[CD_TRACE_WORDS];
+__device__ __forceinline__ unsigned long long cd_gtime() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define CD_MARK(i)                                                   \
+  do {                                                               \
+    if (cd_rec) cd_trace[cd_slot + (i)] = clock64() - cd_c0;         \
+  } while (0)
+#define CD_END()                                                     \
+  do {                                                               \
+    if (cd_rec) cd_trace[cd_slot + 1] = cd_gtime();                  \
+  } while (0)
+#else
+#define CD_MARK(i) do {} while (0)
+#define CD_END() do {} while (0)
+#endif
 
 // CTAs an SM should hold: four fit the shared memory of the decode
 // instances (2 or 8 rows); the 16-row instance needs more registers.
@@ -226,10 +268,27 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
   int* tbl = reinterpret_cast<int*>(qs + MAXR * D);  // paged: [CD_TABLE]
   float* scs = reinterpret_cast<float*>(tbl + (PAGED ? CD_TABLE : 0));
   __shared__ int last_s;
+#ifdef CD_TRACE
+  const long long cd_slot =
+      16LL * (blockIdx.x +
+              gridDim.x * (blockIdx.y + (long long)gridDim.y * blockIdx.z));
+  const long long cd_c0 = clock64();
+  const bool cd_rec = threadIdx.x == 0 && cd_slot + 16 <= CD_TRACE_WORDS;
+  if (cd_rec) {
+    unsigned smid;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+    cd_trace[cd_slot] = cd_gtime();
+    cd_trace[cd_slot + 8] = smid;
+  }
+#endif
 
   const int j = TILED ? blockIdx.x / p.n_tiles : blockIdx.x;
   const int tile = TILED ? blockIdx.x - j * p.n_tiles : 0;
-  const int b = blockIdx.y, z = blockIdx.z;
+  // 1-byte pools: the chunks in reverse launch order, so that the last
+  // chunks, which most slots do not reach, leave their SMs first and the
+  // working CTAs start sooner
+  const int b = blockIdx.y,
+            z = QUANT ? p.n_chunks - 1 - (int)blockIdx.z : blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool col = ALL_COLS || tid < D;  // thread tid owns column tid
   const int G = p.H / p.KV, T = p.T, R = G * T;
@@ -285,6 +344,7 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
   if (lo >= hi) {
     if (n_work == 0 && z == 0 && col)  // a slot that sees no key: zeros
       for (int r = 0; r < RT; ++r) *out_at(r) = from_f<TQ>(0.f);
+    CD_END();
     return;
   }
 
@@ -293,10 +353,18 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
     for (int i = 0; i < CD_TABLE / CD_THREADS; ++i)
       tbl[tid + i * CD_THREADS] = ent[i];
   }
+  // 1-byte pools: q's 16-byte groups are swizzled in shared memory, group
+  // g at g ^ ((g >> 3) & 3).  A lane's 16-byte K chunk holds 16 values, 64
+  // bytes of q, so the eight lanes of a quarter-warp, reading the q of eight
+  // distinct chunks at one word, hit two bank groups unswizzled (a 4-way
+  // conflict); swizzled, eight.
+  const int qcol = QUANT ? 4 * ((tid >> 2) ^ ((tid >> 5) & 3)) + (tid & 3)
+                         : tid;
 #pragma unroll
   for (int r = 0; r < MAXR; ++r)
-    if (r < RT && col) qs[r * D + tid] = qv[r];
+    if (r < RT && col) qs[r * D + qcol] = qv[r];
   __syncthreads();
+  CD_MARK(2);
 
   // key rows of this (slot, KV head): (page, token) of key kpos, dense:
   // (0, kpos) from the slot's own base
@@ -378,13 +446,14 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
     // tile t - 1, whose stage the next copies refill
     cp_async_wait<CD_STAGES - 2>();
     __syncthreads();
+    if (t == 0) CD_MARK(3);
+    if (t == ntile - 1) CD_MARK(4);
     if (t + CD_STAGES - 1 < ntile) issue(t + CD_STAGES - 1);
     cp_async_commit();
     const TKV* Ks = ring + (t % CD_STAGES) * 2 * TK * D;
     const TKV* Vs = Ks + TK * D;
     const float* Ksc = scs + (t % CD_STAGES) * 2 * TK;  // quantized only
     const float* Vsc = Ksc + TK;
-    const float ksc = QUANT ? Ksc[key] : 1.f;
 
     float s[MAXR];
 #pragma unroll
@@ -394,13 +463,34 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
       const int ch = BLOCKED ? part * CPL + ((cc + rot) & (CPL - 1))
                              : part + LPK * cc;
       if (!BLOCKED && ch >= VPR) break;  // the last pass's rest
+      if constexpr (QUANT) {
+        // the codes, a 32-bit word (four of the key's values) at a time;
+        // the scale joins after the dot.  q's group ch * 4 + w lies at
+        // ch * 4 + (w ^ sw) (the swizzle above)
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(Ks + key * D + ch * VEC);
+        const uint32_t wd[4] = {raw.x, raw.y, raw.z, raw.w};
+        const int sw = (ch >> 1) & 3;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          float kf[4];
+          codes4<TKV>(wd[w], kf);
+#pragma unroll
+          for (int r = 0; r < MAXR; ++r) {
+            if (r >= RT) break;
+            const float4 a = *reinterpret_cast<const float4*>(
+                qs + r * D + 4 * (ch * 4 + (w ^ sw)));
+            s[r] = fmaf(a.x, kf[0], s[r]);
+            s[r] = fmaf(a.y, kf[1], s[r]);
+            s[r] = fmaf(a.z, kf[2], s[r]);
+            s[r] = fmaf(a.w, kf[3], s[r]);
+          }
+        }
+        continue;
+      }
       float kf[VEC];
       Chunk<TKV>::get(
           *reinterpret_cast<const uint4*>(Ks + key * D + ch * VEC), kf);
-      if (QUANT) {  // dequantized before the dot, as the TPU kernel does
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) kf[e] *= ksc;
-      }
 #pragma unroll
       for (int r = 0; r < MAXR; ++r) {
         if (r >= RT) break;
@@ -420,6 +510,14 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
     // the LPK lanes of its key (keys below lo are outside every row's
     // window, so the window test masks them)
     const int kpos = lo_t + t * TK + key;
+    // the score's factor, and p's for PV: (q . k_code) * (k_scale * D^-1/2)
+    // and (p * v_scale) . v_code, each scale once per key and row; f32 and
+    // bf16 take D^-1/2 and p as they are
+    float kfac = scale, vfac = 1.f;
+    if constexpr (QUANT) {
+      kfac = Ksc[key] * scale;
+      vfac = Vsc[key];
+    }
     float pr[MAXR];
 #pragma unroll
     for (int r = 0; r < MAXR; ++r) {
@@ -432,7 +530,7 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
       const int qpos = pos + (r0 + r) % T;
       const bool ok = kpos < hi && kpos <= qpos &&
                       (p.window == 0 || qpos - kpos < p.window);
-      const float sv = ok ? sr * scale : NEG_INF;
+      const float sv = ok ? sr * kfac : NEG_INF;
       float mx = sv;
 #pragma unroll
       for (int o = LPK; o < 32; o <<= 1)
@@ -444,9 +542,12 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
 #pragma unroll
       for (int o = LPK; o < 32; o <<= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      l[r] = l[r] * alpha + sum;  // l sums the unrounded p
+      l[r] = l[r] * alpha + sum;  // l sums the unrounded, unscaled p
       m[r] = m_new;
-      pr[r] = to_f(from_f<TV>(e));  // p rounded to v's (loaded) dtype
+      if constexpr (QUANT)
+        pr[r] = e * vfac;
+      else
+        pr[r] = to_f(from_f<TV>(e));  // p rounded to v's (loaded) dtype
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[r][c] *= alpha;
     }
@@ -455,12 +556,12 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
 #pragma unroll
     for (int kk = 0; kk < KPW; ++kk) {
       float vf[4];
-      load4(Vs + (warp * KPW + kk) * D + pv_col, vf);
-      if (QUANT) {
-        const float vsc = Vsc[warp * KPW + kk];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) vf[c] *= vsc;
-      }
+      if constexpr (QUANT)
+        codes4<TKV>(*reinterpret_cast<const uint32_t*>(
+                        Vs + (warp * KPW + kk) * D + pv_col),
+                    vf);
+      else
+        load4(Vs + (warp * KPW + kk) * D + pv_col, vf);
 #pragma unroll
       for (int r = 0; r < MAXR; ++r) {
         if (r >= RT) break;
@@ -474,6 +575,10 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
   // merge the warps in shared memory (the ring's space), in warp order
   cp_async_wait<0>();
   __syncthreads();
+  CD_MARK(5);
+#ifdef CD_TRACE
+  if (cd_rec) cd_trace[cd_slot + 9] = n_work | (ntile << 16);
+#endif
   float* wacc = reinterpret_cast<float*>(smem);   // [warp][MAXR][D]
   float* wml = wacc + CD_WARPS * MAXR * D;        // [warp][MAXR][m, l]
 #pragma unroll
@@ -513,7 +618,11 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
       p.ml_part[2 * row + 1] = ls;
     }
   }
-  if (n_work == 1) return;
+  CD_MARK(6);
+  if (n_work == 1) {
+    CD_END();
+    return;
+  }
 
   // the slot's last CTA of this tile to finish merges the tile's rows of
   // every working chunk, in order
@@ -527,7 +636,10 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
     last_s = last;
   }
   __syncthreads();
-  if (!last_s) return;
+  if (!last_s) {
+    CD_END();
+    return;
+  }
   __threadfence();
   // the working chunks in order, then their (m, l) fetched all at once
   int* zl = reinterpret_cast<int*>(smem);
@@ -565,6 +677,8 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
     }
     *out_at(r) = from_f<TQ>(num / fmaxf(den, 1e-30f));
   }
+  CD_MARK(7);
+  CD_END();
 }
 
 template <typename TQ, typename TKV, int MAXR, int D, bool PAGED, bool TILED>
@@ -652,3 +766,16 @@ cudaError_t launch_chunked_decode(const DecodeParams& p, int d, int q_dtype,
 }
 
 }  // namespace
+
+#ifdef CD_TRACE
+// The diagnostic build's records (``bytes`` of them) into host memory, and
+// all of them zeroed.
+extern "C" int cd_trace_read(void* host, long long bytes) {
+  return (int)cudaMemcpyFromSymbol(host, cd_trace, bytes);
+}
+extern "C" int cd_trace_clear() {
+  void* ptr = nullptr;
+  const cudaError_t e = cudaGetSymbolAddress(&ptr, cd_trace);
+  return e ? (int)e : (int)cudaMemset(ptr, 0, sizeof(cd_trace));
+}
+#endif

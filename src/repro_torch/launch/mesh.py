@@ -19,12 +19,39 @@ from __future__ import annotations
 
 import contextlib
 import math
+import os
+import sys
 
 import torch.distributed as dist
 
-__all__ = ["data_group", "fake_world", "make_job_mesh",
+__all__ = ["data_group", "fake_world", "leave_world", "make_job_mesh",
            "make_production_mesh", "make_serve_mesh", "mesh_device_type",
            "placement_mesh_shape", "submesh_for_placement"]
+
+
+def leave_world() -> None:
+    """End a launcher process that is in a process group, once its work is
+    done: the group destroyed, the output flushed, then ``os._exit(0)``,
+    with no interpreter exit.  A process in no group returns.
+
+    A ``DeviceMesh`` (and whatever keeps one: a shard function, a step
+    cache) keeps its process groups alive past ``destroy_process_group()``,
+    and with them gloo's worker threads.  A worker thread drops its last
+    reference to a finished collective after the waiting rank has moved
+    on; if the interpreter is finalizing by then, releasing the tensor's
+    Python object takes the GIL, which CPython 3.12 answers by ending the
+    thread with ``pthread_exit``, whose unwind through a ``noexcept`` frame
+    aborts the process (SIGABRT, "terminate called without an active
+    exception") after its output was written.  The launchers leave the
+    group they joined to this function when their work succeeded (and
+    destroy it themselves when it raised)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    dist.destroy_process_group()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
 
 def mesh_device_type() -> str:
     """The DeviceMesh device type of the process group's backend: "cuda"

@@ -96,6 +96,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, list_archs
+from repro_torch.launch.mesh import leave_world
 from repro_torch.models import LM, RuntimeKnobs
 from repro_torch.runtime.autoscale import AUTOSCALE_POLICIES, Autoscaler
 from repro_torch.runtime.cluster import ROUTER_POLICIES, ClusterRouter
@@ -400,8 +401,9 @@ def main(argv=None):
             return _serve(args, device, mesh_shape)
         with contextlib.redirect_stdout(io.StringIO()):
             return _serve(args, device, mesh_shape)
-    finally:
+    except BaseException:  # on success the world stays: leave_world
         dist.destroy_process_group()
+        raise
 
 
 def _serve(args, device, mesh_shape):
@@ -513,3 +515,4 @@ def _print_cluster(args, router, done) -> None:
 
 if __name__ == "__main__":
     main()
+    leave_world()

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.data import MarkovSynthetic
+from repro_torch.launch.mesh import leave_world
 from repro_torch.models import LM, RuntimeKnobs
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.train import TrainConfig, Trainer
@@ -68,8 +69,9 @@ def main(argv=None):
             return _train(args, device, mesh)
         with contextlib.redirect_stdout(io.StringIO()):
             return _train(args, device, mesh)
-    finally:
+    except BaseException:  # on success the world stays: leave_world
         dist.destroy_process_group()
+        raise
 
 
 def _train(args, device, mesh):
@@ -104,3 +106,4 @@ def _train(args, device, mesh):
 
 if __name__ == "__main__":
     main()
+    leave_world()

@@ -3,10 +3,10 @@
 The CUDA kernel (``csrc/chunked_decode.cuh``) cuts each slot's key axis
 into the chunks of ``decode_attention.decode_chunks`` (multiples of 256 keys,
 rounded up to whole pages, clipped at the split-K boundaries), computes an
-unnormalised (acc, m, l) per chunk with p rounded to the pool's dtype (kept
-f32 over a quantized pool, whose values are dequantized f32), and merges
-the chunks in chunk order.  Here a few lines of torch do the same on
-the same grid, and the result is held to the JAX package's oracle
+unnormalised (acc, m, l) per chunk with p rounded to the pool's dtype (over
+a quantized pool: the dot on the codes and the scales once per key, p kept
+f32), and merges the chunks in chunk order.  Here a few lines of torch do
+the same on the same grid, and the result is held to the JAX package's oracle
 (``repro.kernels.ref.paged_decode_attention_ref``) on seeded numpy inputs,
 at the tolerances of ``tests/test_torch_paged_kernels.py``.  A model that
 drops the slot's last chunk fails them.
@@ -68,14 +68,18 @@ def chunked_decode(q, k_pages, v_pages, page_idx, pos, *, window=0,
     dtype, then merged in chunk order with exp(m_i - m*) and divided by
     max(l, 1e-30); a slot with pos < 0 writes zeros.  ``drop_last`` leaves
     out each slot's last live chunk (the mutant).  With ``k_scale`` /
-    ``v_scale`` the int8/fp8 pools are dequantized as they are read and p
-    stays f32."""
+    ``v_scale`` (int8/fp8 pools) the kernel's order: the score is (q .
+    k_code) * (k_scale * D^-1/2), PV sums (p * v_scale) * v_code, l sums
+    the unscaled p, and p stays f32."""
     b, t, h, d = q.shape
     _, page_size, kv, _ = k_pages.shape
     _, _, ranges = decode_chunks(page_idx.shape[1], page_size, num_splits)
     p_dtype = v_pages.dtype
-    if k_scale is not None:
-        k_pages, v_pages = k_pages.float() * k_scale, v_pages.float() * v_scale
+    quant = k_scale is not None
+    if quant:
+        k_pages, v_pages = k_pages.float(), v_pages.float()  # the codes
+        ksd, vsd = (x[page_idx.long()].flatten(1, 2)[..., 0]
+                    for x in (k_scale, v_scale))  # (B, S, KV)
         p_dtype = torch.float32
     kd, vd = (x[page_idx.long()].flatten(1, 2) for x in (k_pages, v_pages))
     out = torch.zeros((b, t, h, d))
@@ -91,7 +95,13 @@ def chunked_decode(q, k_pages, v_pages, page_idx, pos, *, window=0,
             keys = torch.arange(lo, hi)
             kx = kd[s, lo:hi].float().repeat_interleave(h // kv, dim=1)
             vx = vd[s, lo:hi].float().repeat_interleave(h // kv, dim=1)
-            sc = torch.einsum("thd,nhd->thn", q[s].float(), kx) * d ** -0.5
+            if quant:  # (q . k_code) * (k_scale * D^-1/2), per key
+                kf = (ksd[s, lo:hi] * d ** -0.5).repeat_interleave(h // kv,
+                                                                   dim=1)
+                sc = torch.einsum("thd,nhd->thn", q[s].float(), kx) * kf.T
+            else:
+                sc = torch.einsum("thd,nhd->thn", q[s].float(),
+                                  kx) * d ** -0.5
             mask = keys[None, :] <= qpos[:, None]
             if window:
                 mask &= qpos[:, None] - keys[None, :] < window
@@ -99,6 +109,8 @@ def chunked_decode(q, k_pages, v_pages, page_idx, pos, *, window=0,
             m = sc.amax(-1)
             e = torch.where(mask[:, None], torch.exp(sc - m[..., None]), 0.0)
             pr = e.to(p_dtype).float()
+            if quant:  # p * v_scale, per key and row
+                pr = pr * vsd[s, lo:hi].repeat_interleave(h // kv, dim=1).T
             parts.append((torch.einsum("thn,nhd->thd", pr, vx), m,
                           e.sum(-1)))
         if drop_last:
@@ -147,8 +159,10 @@ def test_chunked_model_on_quantized_pools_matches_jax_oracle(case, name):
     """1-byte pools: the kernel's ring tiles hold 64 keys instead of 16 or
     32, but tiles lie inside a chunk and the chunk grid takes no dtype, so
     the partition is the one above.  Over int8/fp8 pools quantized by the
-    JAX package, dequantized as read and with p kept f32, the model holds
-    to the JAX quantized oracle at the f32 tolerance."""
+    JAX package, the dot on the codes, the scales once per key and p kept
+    f32, the model holds to the JAX quantized oracle at the f32 tolerance
+    (tests/test_torch_quant_decode.py runs it over three chunks a
+    slot)."""
     pos, t, window, ns = CASES[case]
     q, k, v, table = _inputs(8, t, "float32")
     qd = jattn.KV_QUANT_DTYPES[name]

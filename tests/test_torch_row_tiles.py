@@ -74,15 +74,18 @@ def tiled_decode(q, k_pages, v_pages, page_idx, pos, *, window=0,
     """Every CTA of the launch in the kernel's index arithmetic: its tile's
     rows, the scratch rows it writes, the ticket it counts; the last CTA of
     each (slot, KV head, tile) merges the tile's rows in chunk order.
-    Returns (output, scratch rows written by CTA, ticket counts).
-    ``drop_tile``: the merge of that tile index is skipped (the mutant)."""
+    Returns (output, scratch rows written by CTA, ticket counts).  A
+    1-byte pool's codes are taken as they are (the partition, not the
+    arithmetic).  ``drop_tile``: the merge of that tile index is skipped
+    (the mutant)."""
     b, t, h, d = q.shape
     _, page_size, kv, _ = k_pages.shape
     g, r_all = h // kv, h // kv * t
     _, _, ranges = decode_chunks(page_idx.shape[1], page_size, num_splits)
     n_chunks = len(ranges)
     n_tiles = -(-r_all // tile_rows)
-    kd, vd = (x[page_idx.long()].flatten(1, 2) for x in (k_pages, v_pages))
+    kd, vd = (x[page_idx.long()].flatten(1, 2).float()
+              for x in (k_pages, v_pages))
     o_part = torch.full((b * kv * n_chunks * r_all, d), float("nan"))
     ml_part = torch.full((b * kv * n_chunks * r_all, 2), float("nan"))
     tickets = torch.zeros(b * kv * n_tiles, dtype=torch.int64)

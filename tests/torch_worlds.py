@@ -27,6 +27,20 @@ Workers start with ``WORKER_HEADER``, which puts ``src`` and ``tests`` on
 ``out_dir`` bound); ``write_record`` / ``read_records`` pass a case's
 result from rank 0 to the test, one file a case, so a world that fails
 part way still hands over the cases it finished.
+
+Workers end with ``WORKER_FOOTER``: a rank that ran its code to the end
+flushes its output and leaves with ``os._exit(0)``, so no interpreter exit
+runs after it.  A ``DeviceMesh`` (and whatever keeps one: a forward
+function, a shard function, a step cache) keeps its process groups alive
+past ``destroy_process_group()``, and with them gloo's worker threads.  A
+worker thread drops its reference to a finished collective after the
+waiting rank has moved on; if the interpreter is finalizing by then, the
+tensor's Python object can only be released by taking the GIL, which
+CPython 3.12 answers by ending the thread with ``pthread_exit``, whose
+unwind through a ``noexcept`` frame calls ``std::terminate``: the rank dies
+of SIGABRT ("terminate called without an active exception") after its
+work is done.  A rank that raises leaves the same way, with exit code 1,
+once its traceback is printed (``WORKER_HEADER``'s ``sys.excepthook``).
 """
 import json
 import os
@@ -41,10 +55,20 @@ WORLD_TIMEOUT = 600  # seconds for one spawned world, every rank included
 COLLECTIVE_TIMEOUT = 300  # gloo's bound on one collective
 
 WORKER_HEADER = """
-import json, os, sys
+import json, os, sys, traceback
 from datetime import timedelta
 sys.path.insert(0, "src")
 sys.path.insert(0, "tests")
+
+
+def _leave_on_error(*exc):
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os.write(2, "".join(traceback.format_exception(*exc)).encode())
+    os._exit(1)
+
+
+sys.excepthook = _leave_on_error
 import torch
 import torch.distributed as dist
 torch.set_num_threads(1)
@@ -55,6 +79,12 @@ out_dir = os.environ["DIR"]
 dist.init_process_group(
     "gloo", init_method=os.environ["INIT"], rank=rank, world_size=world,
     timeout=timedelta(seconds=float(os.environ["COLLECTIVE_TIMEOUT"])))
+"""
+
+WORKER_FOOTER = """
+sys.stdout.flush()
+sys.stderr.flush()
+os._exit(0)
 """
 
 
@@ -91,10 +121,11 @@ def _tail(path, n=3000) -> str:
 
 def spawn_world(n, out_dir, code=None, argv=None, env=None,
                 timeout=WORLD_TIMEOUT, name="world"):
-    """``n`` ranks of ``python -c WORKER_HEADER + code`` (or of ``argv``),
-    run from the repo root with ``src`` on ``PYTHONPATH``; ``RANK``,
-    ``LOCAL_RANK``, ``WORLD_SIZE``, ``DIR`` (``out_dir``), ``INIT`` (a
-    fresh rendezvous) and ``COLLECTIVE_TIMEOUT`` in the environment.
+    """``n`` ranks of ``python -c WORKER_HEADER + code + WORKER_FOOTER``
+    (or of ``argv``), run from the repo root with ``src`` on
+    ``PYTHONPATH``; ``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``, ``DIR``
+    (``out_dir``), ``INIT`` (a fresh rendezvous) and
+    ``COLLECTIVE_TIMEOUT`` in the environment.
     Every rank must exit 0 within ``timeout`` seconds.  Returns the ranks'
     stdout."""
     out_dir = str(out_dir)
@@ -104,8 +135,8 @@ def spawn_world(n, out_dir, code=None, argv=None, env=None,
                 COLLECTIVE_TIMEOUT=str(COLLECTIVE_TIMEOUT),
                 OMP_NUM_THREADS="1", PYTHONPATH=os.path.join(ROOT, "src"),
                 **(env or {}))
-    cmd = argv or [sys.executable, "-c",
-                   textwrap.dedent(WORKER_HEADER) + textwrap.dedent(code)]
+    cmd = argv or [sys.executable, "-c", textwrap.dedent(WORKER_HEADER)
+                   + textwrap.dedent(code) + WORKER_FOOTER]
     logs = [(os.path.join(out_dir, f"{tag}.rank{r}.out"),
              os.path.join(out_dir, f"{tag}.rank{r}.err")) for r in range(n)]
     procs = []
