@@ -554,15 +554,16 @@ def _bound_ms(q, k, pos, paged=False):
     ``paged``: and the page-table entries that map it; a quantized, 1-byte
     pool: and its f32 scale per key and KV head), q read and the output
     written once, against the card's memory rate; and QK + PV flops
-    (row t sees pos + t + 1 keys) against its f32 rate (the decode
-    kernels run on the CUDA cores)."""
+    (row t sees pos + t + 1 keys) against the rate of the route's products
+    (``cost.decode_rate``: the CUDA cores' f32, or at the groupings on the
+    tensor cores their TF32 class)."""
     from repro_torch.kernels import cost
 
     b, t, h, d = q.shape
     return cost.decode_work(
         b, t, h, d, k.shape[2], S, q.element_size(), k.element_size(),
         pos.tolist(), page_size=PAGE if paged else 0,
-        scales=k.element_size() == 1).bound()
+        scales=k.element_size() == 1, rate=cost.decode_rate(q, k)).bound()
 
 
 def phase_kernels():
@@ -1016,19 +1017,32 @@ def phase_quant_kernels():
 
 def _timed_row(name, run, plain, lib_ms, bound, source, replaces, err):
     """Times of the kernel and its plain version; ``bound`` is
-    ``_bound``'s (ms, what bounds it, the flop rate used)."""
+    ``_bound``'s (ms, what bounds it, the flop rate used).  A chunked
+    decode row whose timed launches took the tensor-core route
+    (``decode_attention.ROUTE_LAUNCHES``) says so (``instance``, and its
+    ``status``: redesigned on that route)."""
+    from repro_torch.kernels import decode_attention as tdecode
+
     bound, bound_by, rate = bound
+    before = dict(tdecode.ROUTE_LAUNCHES)
     ms = _time_ms(run)
+    routed = {r: n - before[r] for r, n in tdecode.ROUTE_LAUNCHES.items()}
     plain_ms = _time_ms(plain)
     lib = ("none (no single PyTorch call)" if lib_ms is None
            else f"{lib_ms:.4f} ms")
     _log(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
          f"library {lib}, bound {bound:.4f} ms by {bound_by}; flops at "
          f"{rate})")
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": None, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": lib_ms}
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": None, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": bound_by, "library_ms": lib_ms}
+    if routed["tensor_cores"]:
+        if routed["cuda_cores"]:
+            raise AssertionError(f"{name}: its launches took both routes")
+        row.update(instance="tensor cores (wgmma, chunked_decode_tc.cuh)",
+                   status="redesigned: the tensor-core route")
+    return row
 
 
 @contextlib.contextmanager
@@ -2942,15 +2956,15 @@ def phase_head_dim_kernels():
 # musicgen's verify block in phase 10: 9 rows a slot at G = 1, D = 64
 MUSICGEN_DRAFT_K = 8
 # granite-20b (H = 48, KV = 1: 48 query rows a KV head at one token, 192
-# in a verify block), qwen2.5-32b (H = 40, KV = 8: G = 5), qwen3-moe's
-# verify block (H = 64, KV = 4, T = 4: 64 rows) and G = 1 blocks past the
-# 8-row instance at head dims 64 and 80: the chunked decode kernel's row
-# tiles.  The many-row kernel (#4, #6) at G = 5 and 48, whose positions
-# straddle its CTAs' flattened rows.  (label, H, KV, D, the T of the decode
-# checks)
+# in a verify block) and qwen3-moe (H = 64, KV = 4: 16 rows, 64 at T = 4):
+# the chunked decode kernel's tensor-core route; qwen2.5-32b (H = 40, KV =
+# 8: G = 5) and G = 1 blocks past the 8-row instance at head dims 64 and
+# 80: its CUDA-core row tiles.  The many-row kernel (#4, #6) at G = 5 and
+# 48, whose positions straddle its CTAs' flattened rows.  (label, H, KV,
+# D, the T of the decode checks)
 ROW_CASES = (("g48", 48, 1, 128, (1, VERIFY_T)),
              ("g5", 40, 8, 128, (1, VERIFY_T, 8)),
-             ("g16", 64, 4, 128, (VERIFY_T,)),
+             ("g16", 64, 4, 128, (1, VERIFY_T)),
              ("d80", 32, 32, 80, (16,)),
              ("d64", 32, 32, 64, (MUSICGEN_DRAFT_K + 1, 16)))
 WINDOWS_R = (0, 1024)
@@ -2972,10 +2986,11 @@ def _row_decode_checks(ts):
     both position sets, windows 0 and 1024; bf16 q; int8 and fp8 pools;
     split-K (T = 1) at 2, 4 and 8 splits bitwise the single pass; a slot
     alone against the batch and each row of a T > 1 block against the
-    T = 1 launch at pos + t, bitwise.  Returns the worst error per (kernel,
-    T), f32 caches and pools and the quantized ones."""
+    T = 1 launch at pos + t, bitwise, on the tensor-core route also at
+    T = 2 and 3 (other row counts and row tiles).  Returns the worst error
+    per (kernel, T), f32 caches and pools and the quantized ones."""
     from repro_torch.kernels.decode_attention import (
-        decode_attention_cuda, decode_attention_splitk_cuda)
+        decode_attention_cuda, decode_attention_splitk_cuda, decode_route)
     from repro_torch.kernels.ops import (decode_attention_plain,
                                          paged_decode_attention_plain)
     from repro_torch.kernels.paged_attention import (
@@ -3084,8 +3099,12 @@ def _row_decode_checks(ts):
                       paged_decode_attention_cuda,
                       paged_decode_attention_splitk_cuda, ts)
     # each row of a T-row block (row tiles) bitwise the T = 1 launch at
-    # pos + t, across the chunk boundaries at 256, 1024 and 4096
-    for t in (t for t in ts if t > 1):
+    # pos + t, across the chunk boundaries at 256, 1024 and 4096; on the
+    # tensor-core route at T = 2 and 3 too: 2 and 3 G rows, other row
+    # counts and (G = 48) other row tiles than T = 1's and 4's
+    extra = {2, 3} if decode_route(H // KV, D, f32) == "tensor_cores" \
+        else set()
+    for t in sorted({t for t in ts if t > 1} | extra):
         for positions in ([-1, 1000, 4200, S - t], [253, 1021, 4093, S - t]):
             for window in WINDOWS_R:
                 q, k, v, pos = _inputs(t, f32, f32, positions=positions)
@@ -3339,6 +3358,34 @@ def phase_row_kernels():
     return rows
 
 
+def _route_launches():
+    """The chunked decode kernel's launches so far, by route."""
+    from repro_torch.kernels.decode_attention import ROUTE_LAUNCHES
+
+    return dict(ROUTE_LAUNCHES)
+
+
+def _check_route(label, model, before, quant=False):
+    """The chunked decode launches since ``before`` took the route of the
+    model's grouping and head dim (``decode_route``): the tensor cores at
+    granite's and qwen3-moe's, on f32 and bf16 caches and pools, the CUDA
+    cores elsewhere (and on the 1-byte pools, ``quant``: the phase ran
+    some, which keep the CUDA cores)."""
+    from repro_torch.kernels.decode_attention import decode_route
+
+    cfg = model.cfg
+    route = decode_route(cfg.num_heads // cfg.num_kv_heads, cfg.head_dim,
+                         torch.float32)
+    got = {r: n - before[r] for r, n in _route_launches().items()}
+    _log(f"[route] {label}: G={cfg.num_heads // cfg.num_kv_heads} "
+         f"D={cfg.head_dim} takes {route}; chunked decode launches {got}")
+    other = ("cuda_cores" if route == "tensor_cores" else "tensor_cores")
+    if not got[route] or (got[other] and not (quant
+                                              and other == "cuda_cores")):
+        raise AssertionError(f"{label}: the decode launches did not take "
+                             f"the {route} route: {got}")
+
+
 # ------------------------------------------------- 7 and 8: the new archs
 @contextlib.contextmanager
 def _count_windows():
@@ -3438,6 +3485,7 @@ def phase_moe():
     launches = {}
     model, params = make_model("mixtral-8x7b", MIXTRAL_LAYERS)
     g = model.cfg.num_heads // model.cfg.num_kv_heads
+    routes = _route_launches()
     dense = phase_engine(model, params, "mixtral dense")
     paged, _ = phase_paged_engine(model, params, "mixtral paged")
     launches.update({f"{n.removesuffix('_cuda')}_g{g}": c
@@ -3450,11 +3498,13 @@ def phase_moe():
         replay=True)
     launches[f"flash_attention_g{g}"], _ = phase_forward_attention(
         model, params, 1, FS)
+    _check_route("mixtral", model, routes)
     del model, params
     _free_device()
 
     model, params = make_model("qwen3-moe-235b-a22b", QWEN_LAYERS)
     g = model.cfg.num_heads // model.cfg.num_kv_heads
+    routes = _route_launches()
     launches[f"flash_attention_g{g}"], _ = phase_forward_attention(
         model, params, 1, 2048)
     dense = phase_engine(model, params, "qwen3-moe dense")
@@ -3468,6 +3518,7 @@ def phase_moe():
     launches[f"paged_decode_attention_g{g}_verify"] = _spec_pair(
         model, params, "qwen3-moe paged", dict(cache="paged", page_size=PAGE),
         replay=True)
+    _check_route("qwen3-moe", model, routes)
     del model, params
     _free_device()
     _log(f"[moe] launches: {launches}")
@@ -3765,6 +3816,7 @@ def _phase_grouped(arch, num_layers, label):
     3r's rows (``<kernel>_g<G>``, ``<kernel>_g<G>_verify``)."""
     model, params = make_model(arch, num_layers)
     g = model.cfg.num_heads // model.cfg.num_kv_heads
+    routes = _route_launches()
     launches = dict(phase_engine(model, params, f"{label} dense"))
     paged, f32_page_bytes = phase_paged_engine(model, params,
                                                f"{label} paged")
@@ -3782,6 +3834,7 @@ def _phase_grouped(arch, num_layers, label):
             dict(cache="paged", page_size=PAGE), replay=True)}
     _preemption_checks(model, params, layouts=("dense",))
     launches["flash_attention"], _ = phase_forward_attention(model, params)
+    _check_route(label, model, routes, quant=True)
     del model, params
     _free_device()
     launches = {f"{n}_g{g}": c for n, c in launches.items()}

@@ -4,8 +4,10 @@ Builds the paged attention library at head dim 128 with ``-DCD_TRACE`` (a
 library of its own: ``_build.build_all(..., extra_flags=...)``), has the
 wrappers launch that build, runs the paged
 decode at ``chip_smoke.py``'s phase 3 shape (4 slots at pos [-1, 1000,
-4200, 8191], 512 pages of 16 tokens a slot, 8 KV heads, H heads) on a pool
-of each dtype named, and prints for the traced launch: its span and
+4200, 8191], 512 pages of 16 tokens a slot, KV heads (8), H heads, T rows a
+slot) on a pool of each dtype named, on the route ``decode_route`` gives
+(the tensor-core instance at H / KV >= 16 on f32 and bf16 pools), and
+prints for the traced launch: its span and
 CUDA-event time, the working CTAs and how many shared an SM at once, when
 they started and ended, and the median (and 90th percentile) of each
 stretch of a working CTA in SM cycles: the prologue (page table, q), the
@@ -13,6 +15,7 @@ wait for its first tile, a tile, the last tile and the warps' merge, the
 partial's write, and the slot's last CTA's merge of the chunks.
 
     python3 scripts/decode_trace.py --dtypes int8,float32 [--heads 16]
+    python3 scripts/decode_trace.py --dtypes float32 --heads 48 --kv 1 --t 4
 
 Needs CUDA and nvcc; the numbers are device clocks of one launch.
 """
@@ -37,7 +40,7 @@ def pct(xs, q):
     return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else float("nan")
 
 
-def trace_one(lib, dtype, heads):
+def trace_one(lib, dtype, heads, kv, t):
     import torch
 
     import chip_smoke as c
@@ -46,23 +49,23 @@ def trace_one(lib, dtype, heads):
         paged_decode_attention_cuda
 
     sc = {}
-    if dtype in ("int8", "fp8"):
-        q, k, v, ks, vs, table, pos = c._quant_paged_inputs(1, dtype)
-        sc = dict(k_scale=ks, v_scale=vs)
-    else:
-        q, k, v, table, pos = c._paged_inputs(1, torch.float32,
-                                              getattr(torch, dtype))
-    if heads != q.shape[2]:
-        q = torch.randn((q.shape[0], 1, heads, q.shape[3]), device="cuda")
+    with c._heads(heads, kv):
+        if dtype in ("int8", "fp8"):
+            q, k, v, ks, vs, table, pos = c._quant_paged_inputs(t, dtype)
+            sc = dict(k_scale=ks, v_scale=vs)
+        else:
+            q, k, v, table, pos = c._paged_inputs(t, torch.float32,
+                                                  getattr(torch, dtype))
     run = lambda: paged_decode_attention_cuda(q, k, v, table, pos, **sc)
     ms = c._time_ms(run)
     assert lib.cd_trace_clear() == 0
     torch.cuda.synchronize()
     run()
     torch.cuda.synchronize()
-    kv, g = k.shape[2], heads // k.shape[2]
+    g = heads // kv
+    route = tdecode.decode_route(g, q.shape[3], k.dtype)
     _, cps, ranges = tdecode.decode_chunks(table.shape[1], k.shape[1], 1)
-    _, tiles = tdecode.row_tiles(g, 1, q.shape[3])
+    _, tiles = tdecode.row_tiles(g, t, q.shape[3], route)
     n = kv * tiles * q.shape[0] * len(ranges)
     if n * WORDS > TRACE_WORDS:
         raise SystemExit(f"{n} CTAs: the trace holds {TRACE_WORDS // WORDS}")
@@ -73,7 +76,8 @@ def trace_one(lib, dtype, heads):
     t1 = max(r[1] for r in rec)
     work = [r for r in rec if r[9]]
     last = [r for r in work if r[7]]
-    print(f"[trace] {dtype} H={heads} KV={kv}: chunk {ranges[0][1]} keys, "
+    print(f"[trace] {dtype} H={heads} KV={kv} T={t} ({route}): chunk "
+          f"{ranges[0][1]} keys, "
           f"{n} CTAs, {len(work)} working ({len(last)} merging); "
           f"span {(t1 - t0) / 1e3:.2f} us, CUDA events {ms * 1e3:.2f} us",
           flush=True)
@@ -100,6 +104,22 @@ def trace_one(lib, dtype, heads):
         "partial's write": [r[6] - r[5] for r in work],
         "last CTA's merge": [r[7] - r[6] for r in last],
     }
+    # the tensor-core instance's finer marks (words 10-15): the
+    # prologue's parts, and its second tile's
+    sub = [r for r in work if r[10] and r[15]]
+    if sub:
+        stretch.update({
+            "prologue: table, position, first tile's copies issued": [
+                r[11] for r in sub],
+            "prologue: q into shared memory": [r[2] - r[11] for r in sub],
+            "tile 0 and the barrier": [r[10] - r[3] for r in sub],
+            "tile 1: next copies issued, S = q K^T": [
+                r[12] - r[10] for r in sub],
+            "tile 1: softmax, P V issued": [r[13] - r[12] for r in sub],
+            "tile 1: next tile's wait and staging": [
+                r[14] - r[13] for r in sub],
+            "tile 1: P V's wait, O += P V": [r[15] - r[14] for r in sub],
+        })
     print(f"[trace]   tiles a CTA {pct(tiles_of, 0)}-{pct(tiles_of, 1)}",
           flush=True)
     for name, xs in stretch.items():
@@ -112,6 +132,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtypes", default="int8,float32")
     ap.add_argument("--heads", type=int, default=16)
+    ap.add_argument("--kv", type=int, default=8)
+    ap.add_argument("--t", type=int, default=1)
     args = ap.parse_args(argv)
     from repro_torch.kernels import _build
 
@@ -123,7 +145,7 @@ def main(argv=None) -> int:
     for dtype in args.dtypes.split(","):
         if dtype not in DTYPES:
             ap.error(f"--dtypes takes {DTYPES}")
-        trace_one(lib, dtype, args.heads)
+        trace_one(lib, dtype, args.heads, args.kv, args.t)
     return 0
 
 

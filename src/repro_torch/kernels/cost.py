@@ -8,11 +8,12 @@ kernel's work there, ``launch/roofline.py``), and the least-time bound
 kernel's cost reads the same whatever implements it.
 
 Rate classes are keys of ``core.h100.RATES``: the decode kernels (#1-#3,
-#5) multiply on the CUDA cores ("f32"); the many-row kernels (#4, #6)
-and the SSD chunk (#7) on the tensor cores, bf16 operands at the bf16
-rate, f32 operands as three TF32 products ("tf32x3") and a quantized
-(1-byte) pool against f32 as two ("tf32x2").  Bytes count each input read
-once and each output written once.
+#5) multiply on the CUDA cores ("f32") but at the groupings their route
+puts on the tensor cores (``decode_rate``); the many-row kernels (#4, #6),
+the SSD chunk (#7) and those decode rows on the tensor cores, bf16
+operands at the bf16 rate, f32 operands as three TF32 products
+("tf32x3") and a quantized (1-byte) pool against f32 as two ("tf32x2").
+Bytes count each input read once and each output written once.
 """
 from __future__ import annotations
 
@@ -23,9 +24,10 @@ import numpy as np
 import torch
 
 from ..core import h100
+from .decode_attention import decode_route
 
-__all__ = ["Work", "decode_work", "flash_work", "prefill_work", "record",
-           "recording", "ssd_work", "tc_class"]
+__all__ = ["Work", "decode_rate", "decode_work", "flash_work",
+           "prefill_work", "record", "recording", "ssd_work", "tc_class"]
 
 
 @dataclasses.dataclass
@@ -89,6 +91,16 @@ def tc_class(q, k) -> str:
     return "tf32x2" if k.element_size() == 1 else "tf32x3"
 
 
+def decode_rate(q, k) -> str:
+    """The rate class of the chunked decode kernel's products for q (B, T,
+    H, D) against a cache or pool ``k`` (KV heads at dim 2): "f32" on the
+    CUDA-core route, ``tc_class`` on the tensor-core route
+    (``decode_attention.decode_route``: by grouping, head dim and pool
+    dtype)."""
+    route = decode_route(q.shape[2] // k.shape[2], q.shape[3], k.dtype)
+    return "f32" if route == "cuda_cores" else tc_class(q, k)
+
+
 def _positions(pos, b: int, s: int):
     """The slots' positions as a list: ``pos`` (host numbers), or every
     slot at the cache's last row where they are not known (a tensor on
@@ -102,13 +114,14 @@ def _positions(pos, b: int, s: int):
 # ----------------------------------------------------------------- kernels
 def decode_work(b: int, t: int, h: int, d: int, kv: int, s: int,
                 q_bytes: int, kv_bytes: int, pos=None, *, page_size: int = 0,
-                scales: bool = False) -> Work:
+                scales: bool = False, rate: str = "f32") -> Work:
     """#1/#2 (dense), #3/#5 (``page_size``: paged), #3q/#5q (``scales``):
     the live K/V prefix of the active slots read once (keys up to pos + T
     - 1 for a T-row q; paged: and the page-table entries that map it; a
     quantized pool: and its f32 scale per key and KV head), q and pos read
     and the output written once; QK + PV, 4 D flops a (row, key) pair
-    (row t sees pos + t + 1 keys), on the CUDA cores.  Split-K does the
+    (row t sees pos + t + 1 keys), at ``rate`` (``decode_rate``: the CUDA
+    cores' "f32", or the tensor-core route's class).  Split-K does the
     same work."""
     active = [p for p in _positions(pos, b, s) if p >= 0]
     live = sum(min(p + t, s) for p in active)
@@ -117,7 +130,7 @@ def decode_work(b: int, t: int, h: int, d: int, kv: int, s: int,
     if page_size:
         q_read += 4 * sum(-(-min(p + t, s) // page_size) for p in active)
     pairs = sum(min(p + i + 1, s) for p in active for i in range(t))
-    return Work({"f32": 4 * pairs * h * d}, kv_read + q_read,
+    return Work({rate: 4 * pairs * h * d}, kv_read + q_read,
                 b * t * h * d * q_bytes)
 
 

@@ -26,7 +26,8 @@
 // the reference partitions the page table) and combines the splits' (acc,
 // m, l) with exp(m_i - m*); ns = 1 is the single-pass decode, which also
 // takes T > 1 (the verify block).  Any G * T: the rows of a KV head past
-// the largest instance are spread over row tiles (below).
+// the largest instance are spread over row tiles, and at the groupings
+// whose rows are many, the tensor-core route takes them (below).
 //
 // What bounds it on an H100: device-memory bytes.  A tick reads the live
 // K/V prefix once, 2 * D * bytes per live key and KV head (1 KiB in f32),
@@ -79,30 +80,42 @@
 //     p |v| per key; p stays f32.  A 16-byte K chunk then holds 16 values,
 //     64 bytes of q, so q is swizzled in shared memory (below) to keep the
 //     dot's q reads free of bank conflicts.
+//   * Two routes, chosen by grouping (decode_attention.decode_route: G =
+//     H / KV, the head dim and the pool's dtype, never T or the row count,
+//     so that one model runs its T = 1 ticks and its verify blocks on the
+//     same arithmetic).  At D = 128 on f32 and bf16 pools, G >= 16
+//     (granite's 48, qwen3-moe's 16) takes the tensor cores: 16-192 rows
+//     a KV head read each key once and do 4 D flops a row with it, past the
+//     CUDA cores' balance, and there the CUDA cores ran at 5-8% of that
+//     bound.  That route is chunked_decode_tc.cuh's kernel: this grid,
+//     table and merge order (the merge a second kernel's, not the last
+//     CTA's), rows on wgmma's M in row tiles of TC_ROWS = 128.  Every other
+//     plan (G < 16, head dims 64 and 80, 1-byte pools) takes this file's
+//     kernel on the CUDA cores, below.
 //   * Warps own keys.  Each warp takes its quarter of every tile: LPK lanes
 //     share one key's score dot (each a slice of the row, in a rotated order
 //     so that the 16-byte reads of a quarter-warp hit 8 distinct bank
 //     groups), shuffles finish the dot and give the rows' max and sum over
 //     the warp's keys, and in PV each lane owns 4 output columns.  Each warp
 //     keeps its own (m, l, acc) per row; the ring's barrier is the only
-//     CTA-wide one per tile.  f32 on the CUDA cores: at G * T = 2 rows per
-//     KV head a tensor-core tile would be 7/8 empty, and the flops do not
-//     bound this kernel.
+//     CTA-wide one per tile.  f32 on the CUDA cores: at G * T = 2 to 16
+//     rows per KV head a tensor-core tile (64 rows) would be 31/32 to 3/4
+//     empty, and the bytes bound those rows.
 //   * Row tiles.  A CTA serves up to MAXR query rows of its KV head (2, 8,
 //     or at D = 128 16: the instances).  Where G * T rows are more than
-//     the largest instance (granite's G = 48; a verify block of G = 5 or
-//     16 at T = 4; G = 1 at T = 16 at D = 64/80), they are cut into
-//     n_tiles row tiles of `row_tile` rows (the last one shorter), and the
-//     tile index joins the KV head in the grid: blockIdx.x = j * n_tiles +
-//     i.  Tiling is a template flag (TILED): the tiled 8-row instance is
-//     built beside the untiled instances, which compile as they did
-//     without tiles, so one tile costs nothing.  Each tile reads its
-//     chunk's K/V again; the tiles of one (KV head, slot, chunk) are
-//     neighbours in the grid, so the second read comes from L2.  Tickets are kept per (slot, KV head, tile), the scratch
-//     keeps its (B, KV, chunks, G * T) rows (a tile writes its rows at
-//     their row index), and the slot's last CTA of each tile merges that
-//     tile's rows.  A row's sums never see row_tile or n_tiles, so a row
-//     is bitwise the same in any tile of any instance.
+//     the largest instance (a verify block of G = 5 at T = 4; G = 1 at T =
+//     16 at D = 64/80), they are cut into n_tiles row tiles of `row_tile`
+//     rows (the last one shorter), and the tile index joins the KV head in
+//     the grid: blockIdx.x = j * n_tiles + i.  Tiling is a template flag
+//     (TILED): the tiled 8-row instance is built beside the untiled
+//     instances, which compile as they did without tiles, so one tile
+//     costs nothing.  Each tile reads its chunk's K/V again; the tiles of
+//     one (KV head, slot, chunk) are neighbours in the grid, so the second
+//     read comes from L2.  Tickets are kept per (slot, KV head, tile), the
+//     scratch keeps its (B, KV, chunks, G * T) rows (a tile writes its rows
+//     at their row index), and the slot's last CTA of each tile merges
+//     that tile's rows.  A row's sums never see row_tile or n_tiles, so a
+//     row is bitwise the same in any tile of any instance.
 //   * Head dims D in {64, 80, 128}, a template parameter (one library per
 //     head dim; 64 and 80 built up to the 8-row instance, the archs that
 //     have them have G = 1, and row-tiled past it).  A tile is TK rows
@@ -141,6 +154,8 @@ constexpr int CD_THREADS = 128;  // 4 warps; thread d < D owns column d
 constexpr int CD_WARPS = CD_THREADS / 32;
 constexpr int CD_STAGES = 3;     // ring depth
 constexpr int CD_TABLE = 256;    // most page-table entries a chunk spans
+constexpr int TC_D = 128;        // the tensor-core route's head dim
+constexpr int TC_ROWS = 128;     // and its row tile (two warpgroups of 64)
 
 #ifdef CD_TRACE
 // A diagnostic build (scripts/decode_trace.py, -DCD_TRACE): thread 0 of
@@ -700,16 +715,24 @@ cudaError_t launch_chunked_decode_rows(const DecodeParams& p,
   return cudaGetLastError();
 }
 
+// The tensor-core route's launch (chunked_decode_tc.cuh, included below).
+template <typename TQ, typename TKV, bool PAGED>
+cudaError_t launch_tc_decode(const DecodeParams& p, cudaStream_t st);
+
 // The instance of the wrapper's row-tile plan (decode_attention.row_tiles):
-// row_tile = 2, 8 or (D = 128 only) MAX_ROWS rows per CTA, in n_tiles =
-// ceil(G * T / row_tile) tiles per KV head; more than one tile takes the
-// TILED 8-row instance (any other tiled plan is refused).
+// on the tensor-core route (D = 128, f32 or bf16 pools) row_tile = TC_ROWS
+// in n_tiles = ceil(G * T / TC_ROWS) tiles; otherwise row_tile = 2, 8 or
+// (D = 128 only) MAX_ROWS rows per CTA, and more than one tile takes the
+// TILED 8-row instance (any other plan is refused).
 template <typename TQ, typename TKV, int D, bool PAGED>
 cudaError_t launch_chunked_decode_typed(const DecodeParams& p,
                                         cudaStream_t st) {
   const int rows = p.H / p.KV * p.T;
   if (p.row_tile < 1 || p.n_tiles != (rows + p.row_tile - 1) / p.row_tile)
     return cudaErrorInvalidValue;
+  if constexpr (D == TC_D && !KVValue<TKV>::quant) {
+    if (p.row_tile == TC_ROWS) return launch_tc_decode<TQ, TKV, PAGED>(p, st);
+  }
   const bool tiled = p.n_tiles > 1;
   if (p.row_tile == 2 && !tiled)
     return launch_chunked_decode_rows<TQ, TKV, 2, D, PAGED, false>(p, st);
@@ -766,6 +789,8 @@ cudaError_t launch_chunked_decode(const DecodeParams& p, int d, int q_dtype,
 }
 
 }  // namespace
+
+#include "chunked_decode_tc.cuh"
 
 #ifdef CD_TRACE
 // The diagnostic build's records (``bytes`` of them) into host memory, and

@@ -167,16 +167,6 @@ __device__ __forceinline__ KeyRows<T, PAGED> pool_rows(
   return r;
 }
 
-// The thread's index, read where it is used: the compiler cannot hoist an
-// asm volatile out of the key loop, so the copy and staging offsets derived
-// from it are recomputed per tile instead of held in registers through the
-// products.
-__device__ __forceinline__ int thread_index() {
-  int t;
-  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
-  return t;
-}
-
 // One raw K/V value as f32 (before a quantized pool's scale).
 __device__ __forceinline__ float raw_f(float x) { return x; }
 __device__ __forceinline__ float raw_f(__nv_bfloat16 x) {

@@ -1,9 +1,10 @@
 // Hopper's warpgroup products (wgmma.mma_async, sm_90a) in TF32 with f32
-// accumulation, shared by the SSD chunk kernel (ssd_scan.cu) and the
-// many-row attention kernel (many_row_attention.cuh): the B operand's
+// accumulation, shared by the SSD chunk kernel (ssd_scan.cu), the
+// many-row attention kernel (many_row_attention.cuh) and the chunked
+// decode's tensor-core route (chunked_decode_tc.cuh): the B operand's
 // shared-memory layout and descriptor, the proxy and wgmma fences, the
-// m64nNk8 products with A from registers, and the register pins an
-// asynchronous product needs.
+// m64nNk8 products with A from registers, the register pins an
+// asynchronous product needs, and the thread index read where it is used.
 //
 // A from registers: a 64 x 8 TF32 tile, each warp of the warpgroup its 16
 // rows, laid out as mma.m16n8k8's A (lane g = lane / 4, t = lane % 4 holds
@@ -138,6 +139,16 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t* a,
 }
 
 #undef WG_D4
+
+// The thread's index, read where it is used: the compiler cannot hoist an
+// asm volatile out of the key loop, so the copy and staging offsets derived
+// from it are recomputed per tile instead of held in registers through the
+// products.
+__device__ __forceinline__ int thread_index() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
 
 // Pins registers that an asynchronous wgmma reads or writes: the compiler
 // may neither reuse them before this point nor read them earlier.

@@ -9,16 +9,20 @@ the chunk grid of ``decode_chunks``: split-K's splits are chunks clipped at
 
 Model layout in and out: q (B, T, H, D), caches (B, S, KV, D), result
 (B, T, H, D) in q's dtype, D one of ``HEAD_DIMS`` (each head dim is its
-own library).  Any G * T query rows per KV head: ``row_tiles`` picks the
-kernel's instance (``max_rows`` names the largest a head dim has) and,
-past it, spreads the rows over row tiles, one CTA each.  The caches are
+own library).  Any G * T query rows per KV head: ``decode_route`` picks
+the arithmetic by grouping (the tensor cores at G >= 16 on f32 and bf16
+pools at head dim 128, the CUDA cores elsewhere), and ``row_tiles`` the
+kernel's instance on that route (``max_rows`` names the largest CUDA-core
+instance a head dim has) and, past it, spreads the rows over row tiles,
+one CTA each.  The caches are
 passed by pointer and strides; nothing is transposed or copied.  Each
 wrapper checks what the kernel takes and raises on anything else,
 allocates its output and scratch with ``torch.empty``, launches on the
 current stream and raises if the launch returns a CUDA error.
 ``<wrapper>.launches`` counts its kernel launches;
 ``decode_attention_cuda.verify_launches`` counts those of them with T > 1
-(the speculative verify block).
+(the speculative verify block); ``ROUTE_LAUNCHES`` counts the chunked
+decode kernel's launches (dense and paged) by route.
 
 The plain versions live in ``ref.py``; ``ops.decode_attention`` chooses
 between them by the tensors' device.
@@ -41,6 +45,12 @@ _ROWS = {64: 8, 80: 8, 128: MAX_ROWS}
 # instance's (at head dim 128 its tiles ran 1.5-1.6x faster than the
 # 16-row instance's, PERF.md)
 TILE_ROWS = 8
+# the tensor-core route (decode_route): its head dim, the least grouping
+# that takes it, and its row tile, two warpgroups of 64 rows (csrc TC_ROWS)
+TC_HEAD_DIM = 128
+TC_MIN_GROUP = 16
+TC_ROWS = 128
+ROUTES = ("cuda_cores", "tensor_cores")
 # dtype codes of the C entry points; int8 and float8_e4m3fn are the
 # quantized paged pools, which only the paged kernels take (with scales)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -65,14 +75,48 @@ def max_rows(head_dim: int) -> int:
     return _ROWS[head_dim]
 
 
-def row_tiles(g: int, t: int, head_dim: int):
+def decode_route(g: int, head_dim: int, kv_dtype) -> str:
+    """The chunked decode kernel's arithmetic for ``g`` query heads per KV
+    head at ``head_dim`` on a cache or pool of ``kv_dtype``:
+    ``"tensor_cores"`` (``csrc/chunked_decode_tc.cuh``: ``wgmma`` TF32,
+    3xTF32 for f32 operands, rows on M in row tiles of ``TC_ROWS``) or
+    ``"cuda_cores"`` (``csrc/chunked_decode.cuh``'s f32 FMAs).  It takes
+    no T: a verify row is bitwise the one-token launch at pos + t only on
+    one arithmetic, so a model's T = 1 ticks and its verify blocks take the
+    same route.
+
+    Thresholds (PERF.md section 6, an H100 at 700 W, each pair from one
+    run): head dim 128, an f32 or bf16 pool (q f32 or bf16, as the
+    wrappers take), and G >= ``TC_MIN_GROUP`` = 16.  Granite's G = 48 and
+    qwen3-moe's G = 16 ran at 5-8% of their bound on the CUDA cores; on
+    the tensor cores 1·G48 takes 0.0550 ms against 0.1040, 1·G48v (T = 4)
+    0.0580 against 0.2637, 1·G16 0.0962 against 0.1589, 1·G16v 0.1009
+    against 0.3306.  At G = 2, 4 and 5 (internlm2 and gemma3; mixtral and
+    llava; qwen2.5) the T = 1 rows, 2-5 a KV head with a 128-row tile
+    about them, ran 2.1-2.9x slower on the tensor cores (G = 2 0.0619 ->
+    0.1748 ms, G = 4 0.0748 -> 0.1744, G = 5 0.0812 -> 0.1722), though
+    their T = 4 verify rows gained (G = 4 0.2804 -> 0.1758): they stay on
+    the CUDA cores, the one-token tick before the verify block.  Head dims
+    64 and 80 (G = 1 archs) and the 1-byte pools (int8, fp8: codes on the
+    CUDA cores) keep theirs."""
+    if head_dim == TC_HEAD_DIM and kv_dtype in FLOAT_DTYPES \
+            and g >= TC_MIN_GROUP:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def row_tiles(g: int, t: int, head_dim: int, route: str = "cuda_cores"):
     """The chunked decode kernel's row plan for ``g * t`` query rows per
-    KV head at ``head_dim``: ``(instance rows, row tiles)``.  Rows that fit
-    an instance take the smallest that holds them (2, 8, or 16 at head dim
+    KV head at ``head_dim`` on ``route`` (``decode_route``): ``(instance
+    rows, row tiles)``.  On the tensor cores: ``ceil(g * t / TC_ROWS)``
+    tiles of ``TC_ROWS`` rows.  On the CUDA cores, rows that fit an
+    instance take the smallest that holds them (2, 8, or 16 at head dim
     128) in one tile; more take ``ceil(g * t / TILE_ROWS)`` tiles of the
-    ``TILE_ROWS`` instance, tile i holding rows [i * TILE_ROWS, (i + 1) *
-    TILE_ROWS).  A head dim not built raises."""
+    ``TILE_ROWS`` instance.  Tile i holds rows [i * rows, (i + 1) * rows)
+    of the instance's.  A head dim not built raises."""
     rows, largest = g * t, max_rows(head_dim)
+    if route == "tensor_cores":
+        return TC_ROWS, -(-rows // TC_ROWS)
     for inst in (2, 8, largest):
         if rows <= inst:
             return inst, 1
@@ -129,9 +173,9 @@ def refuse_grad(name, *tensors):
 
 
 def rows_aligned(c):
-    """Whether every row of the 4-D cache or pool ``c`` starts on 16 bytes
-    (its pointer and its three outer strides), as the kernels' 16-byte
-    loads need."""
+    """Whether every row of the 4-D tensor ``c`` (a cache, a pool, or q on
+    the tensor-core route) starts on 16 bytes (its pointer and its three
+    outer strides), as the kernels' 16-byte loads need."""
     return c.data_ptr() % 16 == 0 and all(
         (c.stride(i) * c.element_size()) % 16 == 0 for i in range(3))
 
@@ -209,6 +253,7 @@ def decode_chunks(max_pages: int, page_size: int, num_splits: int = 1):
 
 
 _TICKETS: dict = {}
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 
 def _tickets(device, stream, n):
@@ -232,16 +277,25 @@ def launch_chunked_decode(fn, name, q, k, max_pages, page_size, num_splits,
                           head, mid):
     """Launch ``fn``, a C entry point of the chunked decode kernel, once
     over ``decode_chunks(max_pages, page_size, num_splits)``'s grid, the
-    rows of a KV head in ``row_tiles``' plan: ``fn(*head, chunk,
+    rows of a KV head in ``row_tiles``' plan on ``decode_route``'s route
+    (counted in ``ROUTE_LAUNCHES``): ``fn(*head, chunk,
     chunks_per_split, instance rows, row tiles, *mid, o_part, ml_part,
     tickets, q's dtype code, k's dtype code, stream)``, with f32 scratch
     for each chunk's (acc, m, l) and the stream's tickets, one per (slot,
-    KV head, row tile).  ``k`` is a cache (B, S, KV, D) or a pool (P,
-    page_size, KV, D).  Raises if the launch returns a CUDA error."""
+    KV head, row tile; the tensor-core route merges by a second kernel of
+    the launch and leaves them alone).  ``k`` is a cache (B, S, KV, D) or a
+    pool (P, page_size, KV, D).  Raises if the launch returns a CUDA
+    error, or on the tensor-core route if q's rows do not start on 16
+    bytes."""
     b, t, h, d = q.shape
     kv = k.shape[2]
+    route = decode_route(h // kv, d, k.dtype)
+    if route == "tensor_cores" and not rows_aligned(q):
+        raise ValueError(f"{name}: q's rows must start on 16 bytes on the "
+                         f"tensor-core route (it copies q 16 bytes at a "
+                         f"time)")
     chunk, cps, _ = decode_chunks(max_pages, page_size, num_splits)
-    inst, tiles = row_tiles(h // kv, t, d)
+    inst, tiles = row_tiles(h // kv, t, d, route)
     rows = b * kv * num_splits * cps * (h // kv) * t  # o_part (rows, D)
     scratch = chunk_scratch(rows, d, q.device)
     base = scratch.data_ptr()
@@ -252,6 +306,7 @@ def launch_chunked_decode(fn, name, q, k, max_pages, page_size, num_splits,
              _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], stream)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    ROUTE_LAUNCHES[route] += 1
 
 
 def _launch(fn, name, q, k_cache, v_cache, pos, active, num_splits, head):
@@ -270,7 +325,8 @@ def _launch(fn, name, q, k_cache, v_cache, pos, active, num_splits, head):
 def decode_attention_cuda(q, k_cache, v_cache, pos, *, active=None,
                           window=0):
     """Single-pass ragged decode (replaces ``decode_attention_tpu``).
-    q (B, T, H, D), any G*T rows per KV head (``row_tiles``); caches (B,
+    q (B, T, H, D), any G*T rows per KV head (``decode_route``,
+    ``row_tiles``); caches (B,
     S, KV, D); ``pos`` scalar or (B,); ``active`` (B,) 0/1, default
     ``pos >= 0``."""
     refuse_grad("decode_attention_cuda", q, k_cache, v_cache)

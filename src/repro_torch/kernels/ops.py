@@ -45,7 +45,8 @@ def _decode_meta(name, q, k, span, pos, page_size=0, k_scale=None):
     b, t, h, d = q.shape
     work = cost.decode_work(b, t, h, d, k.shape[2], span, q.element_size(),
                             k.element_size(), pos, page_size=page_size,
-                            scales=k_scale is not None)
+                            scales=k_scale is not None,
+                            rate=cost.decode_rate(q, k))
     return _meta(name, work, (q.shape, q.dtype))
 
 

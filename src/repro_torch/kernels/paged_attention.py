@@ -131,7 +131,8 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_idx, pos, *,
                                 active=None, window=0, k_scale=None,
                                 v_scale=None):
     """Single-pass paged decode (replaces ``paged_decode_attention_tpu``).
-    q (B, T, H, D), any G*T rows per KV head (``row_tiles``); pools (P,
+    q (B, T, H, D), any G*T rows per KV head (``decode_route``,
+    ``row_tiles``); pools (P,
     page_size, KV, D), D one of ``HEAD_DIMS``; page_idx
     (B, max_pages) int32; ``pos`` scalar or (B,); ``active`` (B,) 0/1,
     default ``pos >= 0``; ``k_scale``/``v_scale`` (P, page_size, KV, 1) f32

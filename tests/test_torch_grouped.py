@@ -395,10 +395,10 @@ def test_four_query_heads_per_kv_head_reach_the_kernel_with_16_rows(
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 def test_sixteen_query_heads_per_kv_head_refuse_a_4_row_block(paged,
                                                             monkeypatch):
-    """qwen3-moe's grouping, G = 16: one token (16 rows) reaches the
-    kernel in one tile of the 16-row instance; the 4-row verify block (64
-    rows) is refused no longer: it launches once in row tiles of
-    ``TILE_ROWS`` rows, with tickets for every (slot, KV head, tile)."""
+    """qwen3-moe's grouping, G = 16: one token (16 rows) and the 4-row
+    verify block (64 rows, refused no longer) both reach the kernel on the
+    tensor-core route (``decode_route``), in one row tile of ``TC_ROWS``
+    rows, with tickets for every (slot, KV head, tile)."""
     kv, d = 2, 128
     if paged:
         lib = _fake_paged_card(monkeypatch)
@@ -412,15 +412,16 @@ def test_sixteen_query_heads_per_kv_head_refuse_a_4_row_block(paged,
         run = lambda q: tdecode.decode_attention_cuda(  # noqa: E731
             q, cache, cache.clone(), [3, 9])
     tiles_at = 20 if paged else 16  # (instance rows, tiles) end here
+    assert tdecode.decode_route(16, d, torch.float32) == "tensor_cores"
     run(torch.zeros((2, 1, 16 * kv, d)))
     assert len(lib.calls) == 1
-    assert lib.calls[0][1][tiles_at - 1:tiles_at + 1] == (16, 1)
+    rt = tdecode.TC_ROWS
+    assert lib.calls[0][1][tiles_at - 1:tiles_at + 1] == (rt, 1)
     out = run(torch.zeros((2, 4, 16 * kv, d)))
     assert len(lib.calls) == 2 and out.shape == (2, 4, 16 * kv, d)
-    rt = tdecode.TILE_ROWS
-    assert lib.calls[1][1][tiles_at - 1:tiles_at + 1] == (rt, 64 // rt)
+    assert lib.calls[1][1][tiles_at - 1:tiles_at + 1] == (rt, 1)
     tickets = tdecode._TICKETS[(torch.device("cpu"), 0)]
-    assert tickets.numel() >= 2 * kv * 64 // rt and not tickets.any()
+    assert tickets.numel() >= 2 * kv and not tickets.any()
 
 
 # ------------------------------------------------- the head dims, fake card
