@@ -103,11 +103,11 @@ Run from the repository root.  Phases, each raising on failure:
    against a fresh engine) and in wave mode; the prefill and a decode tick
    are timed and profiled;
 3g. kernels at new groupings: #1, #2, #3 and #5 at mixtral's H=32, KV=8
-   (G = 4) with T = 1 and T = 4 (the chunked decode kernel's 16-row
-   instance) and at qwen3-moe's H=64, KV=4 (G = 16) with T = 1, at both
+   (G = 4) with T = 1 and T = 4 (the warp-mma route's 8- and 16-column
+   instances) and at qwen3-moe's H=64, KV=4 (G = 16) with T = 1, at both
    position sets and windows 0, 1024 and 4096, against their plain
-   versions (G = 16 at T = 4, past the 16-row instance, once in row
-   tiles: phase 3r holds it in full); a slot alone against the batch,
+   versions (G = 16 at T = 4, 64 rows, once: phase 3r holds it in
+   full); a slot alone against the batch,
    bitwise; #4 (256-row chunks and the ragged 104-row one) and #6
    at both groupings under windows 0, 1024 and 4096; then each timed as
    in phase 3 with its bound and SDPA (rows ``<kernel>_g4``,
@@ -125,7 +125,8 @@ Run from the repository root.  Phases, each raising on failure:
    and the chunked prefill);
 8. MoE: mixtral-8x7b (4 of 32 layers) through phases 4 and 4b (its
    4200-token prompt past the 4096 window), speculative decode dense and
-   paged (the 16-row instance on the engine path) and a 1 x 4096 prefill
+   paged (the warp-mma route's 16-column instance on the engine path) and
+   a 1 x 4096 prefill
    step; qwen3-moe-235b-a22b (2 of 94 layers): a 1 x 2048 prefill step,
    phases 4 and 4b, and speculative decode dense and paged (G x T = 64
    rows a KV head in the verify block: the row tiles) equal to the plain
@@ -143,11 +144,13 @@ Run from the repository root.  Phases, each raising on failure:
 3r. row tiles and groupings that do not divide 64: #1, #2 (2, 4 and 8
    splits, bitwise the single pass), #3, #5 and #3q/#5q (int8, fp8) at
    granite's H=48, KV=1 (T = 1 and 4: 48 and 192 rows a KV head),
-   qwen2.5's H=40, KV=8 (T = 1, 4, 8), qwen3-moe's H=64, KV=4 at T = 4 (64
+   qwen2.5's H=40, KV=8 (T = 1, 4, 8; every instance of the warp-mma
+   route and its row tiles of 32), qwen3-moe's H=64, KV=4 at T = 4 (64
    rows) and H = KV = 32 at head dims 80 (T = 16) and 64 (T = 9, 16), both
    position sets, windows 0 and 1024, f32 and bf16, against the plain
    versions; a slot alone against the batch and each row of a T-row block
-   against the T = 1 launch, bitwise; #4 (256-row chunks at 0 and 3840,
+   against the T = 1 launch, bitwise (on the tensor-core routes at T = 2
+   and 3 too); #4 (256-row chunks at 0 and 3840,
    the ragged 104-row one; f32, bf16, int8, fp8) and #6 (S=4096 causal,
    windows 0 and 1024; S=1000 with window 300; a bf16 case) at G = 5 and
    G = 48; then each timed as in phase 3
@@ -1015,12 +1018,21 @@ def phase_quant_kernels():
     return rows
 
 
+# what a chunked decode row on a route other than the CUDA cores' says
+# (``instance``, ``status``)
+ROUTE_ROWS = {
+    "tensor_cores": ("tensor cores (wgmma, chunked_decode_tc.cuh)",
+                     "redesigned: the tensor-core route"),
+    "warp_mma": ("warp mma (mma.sync, chunked_decode_mma.cuh)",
+                 "redesigned: the warp-mma route")}
+
+
 def _timed_row(name, run, plain, lib_ms, bound, source, replaces, err):
     """Times of the kernel and its plain version; ``bound`` is
     ``_bound``'s (ms, what bounds it, the flop rate used).  A chunked
-    decode row whose timed launches took the tensor-core route
-    (``decode_attention.ROUTE_LAUNCHES``) says so (``instance``, and its
-    ``status``: redesigned on that route)."""
+    decode row whose timed launches took the tensor-core or the warp-mma
+    route (``decode_attention.ROUTE_LAUNCHES``) says so (``ROUTE_ROWS``:
+    ``instance``, and its ``status``: redesigned on that route)."""
     from repro_torch.kernels import decode_attention as tdecode
 
     bound, bound_by, rate = bound
@@ -1037,11 +1049,12 @@ def _timed_row(name, run, plain, lib_ms, bound, source, replaces, err):
            "replaces": replaces, "launches": None, "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
            "bound_by": bound_by, "library_ms": lib_ms}
-    if routed["tensor_cores"]:
-        if routed["cuda_cores"]:
-            raise AssertionError(f"{name}: its launches took both routes")
-        row.update(instance="tensor cores (wgmma, chunked_decode_tc.cuh)",
-                   status="redesigned: the tensor-core route")
+    taken = [r for r, n in routed.items() if n]
+    if len(taken) > 1:
+        raise AssertionError(f"{name}: its launches took routes {taken}")
+    if taken and taken[0] in ROUTE_ROWS:
+        instance, status = ROUTE_ROWS[taken[0]]
+        row.update(instance=instance, status=status)
     return row
 
 
@@ -1902,6 +1915,7 @@ def phase_spec_engine(model, params):
     """Phase 4d on the full-width internlm2: speculative decode (greedy:
     dense, paged f32, paged int8), sampling and preemption.  Returns the
     verify launches, keyed as phase 4d's kernel rows."""
+    routes = _route_launches()
     launches = {
         "decode_attention_verify": _spec_pair(model, params, "dense", {}),
         "paged_decode_attention_verify": _spec_pair(
@@ -1910,6 +1924,7 @@ def phase_spec_engine(model, params):
                dict(cache="paged", page_size=PAGE, kv_dtype="int8"))
     _sampled_checks(model, params)
     _preemption_checks(model, params)
+    _check_route("internlm2 speculative", model, routes, quant=True)
     return launches
 
 
@@ -2360,11 +2375,11 @@ def phase_ssm(model, params):
 
 # ------------------------------------------ 3g: kernels at new groupings
 # (H, KV) of the MoE archs' attention: mixtral 32/8 (G = 4: one token is
-# the chunked decode kernel's 8-row instance, the T = 4 verify block its
-# 16-row one, the many-row kernel 16 positions of 4 heads per tile) and
-# qwen3-moe 64/4 (G = 16: one token is the 16-row instance, the many-row
-# kernel 4 positions of 16 heads); the served windows 1024 (gemma3's local
-# layers) and 4096 (mixtral's)
+# the chunked decode kernel's 8-column warp-mma instance, the T = 4 verify
+# block its 16-column one, the many-row kernel 16 positions of 4 heads per
+# tile) and qwen3-moe 64/4 (G = 16: the wgmma route's 128-row tile, the
+# many-row kernel 4 positions of 16 heads); the served windows 1024
+# (gemma3's local layers) and 4096 (mixtral's)
 GROUPINGS = ((32, 8), (64, 4))
 WINDOWS_G = (0, 1024, 4096)
 
@@ -2957,9 +2972,10 @@ def phase_head_dim_kernels():
 MUSICGEN_DRAFT_K = 8
 # granite-20b (H = 48, KV = 1: 48 query rows a KV head at one token, 192
 # in a verify block) and qwen3-moe (H = 64, KV = 4: 16 rows, 64 at T = 4):
-# the chunked decode kernel's tensor-core route; qwen2.5-32b (H = 40, KV =
-# 8: G = 5) and G = 1 blocks past the 8-row instance at head dims 64 and
-# 80: its CUDA-core row tiles.  The many-row kernel (#4, #6) at G = 5 and
+# the chunked decode kernel's wgmma route; qwen2.5-32b (H = 40, KV = 8:
+# G = 5: 5, 10, 15, 20 and 40 rows a KV head at T = 1, 2, 3, 4 and 8) its
+# warp-mma route's every instance and row tiles of 32; G = 1 blocks past
+# the 8-row instance at head dims 64 and 80: its CUDA-core row tiles.  The many-row kernel (#4, #6) at G = 5 and
 # 48, whose positions straddle its CTAs' flattened rows.  (label, H, KV,
 # D, the T of the decode checks)
 ROW_CASES = (("g48", 48, 1, 128, (1, VERIFY_T)),
@@ -2986,8 +3002,8 @@ def _row_decode_checks(ts):
     both position sets, windows 0 and 1024; bf16 q; int8 and fp8 pools;
     split-K (T = 1) at 2, 4 and 8 splits bitwise the single pass; a slot
     alone against the batch and each row of a T > 1 block against the
-    T = 1 launch at pos + t, bitwise, on the tensor-core route also at
-    T = 2 and 3 (other row counts and row tiles).  Returns the worst error
+    T = 1 launch at pos + t, bitwise, on the tensor-core routes also at
+    T = 2 and 3 (other row counts, instances and row tiles).  Returns the worst error
     per (kernel, T), f32 caches and pools and the quantized ones."""
     from repro_torch.kernels.decode_attention import (
         decode_attention_cuda, decode_attention_splitk_cuda, decode_route)
@@ -3100,9 +3116,10 @@ def _row_decode_checks(ts):
                       paged_decode_attention_splitk_cuda, ts)
     # each row of a T-row block (row tiles) bitwise the T = 1 launch at
     # pos + t, across the chunk boundaries at 256, 1024 and 4096; on the
-    # tensor-core route at T = 2 and 3 too: 2 and 3 G rows, other row
-    # counts and (G = 48) other row tiles than T = 1's and 4's
-    extra = {2, 3} if decode_route(H // KV, D, f32) == "tensor_cores" \
+    # tensor-core routes at T = 2 and 3 too: 2 and 3 G rows, other row
+    # counts, (G = 5) the warp-mma route's 16-column instance and (G =
+    # 48) other row tiles than T = 1's and 4's
+    extra = {2, 3} if decode_route(H // KV, D, f32) != "cuda_cores" \
         else set()
     for t in sorted({t for t in ts if t > 1} | extra):
         for positions in ([-1, 1000, 4200, S - t], [253, 1021, 4093, S - t]):
@@ -3367,10 +3384,13 @@ def _route_launches():
 
 def _check_route(label, model, before, quant=False):
     """The chunked decode launches since ``before`` took the route of the
-    model's grouping and head dim (``decode_route``): the tensor cores at
-    granite's and qwen3-moe's, on f32 and bf16 caches and pools, the CUDA
-    cores elsewhere (and on the 1-byte pools, ``quant``: the phase ran
-    some, which keep the CUDA cores)."""
+    model's grouping and head dim (``decode_route``) on f32 and bf16 caches
+    and pools, its T = 1 ticks and verify blocks alike: the tensor cores'
+    warpgroup products at granite's and qwen3-moe's groupings, their
+    warp-level products where the warp-mma route takes the grouping and
+    head dim, the CUDA cores elsewhere (and on the 1-byte pools,
+    ``quant``: the phase ran some, which keep the CUDA cores).  The
+    ``[route]`` line counts the launches of every route."""
     from repro_torch.kernels.decode_attention import decode_route
 
     cfg = model.cfg
@@ -3379,9 +3399,9 @@ def _check_route(label, model, before, quant=False):
     got = {r: n - before[r] for r, n in _route_launches().items()}
     _log(f"[route] {label}: G={cfg.num_heads // cfg.num_kv_heads} "
          f"D={cfg.head_dim} takes {route}; chunked decode launches {got}")
-    other = ("cuda_cores" if route == "tensor_cores" else "tensor_cores")
-    if not got[route] or (got[other] and not (quant
-                                              and other == "cuda_cores")):
+    stray = [r for r, n in got.items()
+             if n and r != route and not (quant and r == "cuda_cores")]
+    if not got[route] or stray:
         raise AssertionError(f"{label}: the decode launches did not take "
                              f"the {route} route: {got}")
 
@@ -3443,6 +3463,7 @@ def phase_gemma3():
     """Phase 7: gemma3-27b at full width, ``GEMMA_LAYERS`` of 62 layers."""
     model, params = make_model("gemma3-27b", GEMMA_LAYERS)
     label = "gemma3"
+    routes = _route_launches()
     with _count_windows() as counts:
         dense = phase_engine(model, params, f"{label} dense")
     _check_windows("dense continuous + wave", counts, model)
@@ -3469,6 +3490,7 @@ def phase_gemma3():
         launches["flash_attention"], _ = phase_forward_attention(model,
                                                                  params)
     _check_windows("prefill step", counts, model)
+    _check_route(label, model, routes, quant=True)
     del model, params
     _free_device()
     _log(f"[gemma3] launches: {launches}")
@@ -3772,11 +3794,12 @@ MUSICGEN_LAYERS = 12  # of 48
 def phase_musicgen():
     """Phase 10: musicgen-large at full width, 12 of 48 layers: phases 4
     and 4b, an int8 paged run, a 1 x 4096 prefill step, and speculative
-    decode at draft_k = 8 on the dense cache (T = 9 rows a slot at G = 1:
-    two row tiles of the 8-row instance).  Returns the launches keyed as
+    decode at draft_k = 8 on the dense cache (T = 9 rows a slot at G = 1,
+    on ``decode_route``'s route at D = 64).  Returns the launches keyed as
     phase 3h's D = 64 rows (and 3r's ``decode_attention_d64_t9``)."""
     model, params = make_model("musicgen-large", MUSICGEN_LAYERS)
     label = "musicgen"
+    routes = _route_launches()
     verify = _spec_pair(model, params, f"{label} dense", {}, replay=True,
                         draft_k=MUSICGEN_DRAFT_K)
     launches = dict(phase_engine(model, params, f"{label} dense"))
@@ -3789,6 +3812,7 @@ def phase_musicgen():
                                        chunk_by_call=True))
     launches["flash_attention"], _ = phase_forward_attention(model, params,
                                                              1, FS)
+    _check_route(label, model, routes, quant=True)
     del model, params
     _free_device()
     launches = {f"{n}_d64": c for n, c in launches.items()}
@@ -3896,10 +3920,12 @@ def phase_llava():
     prefix hit.  Returns the launches keyed as phase 3g's G = 4 rows."""
     model, params = make_model("llava-next-mistral-7b", LLAVA_LAYERS)
     g = model.cfg.num_heads // model.cfg.num_kv_heads
+    routes = _route_launches()
     launches = {"flash_attention": _embeddings_prefill(model, params)}
     launches.update(phase_engine(model, params, "llava dense"))
     paged, _ = phase_paged_engine(model, params, "llava paged")
     launches.update(paged)
+    _check_route("llava", model, routes)
     del model, params
     _free_device()
     launches = {f"{n}_g{g}": c for n, c in launches.items()}

@@ -6,8 +6,8 @@ wrappers launch that build, runs the paged
 decode at ``chip_smoke.py``'s phase 3 shape (4 slots at pos [-1, 1000,
 4200, 8191], 512 pages of 16 tokens a slot, KV heads (8), H heads, T rows a
 slot) on a pool of each dtype named, on the route ``decode_route`` gives
-(the tensor-core instance at H / KV >= 16 on f32 and bf16 pools), and
-prints for the traced launch: its span and
+(the wgmma instance at H / KV >= 16 and the warp-mma one at 2 <= H / KV <
+16 on f32 and bf16 pools), and prints for the traced launch: its span and
 CUDA-event time, the working CTAs and how many shared an SM at once, when
 they started and ended, and the median (and 90th percentile) of each
 stretch of a working CTA in SM cycles: the prologue (page table, q), the
@@ -104,10 +104,19 @@ def trace_one(lib, dtype, heads, kv, t):
         "partial's write": [r[6] - r[5] for r in work],
         "last CTA's merge": [r[7] - r[6] for r in last],
     }
-    # the tensor-core instance's finer marks (words 10-15): the
-    # prologue's parts, and its second tile's
+    # the tensor-core routes' finer marks (words 10-15): the wgmma
+    # instance's prologue parts and second tile, the warp-mma instance's
+    # second tile
     sub = [r for r in work if r[10] and r[15]]
-    if sub:
+    if sub and route == "warp_mma":
+        stretch.update({
+            "tile 1: next copies issued, S^T quarters, exchange, V read": [
+                r[12] - r[10] for r in sub],
+            "tile 1: the exchange's barrier": [r[13] - r[12] for r in sub],
+            "tile 1: scores summed, softmax": [r[14] - r[13] for r in sub],
+            "tile 1: P V, O += P V": [r[15] - r[14] for r in sub],
+        })
+    elif sub:
         stretch.update({
             "prologue: table, position, first tile's copies issued": [
                 r[11] for r in sub],

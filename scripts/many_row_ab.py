@@ -1,11 +1,11 @@
 """Time kernel rows of checkouts in turns, on one card.
 
-Runs ``chip_smoke.py``'s kernel phases 3, 3p, 3q, 3c, 3g, 3h and 3r (every
-check they make, then their timings) of each checkout in a fresh process,
-in the order given, and keeps the rows whose names match ``--keep``
-(comma-separated shell patterns; by default the rows of the many-row kernel,
-#4 ``paged_prefill_attention*`` and #6 ``flash_attention*``, and of the SSD
-chunk, #7 ``ssd_chunk*``).  Each checkout builds its kernels into its own
+Runs ``chip_smoke.py``'s kernel phases 3, 3p, 3q, 4d's kernel part, 3c,
+3g, 3h and 3r (every check they make, then their timings) of each checkout
+in a fresh process, in the order given, and keeps the rows whose names
+match ``--keep`` (comma-separated shell patterns; by default the rows of
+the many-row kernel, #4 ``paged_prefill_attention*`` and #6
+``flash_attention*``, and of the SSD chunk, #7 ``ssd_chunk*``).  Each checkout builds its kernels into its own
 ``build/``.  Compare two designs only inside one run, in turns (parent,
 change, change, parent): times move between calls.
 
@@ -32,8 +32,9 @@ import time
 from pathlib import Path
 
 PHASES = ("phase_kernels", "phase_paged_kernels", "phase_quant_kernels",
-          "phase_forward_kernels", "phase_grouping_kernels",
-          "phase_head_dim_kernels", "phase_row_kernels")
+          "phase_verify_kernels", "phase_forward_kernels",
+          "phase_grouping_kernels", "phase_head_dim_kernels",
+          "phase_row_kernels")
 KEEP = "paged_prefill_attention*,flash_attention*,ssd_chunk*"
 MARK = "MANY_ROW_AB "
 
@@ -53,7 +54,8 @@ def turn(checkout: Path, keep: str = KEEP) -> int:
     build_s = time.perf_counter() - t0
     for src, log in sorted(_build.build_logs.items()):
         for kern, (regs, _, st, ld) in sorted(c._ptxas_report(log).items()):
-            if "many_row_kernel" in kern or "chunked_decode" in kern:
+            if any(k in kern for k in ("many_row_kernel", "chunked_decode",
+                                       "decode_kernel")):
                 print(f"[ab] ptxas {src}: {kern}: {regs} registers, {st} B "
                       f"spill stores, {ld} B spill loads", flush=True)
     patterns = keep.split(",")

@@ -10,9 +10,11 @@ kernel's cost reads the same whatever implements it.
 Rate classes are keys of ``core.h100.RATES``: the decode kernels (#1-#3,
 #5) multiply on the CUDA cores ("f32") but at the groupings their route
 puts on the tensor cores (``decode_rate``); the many-row kernels (#4, #6),
-the SSD chunk (#7) and those decode rows on the tensor cores, bf16
+the SSD chunk (#7) and those decode rows on the wgmma route, bf16
 operands at the bf16 rate, f32 operands as three TF32 products
-("tf32x3") and a quantized (1-byte) pool against f32 as two ("tf32x2").
+("tf32x3") and a quantized (1-byte) pool against f32 as two ("tf32x2");
+the decode rows on the warp-mma route as its TF32 products
+(``mma_class``).
 Bytes count each input read once and each output written once.
 """
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 from ..core import h100
 from .decode_attention import decode_route
 
-__all__ = ["Work", "decode_rate", "decode_work", "flash_work",
+__all__ = ["Work", "decode_rate", "decode_work", "flash_work", "mma_class",
            "prefill_work", "record", "recording", "ssd_work", "tc_class"]
 
 
@@ -91,14 +93,27 @@ def tc_class(q, k) -> str:
     return "tf32x2" if k.element_size() == 1 else "tf32x3"
 
 
+def mma_class(q, k) -> str:
+    """The class of the warp-mma decode route's TF32 products
+    (``csrc/chunked_decode_mma.cuh``): an f32 pool at 3xTF32; a bf16 pool,
+    exact in TF32, at 2xTF32 against an f32 q (the scores' two products,
+    P V's one counted at their rate) and at the TF32 rate against a bf16
+    q."""
+    if k.dtype == torch.float32:
+        return "tf32x3"
+    return "tf32" if q.dtype == torch.bfloat16 else "tf32x2"
+
+
 def decode_rate(q, k) -> str:
     """The rate class of the chunked decode kernel's products for q (B, T,
     H, D) against a cache or pool ``k`` (KV heads at dim 2): "f32" on the
-    CUDA-core route, ``tc_class`` on the tensor-core route
-    (``decode_attention.decode_route``: by grouping, head dim and pool
-    dtype)."""
+    CUDA-core route, ``tc_class`` on the tensor-core route, ``mma_class``
+    on the warp-mma route (``decode_attention.decode_route``: by grouping,
+    head dim and pool dtype)."""
     route = decode_route(q.shape[2] // k.shape[2], q.shape[3], k.dtype)
-    return "f32" if route == "cuda_cores" else tc_class(q, k)
+    if route == "tensor_cores":
+        return tc_class(q, k)
+    return mma_class(q, k) if route == "warp_mma" else "f32"
 
 
 def _positions(pos, b: int, s: int):

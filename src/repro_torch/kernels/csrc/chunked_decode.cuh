@@ -26,8 +26,8 @@
 // the reference partitions the page table) and combines the splits' (acc,
 // m, l) with exp(m_i - m*); ns = 1 is the single-pass decode, which also
 // takes T > 1 (the verify block).  Any G * T: the rows of a KV head past
-// the largest instance are spread over row tiles, and at the groupings
-// whose rows are many, the tensor-core route takes them (below).
+// the largest instance are spread over row tiles, and at D = 128 the
+// tensor-core routes take the groupings G >= 2 (below).
 //
 // What bounds it on an H100: device-memory bytes.  A tick reads the live
 // K/V prefix once, 2 * D * bytes per live key and KV head (1 KiB in f32),
@@ -80,18 +80,28 @@
 //     p |v| per key; p stays f32.  A 16-byte K chunk then holds 16 values,
 //     64 bytes of q, so q is swizzled in shared memory (below) to keep the
 //     dot's q reads free of bank conflicts.
-//   * Two routes, chosen by grouping (decode_attention.decode_route: G =
+//   * Three routes, chosen by grouping (decode_attention.decode_route: G =
 //     H / KV, the head dim and the pool's dtype, never T or the row count,
 //     so that one model runs its T = 1 ticks and its verify blocks on the
-//     same arithmetic).  At D = 128 on f32 and bf16 pools, G >= 16
-//     (granite's 48, qwen3-moe's 16) takes the tensor cores: 16-192 rows
-//     a KV head read each key once and do 4 D flops a row with it, past the
-//     CUDA cores' balance, and there the CUDA cores ran at 5-8% of that
-//     bound.  That route is chunked_decode_tc.cuh's kernel: this grid,
-//     table and merge order (the merge a second kernel's, not the last
-//     CTA's), rows on wgmma's M in row tiles of TC_ROWS = 128.  Every other
-//     plan (G < 16, head dims 64 and 80, 1-byte pools) takes this file's
-//     kernel on the CUDA cores, below.
+//     same arithmetic), coded ROUTE_* in DecodeParams.  At D = 128 on f32
+//     and bf16 pools:
+//     - G >= 16 (granite's 48, qwen3-moe's 16) takes the tensor cores'
+//       warpgroup products: 16-192 rows a KV head read each key once and
+//       do 4 D flops a row with it, past the CUDA cores' balance, and there
+//       the CUDA cores ran at 5-8% of that bound.  That route is
+//       chunked_decode_tc.cuh's kernel: this grid, table and merge order
+//       (the merge a second kernel's, not the last CTA's), rows on wgmma's
+//       M in row tiles of TC_ROWS = 128.
+//     - 2 <= G < 16 (internlm2 and gemma3's 2, mixtral and llava's 4,
+//       qwen2.5's 5) takes warp-level products: chunked_decode_mma.cuh's
+//       kernel, this grid, ring and table and the wgmma route's merge
+//       kernel, keys on mma.sync's M and the G * T rows on N in blocks of
+//       8 (instances of 8, 16 and 32 rows, row tiles of MMA_ROWS = 32 past
+//       them), so that a verify block's 8-20 rows cost little more than
+//       the T = 1 launch's 2-5; on the CUDA cores they ran at 11-31% of
+//       their bytes.
+//     Every other plan (G = 1, head dims 64 and 80, 1-byte pools) takes
+//     this file's kernel on the CUDA cores, below.
 //   * Warps own keys.  Each warp takes its quarter of every tile: LPK lanes
 //     share one key's score dot (each a slice of the row, in a rotated order
 //     so that the 16-byte reads of a quarter-warp hit 8 distinct bank
@@ -154,8 +164,12 @@ constexpr int CD_THREADS = 128;  // 4 warps; thread d < D owns column d
 constexpr int CD_WARPS = CD_THREADS / 32;
 constexpr int CD_STAGES = 3;     // ring depth
 constexpr int CD_TABLE = 256;    // most page-table entries a chunk spans
-constexpr int TC_D = 128;        // the tensor-core route's head dim
-constexpr int TC_ROWS = 128;     // and its row tile (two warpgroups of 64)
+constexpr int TC_D = 128;        // the tensor-core routes' head dim
+constexpr int TC_ROWS = 128;     // the wgmma route's row tile (2 x 64 rows)
+constexpr int MMA_ROWS = 32;     // the warp-mma route's largest row tile
+// routes, as decode_attention.ROUTES numbers them
+constexpr int ROUTE_CUDA_CORES = 0, ROUTE_TENSOR_CORES = 1,
+              ROUTE_WARP_MMA = 2;
 
 #ifdef CD_TRACE
 // A diagnostic build (scripts/decode_trace.py, -DCD_TRACE): thread 0 of
@@ -210,6 +224,7 @@ struct DecodeParams {
   int n_chunks;          // num_splits * chunks_per_split: the grid's z
   int row_tile;          // query rows per row tile: the instance's MAXR
   int n_tiles;           // row tiles per KV head, ceil(G * T / row_tile)
+  int route;             // ROUTE_*: the arithmetic (decode_route)
   long long q_sb, q_st, q_sh;
   long long k_s0, k_ss, k_sh;  // (page | slot, token, kv head) strides
   long long v_s0, v_ss, v_sh;
@@ -251,6 +266,23 @@ constexpr int cd_smem_bytes() {
   return cd_front_bytes<TKV, MAXR, D>() + MAXR * D * 4 +
          (PAGED ? CD_TABLE * 4 : 0) +
          (KVValue<TKV>::quant ? CD_STAGES * 2 * cd_tile_keys<TKV>() * 4 : 0);
+}
+
+// The slot's working chunks, those holding a key of [lo_b, hi_b); every
+// CTA of the slot counts the same.
+__device__ __forceinline__ int cd_working_chunks(const DecodeParams& p,
+                                                 int lo_b, int hi_b) {
+  const int lane = threadIdx.x & 31;
+  int n_work = 0;
+  for (int z0 = 0; z0 < p.n_chunks; z0 += 32) {
+    bool w = false;
+    if (z0 + lane < p.n_chunks) {
+      const int2 c = chunk_keys(p, z0 + lane);
+      w = max(c.x, lo_b) < min(c.y, hi_b);
+    }
+    n_work += __popc(__ballot_sync(0xffffffffu, w));
+  }
+  return n_work;
 }
 
 // One CTA per (KV head j and row tile i, slot b, chunk z); its row rr is
@@ -341,16 +373,7 @@ __global__ void __launch_bounds__(CD_THREADS, cd_min_ctas(MAXR))
   const int lo_b = p.window ? max(0, pos - p.window + 1) : 0;
   const int hi_b = p.active[b] ? min(p.S, pos + T) : 0;
   const int lo = max(ck.x, lo_b), hi = min(ck.y, hi_b);
-  // the slot's working chunks; every CTA of the slot counts the same
-  int n_work = 0;
-  for (int z0 = 0; z0 < p.n_chunks; z0 += 32) {
-    bool w = false;
-    if (z0 + lane < p.n_chunks) {
-      const int2 c = chunk_keys(p, z0 + lane);
-      w = max(c.x, lo_b) < min(c.y, hi_b);
-    }
-    n_work += __popc(__ballot_sync(0xffffffffu, w));
-  }
+  const int n_work = cd_working_chunks(p, lo_b, hi_b);
   TQ* out = static_cast<TQ*>(p.out);
   auto out_at = [&](int r) {  // this thread's column of the tile's row r
     const int g = (r0 + r) / T, t = r0 + r - g * T;
@@ -715,15 +738,20 @@ cudaError_t launch_chunked_decode_rows(const DecodeParams& p,
   return cudaGetLastError();
 }
 
-// The tensor-core route's launch (chunked_decode_tc.cuh, included below).
+// The tensor-core and warp-mma routes' launches (chunked_decode_tc.cuh and
+// chunked_decode_mma.cuh, included below).
 template <typename TQ, typename TKV, bool PAGED>
 cudaError_t launch_tc_decode(const DecodeParams& p, cudaStream_t st);
+template <typename TQ, typename TKV, bool PAGED>
+cudaError_t launch_mma_decode(const DecodeParams& p, cudaStream_t st);
 
-// The instance of the wrapper's row-tile plan (decode_attention.row_tiles):
-// on the tensor-core route (D = 128, f32 or bf16 pools) row_tile = TC_ROWS
-// in n_tiles = ceil(G * T / TC_ROWS) tiles; otherwise row_tile = 2, 8 or
-// (D = 128 only) MAX_ROWS rows per CTA, and more than one tile takes the
-// TILED 8-row instance (any other plan is refused).
+// The route and instance of the wrapper's plan (decode_attention
+// .decode_route and row_tiles): at D = 128 on f32 or bf16 pools, the
+// tensor-core route takes row_tile = TC_ROWS in n_tiles = ceil(G * T /
+// TC_ROWS) tiles and the warp-mma route row_tile = 8 or 16 in one tile or
+// MMA_ROWS in any; on the CUDA cores row_tile = 2, 8 or (D = 128 only)
+// MAX_ROWS rows per CTA, and more than one tile takes the TILED 8-row
+// instance (any other plan or route is refused).
 template <typename TQ, typename TKV, int D, bool PAGED>
 cudaError_t launch_chunked_decode_typed(const DecodeParams& p,
                                         cudaStream_t st) {
@@ -731,8 +759,12 @@ cudaError_t launch_chunked_decode_typed(const DecodeParams& p,
   if (p.row_tile < 1 || p.n_tiles != (rows + p.row_tile - 1) / p.row_tile)
     return cudaErrorInvalidValue;
   if constexpr (D == TC_D && !KVValue<TKV>::quant) {
-    if (p.row_tile == TC_ROWS) return launch_tc_decode<TQ, TKV, PAGED>(p, st);
+    if (p.route == ROUTE_TENSOR_CORES && p.row_tile == TC_ROWS)
+      return launch_tc_decode<TQ, TKV, PAGED>(p, st);
+    if (p.route == ROUTE_WARP_MMA)
+      return launch_mma_decode<TQ, TKV, PAGED>(p, st);
   }
+  if (p.route != ROUTE_CUDA_CORES) return cudaErrorInvalidValue;
   const bool tiled = p.n_tiles > 1;
   if (p.row_tile == 2 && !tiled)
     return launch_chunked_decode_rows<TQ, TKV, 2, D, PAGED, false>(p, st);
@@ -791,6 +823,7 @@ cudaError_t launch_chunked_decode(const DecodeParams& p, int d, int q_dtype,
 }  // namespace
 
 #include "chunked_decode_tc.cuh"
+#include "chunked_decode_mma.cuh"
 
 #ifdef CD_TRACE
 // The diagnostic build's records (``bytes`` of them) into host memory, and

@@ -35,7 +35,8 @@ DecodeParams dense_params(const void* q, const void* k, const void* v,
                           void* out, const int* pos, const int* active, int B,
                           int T, int H, int KV, int S, int window,
                           int num_splits, int chunk, int chunks_per_split,
-                          int row_tile, int n_tiles, const long long* qs,
+                          int row_tile, int n_tiles, int route,
+                          const long long* qs,
                           const long long* ks, const long long* vs,
                           float* o_part, float* ml_part, int* tickets) {
   DecodeParams p{};
@@ -45,7 +46,7 @@ DecodeParams dense_params(const void* q, const void* k, const void* v,
   p.chunk = chunk; p.split = S / num_splits;
   p.chunks_per_split = chunks_per_split;
   p.n_chunks = num_splits * chunks_per_split;
-  p.row_tile = row_tile; p.n_tiles = n_tiles;
+  p.row_tile = row_tile; p.n_tiles = n_tiles; p.route = route;
   p.q_sb = qs[0]; p.q_st = qs[1]; p.q_sh = qs[2];
   p.k_s0 = ks[0]; p.k_ss = ks[1]; p.k_sh = ks[2];
   p.v_s0 = vs[0]; p.v_ss = vs[1]; p.v_sh = vs[2];
@@ -59,8 +60,10 @@ DecodeParams dense_params(const void* q, const void* k, const void* v,
 // = (batch, seq, kv head); the last dimension must be contiguous.  `out`
 // is a contiguous (B, T, H, D) tensor of q's dtype.  `chunk` keys per
 // chunk and `chunks` chunks (the wrapper's decode_chunks(S, 1, 1)), and
-// the G * T rows of a KV head in `n_tiles` tiles of `row_tile` rows (the
-// wrapper's row_tiles), give the grid (KV * n_tiles, B, chunks); o_part
+// the G * T rows of a KV head in `n_tiles` tiles of `row_tile` rows on
+// `route` (the wrapper's row_tiles and decode_route: 0 the CUDA cores, 1
+// the tensor cores, 2 warp mma), give the grid (KV * n_tiles, B, chunks);
+// o_part
 // (B, KV, chunks, G * T, D) and ml_part (B, KV, chunks, G * T, 2) are f32
 // scratch and tickets (B * KV * n_tiles) int32 zeros, all allocated by the
 // caller.  dtype codes: 0 = float32,
@@ -68,15 +71,15 @@ DecodeParams dense_params(const void* q, const void* k, const void* v,
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, void* out, const int* pos,
     const int* active, int B, int T, int H, int KV, int S, int D, int window,
-    int chunk, int chunks, int row_tile, int n_tiles,
+    int chunk, int chunks, int row_tile, int n_tiles, int route,
     const long long* q_strides, const long long* k_strides,
     const long long* v_strides, float* o_part, float* ml_part, int* tickets,
     int q_dtype, int kv_dtype, void* stream) {
   if (KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
   const DecodeParams p = dense_params(
       q, k, v, out, pos, active, B, T, H, KV, S, window, 1, chunk, chunks,
-      row_tile, n_tiles, q_strides, k_strides, v_strides, o_part, ml_part,
-      tickets);
+      row_tile, n_tiles, route, q_strides, k_strides, v_strides, o_part,
+      ml_part, tickets);
   return (int)launch_chunked_decode<false, HEAD_DIM>(
       p, D, q_dtype, kv_dtype, (cudaStream_t)stream);
 }
@@ -89,15 +92,16 @@ extern "C" int decode_attention_splitk_fwd(
     const void* q, const void* k, const void* v, void* out, const int* pos,
     const int* active, int B, int H, int KV, int S, int D, int window,
     int num_splits, int chunk, int chunks_per_split, int row_tile,
-    int n_tiles, const long long* q_strides, const long long* k_strides,
+    int n_tiles, int route, const long long* q_strides,
+    const long long* k_strides,
     const long long* v_strides, float* o_part, float* ml_part, int* tickets,
     int q_dtype, int kv_dtype, void* stream) {
   if (num_splits < 1 || S % num_splits || KV < 1 || H % KV)
     return (int)cudaErrorInvalidValue;
   const DecodeParams p = dense_params(
       q, k, v, out, pos, active, B, 1, H, KV, S, window, num_splits, chunk,
-      chunks_per_split, row_tile, n_tiles, q_strides, k_strides, v_strides,
-      o_part, ml_part, tickets);
+      chunks_per_split, row_tile, n_tiles, route, q_strides, k_strides,
+      v_strides, o_part, ml_part, tickets);
   return (int)launch_chunked_decode<false, HEAD_DIM>(
       p, D, q_dtype, kv_dtype, (cudaStream_t)stream);
 }

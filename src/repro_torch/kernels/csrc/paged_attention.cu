@@ -66,19 +66,20 @@
 // an f32 (0) or bf16 (1) pool.  `chunk` keys per chunk (a
 // multiple of page_size) and `chunks_per_split` chunk slots per split give
 // the grid's num_splits * chunks_per_split chunks, and the G * T rows of
-// a KV head go in `n_tiles` row tiles of `row_tile` rows (the wrapper's
-// row_tiles).  `out` is a contiguous (B, T, H, D) tensor of q's dtype;
-// o_part (B, KV, chunks, G * T, D) and ml_part (B, KV, chunks, G * T, 2)
-// are f32 scratch and tickets (B * KV * n_tiles) int32 zeros, all
-// allocated by the caller.  Returns the launch's
-// cudaError_t (0 = success).
+// a KV head go in `n_tiles` row tiles of `row_tile` rows on `route` (the
+// wrapper's row_tiles and decode_route, coded as decode_attention.cu's).
+// `out` is a contiguous (B, T, H, D) tensor of q's dtype; o_part (B, KV,
+// chunks, G * T, D) and ml_part (B, KV, chunks, G * T, 2) are f32 scratch
+// and tickets (B * KV * n_tiles) int32 zeros, all allocated by the caller.
+// Returns the launch's cudaError_t (0 = success).
 extern "C" int paged_decode_attention_fwd(
     const void* q, const void* k, const void* v, void* out, const int* pos,
     const int* active, const int* page_idx, long long pt_stride, int B,
     int T, int H, int KV, int max_pages, int page_size, int D, int window,
     int num_splits, int chunk, int chunks_per_split, int row_tile,
-    int n_tiles, const long long* q_strides, const long long* k_strides,
-    const long long* v_strides, const float* k_scale, const float* v_scale,
+    int n_tiles, int route, const long long* q_strides,
+    const long long* k_strides, const long long* v_strides,
+    const float* k_scale, const float* v_scale,
     const long long* ks_strides, const long long* vs_strides, float* o_part,
     float* ml_part, int* tickets, int q_dtype, int kv_dtype, void* stream) {
   if (num_splits < 1 || max_pages % num_splits || KV < 1 || H % KV)
@@ -91,7 +92,7 @@ extern "C" int paged_decode_attention_fwd(
   p.chunk = chunk; p.split = p.S / num_splits;
   p.chunks_per_split = chunks_per_split;
   p.n_chunks = num_splits * chunks_per_split;
-  p.row_tile = row_tile; p.n_tiles = n_tiles;
+  p.row_tile = row_tile; p.n_tiles = n_tiles; p.route = route;
   p.q_sb = q_strides[0]; p.q_st = q_strides[1]; p.q_sh = q_strides[2];
   p.k_s0 = k_strides[0]; p.k_ss = k_strides[1]; p.k_sh = k_strides[2];
   p.v_s0 = v_strides[0]; p.v_ss = v_strides[1]; p.v_sh = v_strides[2];

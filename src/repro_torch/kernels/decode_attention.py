@@ -2,20 +2,22 @@
 (``csrc/decode_attention.cu``), and the chunk grid they share with the
 paged decode.
 
-Decode and split-K decode launch one kernel, the chunked decode kernel of
+Decode and split-K decode launch the chunked decode kernel of
 ``csrc/chunked_decode.cuh`` (the paged decode's too), once per call over
 the chunk grid of ``decode_chunks``: split-K's splits are chunks clipped at
-``S / num_splits``, merged in the same launch.
+``S / num_splits``, merged in the same launch (on the tensor-core routes by
+a second kernel).
 
 Model layout in and out: q (B, T, H, D), caches (B, S, KV, D), result
 (B, T, H, D) in q's dtype, D one of ``HEAD_DIMS`` (each head dim is its
 own library).  Any G * T query rows per KV head: ``decode_route`` picks
-the arithmetic by grouping (the tensor cores at G >= 16 on f32 and bf16
-pools at head dim 128, the CUDA cores elsewhere), and ``row_tiles`` the
-kernel's instance on that route (``max_rows`` names the largest CUDA-core
-instance a head dim has) and, past it, spreads the rows over row tiles,
-one CTA each.  The caches are
-passed by pointer and strides; nothing is transposed or copied.  Each
+the arithmetic by grouping, one of three routes (at head dim 128 on f32
+and bf16 pools the tensor cores' warpgroup products at G >= 16 and their
+warp-level products at 2 <= G < 16, the CUDA cores elsewhere), and
+``row_tiles`` the kernel's instance on that route (``max_rows`` names the
+largest CUDA-core instance a head dim has) and, past it, spreads the rows
+over row tiles, one CTA each.  The caches are passed by pointer and
+strides; nothing is transposed or copied.  Each
 wrapper checks what the kernel takes and raises on anything else,
 allocates its output and scratch with ``torch.empty``, launches on the
 current stream and raises if the launch returns a CUDA error.
@@ -45,12 +47,19 @@ _ROWS = {64: 8, 80: 8, 128: MAX_ROWS}
 # instance's (at head dim 128 its tiles ran 1.5-1.6x faster than the
 # 16-row instance's, PERF.md)
 TILE_ROWS = 8
-# the tensor-core route (decode_route): its head dim, the least grouping
-# that takes it, and its row tile, two warpgroups of 64 rows (csrc TC_ROWS)
+# the tensor-core routes (decode_route): their head dim; the wgmma route's
+# least grouping and its row tile, two warpgroups of 64 rows (csrc
+# TC_ROWS); the warp-mma route's least grouping (it takes those below
+# TC_MIN_GROUP), its blocks of 8 columns and its largest instance, which
+# is its row tile past that (csrc MMA_ROWS)
 TC_HEAD_DIM = 128
 TC_MIN_GROUP = 16
 TC_ROWS = 128
-ROUTES = ("cuda_cores", "tensor_cores")
+MMA_MIN_GROUP = 2
+MMA_COLS = 8
+MMA_ROWS = 32
+# the routes, numbered as the C entry points take them (csrc ROUTE_*)
+ROUTES = ("cuda_cores", "tensor_cores", "warp_mma")
 # dtype codes of the C entry points; int8 and float8_e4m3fn are the
 # quantized paged pools, which only the paged kernels take (with scales)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -60,9 +69,9 @@ QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# both entry points: 6 pointers, 11 ints, strides, scratch, tickets, codes
+# both entry points: 6 pointers, 12 ints, strides, scratch, tickets, codes
 _ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-         _I, _P, _P, _P, _P, _P, _P, _I, _I, _P]
+         _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P]
 
 
 def max_rows(head_dim: int) -> int:
@@ -79,44 +88,59 @@ def decode_route(g: int, head_dim: int, kv_dtype) -> str:
     """The chunked decode kernel's arithmetic for ``g`` query heads per KV
     head at ``head_dim`` on a cache or pool of ``kv_dtype``:
     ``"tensor_cores"`` (``csrc/chunked_decode_tc.cuh``: ``wgmma`` TF32,
-    3xTF32 for f32 operands, rows on M in row tiles of ``TC_ROWS``) or
-    ``"cuda_cores"`` (``csrc/chunked_decode.cuh``'s f32 FMAs).  It takes
-    no T: a verify row is bitwise the one-token launch at pos + t only on
-    one arithmetic, so a model's T = 1 ticks and its verify blocks take the
-    same route.
+    3xTF32 for f32 operands, rows on M in row tiles of ``TC_ROWS``),
+    ``"warp_mma"`` (``csrc/chunked_decode_mma.cuh``: ``mma.sync`` TF32,
+    3xTF32 for f32 operands, keys on M and the rows on N in blocks of
+    ``MMA_COLS``) or ``"cuda_cores"`` (``csrc/chunked_decode.cuh``'s f32
+    FMAs).  It takes no T: a verify row is bitwise the one-token launch at
+    pos + t only on one arithmetic, so a model's T = 1 ticks and its verify
+    blocks take the same route.
 
     Thresholds (PERF.md section 6, an H100 at 700 W, each pair from one
     run): head dim 128, an f32 or bf16 pool (q f32 or bf16, as the
-    wrappers take), and G >= ``TC_MIN_GROUP`` = 16.  Granite's G = 48 and
-    qwen3-moe's G = 16 ran at 5-8% of their bound on the CUDA cores; on
-    the tensor cores 1·G48 takes 0.0550 ms against 0.1040, 1·G48v (T = 4)
-    0.0580 against 0.2637, 1·G16 0.0962 against 0.1589, 1·G16v 0.1009
-    against 0.3306.  At G = 2, 4 and 5 (internlm2 and gemma3; mixtral and
-    llava; qwen2.5) the T = 1 rows, 2-5 a KV head with a 128-row tile
-    about them, ran 2.1-2.9x slower on the tensor cores (G = 2 0.0619 ->
-    0.1748 ms, G = 4 0.0748 -> 0.1744, G = 5 0.0812 -> 0.1722), though
-    their T = 4 verify rows gained (G = 4 0.2804 -> 0.1758): they stay on
-    the CUDA cores, the one-token tick before the verify block.  Head dims
-    64 and 80 (G = 1 archs) and the 1-byte pools (int8, fp8: codes on the
-    CUDA cores) keep theirs."""
-    if head_dim == TC_HEAD_DIM and kv_dtype in FLOAT_DTYPES \
-            and g >= TC_MIN_GROUP:
-        return "tensor_cores"
-    return "cuda_cores"
+    wrappers take).  G >= ``TC_MIN_GROUP`` = 16 takes the wgmma route:
+    granite's G = 48 and qwen3-moe's G = 16 ran at 5-8% of their bound on
+    the CUDA cores; on the tensor cores 1·G48 takes 0.0550 ms against
+    0.1040, 1·G48v (T = 4) 0.0580 against 0.2637, 1·G16 0.0962 against
+    0.1589, 1·G16v 0.1009 against 0.3306.  At G = 2, 4 and 5 its 128-row
+    tiles made the T = 1 rows 2.1-2.9x slower (G = 2 0.0619 -> 0.1748 ms).
+    ``MMA_MIN_GROUP`` = 2 <= G < 16 takes the warp-mma route, where every
+    row of those groupings ran faster than on the CUDA cores, the T = 1
+    ones too: internlm2 and gemma3's G = 2 0.0626 -> 0.0602 ms (paged
+    0.0655 -> 0.0638), its T = 4 verify block 0.1087 -> 0.0619; mixtral
+    and llava's G = 4 0.0754 -> 0.0607, verify 0.2831 -> 0.0811;
+    qwen2.5's G = 5 0.0812 -> 0.0609, verify 0.2420 -> 0.1032.  Head dim
+    64 (musicgen, G = 1) on that route, with 32-key tiles, took its T = 9
+    block from 0.3098 to 0.1321 ms but its paged one-token rows from
+    0.1032 to 0.1134 (split-K 2 0.1038 -> 0.1133): it keeps the CUDA
+    cores, with G = 1 at 128, head dim 80 (zamba2) and the 1-byte pools
+    (int8, fp8: codes on the CUDA cores)."""
+    if head_dim != TC_HEAD_DIM or kv_dtype not in FLOAT_DTYPES \
+            or g < MMA_MIN_GROUP:
+        return "cuda_cores"
+    return "tensor_cores" if g >= TC_MIN_GROUP else "warp_mma"
 
 
 def row_tiles(g: int, t: int, head_dim: int, route: str = "cuda_cores"):
     """The chunked decode kernel's row plan for ``g * t`` query rows per
     KV head at ``head_dim`` on ``route`` (``decode_route``): ``(instance
     rows, row tiles)``.  On the tensor cores: ``ceil(g * t / TC_ROWS)``
-    tiles of ``TC_ROWS`` rows.  On the CUDA cores, rows that fit an
-    instance take the smallest that holds them (2, 8, or 16 at head dim
-    128) in one tile; more take ``ceil(g * t / TILE_ROWS)`` tiles of the
-    ``TILE_ROWS`` instance.  Tile i holds rows [i * rows, (i + 1) * rows)
-    of the instance's.  A head dim not built raises."""
+    tiles of ``TC_ROWS`` rows.  On the warp-mma route, rows that fit an
+    instance of 8 or 16 columns take the smaller in one tile; more take
+    ``ceil(g * t / MMA_ROWS)`` tiles of ``MMA_ROWS``.  On the CUDA cores,
+    rows that fit an instance take the smallest that holds them (2, 8, or
+    16 at head dim 128) in one tile; more take ``ceil(g * t /
+    TILE_ROWS)`` tiles of the ``TILE_ROWS`` instance.  Tile i holds rows
+    [i * rows, (i + 1) * rows) of the instance's.  A head dim not built
+    raises."""
     rows, largest = g * t, max_rows(head_dim)
     if route == "tensor_cores":
         return TC_ROWS, -(-rows // TC_ROWS)
+    if route == "warp_mma":
+        for inst in (MMA_COLS, 2 * MMA_COLS):
+            if rows <= inst:
+                return inst, 1
+        return MMA_ROWS, -(-rows // MMA_ROWS)
     for inst in (2, 8, largest):
         if rows <= inst:
             return inst, 1
@@ -279,11 +303,12 @@ def launch_chunked_decode(fn, name, q, k, max_pages, page_size, num_splits,
     over ``decode_chunks(max_pages, page_size, num_splits)``'s grid, the
     rows of a KV head in ``row_tiles``' plan on ``decode_route``'s route
     (counted in ``ROUTE_LAUNCHES``): ``fn(*head, chunk,
-    chunks_per_split, instance rows, row tiles, *mid, o_part, ml_part,
-    tickets, q's dtype code, k's dtype code, stream)``, with f32 scratch
+    chunks_per_split, instance rows, row tiles, the route's index in
+    ROUTES, *mid, o_part, ml_part, tickets, q's dtype code, k's dtype
+    code, stream)``, with f32 scratch
     for each chunk's (acc, m, l) and the stream's tickets, one per (slot,
-    KV head, row tile; the tensor-core route merges by a second kernel of
-    the launch and leaves them alone).  ``k`` is a cache (B, S, KV, D) or a
+    KV head, row tile; the tensor-core routes merge by a second kernel of
+    the launch and leave them alone).  ``k`` is a cache (B, S, KV, D) or a
     pool (P, page_size, KV, D).  Raises if the launch returns a CUDA
     error, or on the tensor-core route if q's rows do not start on 16
     bytes."""
@@ -300,7 +325,8 @@ def launch_chunked_decode(fn, name, q, k, max_pages, page_size, num_splits,
     scratch = chunk_scratch(rows, d, q.device)
     base = scratch.data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(*head, chunk, cps, inst, tiles, *mid, base,
+    err = fn(*head, chunk, cps, inst, tiles, ROUTES.index(route), *mid,
+             base,
              base + 4 * rows * d,
              _tickets(q.device, stream, b * kv * tiles).data_ptr(),
              _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], stream)

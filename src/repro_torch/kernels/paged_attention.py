@@ -38,8 +38,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _DECODE_ARGS = [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I,
-                _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                _P, _I, _I, _P]
+                _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                _P, _P, _I, _I, _P]
 _PREFILL_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                  _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P]
 

@@ -3,7 +3,9 @@
 ``decode_attention.decode_route`` sends the chunked decode kernel's rows to
 ``csrc/chunked_decode_tc.cuh`` (``wgmma`` TF32, 3xTF32 for f32 operands) at
 head dim 128 on f32 and bf16 pools where G = H / KV >= 16 (granite's 48,
-qwen3-moe's 16), and to the CUDA cores elsewhere.  The choice may depend on
+qwen3-moe's 16), to ``csrc/chunked_decode_mma.cuh`` (``mma.sync`` TF32,
+modelled in ``test_torch_decode_mma.py``) at 2 <= G < 16 there, and to
+the CUDA cores elsewhere.  The choice may depend on
 the grouping, the head dim and the pool's dtype, never on T: a verify row
 is bitwise the one-token launch at pos + t only on one arithmetic.
 
@@ -164,12 +166,14 @@ def test_route_takes_no_t():
     (64, 128, torch.float32, "tensor_cores"),
     (48, 128, torch.int8, "cuda_cores"),
     (16, 128, torch.float8_e4m3fn, "cuda_cores"),
-    (5, 128, torch.float32, "cuda_cores"),
-    (4, 128, torch.float32, "cuda_cores"),
-    (2, 128, torch.float32, "cuda_cores"),
+    (5, 128, torch.float32, "warp_mma"),
+    (4, 128, torch.bfloat16, "warp_mma"),
+    (2, 128, torch.float32, "warp_mma"),
     (1, 64, torch.float32, "cuda_cores"),
     (1, 80, torch.bfloat16, "cuda_cores"),
-    (16, 80, torch.float32, "cuda_cores")])
+    (16, 80, torch.float32, "cuda_cores"),
+    (2, 128, torch.int8, "cuda_cores"),
+    (1, 128, torch.float32, "cuda_cores")])
 def test_route_by_grouping_head_dim_and_pool_dtype(g, d, dtype, want):
     assert decode_route(g, d, dtype) == want
 
@@ -180,8 +184,10 @@ def test_wrappers_take_one_route_at_every_t(arch, dtype, monkeypatch):
     """The arch's grouping and head dim on a pool of ``dtype``, through the
     paged wrapper on a fake card at T = 1..16: every launch hands the
     kernel the plan of one route, ``decode_route``'s, and counts it in
-    ``ROUTE_LAUNCHES``: the tensor-core row tiles at granite and qwen3-moe
-    on f32 and bf16 pools, the CUDA-core instances elsewhere."""
+    ``ROUTE_LAUNCHES``: on f32 and bf16 pools the wgmma row tiles at
+    granite and qwen3-moe, the CUDA-core instances at zamba2's and
+    musicgen's head dims 80 and 64 and the warp-mma instances at every
+    other arch; the CUDA cores on the 1-byte pools."""
     from test_torch_quant_kv import _fake_card
 
     cfg = get_config(arch)
@@ -200,19 +206,22 @@ def test_wrappers_take_one_route_at_every_t(arch, dtype, monkeypatch):
     for t in range(1, 17):
         tpaged.paged_decode_attention_cuda(torch.zeros((1, t, h, d)), pool,
                                            pool.clone(), table, [3], **sc)
-        plan = lib.calls[-1][1][19:21]  # 7 pointers, pt_stride, 11 ints
-        assert plan == row_tiles(h // kv, t, d, route)
+        plan = lib.calls[-1][1][19:22]  # 7 pointers, pt_stride, 11 ints
+        assert plan == (*row_tiles(h // kv, t, d, route),
+                        tdecode.ROUTES.index(route))
         assert (plan[0] == TC_ROWS) == (route == "tensor_cores")
     assert tdecode.ROUTE_LAUNCHES[route] == 16
-    assert route == ("tensor_cores" if arch in (
-        "granite-20b", "qwen3-moe-235b-a22b") and dtype in
-        tdecode.FLOAT_DTYPES else "cuda_cores")
+    want = {"granite-20b": "tensor_cores", "qwen3-moe-235b-a22b":
+            "tensor_cores", "zamba2-2.7b": "cuda_cores",
+            "musicgen-large": "cuda_cores"}.get(arch, "warp_mma")
+    assert route == (want if dtype in tdecode.FLOAT_DTYPES else "cuda_cores")
 
 
 def test_route_refuses_q_rows_off_16_bytes(monkeypatch):
     """The tensor-core route copies q 16 bytes at a time: a q whose rows
     do not start on 16 bytes raises before any launch, at granite's
-    grouping; the CUDA-core route (G = 2) takes it as before."""
+    grouping; the warp-mma route (G = 2), which reads q a value at a
+    time, takes it."""
     from test_torch_kernels import _fake_card
 
     monkeypatch.setattr(tdecode, "_TICKETS", {})
@@ -350,12 +359,14 @@ def test_a_row_does_not_depend_on_its_row_tile(case):
     (64, 4, 128, torch.bfloat16, torch.bfloat16, "bf16"),
     (64, 4, 128, torch.float32, torch.bfloat16, "tf32x3"),
     (48, 1, 128, torch.float32, torch.int8, "f32"),
-    (40, 8, 128, torch.float32, torch.float32, "f32"),
-    (32, 32, 64, torch.float32, torch.float32, "f32")])
+    (40, 8, 128, torch.float32, torch.float32, "tf32x3"),
+    (32, 32, 64, torch.float32, torch.float32, "f32"),
+    (32, 32, 80, torch.float32, torch.float32, "f32")])
 def test_decode_work_reckons_the_route_s_rate(h, kv, d, qd, kd, want):
     """``cost.decode_rate`` gives the route's rate class (``tc_class`` on
-    the tensor cores, the CUDA cores' "f32" elsewhere), and the meta
-    branch's record carries the same flops under it."""
+    the wgmma route, ``mma_class`` on the warp-mma route, the CUDA cores'
+    "f32" elsewhere), and the meta branch's record carries the same flops
+    under it."""
     q = torch.zeros((2, 4, h, d), dtype=qd, device="meta")
     k = torch.zeros((2, 64, kv, d), dtype=kd, device="meta")
     assert cost.decode_rate(q, k) == want
@@ -368,3 +379,24 @@ def test_decode_work_reckons_the_route_s_rate(h, kv, d, qd, kd, want):
         with cost.recording(lambda name, work: got.append(work)):
             ops.decode_attention(q, k, k, [10, 20])
         assert got[0].flops == w.flops
+
+
+@pytest.mark.parametrize("qd,kd,want", [
+    (torch.float32, torch.float32, "tf32x3"),
+    (torch.float32, torch.bfloat16, "tf32x2"),
+    (torch.bfloat16, torch.bfloat16, "tf32"),
+    (torch.bfloat16, torch.float32, "tf32x3")], ids=str)
+def test_decode_work_reckons_the_warp_mma_rate(qd, kd, want):
+    """On the warp-mma route (qwen2.5's G = 5 at head dim 128) the class of
+    its TF32 products: three on an f32 pool, two where only q has a small
+    part (bf16 K and V are exact in TF32, and so is p rounded to bf16), one
+    on bf16 q and pools; the bound's operations term takes that rate."""
+    q = torch.zeros((2, 4, 40, 128), dtype=qd, device="meta")
+    k = torch.zeros((2, 64, 8, 128), dtype=kd, device="meta")
+    assert decode_route(5, 128, kd) == "warp_mma"
+    assert cost.mma_class(q, k) == cost.decode_rate(q, k) == want
+    w = cost.decode_work(2, 4, 40, 128, 8, 64, q.element_size(),
+                         k.element_size(), [10, 20], rate=want)
+    t_ops = w.total_flops / cost.h100.RATES[want] * 1e3
+    assert w.bound()[0] == max(t_ops, w.nbytes / cost.h100.HBM_BYTES_PER_S
+                               * 1e3)

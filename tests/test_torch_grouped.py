@@ -370,7 +370,9 @@ def test_four_query_heads_per_kv_head_reach_the_kernel_with_16_rows(
         paged, monkeypatch):
     """mixtral's grouping, G = 4, at the verify block's T = 4: the wrapper
     launches the chunked kernel once with H / KV * T = 16 rows per KV head
-    (its MAX_ROWS instance), the scratch sized for them."""
+    (as many as the CUDA cores' MAX_ROWS instance holds; on the warp-mma
+    route, ``decode_route``'s at G = 4, its 16-column instance in one
+    tile), the scratch sized for them."""
     kv, t, d = 2, 4, 128
     q = torch.zeros((2, t, 4 * kv, d))
     if paged:
@@ -390,6 +392,10 @@ def test_four_query_heads_per_kv_head_reach_the_kernel_with_16_rows(
     # (B, T, H, KV) follow the pointers (and, paged, the table's stride)
     assert (args[8:12] if paged else args[6:10]) == (2, t, 4 * kv, kv)
     assert out.shape == q.shape and 4 * t == tdecode.MAX_ROWS
+    # the plan: instance rows, row tiles, route
+    assert tdecode.decode_route(4, d, torch.float32) == "warp_mma"
+    assert (args[19:22] if paged else args[15:18]) == (
+        2 * tdecode.MMA_COLS, 1, tdecode.ROUTES.index("warp_mma"))
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])

@@ -182,8 +182,9 @@ def _card_shaped(s, t):
 
 # fwd and split-K: pointers (q, k, v, out, pos, active) 0-5, then ints:
 # fwd B, T, H, KV, S, D, window; split-K B, H, KV, S, D, window, ns; then
-# chunk 13, chunks per split 14, instance rows 15, row tiles 16, strides
-# 17-19, o_part 20, ml_part 21, tickets 22, dtype codes 23-24, stream 25
+# chunk 13, chunks per split 14, instance rows 15, row tiles 16, route 17,
+# strides 18-20, o_part 21, ml_part 22, tickets 23, dtype codes 24-25,
+# stream 26
 @pytest.mark.parametrize("s", [520, 8192])
 @pytest.mark.parametrize("t,ns", [(1, 1), (4, 1), (1, 2), (1, 4), (1, 8)])
 def test_dense_wrappers_launch_the_chunked_kernel_once(t, ns, s,
@@ -191,8 +192,9 @@ def test_dense_wrappers_launch_the_chunked_kernel_once(t, ns, s,
     """One C call per wrapper call, split-K included (no combine launch),
     over ``decode_chunks(S, 1, ns)``'s grid, with f32 scratch of
     B * KV * n_chunks * G * T rows of D + 2 floats (accumulators, then
-    (m, l)), one row tile of the smallest instance that holds G * T = 2 or
-    8 rows, and at least B * KV zeroed tickets."""
+    (m, l)), G = 2 at head dim 128 on the warp-mma route (code 2) in one
+    row tile of its 8-column instance, which holds G * T = 2 and 8 rows,
+    and at least B * KV zeroed tickets."""
     q, k, v = _card_shaped(s, t)
     lib, scratch = _fake_card(monkeypatch, 0)
     wrapper = decode_attention_cuda if ns == 1 else \
@@ -207,16 +209,16 @@ def test_dense_wrappers_launch_the_chunked_kernel_once(t, ns, s,
     assert out.shape == q.shape and args[3] == out.data_ptr()
     chunk, cps, ranges = tdecode.decode_chunks(s, 1, ns)
     assert args[13:15] == (chunk, cps) and len(ranges) == ns * cps
-    assert args[15:17] == (2 if t == 1 else 8, 1)
+    assert args[15:18] == (8, 1, 2)
     rows = 2 * 2 * len(ranges) * 2 * t  # B * KV * n_chunks * G * T
     (buf,) = scratch
     assert buf.dtype == torch.float32 and buf.numel() == rows * (128 + 2)
-    assert args[20] == buf.data_ptr()
-    assert args[21] == buf.data_ptr() + 4 * rows * 128
+    assert args[21] == buf.data_ptr()
+    assert args[22] == buf.data_ptr() + 4 * rows * 128
     tickets = tdecode._TICKETS[(q.device, 0)]
-    assert args[22] == tickets.data_ptr() and tickets.numel() >= 2 * 2
+    assert args[23] == tickets.data_ptr() and tickets.numel() >= 2 * 2
     assert not tickets.any()
-    assert args[23:25] == (0, 0)
+    assert args[24:26] == (0, 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -239,8 +241,8 @@ def test_dense_wrapper_reads_a_stacked_layer_slice_in_place(ns, dtype,
         decode_attention_splitk_cuda(q, k, v, 5, num_splits=ns)
     (_, args), = lib.calls
     assert args[1:3] == (k.data_ptr(), v.data_ptr())
-    assert list(args[18]) == list(k.stride()[:3]) == [s * 256, 256, 128]
-    assert args[24] == {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    assert list(args[19]) == list(k.stride()[:3]) == [s * 256, 256, 128]
+    assert args[25] == {torch.float32: 0, torch.bfloat16: 1}[dtype]
 
 
 @pytest.mark.parametrize("ns", [1, 2])
@@ -302,7 +304,7 @@ def test_dense_rows_per_head_dim(d, t, ok, monkeypatch):
     assert args[15:17] == ((tdecode.max_rows(d), 1) if ok
                            else (rt, -(-t // rt)))
     tickets = tdecode._TICKETS[(q.device, 0)]
-    assert args[22] == tickets.data_ptr()
+    assert args[23] == tickets.data_ptr()
     assert tickets.numel() >= 2 * 2 * args[16] and not tickets.any()
     (buf,) = scratch
     assert buf.numel() == 2 * 2 * len(tdecode.decode_chunks(64, 1)[2]) \

@@ -266,8 +266,8 @@ def test_build_target_tracks_shared_header(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     assert sorted(p.name for p in csrc.glob("*.cuh")) == [
         "attention_common.cuh", "chunked_decode.cuh",
-        "chunked_decode_tc.cuh", "many_row_attention.cuh",
-        "wgmma_tf32.cuh"]
+        "chunked_decode_mma.cuh", "chunked_decode_tc.cuh",
+        "many_row_attention.cuh", "wgmma_tf32.cuh"]
     libs = _build.LIBS
     assert len(libs) == 3 * len(_build.HEAD_DIMS) + 1
     before = {name: _build._target(name) for name in libs}

@@ -269,11 +269,13 @@ KINDS = ("dense", "dense_splitk", "paged", "paged_splitk", "paged_int8")
     if LAUNCHES[case][2] == 1 or not kind.endswith("splitk")])
 def test_wrappers_launch_once_with_the_row_tiles(case, kind, monkeypatch):
     """Each wrapper launches the kernel once, handing it ``row_tiles``'
-    instance rows and tile count on ``decode_route``'s route (the
-    tensor-core row tiles at G >= 16 on f32 pools at head dim 128, the
-    CUDA cores' 8-row tiles elsewhere), with exactly B * KV * n_tiles
-    zeroed tickets; split-K (single-token cases) and the quantized pools
-    alike."""
+    instance rows and tile count on ``decode_route``'s route (on f32 pools
+    at head dim 128 the wgmma row tiles at G >= 16 and the warp-mma
+    route's 32-row tiles or its 16-column instance at the other
+    groupings; the CUDA cores' 8-row tiles at head dim 64 and on the
+    1-byte pools),
+    with exactly B * KV * n_tiles zeroed tickets; split-K (single-token
+    cases) and the quantized pools alike."""
     h, kv, t, d = LAUNCHES[case]
     b = 2
     q = torch.zeros((b, t, h, d))
@@ -314,14 +316,19 @@ def test_wrappers_launch_once_with_the_row_tiles(case, kind, monkeypatch):
     (_, args), = lib.calls
     route = tdecode.decode_route(h // kv, d, torch.int8 if kind ==
                                  "paged_int8" else torch.float32)
-    assert route == ("tensor_cores" if h // kv >= 16 and d == 128
-                     and kind != "paged_int8" else "cuda_cores")
+    assert route == ("cuda_cores" if kind == "paged_int8" or d != 128 else
+                     "tensor_cores" if h // kv >= 16 else "warp_mma")
     inst, n_tiles = row_tiles(h // kv, t, d, route)
-    assert args[at:at + 2] == (inst, n_tiles)
+    assert args[at:at + 3] == (inst, n_tiles, tdecode.ROUTES.index(route))
+    rows = h // kv * t
     if route == "cuda_cores":
         assert n_tiles > 1 and inst == tdecode.TILE_ROWS
+    elif route == "warp_mma":
+        assert (inst, n_tiles) == ((tdecode.MMA_ROWS, -(-rows // inst))
+                                   if rows > 2 * tdecode.MMA_COLS
+                                   else (2 * tdecode.MMA_COLS, 1))
     else:
-        assert inst == tdecode.TC_ROWS and n_tiles == -(-h // kv * t // inst)
+        assert inst == tdecode.TC_ROWS and n_tiles == -(-rows // inst)
     tickets = tdecode._TICKETS[(torch.device("cpu"), 0)]
     assert tickets.numel() == b * kv * n_tiles and not tickets.any()
     assert tickets.data_ptr() in args
