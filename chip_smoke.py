@@ -2835,6 +2835,24 @@ def _check_head_dim_refusals():
     torch.cuda.empty_cache()
 
 
+def _check_head_dim_route(d, before):
+    """The chunked decode launches of 3h's checks at head dim ``d`` since
+    ``before`` took ``decode_route``'s route on the f32 and bf16 caches and
+    pools (at 64 the warp-mma route, the keys over the warps; at 80 the
+    CUDA cores), and the CUDA cores on the 1-byte pools."""
+    from repro_torch.kernels.decode_attention import decode_route
+
+    route = decode_route(H_HD // H_HD, d, torch.float32)
+    got = {r: n - before[r] for r, n in _route_launches().items()}
+    _log(f"[route] 3h D={d}: f32/bf16 take {route}; chunked decode "
+         f"launches {got}")
+    if not got[route] or not got["cuda_cores"] or any(
+            n for r, n in got.items() if r not in (route, "cuda_cores")):
+        raise AssertionError(f"3h D={d}: the decode launches did not take "
+                             f"the {route} route (the CUDA cores on 1-byte "
+                             f"pools): {got}")
+
+
 def phase_head_dim_kernels():
     """Phase 3h: #1-#6 at head dims 80 and 64 (H = KV = 32) against their
     plain versions, the refusals, then each timed as in phase 3 with its
@@ -2865,7 +2883,9 @@ def phase_head_dim_kernels():
     rows = []
     for d in HEAD_DIM_CASES:
         with _heads(H_HD, H_HD, d):
+            routes = _route_launches()
             errs = _head_dim_checks(d)
+            _check_head_dim_route(d, routes)
             slot, q_offset = B - 1, S // 2 - CHUNK
             timed = []
             q, k, v, pos = _inputs(1, f32, f32)
@@ -2974,10 +2994,12 @@ MUSICGEN_DRAFT_K = 8
 # in a verify block) and qwen3-moe (H = 64, KV = 4: 16 rows, 64 at T = 4):
 # the chunked decode kernel's wgmma route; qwen2.5-32b (H = 40, KV = 8:
 # G = 5: 5, 10, 15, 20 and 40 rows a KV head at T = 1, 2, 3, 4 and 8) its
-# warp-mma route's every instance and row tiles of 32; G = 1 blocks past
-# the 8-row instance at head dims 64 and 80: its CUDA-core row tiles.  The many-row kernel (#4, #6) at G = 5 and
-# 48, whose positions straddle its CTAs' flattened rows.  (label, H, KV,
-# D, the T of the decode checks)
+# warp-mma route's every instance and row tiles of 32; G = 1 blocks at
+# head dim 80 past the 8-row instance (CUDA-core row tiles) and at head
+# dim 64 (the warp-mma route's 16-column instance, the keys over the
+# warps).  The many-row kernel (#4, #6) at G = 5 and 48, whose positions
+# straddle its CTAs' flattened rows.  (label, H, KV, D, the T of the
+# decode checks)
 ROW_CASES = (("g48", 48, 1, 128, (1, VERIFY_T)),
              ("g5", 40, 8, 128, (1, VERIFY_T, 8)),
              ("g16", 64, 4, 128, (1, VERIFY_T)),

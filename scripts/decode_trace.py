@@ -1,14 +1,15 @@
 """Timeline of the chunked decode kernel's CTAs, on one card.
 
-Builds the paged attention library at head dim 128 with ``-DCD_TRACE`` (a
-library of its own: ``_build.build_all(..., extra_flags=...)``), has the
-wrappers launch that build, runs the paged
+Builds the paged attention library at ``--head-dim`` (128; 64, 80) with
+``-DCD_TRACE`` (a library of its own: ``_build.build_all(...,
+extra_flags=...)``), has the wrappers launch that build, runs the paged
 decode at ``chip_smoke.py``'s phase 3 shape (4 slots at pos [-1, 1000,
 4200, 8191], 512 pages of 16 tokens a slot, KV heads (8), H heads, T rows a
 slot) on a pool of each dtype named, on the route ``decode_route`` gives
 (the wgmma instance at H / KV >= 16 and the warp-mma one at 2 <= H / KV <
-16 on f32 and bf16 pools), and prints for the traced launch: its span and
-CUDA-event time, the working CTAs and how many shared an SM at once, when
+16 on f32 and bf16 pools at head dim 128, the warp-mma one with the keys
+over the warps at head dim 64), and prints for the traced launch: its span
+and CUDA-event time, the working CTAs and how many shared an SM at once, when
 they started and ended, and the median (and 90th percentile) of each
 stretch of a working CTA in SM cycles: the prologue (page table, q), the
 wait for its first tile, a tile, the last tile and the warps' merge, the
@@ -16,6 +17,8 @@ partial's write, and the slot's last CTA's merge of the chunks.
 
     python3 scripts/decode_trace.py --dtypes int8,float32 [--heads 16]
     python3 scripts/decode_trace.py --dtypes float32 --heads 48 --kv 1 --t 4
+    python3 scripts/decode_trace.py --dtypes float32 --heads 32 --kv 32 \
+        --head-dim 64 --t 9
 
 Needs CUDA and nvcc; the numbers are device clocks of one launch.
 """
@@ -40,7 +43,7 @@ def pct(xs, q):
     return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else float("nan")
 
 
-def trace_one(lib, dtype, heads, kv, t):
+def trace_one(lib, dtype, heads, kv, t, head_dim=128):
     import torch
 
     import chip_smoke as c
@@ -49,7 +52,7 @@ def trace_one(lib, dtype, heads, kv, t):
         paged_decode_attention_cuda
 
     sc = {}
-    with c._heads(heads, kv):
+    with c._heads(heads, kv, head_dim):
         if dtype in ("int8", "fp8"):
             q, k, v, ks, vs, table, pos = c._quant_paged_inputs(t, dtype)
             sc = dict(k_scale=ks, v_scale=vs)
@@ -76,7 +79,8 @@ def trace_one(lib, dtype, heads, kv, t):
     t1 = max(r[1] for r in rec)
     work = [r for r in rec if r[9]]
     last = [r for r in work if r[7]]
-    print(f"[trace] {dtype} H={heads} KV={kv} T={t} ({route}): chunk "
+    print(f"[trace] {dtype} H={heads} KV={kv} D={head_dim} T={t} "
+          f"({route}): chunk "
           f"{ranges[0][1]} keys, "
           f"{n} CTAs, {len(work)} working ({len(last)} merging); "
           f"span {(t1 - t0) / 1e3:.2f} us, CUDA events {ms * 1e3:.2f} us",
@@ -108,7 +112,16 @@ def trace_one(lib, dtype, heads, kv, t):
     # instance's prologue parts and second tile, the warp-mma instance's
     # second tile
     sub = [r for r in work if r[10] and r[15]]
-    if sub and route == "warp_mma":
+    if sub and route == "warp_mma" and head_dim == 64:
+        stretch.update({
+            "tile 1: its wait, the barrier, next copies issued": [
+                r[11] - r[10] for r in sub],
+            "tile 1: the warp's S^T through its slice": [
+                r[12] - r[11] for r in sub],
+            "tile 1: the warp's softmax": [r[14] - r[12] for r in sub],
+            "tile 1: P V, O += P V": [r[15] - r[14] for r in sub],
+        })
+    elif sub and route == "warp_mma":
         stretch.update({
             "tile 1: next copies issued, S^T quarters, exchange, V read": [
                 r[12] - r[10] for r in sub],
@@ -143,10 +156,11 @@ def main(argv=None) -> int:
     ap.add_argument("--heads", type=int, default=16)
     ap.add_argument("--kv", type=int, default=8)
     ap.add_argument("--t", type=int, default=1)
+    ap.add_argument("--head-dim", type=int, default=128)
     args = ap.parse_args(argv)
     from repro_torch.kernels import _build
 
-    name = _build.lib_name("paged_attention", 128)
+    name = _build.lib_name("paged_attention", args.head_dim)
     lib = ctypes.CDLL(str(_build.build_all(
         (name,), extra_flags=("-DCD_TRACE",))[name]))
     _build._LOADED[name] = lib  # the wrappers launch the traced build
@@ -154,7 +168,7 @@ def main(argv=None) -> int:
     for dtype in args.dtypes.split(","):
         if dtype not in DTYPES:
             ap.error(f"--dtypes takes {DTYPES}")
-        trace_one(lib, dtype, args.heads, args.kv, args.t)
+        trace_one(lib, dtype, args.heads, args.kv, args.t, args.head_dim)
     return 0
 
 

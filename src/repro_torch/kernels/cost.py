@@ -95,10 +95,11 @@ def tc_class(q, k) -> str:
 
 def mma_class(q, k) -> str:
     """The class of the warp-mma decode route's TF32 products
-    (``csrc/chunked_decode_mma.cuh``): an f32 pool at 3xTF32; a bf16 pool,
-    exact in TF32, at 2xTF32 against an f32 q (the scores' two products,
-    P V's one counted at their rate) and at the TF32 rate against a bf16
-    q."""
+    (``csrc/chunked_decode_mma.cuh``, both its plans: D over the warps at
+    head dim 128, the keys over the warps at 64): an f32 pool at 3xTF32;
+    a bf16 pool, exact in TF32, at 2xTF32 against an f32 q (the scores'
+    two products, P V's one counted at their rate) and at the TF32 rate
+    against a bf16 q."""
     if k.dtype == torch.float32:
         return "tf32x3"
     return "tf32" if q.dtype == torch.bfloat16 else "tf32x2"
@@ -109,7 +110,8 @@ def decode_rate(q, k) -> str:
     H, D) against a cache or pool ``k`` (KV heads at dim 2): "f32" on the
     CUDA-core route, ``tc_class`` on the tensor-core route, ``mma_class``
     on the warp-mma route (``decode_attention.decode_route``: by grouping,
-    head dim and pool dtype)."""
+    head dim and pool dtype; head dim 64 on f32 and bf16 pools at every
+    grouping)."""
     route = decode_route(q.shape[2] // k.shape[2], q.shape[3], k.dtype)
     if route == "tensor_cores":
         return tc_class(q, k)

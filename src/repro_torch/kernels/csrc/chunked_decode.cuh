@@ -100,8 +100,12 @@
 //       them), so that a verify block's 8-20 rows cost little more than
 //       the T = 1 launch's 2-5; on the CUDA cores they ran at 11-31% of
 //       their bytes.
-//     Every other plan (G = 1, head dims 64 and 80, 1-byte pools) takes
-//     this file's kernel on the CUDA cores, below.
+//     At D = MMA64_D = 64 (musicgen, G = 1) on f32 and bf16 pools every G
+//     takes the same warp-level products with the keys over the warps
+//     (chunked_decode_mma.cuh's mma64_decode_kernel: instances of 8 and 16
+//     rows, row tiles of MMA64_ROWS = 16 past them).  Every other plan (G
+//     = 1 at D = 128, head dim 80, 1-byte pools) takes this file's kernel
+//     on the CUDA cores, below.
 //   * Warps own keys.  Each warp takes its quarter of every tile: LPK lanes
 //     share one key's score dot (each a slice of the row, in a rotated order
 //     so that the 16-byte reads of a quarter-warp hit 8 distinct bank
@@ -167,6 +171,11 @@ constexpr int CD_TABLE = 256;    // most page-table entries a chunk spans
 constexpr int TC_D = 128;        // the tensor-core routes' head dim
 constexpr int TC_ROWS = 128;     // the wgmma route's row tile (2 x 64 rows)
 constexpr int MMA_ROWS = 32;     // the warp-mma route's largest row tile
+constexpr int MMA64_D = 64;      // its head dim with the keys over the warps
+constexpr int MMA64_ROWS = 16;   // ... and its largest row tile there
+constexpr int MMA64_STAGES = 2;  // ... its ring depth
+constexpr int MMA64_WARPS = 4;   // ... and its warps a CTA
+constexpr int MMA64_THREADS = 32 * MMA64_WARPS;
 // routes, as decode_attention.ROUTES numbers them
 constexpr int ROUTE_CUDA_CORES = 0, ROUTE_TENSOR_CORES = 1,
               ROUTE_WARP_MMA = 2;
@@ -742,7 +751,7 @@ cudaError_t launch_chunked_decode_rows(const DecodeParams& p,
 // chunked_decode_mma.cuh, included below).
 template <typename TQ, typename TKV, bool PAGED>
 cudaError_t launch_tc_decode(const DecodeParams& p, cudaStream_t st);
-template <typename TQ, typename TKV, bool PAGED>
+template <typename TQ, typename TKV, int D, bool PAGED>
 cudaError_t launch_mma_decode(const DecodeParams& p, cudaStream_t st);
 
 // The route and instance of the wrapper's plan (decode_attention
@@ -758,11 +767,12 @@ cudaError_t launch_chunked_decode_typed(const DecodeParams& p,
   const int rows = p.H / p.KV * p.T;
   if (p.row_tile < 1 || p.n_tiles != (rows + p.row_tile - 1) / p.row_tile)
     return cudaErrorInvalidValue;
-  if constexpr (D == TC_D && !KVValue<TKV>::quant) {
-    if (p.route == ROUTE_TENSOR_CORES && p.row_tile == TC_ROWS)
-      return launch_tc_decode<TQ, TKV, PAGED>(p, st);
+  if constexpr ((D == TC_D || D == MMA64_D) && !KVValue<TKV>::quant) {
+    if constexpr (D == TC_D)
+      if (p.route == ROUTE_TENSOR_CORES && p.row_tile == TC_ROWS)
+        return launch_tc_decode<TQ, TKV, PAGED>(p, st);
     if (p.route == ROUTE_WARP_MMA)
-      return launch_mma_decode<TQ, TKV, PAGED>(p, st);
+      return launch_mma_decode<TQ, TKV, D, PAGED>(p, st);
   }
   if (p.route != ROUTE_CUDA_CORES) return cudaErrorInvalidValue;
   const bool tiled = p.n_tiles > 1;

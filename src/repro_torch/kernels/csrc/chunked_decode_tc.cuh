@@ -562,14 +562,16 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 
 // The merge of the slots whose keys span more than one working chunk: a
 // warp a row (row blockIdx.x * 8 + warp of KV head blockIdx.y, slot
-// blockIdx.z), lane l its columns 4 l .. 4 l + 3.  The row's max over the
-// chunks, then each chunk's weight exp(m_i - max) and the sums in chunk
-// order, 32 chunks' partials read at once.  A chunk that holds none of the
-// row's keys has (0, NEG_INF, 0) and adds exactly 0.
-template <typename TQ>
+// blockIdx.z), lane l its CPL = D / 32 columns CPL l .. CPL l + CPL - 1
+// (4 at head dim 128, 2 at 64).  The row's max over the chunks, then each
+// chunk's weight exp(m_i - max) and the sums in chunk order, 32 chunks'
+// partials read at once.  A chunk that holds none of the row's keys has
+// (0, NEG_INF, 0) and adds exactly 0.
+template <typename TQ, int D>
 __global__ void __launch_bounds__(TC_THREADS)
     tc_decode_combine_kernel(DecodeParams p) {
-  constexpr int D = TC_D;
+  constexpr int CPL = D / 32;
+  static_assert(CPL == 4 || CPL == 2, "a lane's columns: 16 or 8 bytes");
   const int lane = threadIdx.x & 31;
   const int j = blockIdx.y, b = blockIdx.z;
   const int G = p.H / p.KV, T = p.T, R = G * T;
@@ -596,7 +598,7 @@ __global__ void __launch_bounds__(TC_THREADS)
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     ms = fmaxf(ms, __shfl_xor_sync(0xffffffffu, ms, off));
-  float num[4] = {0.f, 0.f, 0.f, 0.f}, den = 0.f;
+  float num[CPL] = {}, den = 0.f;
   for (int z0 = 0; z0 < p.n_chunks; z0 += 32) {
     const bool w = working(z0 + lane);
     const unsigned mask = __ballot_sync(0xffffffffu, w);
@@ -606,37 +608,57 @@ __global__ void __launch_bounds__(TC_THREADS)
       e = expf(x.x - ms);
       l = x.y;
     }
-    float4 x[32];
+    float x[32][CPL];
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
-      if (mask >> i & 1u)
-        x[i] = __ldcg(reinterpret_cast<const float4*>(
-                          p.o_part + ((base + z0 + i) * R + r) * D) + lane);
+    for (int i = 0; i < 32; ++i) {
+      if (!(mask >> i & 1u)) continue;
+      const float* src = p.o_part + ((base + z0 + i) * R + r) * D + CPL * lane;
+      if constexpr (CPL == 4) {
+        const float4 a = __ldcg(reinterpret_cast<const float4*>(src));
+        x[i][0] = a.x; x[i][1] = a.y; x[i][2] = a.z; x[i][3] = a.w;
+      } else {
+        const float2 a = __ldcg(reinterpret_cast<const float2*>(src));
+        x[i][0] = a.x; x[i][1] = a.y;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const float ei = __shfl_sync(0xffffffffu, e, i);
       const float li = __shfl_sync(0xffffffffu, l, i);
       if (mask >> i & 1u) {
         den += li * ei;
-        num[0] += x[i].x * ei;
-        num[1] += x[i].y * ei;
-        num[2] += x[i].z * ei;
-        num[3] += x[i].w * ei;
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) num[c] += x[i][c] * ei;
       }
     }
   }
   const float dn = fmaxf(den, 1e-30f);
-  float y[4];
+  float y[CPL];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) y[c] = num[c] / dn;
+  for (int c = 0; c < CPL; ++c) y[c] = num[c] / dn;
   const int g = r / T, t = r - g * T;
-  store4(static_cast<TQ*>(p.out) +
-             (((long long)b * T + t) * p.H + j * G + g) * D + 4 * lane, y);
+  TQ* dst = static_cast<TQ*>(p.out) +
+            (((long long)b * T + t) * p.H + j * G + g) * D + CPL * lane;
+  if constexpr (CPL == 4)
+    store4(dst, y);
+  else
+    store2(dst, y[0], y[1]);
+}
+
+// The merge kernel of a launch on the tensor-core routes at head dim D, a
+// CTA per 8 rows of a (KV head, slot).
+template <typename TQ, int D>
+cudaError_t launch_decode_merge(const DecodeParams& p, cudaStream_t st) {
+  const int rows = p.H / p.KV * p.T;
+  const dim3 merge((rows + TC_THREADS / 32 - 1) / (TC_THREADS / 32), p.KV,
+                   p.B);
+  tc_decode_combine_kernel<TQ, D><<<merge, TC_THREADS, 0, st>>>(p);
+  return cudaGetLastError();
 }
 
 // The route's launch: rows in n_tiles tiles of TC_ROWS (decode_attention
 // .row_tiles on the "tensor_cores" route), grid (KV * n_tiles, B, chunks),
-// then the merge, a CTA per 8 rows of a (KV head, slot).
+// then the merge.
 template <typename TQ, typename TKV, bool PAGED>
 cudaError_t launch_tc_decode(const DecodeParams& p, cudaStream_t st) {
   constexpr int smem = tc_smem_bytes<TQ, PAGED>();
@@ -648,12 +670,7 @@ cudaError_t launch_tc_decode(const DecodeParams& p, cudaStream_t st) {
   const dim3 grid(p.KV * p.n_tiles, p.B, p.n_chunks);
   tc_decode_kernel<TQ, TKV, PAGED><<<grid, TC_THREADS, smem, st>>>(p);
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int rows = p.H / p.KV * p.T;
-  const dim3 merge((rows + TC_THREADS / 32 - 1) / (TC_THREADS / 32), p.KV,
-                   p.B);
-  tc_decode_combine_kernel<TQ><<<merge, TC_THREADS, 0, st>>>(p);
-  return cudaGetLastError();
+  return err != cudaSuccess ? err : launch_decode_merge<TQ, TC_D>(p, st);
 }
 
 }  // namespace

@@ -11,9 +11,10 @@ a second kernel).
 Model layout in and out: q (B, T, H, D), caches (B, S, KV, D), result
 (B, T, H, D) in q's dtype, D one of ``HEAD_DIMS`` (each head dim is its
 own library).  Any G * T query rows per KV head: ``decode_route`` picks
-the arithmetic by grouping, one of three routes (at head dim 128 on f32
-and bf16 pools the tensor cores' warpgroup products at G >= 16 and their
-warp-level products at 2 <= G < 16, the CUDA cores elsewhere), and
+the arithmetic by grouping and head dim, one of three routes (on f32 and
+bf16 pools: at head dim 128 the tensor cores' warpgroup products at G >=
+16 and their warp-level products at 2 <= G < 16; at head dim 64 the
+warp-level products at every G; the CUDA cores elsewhere), and
 ``row_tiles`` the kernel's instance on that route (``max_rows`` names the
 largest CUDA-core instance a head dim has) and, past it, spreads the rows
 over row tiles, one CTA each.  The caches are passed by pointer and
@@ -49,15 +50,19 @@ _ROWS = {64: 8, 80: 8, 128: MAX_ROWS}
 TILE_ROWS = 8
 # the tensor-core routes (decode_route): their head dim; the wgmma route's
 # least grouping and its row tile, two warpgroups of 64 rows (csrc
-# TC_ROWS); the warp-mma route's least grouping (it takes those below
-# TC_MIN_GROUP), its blocks of 8 columns and its largest instance, which
-# is its row tile past that (csrc MMA_ROWS)
+# TC_ROWS); the warp-mma route's least grouping at head dim 128 (it takes
+# those below TC_MIN_GROUP), its blocks of 8 columns and its largest
+# instance, which is its row tile past that (csrc MMA_ROWS); its head dim
+# with the keys over the warps (every grouping) and the largest instance
+# and row tile there (csrc MMA64_D, MMA64_ROWS)
 TC_HEAD_DIM = 128
 TC_MIN_GROUP = 16
 TC_ROWS = 128
 MMA_MIN_GROUP = 2
 MMA_COLS = 8
 MMA_ROWS = 32
+MMA64_HEAD_DIM = 64
+MMA64_ROWS = 16
 # the routes, numbered as the C entry points take them (csrc ROUTE_*)
 ROUTES = ("cuda_cores", "tensor_cores", "warp_mma")
 # dtype codes of the C entry points; int8 and float8_e4m3fn are the
@@ -91,32 +96,39 @@ def decode_route(g: int, head_dim: int, kv_dtype) -> str:
     3xTF32 for f32 operands, rows on M in row tiles of ``TC_ROWS``),
     ``"warp_mma"`` (``csrc/chunked_decode_mma.cuh``: ``mma.sync`` TF32,
     3xTF32 for f32 operands, keys on M and the rows on N in blocks of
-    ``MMA_COLS``) or ``"cuda_cores"`` (``csrc/chunked_decode.cuh``'s f32
+    ``MMA_COLS``; at head dim 128 each warp over a quarter of D, at 64 over
+    its own keys) or ``"cuda_cores"`` (``csrc/chunked_decode.cuh``'s f32
     FMAs).  It takes no T: a verify row is bitwise the one-token launch at
     pos + t only on one arithmetic, so a model's T = 1 ticks and its verify
     blocks take the same route.
 
-    Thresholds (PERF.md section 6, an H100 at 700 W, each pair from one
-    run): head dim 128, an f32 or bf16 pool (q f32 or bf16, as the
-    wrappers take).  G >= ``TC_MIN_GROUP`` = 16 takes the wgmma route:
-    granite's G = 48 and qwen3-moe's G = 16 ran at 5-8% of their bound on
-    the CUDA cores; on the tensor cores 1·G48 takes 0.0550 ms against
-    0.1040, 1·G48v (T = 4) 0.0580 against 0.2637, 1·G16 0.0962 against
-    0.1589, 1·G16v 0.1009 against 0.3306.  At G = 2, 4 and 5 its 128-row
-    tiles made the T = 1 rows 2.1-2.9x slower (G = 2 0.0619 -> 0.1748 ms).
-    ``MMA_MIN_GROUP`` = 2 <= G < 16 takes the warp-mma route, where every
-    row of those groupings ran faster than on the CUDA cores, the T = 1
-    ones too: internlm2 and gemma3's G = 2 0.0626 -> 0.0602 ms (paged
-    0.0655 -> 0.0638), its T = 4 verify block 0.1087 -> 0.0619; mixtral
-    and llava's G = 4 0.0754 -> 0.0607, verify 0.2831 -> 0.0811;
+    Thresholds (PERF.md section 6, an NVIDIA H100 80GB HBM3 at 700 W,
+    each pair from one run), f32 or bf16 pools (q f32 or bf16, as the
+    wrappers take).  Head dim 128: G >= ``TC_MIN_GROUP`` = 16 takes the
+    wgmma route: granite's G = 48 and qwen3-moe's G = 16 ran at 5-8% of
+    their bound on the CUDA cores; on the tensor cores 1·G48 takes 0.0550
+    ms against 0.1040, 1·G48v (T = 4) 0.0580 against 0.2637, 1·G16 0.0962
+    against 0.1589, 1·G16v 0.1009 against 0.3306.  At G = 2, 4 and 5 its
+    128-row tiles made the T = 1 rows 2.1-2.9x slower (G = 2 0.0619 ->
+    0.1748 ms).  ``MMA_MIN_GROUP`` = 2 <= G < 16 takes the warp-mma route,
+    where every row of those groupings ran faster than on the CUDA cores,
+    the T = 1 ones too: internlm2 and gemma3's G = 2 0.0626 -> 0.0602 ms
+    (paged 0.0655 -> 0.0638), its T = 4 verify block 0.1087 -> 0.0619;
+    mixtral and llava's G = 4 0.0754 -> 0.0607, verify 0.2831 -> 0.0811;
     qwen2.5's G = 5 0.0812 -> 0.0609, verify 0.2420 -> 0.1032.  Head dim
-    64 (musicgen, G = 1) on that route, with 32-key tiles, took its T = 9
-    block from 0.3098 to 0.1321 ms but its paged one-token rows from
-    0.1032 to 0.1134 (split-K 2 0.1038 -> 0.1133): it keeps the CUDA
-    cores, with G = 1 at 128, head dim 80 (zamba2) and the 1-byte pools
-    (int8, fp8: codes on the CUDA cores)."""
-    if head_dim != TC_HEAD_DIM or kv_dtype not in FLOAT_DTYPES \
-            or g < MMA_MIN_GROUP:
+    ``MMA64_HEAD_DIM`` = 64 (musicgen, G = 1) takes the warp-mma route at
+    every G, with the keys split over the warps: its T = 9 verify block
+    0.3099 -> 0.1162 ms, the one-token and split rows within 1.4% of the
+    CUDA cores (1·D64 0.0944 -> 0.0942, 2·D64 0.0938 -> 0.0946, paged
+    0.1004 -> 0.1015, paged split-K 0.1002 -> 0.1016); a quarter of D a
+    warp, as at 128, had taken the paged one-token rows 9-10% slower.
+    Head dim 80 (zamba2), G = 1 at 128 and the 1-byte pools (int8, fp8:
+    codes on the CUDA cores) keep the CUDA cores."""
+    if kv_dtype not in FLOAT_DTYPES:
+        return "cuda_cores"
+    if head_dim == MMA64_HEAD_DIM:
+        return "warp_mma"
+    if head_dim != TC_HEAD_DIM or g < MMA_MIN_GROUP:
         return "cuda_cores"
     return "tensor_cores" if g >= TC_MIN_GROUP else "warp_mma"
 
@@ -127,10 +139,12 @@ def row_tiles(g: int, t: int, head_dim: int, route: str = "cuda_cores"):
     rows, row tiles)``.  On the tensor cores: ``ceil(g * t / TC_ROWS)``
     tiles of ``TC_ROWS`` rows.  On the warp-mma route, rows that fit an
     instance of 8 or 16 columns take the smaller in one tile; more take
-    ``ceil(g * t / MMA_ROWS)`` tiles of ``MMA_ROWS``.  On the CUDA cores,
-    rows that fit an instance take the smallest that holds them (2, 8, or
-    16 at head dim 128) in one tile; more take ``ceil(g * t /
-    TILE_ROWS)`` tiles of the ``TILE_ROWS`` instance.  Tile i holds rows
+    ``ceil(g * t / MMA_ROWS)`` tiles of ``MMA_ROWS`` (head dim 128) or of
+    ``MMA64_ROWS`` = 16 (head dim 64: musicgen's one-token rows one block
+    of 8 columns, its T = 9 verify block 16 columns with 9 live).  On the
+    CUDA cores, rows that fit an instance take the smallest that holds
+    them (2, 8, or 16 at head dim 128) in one tile; more take ``ceil(g * t
+    / TILE_ROWS)`` tiles of the ``TILE_ROWS`` instance.  Tile i holds rows
     [i * rows, (i + 1) * rows) of the instance's.  A head dim not built
     raises."""
     rows, largest = g * t, max_rows(head_dim)
@@ -140,7 +154,8 @@ def row_tiles(g: int, t: int, head_dim: int, route: str = "cuda_cores"):
         for inst in (MMA_COLS, 2 * MMA_COLS):
             if rows <= inst:
                 return inst, 1
-        return MMA_ROWS, -(-rows // MMA_ROWS)
+        tile = MMA64_ROWS if head_dim == MMA64_HEAD_DIM else MMA_ROWS
+        return tile, -(-rows // tile)
     for inst in (2, 8, largest):
         if rows <= inst:
             return inst, 1

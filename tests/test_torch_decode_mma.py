@@ -355,8 +355,8 @@ def test_dense_wrappers_hand_the_route_code(arch, dtype, monkeypatch):
                                        ROUTES.index(route))
     assert tdecode.ROUTE_LAUNCHES[route] == 17
     want = {"granite-20b": "tensor_cores", "qwen3-moe-235b-a22b":
-            "tensor_cores", "zamba2-2.7b": "cuda_cores",
-            "musicgen-large": "cuda_cores"}.get(arch, "warp_mma")
+            "tensor_cores", "zamba2-2.7b": "cuda_cores"}.get(arch,
+                                                             "warp_mma")
     assert route == want
 
 

@@ -4,8 +4,9 @@
 ``csrc/chunked_decode_tc.cuh`` (``wgmma`` TF32, 3xTF32 for f32 operands) at
 head dim 128 on f32 and bf16 pools where G = H / KV >= 16 (granite's 48,
 qwen3-moe's 16), to ``csrc/chunked_decode_mma.cuh`` (``mma.sync`` TF32,
-modelled in ``test_torch_decode_mma.py``) at 2 <= G < 16 there, and to
-the CUDA cores elsewhere.  The choice may depend on
+modelled in ``test_torch_decode_mma.py`` and, at head dim 64,
+``test_torch_decode_d64.py``) at 2 <= G < 16 there and at every G at head
+dim 64, and to the CUDA cores elsewhere.  The choice may depend on
 the grouping, the head dim and the pool's dtype, never on T: a verify row
 is bitwise the one-token launch at pos + t only on one arithmetic.
 
@@ -169,7 +170,10 @@ def test_route_takes_no_t():
     (5, 128, torch.float32, "warp_mma"),
     (4, 128, torch.bfloat16, "warp_mma"),
     (2, 128, torch.float32, "warp_mma"),
-    (1, 64, torch.float32, "cuda_cores"),
+    (1, 64, torch.float32, "warp_mma"),
+    (1, 64, torch.bfloat16, "warp_mma"),
+    (16, 64, torch.float32, "warp_mma"),
+    (1, 64, torch.int8, "cuda_cores"),
     (1, 80, torch.bfloat16, "cuda_cores"),
     (16, 80, torch.float32, "cuda_cores"),
     (2, 128, torch.int8, "cuda_cores"),
@@ -185,9 +189,9 @@ def test_wrappers_take_one_route_at_every_t(arch, dtype, monkeypatch):
     paged wrapper on a fake card at T = 1..16: every launch hands the
     kernel the plan of one route, ``decode_route``'s, and counts it in
     ``ROUTE_LAUNCHES``: on f32 and bf16 pools the wgmma row tiles at
-    granite and qwen3-moe, the CUDA-core instances at zamba2's and
-    musicgen's head dims 80 and 64 and the warp-mma instances at every
-    other arch; the CUDA cores on the 1-byte pools."""
+    granite and qwen3-moe, the CUDA-core instances at zamba2's head dim
+    80 and the warp-mma instances at every other arch (musicgen's head dim
+    64 too); the CUDA cores on the 1-byte pools."""
     from test_torch_quant_kv import _fake_card
 
     cfg = get_config(arch)
@@ -212,8 +216,8 @@ def test_wrappers_take_one_route_at_every_t(arch, dtype, monkeypatch):
         assert (plan[0] == TC_ROWS) == (route == "tensor_cores")
     assert tdecode.ROUTE_LAUNCHES[route] == 16
     want = {"granite-20b": "tensor_cores", "qwen3-moe-235b-a22b":
-            "tensor_cores", "zamba2-2.7b": "cuda_cores",
-            "musicgen-large": "cuda_cores"}.get(arch, "warp_mma")
+            "tensor_cores", "zamba2-2.7b": "cuda_cores"}.get(arch,
+                                                             "warp_mma")
     assert route == (want if dtype in tdecode.FLOAT_DTYPES else "cuda_cores")
 
 
@@ -360,7 +364,9 @@ def test_a_row_does_not_depend_on_its_row_tile(case):
     (64, 4, 128, torch.float32, torch.bfloat16, "tf32x3"),
     (48, 1, 128, torch.float32, torch.int8, "f32"),
     (40, 8, 128, torch.float32, torch.float32, "tf32x3"),
-    (32, 32, 64, torch.float32, torch.float32, "f32"),
+    (32, 32, 64, torch.float32, torch.float32, "tf32x3"),
+    (32, 32, 64, torch.float32, torch.bfloat16, "tf32x2"),
+    (32, 32, 64, torch.float32, torch.int8, "f32"),
     (32, 32, 80, torch.float32, torch.float32, "f32")])
 def test_decode_work_reckons_the_route_s_rate(h, kv, d, qd, kd, want):
     """``cost.decode_rate`` gives the route's rate class (``tc_class`` on

@@ -293,7 +293,8 @@ def test_dense_rows_per_head_dim(d, t, ok, monkeypatch):
     16-row one at 128: G * T rows up to it (``ok``) launch one row tile of
     it; more launch once in ceil(G * T / TILE_ROWS) row tiles, with a
     ticket per (slot, KV head, tile) and the scratch still G * T rows per
-    chunk."""
+    chunk.  On an f32 cache head dim 64 takes the warp-mma route instead:
+    8 rows one block of 8 columns, 16 rows one instance of 16."""
     assert tdecode.max_rows(d) == (16 if d == 128 else 8)
     q = torch.zeros((2, t, 2, d))
     k = torch.zeros((2, 64, 2, d))
@@ -301,8 +302,13 @@ def test_dense_rows_per_head_dim(d, t, ok, monkeypatch):
     out = decode_attention_cuda(q, k, k.clone(), [3, 9])
     (_, args), = lib.calls
     rt = tdecode.TILE_ROWS
-    assert args[15:17] == ((tdecode.max_rows(d), 1) if ok
-                           else (rt, -(-t // rt)))
+    if d == tdecode.MMA64_HEAD_DIM:
+        assert args[15:18] == ((tdecode.MMA_COLS, 1) if ok else
+                               (tdecode.MMA64_ROWS, 1)) + (
+            tdecode.ROUTES.index("warp_mma"),)
+    else:
+        assert args[15:17] == ((tdecode.max_rows(d), 1) if ok
+                               else (rt, -(-t // rt)))
     tickets = tdecode._TICKETS[(q.device, 0)]
     assert args[23] == tickets.data_ptr()
     assert tickets.numel() >= 2 * 2 * args[16] and not tickets.any()

@@ -272,8 +272,8 @@ def test_wrappers_launch_once_with_the_row_tiles(case, kind, monkeypatch):
     instance rows and tile count on ``decode_route``'s route (on f32 pools
     at head dim 128 the wgmma row tiles at G >= 16 and the warp-mma
     route's 32-row tiles or its 16-column instance at the other
-    groupings; the CUDA cores' 8-row tiles at head dim 64 and on the
-    1-byte pools),
+    groupings; at head dim 64 the warp-mma route's 16-column instance;
+    the CUDA cores' 8-row tiles on the 1-byte pools),
     with exactly B * KV * n_tiles zeroed tickets; split-K (single-token
     cases) and the quantized pools alike."""
     h, kv, t, d = LAUNCHES[case]
@@ -316,15 +316,17 @@ def test_wrappers_launch_once_with_the_row_tiles(case, kind, monkeypatch):
     (_, args), = lib.calls
     route = tdecode.decode_route(h // kv, d, torch.int8 if kind ==
                                  "paged_int8" else torch.float32)
-    assert route == ("cuda_cores" if kind == "paged_int8" or d != 128 else
-                     "tensor_cores" if h // kv >= 16 else "warp_mma")
+    assert route == ("cuda_cores" if kind == "paged_int8" else
+                     "tensor_cores" if d == 128 and h // kv >= 16 else
+                     "warp_mma")
     inst, n_tiles = row_tiles(h // kv, t, d, route)
     assert args[at:at + 3] == (inst, n_tiles, tdecode.ROUTES.index(route))
     rows = h // kv * t
     if route == "cuda_cores":
         assert n_tiles > 1 and inst == tdecode.TILE_ROWS
     elif route == "warp_mma":
-        assert (inst, n_tiles) == ((tdecode.MMA_ROWS, -(-rows // inst))
+        tile = tdecode.MMA_ROWS if d == 128 else tdecode.MMA64_ROWS
+        assert (inst, n_tiles) == ((tile, -(-rows // inst))
                                    if rows > 2 * tdecode.MMA_COLS
                                    else (2 * tdecode.MMA_COLS, 1))
     else:
